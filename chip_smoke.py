@@ -9,14 +9,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   2. kernels — hold each kernel against its plain PyTorch version on the card:
                the fused dequant-GEMM (f32 activations: relative error
                <= 2e-5, f32 summation order; bf16: <= 2^-7 * max|y|, one
-               bf16 ulp at the max) and the KV dequant (bit-exact).
+               bf16 ulp at the max), the KV dequant (bit-exact) and the
+               blockwise encode (bit-exact codes and scale bits).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
-               quantized on the card (4-bit float, block 64), Engine with a
-               kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.  Checks
-               finite logits and the kernel launches per decode step.
+               quantized on the card through the encode kernel (4-bit
+               float, block 64; one launch per quantized matrix), Engine
+               with a kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.
+               Checks finite logits and the kernel launches per decode step.
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
-  6. times   — each kernel at the main path's shapes beside its plain
+  6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
+               card (paper.common.TRAIN_RECIPE), encodes every checkpoint
+               through the encode kernel and reads perplexity through the
+               fused GEMM (fig2: k in {3,4,5,6,8,16}; fig3 data types and
+               block sizes); gates training progress and 8-bit perplexity.
+  7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed.
 Then the kernels line, the card's name and power limit, and the result.
@@ -48,6 +55,13 @@ BF16_REL_TOL = 2.0 ** -7    # one bf16 ulp at max|y|
 # would mean the two paths multiply different weights.  The gate is half of
 # that tolerance.
 MODE_GAP_TOL = 0.5
+# the paper finds 8-bit weights indistinguishable from 16-bit (the
+# reference's own ladder, trained on the CPU, sits within 0.11 % of it), so a
+# model whose 8-bit perplexity is more than 1 % off its 16-bit one has a
+# broken encode or GEMM
+PPL_K8_REL_TOL = 0.01
+# training must have learnt: the last loss at least this many nats below the first
+MIN_LOSS_DROP = 1.0
 
 
 def emit(obj) -> None:
@@ -77,7 +91,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["qmatmul", "kv_dequant"])
+    report = _build.build(["qmatmul", "kv_dequant", "quantize"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
@@ -86,19 +100,23 @@ def main() -> int:
 
     errs = check_kernels(torch, dev)
     run = serve_main_path(torch, dev)
-    mode_gap = mode_parity(torch, dev, run)
-    kv_gaps = kv_tolerance(torch, dev)
+    mode_parity(torch, dev, run)
+    kv_tolerance(torch, dev)
+    paper = paper_path(torch, dev)
     times = time_kernels(torch, dev, run)
     del run
 
     kernels = []
-    for name, err_key in (("qmatmul_gemv", "gemv"), ("qmatmul_gemm", "gemm"),
-                          ("kv_dequant", "kv")):
+    for name, key in (("qmatmul_gemv", "gemv"), ("qmatmul_gemm", "gemm"),
+                      ("kv_dequant", "kv"), ("quantize_blocks", "b3")):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": t["source"], "replaces": t["replaces"],
-            "launches": t["launches"], "max_abs_err": errs[err_key],
+            # the main paths' launches: serving Qwen2-7B (its quantization
+            # included) and the paper's sweep
+            "launches": t["launches"] + paper["launches"][key],
+            "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
@@ -121,12 +139,14 @@ def _gen(torch, dev, seed):
 def check_kernels(torch, dev) -> dict:
     """Phase 2: every kernel against its plain version on the same inputs."""
     from repro_torch.configs import get_arch
+    from repro_torch.core.codebooks import make_codebook
     from repro_torch.kernels import kv_dequant as kvd
     from repro_torch.kernels import ops
     from repro_torch.kernels import qmatmul as qk
+    from repro_torch.kernels import quantize as quantk
 
     g = _gen(torch, dev, SEED + 1)
-    worst = {"gemv": 0.0, "gemm": 0.0, "kv": 0.0}
+    worst = {"gemv": 0.0, "gemm": 0.0, "kv": 0.0, "b3": 0.0}
     n_checks = 0
 
     def check_b1(M, K, N, bits, dtype, block, xdt, main_path):
@@ -180,27 +200,81 @@ def check_kernels(torch, dev) -> dict:
                 require(torch.equal(out_k.view(torch.int16), out_p.view(torch.int16)),
                         f"kv_dequant kv{bits} {dtype} R={R} feat={feat} b{block} not bit-exact")
                 n_checks += 1
+    def check_b3(xb, cb, what):
+        nonlocal n_checks
+        kc, ks = quantk.quantize_blocks_cuda(xb, cb)
+        pc, ps = quantk.quantize_blocks_plain(xb, cb)
+        torch.cuda.synchronize()
+        require(torch.equal(kc, pc) and torch.equal(ks.view(torch.int32), ps.view(torch.int32)),
+                f"quantize_blocks {what}: codes or scale bits differ")
+        worst["b3"] = max(worst["b3"], float((kc - pc).abs().max()),
+                          float((ks - ps).abs().max()))
+        n_checks += 1
+
+    # blocks holding codebook values and exact midpoints (absmax a power of
+    # two, so x / scale is exact), then random blocks and a partial last block
+    for bits in (3, 4, 5, 6, 8):
+        for dtype in ("int", "float", "dynamic", "quantile"):
+            base = torch.randn((4096,), generator=g, device=dev)
+            cb = make_codebook(dtype, bits, tensor=base)
+            special = torch.cat([cb, (cb[:-1] + cb[1:]) / 2.0])
+            special = torch.cat([special, -special])
+            for block in (16, 32, 48, 64, 128, 1024):
+                chunks = special.split(block - 1)
+                heads = torch.ones((len(chunks), 1), device=dev)
+                rows = torch.nn.utils.rnn.pad_sequence(list(chunks), batch_first=True)
+                rows = torch.nn.functional.pad(rows, (0, block - 1 - rows.shape[1]))
+                scale = 2.0 ** torch.randint(-6, 3, (len(chunks), 1), generator=g, device=dev)
+                exact = (torch.cat([heads, rows], dim=1) * scale).reshape(-1)
+                n_rand = 300 * block + block // 2 + 1
+                rand = torch.randn((n_rand,), generator=g, device=dev) * torch.exp(
+                    2 * torch.randn((n_rand // block + 1, 1), generator=g, device=dev)
+                ).expand(-1, block).reshape(-1)[:n_rand]
+                x = torch.cat([exact, rand])
+                n_blocks = -(-x.numel() // block)
+                xb = torch.nn.functional.pad(x, (0, n_blocks * block - x.numel()))
+                check_b3(xb.reshape(n_blocks, block), cb, f"{bits}-bit {dtype} b{block}")
+    # the main path's items: each Qwen2-7B matrix shape as the encode sees it
+    cb = make_codebook("float", 4, device=dev)
+    for rows, cols in _qwen_items(cfg):
+        w = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
+        check_b3(w.reshape(-1).float().reshape(-1, 64), cb, f"Qwen2-7B item {rows}x{cols}")
+        del w
     emit({"phase": "kernels", "checks": n_checks, "max_abs_err_main_shapes": worst,
           "tolerance": {"f32_rel": F32_REL_TOL, "bf16_rel_to_max": BF16_REL_TOL,
-                        "kv_dequant": "bit-exact"}})
+                        "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact"}})
     return worst
+
+
+def _qwen_items(cfg) -> dict:
+    """{(rows, cols): encodes in one whole-model quantization} over the
+    distinct shapes of Qwen2-7B's quantized matrices as stored (out, in):
+    wq/wo, wk/wv, w_gate/w_up, w_down, lm_head."""
+    D, F, KD, V = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim, cfg.vocab_size
+    L = cfg.n_layers
+    return {(D, D): 2 * L, (KD, D): 2 * L, (F, D): 2 * L, (D, F): L,
+            (V, D): 0 if cfg.tie_embeddings else 1}
 
 
 def _counts():
     from repro_torch.kernels import kv_dequant as kvd
     from repro_torch.kernels import qmatmul as qk
 
+    from repro_torch.kernels import quantize as quantk
+
     return {"gemv": qk.qmatmul_gemv.launches, "gemm": qk.qmatmul_gemm.launches,
-            "kv": kvd.dequant_rows_cuda.launches}
+            "kv": kvd.dequant_rows_cuda.launches, "b3": quantk.quantize_blocks_cuda.launches}
 
 
 def _reset_counts():
     from repro_torch.kernels import kv_dequant as kvd
     from repro_torch.kernels import qmatmul as qk
+    from repro_torch.kernels import quantize as quantk
 
     qk.qmatmul_gemv.launches = 0
     qk.qmatmul_gemm.launches = 0
     kvd.dequant_rows_cuda.launches = 0
+    quantk.quantize_blocks_cuda.launches = 0
 
 
 def serve_main_path(torch, dev) -> dict:
@@ -215,12 +289,18 @@ def serve_main_path(torch, dev) -> dict:
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    _reset_counts()
     t1 = time.perf_counter()
     qparams = quantize_params(params, QuantConfig(bits=4, dtype="float", block_size=64),
                               cfg, device=dev)
     del params
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    per_layer = 7   # wq, wk, wv, wo, w_gate, w_up, w_down
+    quant_counts = _counts()
+    n_items = per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)   # + lm_head
+    require(quant_counts == {"gemv": 0, "gemm": 0, "kv": 0, "b3": n_items},
+            f"quantize_params launched {quant_counts}, want {n_items} encode launches")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(torch, dev, SEED + 2),
                             device=dev)
     engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, device=dev)
@@ -240,7 +320,6 @@ def serve_main_path(torch, dev) -> dict:
     counts = _counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     n_steps = NEW_TOKENS - 1
-    per_layer = 7   # wq, wk, wv, wo, w_gate, w_up, w_down
     b1_step = per_layer * cfg.n_layers + 1
     b2_step = 2 * cfg.n_layers
     require(tuple(tokens.shape) == (BATCH, NEW_TOKENS), f"tokens shape {tuple(tokens.shape)}")
@@ -260,7 +339,7 @@ def serve_main_path(torch, dev) -> dict:
     step_counts = _counts()
     require(bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all()),
             "non-finite logits")
-    require(step_counts == {"gemv": b1_step, "gemm": 0, "kv": b2_step},
+    require(step_counts == {"gemv": b1_step, "gemm": 0, "kv": b2_step, "b3": 0},
             f"one decode step launched {step_counts}")
     # the same step's device time alone: replayed from a CUDA graph, without
     # the host's eager PyTorch overhead that the step above includes
@@ -275,7 +354,10 @@ def serve_main_path(torch, dev) -> dict:
           "decode_step_device_ms": step_device_ms,
           "tokens_per_s": BATCH * NEW_TOKENS / total_s, "generate_s": total_s,
           "max_memory_allocated_bytes": peak_bytes,
-          "launches": counts, "launches_per_decode_step": step_counts})
+          "launches": counts, "launches_per_decode_step": step_counts,
+          "launches_quantize": quant_counts})
+    require(counts["b3"] == 0, f"generate launched {counts['b3']} encodes")
+    counts["b3"] = quant_counts["b3"]
     return {"cfg": cfg, "qparams": qparams, "prompts": prompts, "counts": counts}
 
 
@@ -321,6 +403,58 @@ def kv_tolerance(torch, dev) -> dict:
         gaps[bits] = {"gap": gap, "greedy_agreement": agree, "tol": KV_LOGIT_TOL[bits]}
     emit({"phase": "kv_tol", "arch": "tiny-650k", "weights": "4-bit float b64", "kv": gaps})
     return gaps
+
+
+def paper_path(torch, dev) -> dict:
+    """Phase 6: the paper's sweep on the card, through the port's own entry
+    points: train the tiny ladder, then fig2, fig3 data types and fig3 block
+    sizes on it (every encode through the kernel, every quantized matmul
+    through the fused GEMM)."""
+    import math
+
+    from repro_torch.data.synthetic import ZipfMarkov
+    from repro_torch.paper import common, fig2_bitlevel, fig3_blocksize, fig3_datatypes
+
+    def log(*args):
+        print(*args, file=sys.stderr, flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    family = common.trained_family(log=log, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, fig2 = fig2_bitlevel.run(family, log=log)
+    _, ranking = fig3_datatypes.run(family, log=log)
+    _, block_effect = fig3_blocksize.run(family, log=log)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counts()
+
+    models = {}
+    for name, t in family.items():
+        models[name] = {"first_loss": t.history[0], "last_loss": t.history[-1],
+                        "steps": len(t.history),
+                        "entropy_floor": ZipfMarkov(t.cfg.vocab_size, device=dev).entropy_floor()}
+        require(all(math.isfinite(v) for v in t.history), f"{name}: non-finite training loss")
+        require(t.history[-1] <= t.history[0] - MIN_LOSS_DROP,
+                f"{name}: loss {t.history[0]} -> {t.history[-1]}, not {MIN_LOSS_DROP} nat lower")
+    ppl = {}
+    for o in fig2["observations"]:
+        ppl.setdefault(o["model"], {})[o["precision"]] = math.exp(o["log_ppl"])
+    for name, by_k in ppl.items():
+        require(all(math.isfinite(v) for v in by_k.values()), f"{name}: non-finite perplexity")
+        rel = abs(by_k[8] / by_k[16] - 1.0)
+        require(rel <= PPL_K8_REL_TOL, f"{name}: 8-bit perplexity {by_k[8]} is {rel:.4f} "
+                                        f"off 16-bit {by_k[16]}")
+    require(counts["b3"] > 0 and counts["gemm"] > 0,
+            f"the sweep did not run through the encode kernel and the fused GEMM: {counts}")
+    emit({"phase": "paper", "recipe": common.TRAIN_RECIPE, "models": models,
+          "fig2_ppl": ppl, "fig2_optimal_precision": fig2["optimal_precision"],
+          "fig2_wins": fig2["wins"], "fig3dt_ranking": ranking,
+          "fig3bs_mean_degradation": block_effect, "launches": counts,
+          "train_s": t1 - t0, "sweep_s": t2 - t1, "seconds": t2 - t0,
+          "gates": {"min_loss_drop_nats": MIN_LOSS_DROP, "ppl_k8_rel": PPL_K8_REL_TOL}})
+    return {"launches": counts}
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -454,12 +588,49 @@ def time_kernels(torch, dev, run) -> dict:
         "plain_ms": _time_ms(torch, kv(kvd.dequant_rows_ref), 5),
         "bound_ms": kv_bound, "bound_by": kv_by, "library_ms": None,
         "per": "decode step (56 launches)", "bytes": kv_bytes}
+    out["quantize_blocks"], shapes_ms["quantize_blocks_B64"] = _time_encode(
+        torch, dev, cfg, counts["b3"], g)
     emit({"phase": "times", "card_rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
                                            "bf16_flop_per_s": BF16_FLOP_PER_S},
           "kernels": out, "per_shape": shapes_ms,
           "library_note": {"qmatmul": "torch.matmul on the pre-dequantized bf16 weight",
-                           "kv_dequant": "no single PyTorch call computes it"}})
+                           "kv_dequant": "no single PyTorch call computes it",
+                           "quantize_blocks": "no single PyTorch call computes it"}})
     return out
+
+
+def _time_encode(torch, dev, cfg, launches, g):
+    """The encode kernel at each Qwen2-7B item shape (4-bit float, block
+    64), per launch and summed over one whole-model encode (one launch per
+    quantized matrix: 7 per layer and the lm_head)."""
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import quantize as quantk
+
+    cb = make_codebook("float", 4, device=dev)
+    per_model = _qwen_items(cfg)
+    per_shape = {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
+    for (rows, cols), n in per_model.items():
+        xb = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
+        xb = xb.reshape(-1).float().reshape(-1, 64)
+        ms = _time_ms(torch, lambda: quantk.quantize_blocks_cuda(xb, cb), 10)
+        plain_ms = _time_ms(torch, lambda: quantk.quantize_blocks_plain(xb, cb), 3)
+        # its contract's bytes: 4 in and 4 of code per value, 4 of scale per block
+        nbytes = xb.numel() * 8 + xb.shape[0] * 4 + cb.numel() * 4
+        bound_ms = _bound(nbytes, 0.0)[0]
+        per_shape[f"{rows}x{cols}"] = {"ms_per_call": ms, "plain_ms_per_call": plain_ms,
+                                       "bound_ms_per_call": bound_ms, "per_model_encode": n}
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("bytes", nbytes)):
+            tot[key] += n * v
+        del xb
+        torch.cuda.empty_cache()
+    return ({"source": "src/repro_torch/csrc/quantize.cu",
+             "replaces": "src/repro/kernels/quantize.py:33", "launches": launches,
+             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "per": f"one Qwen2-7B encode ({sum(per_model.values())} launches)",
+             "bytes": tot["bytes"]}, per_shape)
 
 
 if __name__ == "__main__":

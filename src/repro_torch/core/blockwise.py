@@ -7,6 +7,11 @@ the f32 midpoints of the sorted codebook (the paper's "binary search").  As
 in the reference, a block is normalized by its **f32** absmax and only then
 is the scale stored as bf16, so codes and scale bits match the reference
 exactly.
+
+The absmax and the search run in ``kernels/quantize.quantize_blocks``: the
+CUDA encode kernel for a CUDA tensor, its plain version for a CPU tensor,
+as the reference runs its Pallas kernel on the accelerator and this module
+on the CPU.
 """
 
 from __future__ import annotations
@@ -15,8 +20,6 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-
-from repro_torch.core.codebooks import codebook_boundaries
 
 
 class BlockQuantized(NamedTuple):
@@ -27,7 +30,7 @@ class BlockQuantized(NamedTuple):
     means: Optional[torch.Tensor]   # bf16 [n_blocks] if centering else None
 
 
-def _pad_to_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
+def pad_to_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
     n = flat.shape[0]
     n_blocks = -(-n // block_size)
     pad = n_blocks * block_size - n
@@ -39,18 +42,17 @@ def _pad_to_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
 def encode(x: torch.Tensor, codebook: torch.Tensor, block_size: int, *,
            centering: bool = False, scale_dtype=torch.bfloat16) -> BlockQuantized:
     """Quantize tensor ``x`` blockwise against a sorted codebook."""
-    blocks = _pad_to_blocks(x.reshape(-1).to(torch.float32), block_size)
+    from repro_torch.kernels import quantize  # kernels.ops imports this module
+
+    blocks = pad_to_blocks(x.reshape(-1).to(torch.float32), block_size)
     means = None
     if centering:
         means = blocks.mean(dim=1, keepdim=True)
         blocks = blocks - means
-    scales = torch.clamp(blocks.abs().amax(dim=1, keepdim=True), min=1e-12)
-    normed = blocks / scales
-    bounds = codebook_boundaries(codebook.to(torch.float32)).contiguous()
-    codes = torch.searchsorted(bounds, normed).to(torch.uint8)
+    codes, scales = quantize.quantize_blocks(blocks, codebook)
     return BlockQuantized(
-        codes=codes,
-        scales=scales[:, 0].to(scale_dtype),
+        codes=codes.to(torch.uint8),
+        scales=scales.to(scale_dtype),
         means=None if means is None else means[:, 0].to(scale_dtype),
     )
 

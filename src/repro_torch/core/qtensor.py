@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import blockwise, packing
+from repro_torch.core.bits import BitsBreakdown, quantized_bits_per_param
 from repro_torch.core.codebooks import make_codebook, quantile_codebook
 
 #: data fields in the reference's order (jax flattens them in this order)
@@ -60,6 +61,21 @@ class QuantizedTensor:
     @property
     def batch_shape(self) -> tuple:
         return tuple(self.packed.shape[: -2 if self.structured else -1])
+
+    @property
+    def shape(self) -> tuple:
+        return self.batch_shape + tuple(self.quant_shape)
+
+    @property
+    def n_params(self) -> int:
+        return math.prod(self.shape)
+
+    def bits_breakdown(self) -> BitsBreakdown:
+        outlier_pct = 0.0
+        if self.outlier_idx is not None:
+            outlier_pct = self.outlier_idx.shape[-1] / self.quant_shape[self.outlier_axis]
+        return quantized_bits_per_param(self.bits, self.block_size, centering=self.centering,
+                                        outlier_pct=outlier_pct)
 
     def select(self, i: int) -> "QuantizedTensor":
         """Item ``i`` of the leading batch dim (one layer of a stacked

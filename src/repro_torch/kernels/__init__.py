@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their wrappers — port of
-``repro/kernels``: the fused k-bit dequant-GEMM (``qmatmul``) and the packed
-KV-cache dequant (``kv_dequant``), each with its plain PyTorch version;
-``ops`` holds the operand preparation and padding (``ops.qmatmul``), ``ref``
-the oracle."""
+``repro/kernels``: the fused k-bit dequant-GEMM (``qmatmul``), the packed
+KV-cache dequant (``kv_dequant``) and the blockwise encode (``quantize``),
+each with its plain PyTorch version; ``ops`` holds the operand preparation
+and padding (``ops.qmatmul``, ``ops.quantize_blocks``), ``ref`` the
+oracles."""
 
 from repro_torch.kernels.kv_dequant import KVQuantSpec, kv_spec
 from repro_torch.kernels.ops import (

@@ -1,5 +1,6 @@
-"""Wrappers around the fused dequant-GEMM: operand preparation, QuantizedTensor
-interop, and the K and word-tail padding — port of ``repro/kernels/ops.py``.
+"""Wrappers around the kernels: the fused dequant-GEMM's operand preparation,
+QuantizedTensor interop and K and word-tail padding, and the blockwise
+encode of a whole tensor — port of ``repro/kernels/ops.py``.
 
 ``fused_matmul`` is the one path: ``qmatmul`` pads K and calls
 ``kernels/qmatmul.qmatmul``, which launches the CUDA kernel for CUDA tensors
@@ -7,8 +8,11 @@ and runs the plain version for CPU tensors.  Padding copies nothing when K
 is already aligned, as in every Qwen2-7B projection.  Unlike the reference,
 M and N are not padded: the kernels mask rows and columns.
 
-Not in this slice: the tensor-parallel dispatch scope (multi-GPU) and the
-blockwise-encode kernel wrapper ``quantize_blocks``.
+``quantize_blocks`` ravels and pads a tensor to whole blocks and calls
+``kernels/quantize.quantize_blocks``: the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors.
+
+Not in this slice: the tensor-parallel dispatch scope (multi-GPU).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from repro_torch.core import blockwise, packing
 from repro_torch.core.codebooks import make_codebook
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels import qmatmul as qk
+from repro_torch.kernels import quantize as quantk
 from repro_torch.kernels.ref import QMatmulOperand
 
 
@@ -126,3 +131,10 @@ def qmatmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
 def fused_matmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
     """Fused dequant-GEMM: x [..., K<=k_dim] -> [..., N] in x's dtype."""
     return qmatmul(x, op)
+
+
+def quantize_blocks(x: torch.Tensor, codebook: torch.Tensor, block_size: int):
+    """Blockwise encode of a flat tensor -> (codes int32 [n_blocks, B],
+    scales f32 [n_blocks]); the tail is zero-padded to a whole block."""
+    xb = blockwise.pad_to_blocks(x.reshape(-1).to(torch.float32), block_size)
+    return quantk.quantize_blocks(xb, codebook)

@@ -1,9 +1,8 @@
-"""Plain PyTorch oracle for the fused dequant-GEMM — port of
-``repro/kernels/ref.py``.
+"""Plain PyTorch oracles for the kernels — port of ``repro/kernels/ref.py``.
 
-Defines the semantics the kernel must match (up to f32 accumulation
-order).  The blockwise-encode oracle (``quantize_blocks_ref``) comes with
-the port of the encode kernel.
+Defines the semantics the kernels must match: the fused dequant-GEMM up to
+f32 accumulation order, the blockwise encode (``quantize_blocks_ref``) bit
+for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.codebooks import codebook_boundaries
 
 
 class QMatmulOperand(NamedTuple):
@@ -50,3 +50,13 @@ def qmatmul_ref(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
         raise ValueError(f"activation width {K} exceeds stored K {op.k_dim}")
     wt = dequantize_operand(op)[:, :K]
     return (x.to(torch.float32) @ wt.T).to(x.dtype)
+
+
+def quantize_blocks_ref(x_blocks: torch.Tensor, codebook: torch.Tensor):
+    """Blockwise encode oracle: x [n_blocks, B] -> (codes int32, scales f32)."""
+    absmax = x_blocks.abs().amax(dim=1, keepdim=True)
+    scales = torch.clamp(absmax, min=1e-12)
+    normed = x_blocks / scales
+    bounds = codebook_boundaries(codebook.to(torch.float32)).contiguous()
+    codes = torch.searchsorted(bounds, normed).to(torch.int32)
+    return codes, scales[:, 0]

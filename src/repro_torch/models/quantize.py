@@ -9,8 +9,11 @@ TRANSPOSED ([..., Out, In], ``quantize.py:52-66``) so blocks run along the
 reduction dim, the fused dequant-GEMM's operand layout; lm_head [V, D] is
 already (out, in).
 
+``bits_report`` is the paper's x-axis, total model bits.
+
 Not in this slice: ``PrecisionPlan`` mixed precision, proxy quantization
-(outlier_pct > 0) and ``bits_report`` / ``quantizable_units``.
+(outlier_pct > 0) and ``quantizable_units`` (the planner's unit walk,
+which comes with the planner).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor, quantize_tensor, to_structured
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 
 
 def _quantize_matrix(w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
@@ -91,3 +95,26 @@ def dequantize_params(qparams):
         return leaf
 
     return one(qparams)
+
+
+def bits_report(qparams) -> dict:
+    """Total-model-bits accounting over a quantized tree (paper's x-axis)."""
+    q_bits = q_stored = 0.0
+    q_params = fp_params = 0
+    for leaf in leaves(qparams):
+        if isinstance(leaf, QuantizedTensor):
+            bd = leaf.bits_breakdown()
+            q_bits += bd.ideal_bits_per_param * leaf.n_params
+            q_stored += bd.stored_bits_per_param * leaf.n_params
+            q_params += leaf.n_params
+        elif isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            fp_params += leaf.numel()
+    total = q_bits + 16.0 * fp_params
+    n = max(q_params + fp_params, 1)
+    return {
+        "quantized_params": q_params,
+        "fp16_params": fp_params,
+        "total_bits_ideal": total,
+        "total_bits_stored": q_stored + 16.0 * fp_params,
+        "avg_bits_per_param": total / n,
+    }

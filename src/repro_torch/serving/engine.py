@@ -117,7 +117,9 @@ def perplexity(params, cfg, tokens, *, batch_size: int = 8, device=None) -> floa
     """Held-out perplexity of (possibly quantized) params — the paper's
     preferred evaluation metric (§4)."""
     dev = resolve_device(device)
-    tokens = torch.as_tensor(np.asarray(tokens), device=dev)
+    if not isinstance(tokens, torch.Tensor):
+        tokens = np.asarray(tokens)
+    tokens = torch.as_tensor(tokens, device=dev)
     total, count = 0.0, 0
     for i in range(0, tokens.shape[0], batch_size):
         tb = tokens[i: i + batch_size]

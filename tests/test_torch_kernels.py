@@ -6,15 +6,21 @@ held against the reference's oracles here:
     ``repro.kernels.ref.qmatmul_ref`` (f32 summation order, the reference's
     REL_TOL); bf16 activations within one bf16 ulp at max|y| (2^-7 * max|y|)
     of the reference's fused jnp path, over test_qmatmul_parity.py's sweep;
-  * KV dequant (B2) and ``encode_rows``: bit-exact.
-One interpret-mode case of each Pallas kernel (marked ``kernel``) is held
-against the plain version, as the reference's own tests run them.  Cases
+  * KV dequant (B2) and ``encode_rows``: bit-exact;
+  * blockwise encode (B3): codes and scale bits identical to the reference's
+    Pallas kernel in interpret mode and to its ``quantize_blocks_ref``, over
+    bits 3..8 x {int, float, dynamic, quantile} x B {16, 48, 64, 1024}, on
+    inputs that hold codebook values and exact midpoints.
+One interpret-mode case of B1 and B2 (marked ``kernel``) is held against
+the plain version, as the reference's own tests run them; B3's whole grid
+runs in interpret mode, one compilation per bit width.  Cases
 marked ``cuda`` hold each CUDA kernel against its plain version and skip
 without a GPU.  The last tests check the default device and that the port
 never imports jax or ``repro``.
 """
 
 import ast
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -26,15 +32,20 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro.core import codebooks as rc  # noqa: E402
 from repro.kernels import kv_dequant as rkv  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.ref import QMatmulOperand as RQMatmulOperand  # noqa: E402
 from repro.kernels.ref import qmatmul_ref as r_qmatmul_ref  # noqa: E402
+from repro.kernels.ref import quantize_blocks_ref as r_quantize_blocks_ref  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import kv_dequant as tkv  # noqa: E402
+from repro_torch.core.codebooks import make_codebook as t_make_codebook  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import qmatmul as tqm  # noqa: E402
+from repro_torch.kernels import quantize as tquant  # noqa: E402
 from repro_torch.kernels.ref import QMatmulOperand, qmatmul_ref  # noqa: E402
 
 torch.set_num_threads(2)
@@ -177,6 +188,66 @@ def test_kv_dequant_plain_matches_pallas_interpret():
     assert _bits_equal(tkv.dequant_rows(_t(p), _t(s), t_spec, 128), _t(out))
 
 
+ENCODE_BLOCKS = (16, 48, 64, 1024)
+
+
+def _encode_input(cb: np.ndarray, block: int, seed: int) -> np.ndarray:
+    """Blocks whose absmax is a power of two s and whose other values are
+    codebook values and midpoints times s, so x / s hits them exactly; then
+    random blocks of mixed scale and a partial last block."""
+    rs = np.random.RandomState(seed)
+    special = np.concatenate([cb, (cb[:-1] + cb[1:]) / np.float32(2.0)]).astype(np.float32)
+    special = np.concatenate([special, -special])
+    parts = []
+    for i in range(0, special.size, block - 1):
+        s = np.float32(2.0 ** rs.randint(-6, 3))
+        blk = np.concatenate([[np.float32(1.0)], special[i: i + block - 1]]) * s
+        parts.append(np.pad(blk, (0, block - blk.size)))
+    n_random = max(4, 2048 // block) * block + block // 2 + 1
+    x = rs.randn(n_random).astype(np.float32) * np.repeat(
+        rs.lognormal(0, 2, -(-n_random // block)), block)[:n_random].astype(np.float32)
+    return np.concatenate(parts + [x]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_encode(bits):
+    """The reference's Pallas kernel (interpret mode) and oracle for every
+    block size of the grid, compiled once per bit width with the codebook
+    as an argument."""
+    def f(xs, cb):
+        out = []
+        for x, block in zip(xs, ENCODE_BLOCKS):
+            n_blocks = -(-x.shape[0] // block)
+            xb = jnp.pad(x, (0, n_blocks * block - x.shape[0])).reshape(n_blocks, block)
+            out.append((rops.quantize_blocks(x, cb, block, use_kernel=True, interpret=True),
+                        r_quantize_blocks_ref(xb, cb)))
+        return out
+    return jax.jit(f)
+
+
+@pytest.mark.kernel
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_quantize_blocks_plain_matches_pallas_and_ref(bits):
+    for dtype in ("int", "float", "dynamic", "quantile"):
+        base = np.random.RandomState(bits).standard_t(4, 4096).astype(np.float32)
+        cb = np.asarray(rc.make_codebook(dtype, bits, tensor=jnp.asarray(base)))
+        xs = [_encode_input(cb, block, seed=bits * 31 + block) for block in ENCODE_BLOCKS]
+        ref = _ref_encode(bits)([jnp.asarray(x) for x in xs], jnp.asarray(cb))
+        for x, block, ((kc, ks), (oc, os_)) in zip(xs, ENCODE_BLOCKS, ref):
+            np.testing.assert_array_equal(np.asarray(kc), np.asarray(oc))
+            np.testing.assert_array_equal(np.asarray(ks).view(np.int32),
+                                          np.asarray(os_).view(np.int32))
+            codes, scales = tops.quantize_blocks(_t(x), _t(cb), block)
+            assert codes.dtype == torch.int32 and scales.dtype == torch.float32
+            assert _bits_equal(codes, _t(kc)), (dtype, block)
+            assert _bits_equal(scales.view(torch.int32), _t(np.asarray(ks).view(np.int32)))
+            n_blocks = codes.shape[0]
+            xb = F.pad(_t(x), (0, n_blocks * block - x.size)).reshape(n_blocks, block)
+            pc, ps = tquant.quantize_blocks_plain(xb, _t(cb))
+            assert torch.equal(pc, codes) and torch.equal(ps.view(torch.int32),
+                                                          scales.view(torch.int32))
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels are built with nvcc and run on the card")
@@ -210,6 +281,24 @@ def test_kv_dequant_cuda_kernel_bit_exact(bits, dtype, feat, block):
     p, s = tkv.encode_rows(x, spec)
     assert _bits_equal(tkv.dequant_rows_cuda(p, s, spec, feat),
                        tkv.dequant_rows_ref(p, s, spec, feat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 8])
+@pytest.mark.parametrize("dtype", ["int", "float", "dynamic", "quantile"])
+def test_quantize_blocks_cuda_kernel_bit_exact(bits, dtype):
+    _need_cuda()
+    for block in (16, 32, 48, 64, 128, 1024):
+        base = np.random.RandomState(bits).standard_t(4, 4096).astype(np.float32)
+        cb = t_make_codebook(dtype, bits, tensor=torch.tensor(base, device="cuda"))
+        x = torch.tensor(_encode_input(cb.cpu().numpy(), block, seed=bits + block),
+                         device="cuda")
+        n_blocks = -(-x.numel() // block)
+        xb = F.pad(x, (0, n_blocks * block - x.numel())).reshape(n_blocks, block)
+        kc, ks = tquant.quantize_blocks_cuda(xb, cb)
+        pc, ps = tquant.quantize_blocks_plain(xb, cb)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, pc) and torch.equal(ks.view(torch.int32), ps.view(torch.int32))
 
 
 def test_default_device_raises_without_cuda():
@@ -247,6 +336,8 @@ def test_port_imports_neither_jax_nor_reference():
     and at run time: a fresh interpreter imports every module and runs
     chip_smoke, which without CUDA exits non-zero and prints no result."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for sub in ("paper", "train", "optim", "data", "kernels", "core"):
+        assert any(f.parent.name == sub for f in files), sub
     mods = []
     for f in files:
         bad = {m for m in _imports(f)
