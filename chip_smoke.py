@@ -9,8 +9,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   2. kernels — hold each kernel against its plain PyTorch version on the card:
                the fused dequant-GEMM (f32 activations: relative error
                <= 2e-5, f32 summation order; bf16: <= 2^-7 * max|y|, one
-               bf16 ulp at the max), the KV dequant (bit-exact) and the
-               blockwise encode (bit-exact codes and scale bits).
+               bf16 ulp at the max) at Qwen2-7B's shapes, the tensor-core
+               kernel's edges and split-K shapes and the paper sweep's
+               shapes, the KV dequant (bit-exact) and the blockwise encode
+               (bit-exact codes and scale bits).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card through the encode kernel (4-bit
                float, block 64; one launch per quantized matrix), Engine
@@ -25,7 +27,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                block sizes); gates training progress and 8-bit perplexity.
   7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
-               as device time: captured in a CUDA graph and replayed.
+               as device time: captured in a CUDA graph and replayed; B1
+               also per shape, beside torch.matmul per shape.
 Then the kernels line, the card's name and power limit, and the result.
 Needs no network, imports nothing of JAX or of the JAX package.
 """
@@ -91,7 +94,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["qmatmul", "kv_dequant", "quantize"])
+    report = _build.build(["qmatmul", "qgemm_sm90", "kv_dequant", "quantize"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
@@ -185,6 +188,26 @@ def check_kernels(torch, dev) -> dict:
         for M in (BATCH, BATCH * PROMPT):
             check_b1(M, K, N, 4, "float", 64, torch.bfloat16, True)
         check_b1(BATCH, K, N, 4, "float", 64, torch.float32, False)
+    # the tensor-core kernel's edges: rows around its 64-row slabs and its
+    # 128- and 256-row tiles, columns around its 128-column tiles and off
+    # 16-byte rows, every bit width with blocks that words straddle; the
+    # Qwen2-7B k/v shape at M = 1024 splits K
+    for bits, block in ((3, 16), (4, 32), (5, 64), (6, 16), (8, 32)):
+        for M in (9, 63, 64, 65, 129, 1024):
+            for N in (8, 70, 136, 512):
+                check_b1(M, 200 if M < 1024 else 640, N, bits, "int", block, torch.bfloat16, False)
+    # the paper sweep's matrices at its perplexity batch (M = 1024): fig2's
+    # bit widths, fig3dt's data types and fig3bs's blocks that divide a row
+    from repro_torch.configs.tiny import TINY_FAMILY
+
+    for tcfg in TINY_FAMILY.values():
+        Dt, Ft = tcfg.d_model, tcfg.d_ff
+        for K, N in ((Dt, Dt), (Dt, Ft), (Ft, Dt)):
+            cases = [(b, "float", 64) for b in (3, 4, 5, 6, 8)]
+            cases += [(4, dt, 64) for dt in ("int", "dynamic", "quantile")]
+            cases += [(b, "float", B) for b in (4, 8) for B in (32, 128, 256, 1024) if K % B == 0]
+            for bits, dtype, block in cases:
+                check_b1(1024, K, N, bits, dtype, block, torch.bfloat16, True)
 
     rows = BATCH * (PROMPT + NEW_TOKENS)
     for bits in (4, 8):
@@ -532,21 +555,23 @@ def time_kernels(torch, dev, run) -> dict:
 
     out = {}
     shapes_ms = {}
-    src_b1, rep_b1 = "src/repro_torch/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:97"
-    for name, M, with_head, fn, reps in (
-            ("qmatmul_gemv", BATCH, True, qk.qmatmul_gemv, 10),
-            ("qmatmul_gemm", BATCH * PROMPT, False, qk.qmatmul_gemm, 3)):
+    rep_b1 = "src/repro/kernels/qmatmul.py:97"
+    for name, src_b1, M, with_head, fn, reps in (
+            ("qmatmul_gemv", "src/repro_torch/csrc/qmatmul.cu", BATCH, True, qk.qmatmul_gemv, 10),
+            ("qmatmul_gemm", "src/repro_torch/csrc/qgemm_sm90.cu", BATCH * PROMPT, False,
+             qk.qmatmul_gemm, 3)):
         calls, nbytes, flops = plan(M, with_head)
         ms = _time_ms(torch, b1(calls, fn), reps)
         plain_ms = _time_ms(torch, b1(calls, qk.qmatmul_plain), 2)
         dense = [dequantize_tensor(op_qt, out_dtype=torch.bfloat16)
                  for op_qt in (qts + ([qparams["lm_head"]] if with_head else []))]
 
-        def lib():
-            for (_, _, _, _, x), w in zip(calls, dense):
-                torch.matmul(x, w.T)
-        library_ms = _time_ms(torch, lib, reps)
-        del dense
+        def lib(pairs):
+            def go():
+                for (_, _, _, _, x), w in pairs:
+                    torch.matmul(x, w.T)
+            return go
+        library_ms = _time_ms(torch, lib(list(zip(calls, dense))), reps)
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {"source": src_b1, "replaces": rep_b1,
                      "launches": counts["gemv" if name == "qmatmul_gemv" else "gemm"],
@@ -556,12 +581,15 @@ def time_kernels(torch, dev, run) -> dict:
                      else "prefill (196 launches)", "M": M, "bytes": nbytes, "flops": flops}
         per_shape = shapes_ms.setdefault(f"{name}_M{M}", {})
         for K, N in sorted({(c[3].k_dim, c[1].shape[0]) for c in calls}):
-            sub = [c for c in calls if c[3].k_dim == K and c[1].shape[0] == N]
+            pick = [i for i, c in enumerate(calls) if c[3].k_dim == K and c[1].shape[0] == N]
+            sub = [calls[i] for i in pick]
             sub_ms = _time_ms(torch, b1(sub, fn), reps) / len(sub)
+            sub_lib = _time_ms(torch, lib([(calls[i], dense[i]) for i in pick]), reps) / len(sub)
             sb = sub[0][1].numel() * 4 + sub[0][2].numel() * 2 + M * K * 2 + M * N * 2
-            per_shape[f"{K}x{N}"] = {"ms_per_call": sub_ms,
-                                     "bound_ms_per_call": _bound(sb, 2.0 * M * N * K)[0]}
-        del calls
+            per_shape[f"{K}x{N}"] = {"ms_per_call": sub_ms, "library_ms_per_call": sub_lib,
+                                     "bound_ms_per_call": _bound(sb, 2.0 * M * N * K)[0],
+                                     "calls": len(sub)}
+        del calls, dense
 
     spec = kvd.kv_spec(cfg)
     feat = cfg.n_kv_heads * cfg.head_dim

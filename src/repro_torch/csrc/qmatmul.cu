@@ -1,7 +1,9 @@
-// Fused k-bit dequant-GEMM for Hopper (sm_90a).
+// Fused k-bit dequant-GEMM on the CUDA cores (sm_90a): the decode GEMV and
+// the f32-activation tiled product.
 //
-// Replaces the TPU kernel src/repro/kernels/qmatmul.py::qmatmul_pallas
-// (bodies _qmatmul_kernel, _unpack_tile, _dequant_codes).
+// Replaces, with qgemm_sm90.cu (bf16 activations at prefill), the TPU kernel
+// src/repro/kernels/qmatmul.py::qmatmul_pallas (bodies _qmatmul_kernel,
+// _unpack_tile, _dequant_codes).
 //
 //   y[M, N] = x[M, K] . W^T,   W[n, k] = dq(code[n, k]) * scale[n, k / B]
 //
@@ -13,16 +15,14 @@
 // dequant-then-matmul path up to f32 summation order.  Sums run in f32; y is
 // written in x's type (f32 or bf16).
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
-//   decode  (M = batch, a few rows): bytes — the packed codes and bf16
-//           scales of W, about 0.28 of the bf16 weight at 4 bits, b64;
-//   prefill (M = batch * prompt, ~1000 rows): operations, 2*M*N*K.
+// What bounds it on an H100 SXM (3.35 TB/s): at decode (M = batch, a few
+// rows) bytes — the packed codes and bf16 scales of W, about 0.28 of the
+// bf16 weight at 4 bits, b64.
 //
-// Design: the wrapper picks the kernel from M and x's type.  Every kernel
-// decodes a code with a shift, a mask and a read of a 2^bits-entry table in
-// shared memory, the codebook copied there once per block: the TPU's
-// compare-select tree
-// (qmatmul.py:28-33) is a VPU constraint.
+// Design: both kernels decode a code with a shift, a mask and a read of a
+// 2^bits-entry table in shared memory, the codebook copied there once per
+// block: the TPU's compare-select tree (qmatmul.py:28-33) is a VPU
+// constraint.
 //   qgemv (M <= 8, decode): a block owns 4 output columns and splits their K
 //     among its 4 warps, which read interleaved 128-byte runs of packed words
 //     (2 words a column in flight per lane), so every packed byte is read
@@ -35,22 +35,13 @@
 //     (1, 2, 4, 8), so a batch-1 step does an eighth of a batch-8 step's
 //     arithmetic.  On the CUDA cores this is bound by instructions (~6 per
 //     decoded code and column, plus an FMA per row), not by bytes.
-//   qgemm_tc (M > 8, bf16 x, prefill): a 64x64 output tile per block of 4
-//     warps.  Each K step dequantizes a [64 columns x KC] weight tile to bf16
-//     in shared memory (one thread per packed word), copies the [64 x KC]
-//     activation tile beside it with 16-byte loads, and multiplies them on
-//     the tensor cores through wmma (16x16x16 bf16, f32 accumulators) — what
-//     the TPU kernel does with its MXU.  Loads and products alternate; the
-//     several blocks resident on an SM hide part of that.  wgmma, TMA and a
-//     multi-stage ring are later work.
 //   qgemm_simt (M > 8, f32 x): a tiled CUDA-core product in f32, since the
 //     tensor cores would round f32 activations.
-// All take K from the wrapper already tile-aligned: K == n_words * cpw and
+// Both take K from the wrapper already tile-aligned: K == n_words * cpw and
 // K % B == 0 (kernels/ops.py pads, as the reference's ops.qmatmul does).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -79,8 +70,6 @@ struct Act<bf16> {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-
-__host__ __device__ constexpr int cgcd(int a, int b) { return b == 0 ? a : cgcd(b, a % b); }
 
 // The code -> value table in shared memory: a copy of the codebook.
 __device__ __forceinline__ void fill_lut(float* lut, int n, const float* codebook) {
@@ -232,136 +221,6 @@ qgemv_kernel(const T* __restrict__ x, const uint32_t* __restrict__ packed,
   }
 }
 
-constexpr int TC_M = 64;         // output rows per block
-constexpr int TC_N = 64;         // output columns per block
-constexpr int TC_THREADS = 128;  // 4 warps, a 32x32 quarter of the tile each
-
-// Codes per K step: whole packed words and whole 16-deep wmma steps, >= 64.
-template <int CPW>
-struct TcStep {
-  static constexpr int LCM16 = CPW * 16 / cgcd(CPW, 16);
-  static constexpr int KC = LCM16 * ((64 + LCM16 - 1) / LCM16);
-  static constexpr int KW = KC / CPW;  // packed words per column and step
-};
-
-template <int BITS>
-__global__ void __launch_bounds__(TC_THREADS)
-qgemm_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
-                const bf16* __restrict__ scales, const float* __restrict__ codebook,
-                bf16* __restrict__ y, int M, int N, int K, int n_words, int block_size) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int CPW = 32 / BITS;
-  constexpr unsigned MASK = (1u << BITS) - 1u;
-  constexpr int KC = TcStep<CPW>::KC;
-  constexpr int KW = TcStep<CPW>::KW;
-  constexpr int LD = KC + 8;     // bf16 tile row stride (a multiple of 8, as wmma needs)
-  constexpr int LDC = TC_N + 4;  // f32 output tile row stride
-  constexpr int TILE_BYTES = (TC_M + TC_N) * LD * 2;
-  constexpr int OUT_BYTES = TC_M * LDC * 4;
-  __shared__ float lut[1 << BITS];
-  __shared__ __align__(32) unsigned char smem[TILE_BYTES > OUT_BYTES ? TILE_BYTES : OUT_BYTES];
-  bf16* xs = reinterpret_cast<bf16*>(smem);   // [TC_M][LD]: x[m0 + r, k0 + k]
-  bf16* ws = xs + TC_M * LD;                  // [TC_N][LD]: W[n0 + c, k0 + k], rounded
-  float* cs = reinterpret_cast<float*>(smem); // [TC_M][LDC], over xs/ws after the last step
-
-  fill_lut(lut, 1 << BITS, codebook);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * TC_M;
-  const int n0 = blockIdx.x * TC_N;
-  const int n_blocks = K / block_size;
-  const bool x_vec = (K % 8) == 0;  // rows of x split into aligned 16-byte runs
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the previous step's tiles are consumed (first step: lut is filled)
-    for (int i = tid; i < TC_N * KW; i += TC_THREADS) {
-      const int c = i / KW;
-      const int wi = i - c * KW;
-      const int n = n0 + c;
-      const int w = k0 / CPW + wi;
-      const bool ok = n < N && w < n_words;
-      const uint32_t word = ok ? __ldg(packed + static_cast<size_t>(n) * n_words + w) : 0u;
-      const bf16* srow = scales + static_cast<size_t>(ok ? n : 0) * n_blocks;
-      const int kw = w * CPW;
-      int blk = kw / block_size;
-      int rem = kw - blk * block_size;
-      float s = ok ? __bfloat162float(srow[blk]) : 0.f;
-      bf16* dst = ws + c * LD + wi * CPW;
-#pragma unroll
-      for (int j = 0; j < CPW; ++j) {
-        if (rem == block_size) {  // this word straddles two scale blocks
-          ++blk;
-          rem = 0;
-          s = ok ? __bfloat162float(srow[blk]) : 0.f;
-        }
-        ++rem;
-        dst[j] = __float2bfloat16_rn(lut[(word >> (j * BITS)) & MASK] * s);
-      }
-    }
-    if (x_vec) {
-      constexpr int VPR = KC / 8;  // 16-byte runs per tile row
-      for (int i = tid; i < TC_M * VPR; i += TC_THREADS) {
-        const int r = i / VPR;
-        const int v = i - r * VPR;
-        const int m = m0 + r;
-        const int k = k0 + v * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && k < K) {
-          val = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k));
-        }
-        *reinterpret_cast<uint4*>(xs + r * LD + v * 8) = val;
-      }
-    } else {
-      for (int i = tid; i < TC_M * KC; i += TC_THREADS) {
-        const int r = i / KC;
-        const int kk = i - r * KC;
-        const int m = m0 + r;
-        const int k = k0 + kk;
-        xs[r * LD + kk] = (m < M && k < K) ? x[static_cast<size_t>(m) * K + k]
-                                           : __float2bfloat16_rn(0.f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xs + (wm + 16 * i) * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], ws + (wn + 16 * j) * LD + kk, LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __syncthreads();  // every warp is done with xs/ws, which cs overlays
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TC_M * TC_N; i += TC_THREADS) {
-    const int r = i / TC_N;
-    const int c = i - r * TC_N;
-    const int m = m0 + r;
-    const int n = n0 + c;
-    if (m < M && n < N) y[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(cs[r * LDC + c]);
-  }
-}
-
 constexpr int TG_M = 64;          // output rows per block
 constexpr int TG_N = 64;          // output columns per block
 constexpr int TG_WORDS = 4;       // packed words per column per K step
@@ -493,25 +352,6 @@ bool gemv_bits(int bits, const Args& a) {
   }
 }
 
-template <int BITS>
-void gemm_tc_launch(const Args& a) {
-  const dim3 grid((a.N + TC_N - 1) / TC_N, (a.M + TC_M - 1) / TC_M);
-  qgemm_tc_kernel<BITS><<<grid, TC_THREADS, 0, a.stream>>>(
-      static_cast<const bf16*>(a.x), a.packed, a.scales, a.codebook, static_cast<bf16*>(a.y),
-      a.M, a.N, a.K, a.n_words, a.block_size);
-}
-
-bool gemm_tc_bits(int bits, const Args& a) {
-  switch (bits) {
-    case 3: gemm_tc_launch<3>(a); return true;
-    case 4: gemm_tc_launch<4>(a); return true;
-    case 5: gemm_tc_launch<5>(a); return true;
-    case 6: gemm_tc_launch<6>(a); return true;
-    case 8: gemm_tc_launch<8>(a); return true;
-    default: return false;
-  }
-}
-
 Args make_args(const void* x, const void* packed, const void* scales, const void* codebook,
                void* y, int M, int N, int K, int n_words, int block_size, void* stream) {
   return Args{x, static_cast<const uint32_t*>(packed), static_cast<const bf16*>(scales),
@@ -535,20 +375,14 @@ extern "C" int qmatmul_gemv(const void* x, const void* packed, const void* scale
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qmatmul_gemm(const void* x, const void* packed, const void* scales,
-                            const void* codebook, void* y, int M, int N, int K, int n_words,
-                            int bits, int block_size, int x_is_bf16, void* stream) {
-  if (M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(x, packed, scales, codebook, y, M, N, K, n_words, block_size,
-                           stream);
-  if (x_is_bf16) {
-    if (!gemm_tc_bits(bits, a)) return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (bits < 3 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((N + TG_N - 1) / TG_N, (M + TG_M - 1) / TG_M);
-    qgemm_simt_kernel<<<grid, TG_THREADS, 0, a.stream>>>(
-        static_cast<const float*>(x), a.packed, a.scales, a.codebook, static_cast<float*>(y), M,
-        N, K, n_words, bits, block_size);
-  }
+extern "C" int qmatmul_gemm_f32(const void* x, const void* packed, const void* scales,
+                                const void* codebook, void* y, int M, int N, int K,
+                                int n_words, int bits, int block_size, void* stream) {
+  if (M < 1 || N < 1 || bits < 3 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + TG_N - 1) / TG_N, (M + TG_M - 1) / TG_M);
+  qgemm_simt_kernel<<<grid, TG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(packed),
+      static_cast<const bf16*>(scales), static_cast<const float*>(codebook),
+      static_cast<float*>(y), M, N, K, n_words, bits, block_size);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Fused k-bit dequantize + matmul — port of ``repro/kernels/qmatmul.py``.
 
 Replaces the TPU kernel ``qmatmul_pallas`` (src/repro/kernels/qmatmul.py:97)
-with hand-written CUDA for Hopper, ``csrc/qmatmul.cu``:
+with hand-written CUDA for Hopper, ``csrc/qmatmul.cu`` and
+``csrc/qgemm_sm90.cu``:
 
   x       [M, K]        activations, f32 or bf16
   packed  [N, K//cpw]   int32 view of the uint32 words, cpw = 32 // bits
@@ -14,14 +15,19 @@ The weight is rounded to x's dtype before the f32 product
 summation order.  Every data type decodes through its codebook; for int the
 table equals the TPU kernel's arithmetic ``clip(c-h, -h, h)/h`` bit for bit.
 
-What bounds it on the card, and what the design does about it (the source
-says more): at decode (M <= 8) the packed weight bytes, so a GEMV whose
-blocks split each group of columns' K among their warps streams each packed
-word from device memory once and decodes it with a shared-memory table
-read; at prefill the 2*M*N*K
-operations, so bf16 activations go to a kernel that dequantizes weight
-tiles to bf16 in shared memory and multiplies them on the tensor cores
-(wmma), and f32 activations to a tiled CUDA-core kernel.
+What bounds it on the card, and what the design does about it (the sources
+say more): at decode (M <= 8) the packed weight bytes, so a GEMV
+(``csrc/qmatmul.cu``) whose blocks split each group of columns' K among
+their warps streams each packed word from device memory once and decodes it
+with a shared-memory table read; at prefill the 2*M*N*K operations, so bf16
+activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128) x 128 output tiles
+on Hopper's ``wgmma``, x copied as pre-laid-out tile images by the copy
+engine and the packed words by ``cp.async`` into a ring of stages, the
+weight dequantized into shared memory while the tensor cores multiply the
+previous K step.  The wrapper allocates the tile images (``x_tiles_shape``)
+and, where a grid has fewer tiles than SMs and K is split across blocks
+(``split_k``), the f32 partial sums that a second, fixed-order pass adds.
+f32 activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu``.
 
 ``qmatmul`` takes the plain PyTorch version, ``qmatmul_plain``, only for
 CPU tensors; for CUDA tensors it launches a kernel or raises.  Each launch
@@ -32,6 +38,7 @@ Callers pad K first (``kernels/ops.qmatmul``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +47,43 @@ from repro_torch.kernels import _build
 
 #: rows up to which the GEMV kernel runs (one pass over the packed weight)
 GEMV_MAX_M = 8
+#: output tile of the tensor-core kernel by bit width (csrc/qgemm_sm90.cu
+#: tile_m, BN): 256 rows where the decode leaves registers for two slabs
+TILE_M = {3: 128, 4: 256, 5: 128, 6: 128, 8: 256}
+TILE_N = 128
+#: codes per K step of the tensor-core kernel, by bit width (Cfg<BITS>::KC):
+#: whole packed words and whole 16-deep wgmma slices, at least 64
+K_STEP = {3: 80, 4: 64, 5: 96, 6: 80, 8: 64}
+#: fewest K steps a split of the tensor-core kernel takes
+MIN_SPLIT_STEPS = 2
+#: streaming multiprocessors of an H100 SXM, the split's target block count
+H100_SMS = 132
+
+
+def split_k(M: int, N: int, K: int, bits: int, sms: int = H100_SMS) -> int:
+    """How many blocks share each output tile's K steps in the tensor-core
+    kernel.  A grid with at least ``sms`` tiles is not split.  Otherwise the
+    split is the smallest divisor of the K steps that brings the block count
+    to ``sms``, among those leaving each block >= MIN_SPLIT_STEPS steps; if
+    none does, the largest of those."""
+    tiles = -(-M // TILE_M[bits]) * -(-N // TILE_N)
+    steps = -(-K // K_STEP[bits])
+    if tiles >= sms:
+        return 1
+    fits = [s for s in range(1, steps + 1)
+            if steps % s == 0 and (s == 1 or steps // s >= MIN_SPLIT_STEPS)]
+    return next((s for s in fits if tiles * s >= sms), fits[-1])
+
+
+def split_workspace_shape(M: int, N: int, split: int):
+    """The f32 partial sums a split launch needs, or None unsplit."""
+    return (split, M, N) if split > 1 else None
+
+
+def x_tiles_shape(M: int, K: int, bits: int):
+    """The bf16 scratch for x as the tensor-core kernel's tile images: M
+    padded to whole row tiles, K to whole K steps."""
+    return (-(-M // TILE_M[bits]) * TILE_M[bits], -(-K // K_STEP[bits]) * K_STEP[bits])
 
 
 def qmatmul_plain(x, packed, scales, codebook, *, bits: int,
@@ -59,11 +103,28 @@ def qmatmul_plain(x, packed, scales, codebook, *, bits: int,
 def _lib():
     lib = _build.load("qmatmul")
     if not getattr(lib, "_argtypes_set", False):
-        for fn in (lib.qmatmul_gemv, lib.qmatmul_gemm):
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.qmatmul_gemv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+        lib.qmatmul_gemm_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                         + [ctypes.c_void_p])
+        for fn in (lib.qmatmul_gemv, lib.qmatmul_gemm_f32):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
+
+
+def _lib_sm90():
+    lib = _build.load("qgemm_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.qgemm_sm90.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.qgemm_sm90.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_operands(x, packed, scales, codebook, bits, block_size):
@@ -92,24 +153,22 @@ def _check_operands(x, packed, scales, codebook, bits, block_size):
         raise ValueError("qmatmul kernel: x must start on a 16-byte boundary")
 
 
-def _launch(entry: str, x, packed, scales, codebook, bits, block_size):
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
+    """Launch the GEMV kernel (M <= GEMV_MAX_M rows) on CUDA tensors."""
     _check_operands(x, packed, scales, codebook, bits, block_size)
     M, K = x.shape
     N, n_words = packed.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = getattr(_lib(), entry)(
+        status = _lib().qmatmul_gemv(
             x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
             y.data_ptr(), M, N, K, n_words, bits, block_size,
-            int(x.dtype == torch.bfloat16), stream)
-    _build.check(status, entry)
-    return y
-
-
-def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
-    """Launch the GEMV kernel (M <= GEMV_MAX_M rows) on CUDA tensors."""
-    y = _launch("qmatmul_gemv", x, packed, scales, codebook, bits, block_size)
+            int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check(status, "qmatmul_gemv")
     qmatmul_gemv.launches += 1
     return y
 
@@ -118,8 +177,31 @@ qmatmul_gemv.launches = 0
 
 
 def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):
-    """Launch the tiled kernel on CUDA tensors."""
-    y = _launch("qmatmul_gemm", x, packed, scales, codebook, bits, block_size)
+    """Launch the tiled kernel on CUDA tensors: bf16 x on the tensor cores
+    (``qgemm_sm90.cu``, split over K where ``split_k`` says), f32 x on the
+    CUDA cores (``qmatmul.cu``)."""
+    _check_operands(x, packed, scales, codebook, bits, block_size)
+    M, K = x.shape
+    N, n_words = packed.shape
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            split = split_k(M, N, K, bits, _sm_count(x.device.index or 0))
+            shape = split_workspace_shape(M, N, split)
+            ws = (torch.empty(shape, dtype=torch.float32, device=x.device)
+                  if shape else None)
+            xt = torch.empty(x_tiles_shape(M, K, bits), dtype=torch.bfloat16, device=x.device)
+            status = _lib_sm90().qgemm_sm90(
+                x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
+                y.data_ptr(), xt.data_ptr(), ws.data_ptr() if ws is not None else None,
+                M, N, K, n_words, bits, block_size, split, _stream(x))
+            entry = "qgemm_sm90"
+        else:
+            status = _lib().qmatmul_gemm_f32(
+                x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
+                y.data_ptr(), M, N, K, n_words, bits, block_size, _stream(x))
+            entry = "qmatmul_gemm_f32"
+    _build.check(status, entry)
     qmatmul_gemm.launches += 1
     return y
 

@@ -253,8 +253,22 @@ def _need_cuda():
         pytest.skip("needs a CUDA GPU: the kernels are built with nvcc and run on the card")
 
 
+# the tensor-core kernel's edges: rows around its 64-row warpgroup slabs and
+# 128-row tiles, columns around its 128-column tiles (and N % 8 != 0), all
+# bit widths with blocks that packed words straddle (cpw 10, 6, 5 against
+# B = 16, 32, 64), and a grid too small for the card, which splits K
+TC_EDGES = [
+    (bits, dtype, block, M, K, N)
+    for i, (bits, dtype, block) in enumerate([(3, "int", 16), (4, "float", 64), (5, "dynamic", 32),
+                                              (6, "float", 16), (8, "int", 64)])
+    for j, (M, N) in enumerate([(9, 8), (63, 70), (64, 136), (65, 512), (129, 70), (1024, 136)])
+    for K in [(200, 640, 1344)[(i + j) % 3]]
+] + [(4, "float", 64, 1024, 3584, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,dtype,block,M,K,N", SWEEP[:6] + [(4, "float", 64, 64, 512, 256)])
+@pytest.mark.parametrize("bits,dtype,block,M,K,N",
+                         SWEEP[:6] + [(4, "float", 64, 64, 512, 256)] + TC_EDGES)
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_qmatmul_cuda_kernel_matches_plain(bits, dtype, block, M, K, N, xdt):
     _need_cuda()
@@ -299,6 +313,81 @@ def test_quantize_blocks_cuda_kernel_bit_exact(bits, dtype):
         pc, ps = tquant.quantize_blocks_plain(xb, cb)
         torch.cuda.synchronize()
         assert torch.equal(kc, pc) and torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+
+
+def _prefill_shapes():
+    """{arch: [(K, N)]} of every matrix the quantized forward multiplies:
+    Qwen2-7B's projections and the paper ladder's (tied embeddings, so no
+    quantized head)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.tiny import TINY_FAMILY
+
+    out = {}
+    for name in ["qwen2-7b", *TINY_FAMILY]:
+        cfg = get_arch(name)
+        D, F, H = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+        KV = cfg.n_kv_heads * cfg.head_dim
+        out[name] = sorted({(D, H), (D, KV), (H, D), (D, F), (F, D)})
+    return out
+
+
+def test_split_k_step_table_matches_kernel_source():
+    """K_STEP is the kernel's KC: the smallest multiple of lcm(cpw, 16) that
+    is >= 64; TILE_M/TILE_N are its tile_m<BITS>() and BN."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "qgemm_sm90.cu").read_text()
+    assert "return BITS == 4 || BITS == 8 ? 256 : 128;" in src
+    assert tqm.TILE_M == {b: 256 if b in (4, 8) else 128 for b in (3, 4, 5, 6, 8)}
+    assert f"constexpr int BN = {tqm.TILE_N};" in src
+    for bits, kc in tqm.K_STEP.items():
+        cpw = 32 // bits
+        step = cpw * 16 // np.gcd(cpw, 16)
+        assert kc == -(-64 // step) * step, bits
+
+
+@pytest.mark.parametrize("arch", list(_prefill_shapes()))
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 8])
+def test_split_k_plan_for_main_path_shapes(arch, bits):
+    """For every (M, K, N, bits) the Qwen2-7B prefill and the paper sweep
+    launch at M = 1024 (K padded as kernels/ops pads it for each block size
+    the sweep uses): the split divides the K steps, leaves each block at
+    least MIN_SPLIT_STEPS of them, brings the block count to the SM count
+    when any allowed split can, and sizes the workspace [split, M, N] and
+    the x tile images."""
+    M = 1024
+    sms = tqm.H100_SMS
+    for K, N in _prefill_shapes()[arch]:
+        for block in (16, 32, 64, 128, 256, 1024):
+            cpw = 32 // bits
+            bk = cpw * block // np.gcd(cpw, block)
+            Kp = -(-K // bk) * bk
+            steps = -(-Kp // tqm.K_STEP[bits])
+            tiles = -(-M // tqm.TILE_M[bits]) * -(-N // tqm.TILE_N)
+            split = tqm.split_k(M, N, Kp, bits, sms)
+            allowed = [s for s in range(1, steps + 1) if steps % s == 0
+                       and (s == 1 or steps // s >= tqm.MIN_SPLIT_STEPS)]
+            assert split in allowed, (K, N, block, split)
+            if tiles >= sms:
+                assert split == 1
+            elif any(tiles * s >= sms for s in allowed):
+                assert tiles * split >= sms
+                assert all(tiles * s < sms for s in allowed if s < split)
+            else:
+                assert split == allowed[-1]
+            shape = tqm.split_workspace_shape(M, N, split)
+            assert shape == ((split, M, N) if split > 1 else None)
+            assert tqm.x_tiles_shape(M, Kp, bits) == (
+                -(-M // tqm.TILE_M[bits]) * tqm.TILE_M[bits], steps * tqm.K_STEP[bits])
+
+
+def test_split_k_plan_of_qwen_prefill():
+    """At 4 bits a tile is 256 x 128: the k/v projections (N = 512, 16
+    tiles) and every N = 3584 projection (112 tiles) split K; 56 steps at
+    K = 3584 and 296 at K = 18944, whose smallest divisors reaching 132
+    blocks are 14 and 2.  Only gate/up (592 tiles) run unsplit."""
+    assert tqm.split_k(1024, 512, 3584, 4) == 14
+    assert tqm.split_k(1024, 3584, 3584, 4) == 2
+    assert tqm.split_k(1024, 3584, 18944, 4) == 2
+    assert tqm.split_k(1024, 18944, 3584, 4) == 1
 
 
 def test_default_device_raises_without_cuda():
