@@ -7,7 +7,7 @@
 //
 //   y[M, N] = x[M, K] . W^T,   W[n, k] = bf16_rn(dq(code[n, k]) * scale[n, k / B])
 //
-// x is bf16 [M, K]; code[n, k] is `bits` wide (3, 4, 5, 6 or 8), packed
+// x is bf16 [M, K]; code[n, k] is `bits` wide (3 to 8), packed
 // cpw = 32 / bits to a 32-bit word, low bits first; dq is the f32 codebook;
 // scale is bf16 [N, K / B].  The weight is rounded to bf16 after an f32
 // product, once, as the TPU kernel does (qmatmul.py:80-85).  Sums are f32,
@@ -19,11 +19,11 @@
 // only route to that rate; the design keeps the dequant and the copies off
 // the tensor cores' path:
 //   - an output tile of BM x 128 per block (BM = 256 at 4 and 8 bits, 128 at
-//     3, 5 and 6): two consumer warpgroups, each with BM / 128 m64n128k16
+//     3, 5, 6 and 7): two consumer warpgroups, each with BM / 128 m64n128k16
 //     slabs, and a producer warpgroup that hands its registers to them
 //     (setmaxnreg) and copies with one warp.  Every weight is decoded M / BM
 //     times.
-//   - a K step is KC codes (64 at 4 and 8 bits, 80 at 3 and 6, 96 at 5: whole
+//   - a K step is KC codes (64 at 4, 7 and 8 bits, 80 at 3 and 6, 96 at 5: whole
 //     packed words, whole k16 slices).  tile_x_kernel first writes x as one
 //     image per (row tile, K step) in the shared-memory layout, so that the
 //     producer moves a step's x with one bulk copy (cp.async.bulk, no tensor
@@ -73,7 +73,7 @@ __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 // rows per block by bit width (kernels/qmatmul.py TILE_M): two warpgroups,
 // each with SLABS m64 slabs.  256 rows halve the decodes per product; the
 // wider codes' decode groups (40 values at 3 and 6 bits, 24 at 5) leave
-// registers for one slab only.
+// registers for one slab only; 7 bits keeps one slab too.
 template <int BITS>
 constexpr int tile_m() { return BITS == 4 || BITS == 8 ? 256 : 128; }
 
@@ -671,6 +671,7 @@ extern "C" int qgemm_sm90(const void* x, const void* packed, const void* scales,
     case 4: return launch<4>(p, xb, xt, out, ws, split, s);
     case 5: return launch<5>(p, xb, xt, out, ws, split, s);
     case 6: return launch<6>(p, xb, xt, out, ws, split, s);
+    case 7: return launch<7>(p, xb, xt, out, ws, split, s);
     case 8: return launch<8>(p, xb, xt, out, ws, split, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

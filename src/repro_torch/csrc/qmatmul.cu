@@ -347,6 +347,7 @@ bool gemv_bits(int bits, const Args& a) {
     case 4: gemv_rows<T, 4>(a); return true;
     case 5: gemv_rows<T, 5>(a); return true;
     case 6: gemv_rows<T, 6>(a); return true;
+    case 7: gemv_rows<T, 7>(a); return true;
     case 8: gemv_rows<T, 8>(a); return true;
     default: return false;
   }

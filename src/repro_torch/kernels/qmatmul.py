@@ -49,11 +49,11 @@ from repro_torch.kernels import _build
 GEMV_MAX_M = 8
 #: output tile of the tensor-core kernel by bit width (csrc/qgemm_sm90.cu
 #: tile_m, BN): 256 rows where the decode leaves registers for two slabs
-TILE_M = {3: 128, 4: 256, 5: 128, 6: 128, 8: 256}
+TILE_M = {3: 128, 4: 256, 5: 128, 6: 128, 7: 128, 8: 256}
 TILE_N = 128
 #: codes per K step of the tensor-core kernel, by bit width (Cfg<BITS>::KC):
 #: whole packed words and whole 16-deep wgmma slices, at least 64
-K_STEP = {3: 80, 4: 64, 5: 96, 6: 80, 8: 64}
+K_STEP = {3: 80, 4: 64, 5: 96, 6: 80, 7: 64, 8: 64}
 #: fewest K steps a split of the tensor-core kernel takes
 MIN_SPLIT_STEPS = 2
 #: streaming multiprocessors of an H100 SXM, the split's target block count
@@ -139,8 +139,8 @@ def _check_operands(x, packed, scales, codebook, bits, block_size):
             raise ValueError(f"qmatmul kernel: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"qmatmul kernel: {name} must be contiguous")
-    if bits not in (3, 4, 5, 6, 8):
-        raise ValueError(f"qmatmul kernel takes 3, 4, 5, 6 or 8 bits, got {bits}")
+    if not 3 <= bits <= 8:
+        raise ValueError(f"qmatmul kernel takes 3 to 8 bits, got {bits}")
     M, K = x.shape
     N, n_words = packed.shape
     if K != n_words * (32 // bits) or K % block_size or scales.shape != (N, K // block_size):

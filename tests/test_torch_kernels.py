@@ -65,6 +65,8 @@ SWEEP = [
     (5, "int", 16, 3, 50, 33),
     (6, "float", 32, 8, 160, 96),
     (6, "int", 64, 2, 320, 48),
+    (7, "float", 64, 8, 256, 128),
+    (7, "int", 32, 5, 100, 70),
     (8, "int", 64, 8, 256, 128),
     (8, "float", 32, 4, 128, 64),
     (8, "dynamic", 64, 20, 128, 48),
@@ -260,7 +262,7 @@ def _need_cuda():
 TC_EDGES = [
     (bits, dtype, block, M, K, N)
     for i, (bits, dtype, block) in enumerate([(3, "int", 16), (4, "float", 64), (5, "dynamic", 32),
-                                              (6, "float", 16), (8, "int", 64)])
+                                              (6, "float", 16), (8, "int", 64), (7, "dynamic", 16)])
     for j, (M, N) in enumerate([(9, 8), (63, 70), (64, 136), (65, 512), (129, 70), (1024, 136)])
     for K in [(200, 640, 1344)[(i + j) % 3]]
 ] + [(4, "float", 64, 1024, 3584, 512)]
@@ -298,7 +300,7 @@ def test_kv_dequant_cuda_kernel_bit_exact(bits, dtype, feat, block):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [3, 4, 5, 6, 8])
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("dtype", ["int", "float", "dynamic", "quantile"])
 def test_quantize_blocks_cuda_kernel_bit_exact(bits, dtype):
     _need_cuda()
@@ -336,7 +338,8 @@ def test_split_k_step_table_matches_kernel_source():
     is >= 64; TILE_M/TILE_N are its tile_m<BITS>() and BN."""
     src = (ROOT / "src" / "repro_torch" / "csrc" / "qgemm_sm90.cu").read_text()
     assert "return BITS == 4 || BITS == 8 ? 256 : 128;" in src
-    assert tqm.TILE_M == {b: 256 if b in (4, 8) else 128 for b in (3, 4, 5, 6, 8)}
+    assert tqm.TILE_M == {b: 256 if b in (4, 8) else 128 for b in range(3, 9)}
+    assert "case 7: return launch<7>" in src
     assert f"constexpr int BN = {tqm.TILE_N};" in src
     for bits, kc in tqm.K_STEP.items():
         cpw = 32 // bits
@@ -345,7 +348,7 @@ def test_split_k_step_table_matches_kernel_source():
 
 
 @pytest.mark.parametrize("arch", list(_prefill_shapes()))
-@pytest.mark.parametrize("bits", [3, 4, 5, 6, 8])
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
 def test_split_k_plan_for_main_path_shapes(arch, bits):
     """For every (M, K, N, bits) the Qwen2-7B prefill and the paper sweep
     launch at M = 1024 (K padded as kernels/ops pads it for each block size
