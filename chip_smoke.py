@@ -9,15 +9,17 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   2. kernels — hold each kernel against its plain PyTorch version on the card:
                the fused dequant-GEMM (f32 activations: relative error
                <= 2e-5, f32 summation order; bf16: <= 2^-7 * max|y|, one
-               bf16 ulp at the max) at Qwen2-7B's shapes, the tensor-core
-               kernel's edges and split-K shapes and the paper sweep's
-               shapes, the KV dequant (bit-exact) and the blockwise encode
-               (bit-exact codes and scale bits).
+               bf16 ulp at the max) at Qwen2-7B's shapes, both GEMVs' and
+               the tensor-core GEMM's edges (3 to 8 bits) and split-K
+               shapes and the paper sweep's shapes, the KV dequant
+               (bit-exact) and the blockwise encode (bit-exact codes and
+               scale bits).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card through the encode kernel (4-bit
                float, block 64; one launch per quantized matrix), Engine
                with a kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.
-               Checks finite logits and the kernel launches per decode step.
+               Checks finite logits and the kernel launches per decode step
+               (every GEMV on the tensor cores, qgemv_sm90).
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
@@ -28,7 +30,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed; B1
-               also per shape, beside torch.matmul per shape.
+               also per shape, beside torch.matmul per shape, and the
+               decode GEMV beside the CUDA-core GEMV on the same operands.
 Then the kernels line, the card's name and power limit, and the result.
 Needs no network, imports nothing of JAX or of the JAX package.
 """
@@ -94,7 +97,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["qmatmul", "qgemm_sm90", "kv_dequant", "quantize"])
+    report = _build.build(["qgemv_sm90", "qmatmul", "qgemm_sm90", "kv_dequant", "quantize"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
@@ -152,50 +155,69 @@ def check_kernels(torch, dev) -> dict:
     worst = {"gemv": 0.0, "gemm": 0.0, "kv": 0.0, "b3": 0.0}
     n_checks = 0
 
-    def check_b1(M, K, N, bits, dtype, block, xdt, main_path):
+    def check_b1(Ms, K, N, bits, dtype, block, xdt, main_path, launch=None):
+        """One weight, x of each row count in Ms: `launch` (default the
+        kernel qmatmul_cuda picks) against the plain version."""
         nonlocal n_checks
         w = torch.randn((K, N), generator=g, device=dev) * 0.05
         op = ops.prepare_operand(w, bits=bits, dtype=dtype, block_size=block)
-        x = torch.randn((M, K), generator=g, device=dev).to(xdt)
-        xp, packed, scales = ops.pad_for_kernel(x, op)
-        kw = dict(bits=bits, block_size=block)
-        y_k = qk.qmatmul_cuda(xp, packed, scales, op.codebook, **kw).float()
-        y_p = qk.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
-        torch.cuda.synchronize()
-        err = float((y_k - y_p).abs().max())
-        ref = float(y_p.abs().max())
-        tol = (F32_REL_TOL if xdt == torch.float32 else BF16_REL_TOL) * ref
-        require(bool(torch.isfinite(y_k).all()) and err <= tol,
-                f"qmatmul M={M} K={K} N={N} bits={bits} {dtype} b{block} {xdt}: "
-                f"max|err| {err} > {tol}")
-        if main_path:
-            key = "gemv" if xp.shape[0] <= qk.GEMV_MAX_M else "gemm"
-            worst[key] = max(worst[key], err)
-        n_checks += 1
+        for M in Ms:
+            x = torch.randn((M, K), generator=g, device=dev).to(xdt)
+            xp, packed, scales = ops.pad_for_kernel(x, op)
+            kw = dict(bits=bits, block_size=block)
+            y_k = (launch or qk.qmatmul_cuda)(xp, packed, scales, op.codebook, **kw).float()
+            y_p = qk.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
+            torch.cuda.synchronize()
+            err = float((y_k - y_p).abs().max())
+            ref = float(y_p.abs().max())
+            tol = (F32_REL_TOL if xdt == torch.float32 else BF16_REL_TOL) * ref
+            require(bool(torch.isfinite(y_k).all()) and err <= tol,
+                    f"qmatmul M={M} K={K} N={N} bits={bits} {dtype} b{block} {xdt}: "
+                    f"max|err| {err} > {tol}")
+            if main_path:
+                key = "gemv" if xp.shape[0] <= qk.GEMV_MAX_M else "gemm"
+                worst[key] = max(worst[key], err)
+            n_checks += 1
 
-    # odd word tails and scale blocks that words straddle; the GEMV at 1, 2,
+    # odd word tails and scale blocks that words straddle; the GEMVs at 1, 2,
     # 4 and 8 rows (3 and 5 mask rows), the tiled kernels past 8 rows
-    for bits in (3, 4, 5, 6, 8):
+    for bits in (3, 4, 5, 6, 7, 8):
         for dtype in ("int", "float", "dynamic"):
             for xdt in (torch.float32, torch.bfloat16):
                 for block in (16, 32):
-                    for M in (1, 2, 3, 5, 37):
-                        check_b1(M, 200, 70, bits, dtype, block, xdt, False)
+                    check_b1((1, 2, 3, 5, 37), 200, 70, bits, dtype, block, xdt, False)
+    # the tensor-core GEMV's edges: every row count it instantiates nothing
+    # for (it always multiplies 8), column tails around its 16-column
+    # blocks, K tails off its 128-code chunks (n_words % 16 != 0), at 4, 7
+    # and 8 bits over three data types and blocks; then rows of words not a
+    # multiple of 4, which it reads a word at a time, and scale blocks of a
+    # word count that is not a power of two
+    before_tc = qk.qmatmul_gemv_tc.launches
+    for bits in qk.TC_GEMV_BITS:
+        for dtype in ("int", "float", "dynamic"):
+            for block in (16, 32, 64):
+                for i, N in enumerate((8, 16, 17, 70, 512)):
+                    check_b1((1, 2, 3, 4, 5, 8), (200, 328, 1000)[i % 3], N, bits, dtype,
+                             block, torch.bfloat16, False, qk.qmatmul_gemv_tc)
+        for block in ((16, 24, 40) if bits == 4 else (8, 12, 20)):
+            check_b1((1, 4, 8), 200, 70, bits, "float", block, torch.bfloat16, False,
+                     qk.qmatmul_gemv_tc)
+    require(qk.qmatmul_gemv_tc.launches - before_tc == 3 * (3 * 3 * 5 * 6 + 3 * 3),
+            "the tensor-core GEMV's edge grid did not launch once per case")
     cfg = get_arch(ARCH)
     D, F, KD, V = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim, cfg.vocab_size
     shapes = [(D, D), (D, KD), (D, F), (F, D), (D, V)]
     for K, N in shapes:
-        for M in (BATCH, BATCH * PROMPT):
-            check_b1(M, K, N, 4, "float", 64, torch.bfloat16, True)
-        check_b1(BATCH, K, N, 4, "float", 64, torch.float32, False)
+        check_b1((BATCH, BATCH * PROMPT), K, N, 4, "float", 64, torch.bfloat16, True)
+        check_b1((BATCH,), K, N, 4, "float", 64, torch.float32, False)
     # the tensor-core kernel's edges: rows around its 64-row slabs and its
     # 128- and 256-row tiles, columns around its 128-column tiles and off
     # 16-byte rows, every bit width with blocks that words straddle; the
     # Qwen2-7B k/v shape at M = 1024 splits K
-    for bits, block in ((3, 16), (4, 32), (5, 64), (6, 16), (8, 32)):
-        for M in (9, 63, 64, 65, 129, 1024):
-            for N in (8, 70, 136, 512):
-                check_b1(M, 200 if M < 1024 else 640, N, bits, "int", block, torch.bfloat16, False)
+    for bits, block in ((3, 16), (4, 32), (5, 64), (6, 16), (7, 16), (8, 32)):
+        for N in (8, 70, 136, 512):
+            check_b1((9, 63, 64, 65, 129), 200, N, bits, "int", block, torch.bfloat16, False)
+            check_b1((1024,), 640, N, bits, "int", block, torch.bfloat16, False)
     # the paper sweep's matrices at its perplexity batch (M = 1024): fig2's
     # bit widths, fig3dt's data types and fig3bs's blocks that divide a row
     from repro_torch.configs.tiny import TINY_FAMILY
@@ -207,7 +229,7 @@ def check_kernels(torch, dev) -> dict:
             cases += [(4, dt, 64) for dt in ("int", "dynamic", "quantile")]
             cases += [(b, "float", B) for b in (4, 8) for B in (32, 128, 256, 1024) if K % B == 0]
             for bits, dtype, block in cases:
-                check_b1(1024, K, N, bits, dtype, block, torch.bfloat16, True)
+                check_b1((1024,), K, N, bits, dtype, block, torch.bfloat16, True)
 
     rows = BATCH * (PROMPT + NEW_TOKENS)
     for bits in (4, 8):
@@ -285,8 +307,9 @@ def _counts():
 
     from repro_torch.kernels import quantize as quantk
 
-    return {"gemv": qk.qmatmul_gemv.launches, "gemm": qk.qmatmul_gemm.launches,
-            "kv": kvd.dequant_rows_cuda.launches, "b3": quantk.quantize_blocks_cuda.launches}
+    return {"gemv": qk.qmatmul_gemv.launches, "gemv_tc": qk.qmatmul_gemv_tc.launches,
+            "gemm": qk.qmatmul_gemm.launches, "kv": kvd.dequant_rows_cuda.launches,
+            "b3": quantk.quantize_blocks_cuda.launches}
 
 
 def _reset_counts():
@@ -295,6 +318,8 @@ def _reset_counts():
     from repro_torch.kernels import quantize as quantk
 
     qk.qmatmul_gemv.launches = 0
+    qk.qmatmul_gemv_tc.launches = 0
+    qk.qmatmul_gemv_simt.launches = 0
     qk.qmatmul_gemm.launches = 0
     kvd.dequant_rows_cuda.launches = 0
     quantk.quantize_blocks_cuda.launches = 0
@@ -322,7 +347,7 @@ def serve_main_path(torch, dev) -> dict:
     per_layer = 7   # wq, wk, wv, wo, w_gate, w_up, w_down
     quant_counts = _counts()
     n_items = per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)   # + lm_head
-    require(quant_counts == {"gemv": 0, "gemm": 0, "kv": 0, "b3": n_items},
+    require(quant_counts == {"gemv": 0, "gemv_tc": 0, "gemm": 0, "kv": 0, "b3": n_items},
             f"quantize_params launched {quant_counts}, want {n_items} encode launches")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(torch, dev, SEED + 2),
                             device=dev)
@@ -351,6 +376,8 @@ def serve_main_path(torch, dev) -> dict:
             f"prefill: {counts['gemm']} tiled qmatmul launches")
     require(counts["gemv"] == 1 + n_steps * b1_step,
             f"{counts['gemv']} GEMV launches, want 1 + {n_steps} x {b1_step}")
+    require(counts["gemv_tc"] == counts["gemv"],
+            f"{counts['gemv_tc']} of {counts['gemv']} GEMV launches on the tensor cores")
     require(counts["kv"] == n_steps * b2_step,
             f"{counts['kv']} kv dequant launches, want {n_steps} x {b2_step}")
 
@@ -362,7 +389,8 @@ def serve_main_path(torch, dev) -> dict:
     step_counts = _counts()
     require(bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all()),
             "non-finite logits")
-    require(step_counts == {"gemv": b1_step, "gemm": 0, "kv": b2_step, "b3": 0},
+    require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemm": 0, "kv": b2_step,
+                            "b3": 0},
             f"one decode step launched {step_counts}")
     # the same step's device time alone: replayed from a CUDA graph, without
     # the host's eager PyTorch overhead that the step above includes
@@ -514,7 +542,7 @@ def _bound(nbytes: float, flops: float):
 
 
 def time_kernels(torch, dev, run) -> dict:
-    """Phase 6: the kernels at the main path's shapes, one decode step's and
+    """Phase 7: the kernels at the main path's shapes, one decode step's and
     one prefill's worth of launches over the real quantized layers."""
     from repro_torch.core.qtensor import dequantize_tensor
     from repro_torch.kernels import kv_dequant as kvd
@@ -556,12 +584,16 @@ def time_kernels(torch, dev, run) -> dict:
     out = {}
     shapes_ms = {}
     rep_b1 = "src/repro/kernels/qmatmul.py:97"
-    for name, src_b1, M, with_head, fn, reps in (
-            ("qmatmul_gemv", "src/repro_torch/csrc/qmatmul.cu", BATCH, True, qk.qmatmul_gemv, 10),
+    # the decode GEMV routes every serving operand to the tensor cores; the
+    # CUDA-core GEMV (qmatmul_gemv_simt) is timed beside it on the same ones
+    for name, src_b1, M, with_head, fn, old, reps in (
+            ("qmatmul_gemv", "src/repro_torch/csrc/qgemv_sm90.cu", BATCH, True, qk.qmatmul_gemv,
+             qk.qmatmul_gemv_simt, 10),
             ("qmatmul_gemm", "src/repro_torch/csrc/qgemm_sm90.cu", BATCH * PROMPT, False,
-             qk.qmatmul_gemm, 3)):
+             qk.qmatmul_gemm, None, 3)):
         calls, nbytes, flops = plan(M, with_head)
         ms = _time_ms(torch, b1(calls, fn), reps)
+        old_ms = _time_ms(torch, b1(calls, old), reps) if old else None
         plain_ms = _time_ms(torch, b1(calls, qk.qmatmul_plain), 2)
         dense = [dequantize_tensor(op_qt, out_dtype=torch.bfloat16)
                  for op_qt in (qts + ([qparams["lm_head"]] if with_head else []))]
@@ -577,6 +609,7 @@ def time_kernels(torch, dev, run) -> dict:
                      "launches": counts["gemv" if name == "qmatmul_gemv" else "gemm"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
+                     "cuda_core_gemv_ms": old_ms,
                      "per": "decode step (197 launches)" if with_head
                      else "prefill (196 launches)", "M": M, "bytes": nbytes, "flops": flops}
         per_shape = shapes_ms.setdefault(f"{name}_M{M}", {})
@@ -589,6 +622,9 @@ def time_kernels(torch, dev, run) -> dict:
             per_shape[f"{K}x{N}"] = {"ms_per_call": sub_ms, "library_ms_per_call": sub_lib,
                                      "bound_ms_per_call": _bound(sb, 2.0 * M * N * K)[0],
                                      "calls": len(sub)}
+            if old:
+                per_shape[f"{K}x{N}"]["cuda_core_gemv_ms_per_call"] = (
+                    _time_ms(torch, b1(sub, old), reps) / len(sub))
         del calls, dense
 
     spec = kvd.kv_spec(cfg)

@@ -23,8 +23,11 @@
 // 2^bits-entry table in shared memory, the codebook copied there once per
 // block: the TPU's compare-select tree (qmatmul.py:28-33) is a VPU
 // constraint.
-//   qgemv (M <= 8, decode): a block owns 4 output columns and splits their K
-//     among its 4 warps, which read interleaved 128-byte runs of packed words
+//   qgemv (M <= 8, decode, for what kernels/qmatmul.py:gemv_route does not
+//     send to qgemv_sm90.cu's tensor cores: f32 x, bf16 x at 3, 5 and 6 bits
+//     or with scale blocks that split a word): a block owns 4 output columns
+//     and splits their K among its 4 warps, which read interleaved 128-byte
+//     runs of packed words
 //     (2 words a column in flight per lane), so every packed byte is read
 //     from device memory once; the K split keeps enough warps in flight for
 //     the 512-column wk/wv and the long-K w_down.  A lane reads the

@@ -1,8 +1,8 @@
 """Fused k-bit dequantize + matmul — port of ``repro/kernels/qmatmul.py``.
 
 Replaces the TPU kernel ``qmatmul_pallas`` (src/repro/kernels/qmatmul.py:97)
-with hand-written CUDA for Hopper, ``csrc/qmatmul.cu`` and
-``csrc/qgemm_sm90.cu``:
+with hand-written CUDA for Hopper, ``csrc/qgemv_sm90.cu``,
+``csrc/qmatmul.cu`` and ``csrc/qgemm_sm90.cu``:
 
   x       [M, K]        activations, f32 or bf16
   packed  [N, K//cpw]   int32 view of the uint32 words, cpw = 32 // bits
@@ -16,11 +16,16 @@ summation order.  Every data type decodes through its codebook; for int the
 table equals the TPU kernel's arithmetic ``clip(c-h, -h, h)/h`` bit for bit.
 
 What bounds it on the card, and what the design does about it (the sources
-say more): at decode (M <= 8) the packed weight bytes, so a GEMV
-(``csrc/qmatmul.cu``) whose blocks split each group of columns' K among
-their warps streams each packed word from device memory once and decodes it
-with a shared-memory table read; at prefill the 2*M*N*K operations, so bf16
-activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128) x 128 output tiles
+say more): at decode (M <= 8) the packed weight bytes, so a GEMV whose
+blocks split each group of columns' K among their warps streams each packed
+word from device memory once and decodes it with a shared-memory table
+read.  ``gemv_route`` picks the GEMV from the operands: bf16 x at 4, 7 or 8
+bits with ``block_size % cpw == 0`` (the whole serving path) goes to
+``csrc/qgemv_sm90.cu``, which multiplies on the tensor cores (``mma.sync``,
+each packed word as its lane's A fragment); the rest (f32 x; 3, 5 and 6
+bits) to the CUDA-core GEMV of ``csrc/qmatmul.cu``.  At prefill the 2*M*N*K
+operations, so bf16 activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128)
+x 128 output tiles
 on Hopper's ``wgmma``, x copied as pre-laid-out tile images by the copy
 engine and the packed words by ``cp.async`` into a ring of stages, the
 weight dequantized into shared memory while the tensor cores multiply the
@@ -47,6 +52,9 @@ from repro_torch.kernels import _build
 
 #: rows up to which the GEMV kernel runs (one pass over the packed weight)
 GEMV_MAX_M = 8
+#: bit widths of the tensor-core GEMV (csrc/qgemv_sm90.cu): whole k16 steps
+#: in a packed word (8 codes at 4 bits, 4 at 7 and 8)
+TC_GEMV_BITS = (4, 7, 8)
 #: output tile of the tensor-core kernel by bit width (csrc/qgemm_sm90.cu
 #: tile_m, BN): 256 rows where the decode leaves registers for two slabs
 TILE_M = {3: 128, 4: 256, 5: 128, 6: 128, 7: 128, 8: 256}
@@ -86,6 +94,15 @@ def x_tiles_shape(M: int, K: int, bits: int):
     return (-(-M // TILE_M[bits]) * TILE_M[bits], -(-K // K_STEP[bits]) * K_STEP[bits])
 
 
+def gemv_route(x_dtype, bits: int, block_size: int) -> str:
+    """The GEMV for these operands: "tc" (tensor cores, csrc/qgemv_sm90.cu)
+    for bf16 x at 4, 7 or 8 bits whose scale blocks hold whole packed words,
+    else "simt" (CUDA cores, csrc/qmatmul.cu)."""
+    tc = (x_dtype == torch.bfloat16 and bits in TC_GEMV_BITS
+          and block_size % packing.codes_per_word(bits) == 0)
+    return "tc" if tc else "simt"
+
+
 def qmatmul_plain(x, packed, scales, codebook, *, bits: int,
                   block_size: int) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on any device."""
@@ -109,6 +126,16 @@ def _lib():
                                          + [ctypes.c_void_p])
         for fn in (lib.qmatmul_gemv, lib.qmatmul_gemm_f32):
             fn.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def _lib_gemv_tc():
+    lib = _build.load("qgemv_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.qmatmul_gemv_tc.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                        + [ctypes.c_void_p])
+        lib.qmatmul_gemv_tc.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -157,8 +184,31 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
-    """Launch the GEMV kernel (M <= GEMV_MAX_M rows) on CUDA tensors."""
+def qmatmul_gemv_tc(x, packed, scales, codebook, *, bits, block_size):
+    """Launch the tensor-core GEMV (M <= GEMV_MAX_M rows, the operands
+    ``gemv_route`` sends to "tc") on CUDA tensors."""
+    _check_operands(x, packed, scales, codebook, bits, block_size)
+    if gemv_route(x.dtype, bits, block_size) != "tc":
+        raise ValueError(f"qmatmul_gemv_tc takes bf16 x at {TC_GEMV_BITS} bits with whole "
+                         f"words per scale block, got {x.dtype}, {bits} bits, B {block_size}")
+    M, K = x.shape
+    N, n_words = packed.shape
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _lib_gemv_tc().qmatmul_gemv_tc(
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
+            y.data_ptr(), M, N, K, n_words, bits, block_size, _stream(x))
+    _build.check(status, "qmatmul_gemv_tc")
+    qmatmul_gemv_tc.launches += 1
+    return y
+
+
+qmatmul_gemv_tc.launches = 0
+
+
+def qmatmul_gemv_simt(x, packed, scales, codebook, *, bits, block_size):
+    """Launch the CUDA-core GEMV (M <= GEMV_MAX_M rows, f32 or bf16 x) on
+    CUDA tensors."""
     _check_operands(x, packed, scales, codebook, bits, block_size)
     M, K = x.shape
     N, n_words = packed.shape
@@ -169,6 +219,19 @@ def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
             y.data_ptr(), M, N, K, n_words, bits, block_size,
             int(x.dtype == torch.bfloat16), _stream(x))
     _build.check(status, "qmatmul_gemv")
+    qmatmul_gemv_simt.launches += 1
+    return y
+
+
+qmatmul_gemv_simt.launches = 0
+
+
+def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
+    """Launch the GEMV that ``gemv_route`` picks for the operands (M <=
+    GEMV_MAX_M rows) on CUDA tensors; counts every launch of either."""
+    tc = gemv_route(x.dtype, bits, block_size) == "tc"
+    launch = qmatmul_gemv_tc if tc else qmatmul_gemv_simt
+    y = launch(x, packed, scales, codebook, bits=bits, block_size=block_size)
     qmatmul_gemv.launches += 1
     return y
 

@@ -317,6 +317,102 @@ def test_quantize_blocks_cuda_kernel_bit_exact(bits, dtype):
         assert torch.equal(kc, pc) and torch.equal(ks.view(torch.int32), ps.view(torch.int32))
 
 
+# the tensor-core GEMV's edges: every row count (it always multiplies 8 rows
+# and masks the rest), columns around its 16-column blocks, K off its
+# 128-code chunks, 4, 7 and 8 bits over three data types and blocks
+GEMV_TC_CASES = [(bits, dtype, block) for bits in tqm.TC_GEMV_BITS
+                 for dtype in ("int", "float", "dynamic") for block in (16, 32, 64)]
+
+
+def _gemv_tc_check(bits, dtype, block, Ms, K, N, seed):
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(seed)
+    op = tops.prepare_operand(torch.tensor(rs.randn(K, N) * 0.05, dtype=torch.float32,
+                                           device=dev), bits=bits, dtype=dtype, block_size=block)
+    for M in Ms:
+        x = torch.tensor(rs.randn(M, K), device=dev).to(torch.bfloat16)
+        xp, packed, scales = tops.pad_for_kernel(x, op)
+        kw = dict(bits=bits, block_size=block)
+        before = tqm.qmatmul_gemv_tc.launches
+        y_k = tqm.qmatmul_gemv_tc(xp, packed, scales, op.codebook, **kw).float()
+        y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
+        torch.cuda.synchronize()
+        assert tqm.qmatmul_gemv_tc.launches == before + 1
+        assert float((y_k - y_p).abs().max()) <= BF16_REL_TOL * float(y_p.abs().max()), (M, K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,block", GEMV_TC_CASES)
+def test_qmatmul_gemv_tc_matches_plain(bits, dtype, block):
+    _need_cuda()
+    for i, N in enumerate((8, 16, 17, 70, 512)):
+        _gemv_tc_check(bits, dtype, block, (1, 2, 3, 4, 5, 8), (200, 328, 1000)[i % 3], N,
+                       seed=bits * 7 + block + i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(4, 16), (4, 24), (4, 40), (7, 8), (7, 12), (8, 20)])
+def test_qmatmul_gemv_tc_single_word_rows(bits, block):
+    """Rows whose word count is not a multiple of 4 (read a word at a time),
+    and scale blocks of a word count that is not a power of two."""
+    _need_cuda()
+    K = 200
+    bk = (32 // bits) * block // np.gcd(32 // bits, block)
+    assert (-(-K // bk) * bk // (32 // bits)) % 4 != 0
+    _gemv_tc_check(bits, "float", block, (1, 4, 8), K, 70, seed=bits + block)
+
+
+def test_gemv_route_sends_bf16_whole_word_blocks_at_4_7_8_bits_to_tensor_cores():
+    """gemv_route picks the tensor-core GEMV exactly for bf16 x at 4, 7 or 8
+    bits with scale blocks of whole packed words, the CUDA-core one otherwise."""
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for bits in range(3, 9):
+            for block in (4, 6, 8, 10, 12, 16, 20, 32, 48, 64, 1024):
+                tc = (x_dtype == torch.bfloat16 and bits in (4, 7, 8)
+                      and block % (32 // bits) == 0)
+                assert tqm.gemv_route(x_dtype, bits, block) == ("tc" if tc else "simt"), \
+                    (x_dtype, bits, block)
+    assert tqm.gemv_route(torch.bfloat16, 4, 64) == "tc"   # the serving path
+
+
+def test_gemv_routed_widths_match_kernel_source():
+    """The bit widths gemv_route sends to the tensor cores are the case
+    labels of qgemv_sm90.cu's entry, and the CUDA-core GEMV and the prefill
+    GEMM instantiate every width the wrapper accepts (3 to 8)."""
+    import re
+
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    tc = (csrc / "qgemv_sm90.cu").read_text()
+    assert {int(b) for b in re.findall(r"case (\d+): return launch<\1>", tc)} == \
+        set(tqm.TC_GEMV_BITS)
+    simt = (csrc / "qmatmul.cu").read_text()
+    assert {int(b) for b in re.findall(r"case (\d+): gemv_rows<T, \1>", simt)} == set(range(3, 9))
+    sm90 = (csrc / "qgemm_sm90.cu").read_text()
+    assert {int(b) for b in re.findall(r"case (\d+): return launch<\1>", sm90)} == \
+        set(range(3, 9))
+
+
+def test_kernel_wrappers_refuse_what_their_kernels_do_not_take():
+    """Widths outside 3 to 8 raise in every launcher, and the tensor-core
+    GEMV raises for operands gemv_route does not send to it; all before any
+    launch, so the CPU shows it."""
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    scales = torch.zeros(16, 1, dtype=torch.bfloat16)
+    for bits in (2, 9):
+        packed = torch.zeros(16, 64 // (32 // bits), dtype=torch.int32)
+        cb = torch.zeros(2 ** bits)
+        for launch in (tqm.qmatmul_gemv, tqm.qmatmul_gemv_simt, tqm.qmatmul_gemm):
+            with pytest.raises(ValueError, match="3 to 8 bits"):
+                launch(x, packed, scales, cb, bits=bits, block_size=64)
+    for xdt, bits, block, K in ((torch.float32, 4, 64, 64), (torch.bfloat16, 5, 64, 192),
+                                (torch.bfloat16, 8, 6, 12)):
+        packed = torch.zeros(16, K // (32 // bits), dtype=torch.int32)
+        with pytest.raises(ValueError, match="qmatmul_gemv_tc takes"):
+            tqm.qmatmul_gemv_tc(torch.zeros(4, K, dtype=xdt), packed,
+                                torch.zeros(16, K // block, dtype=torch.bfloat16),
+                                torch.zeros(2 ** bits), bits=bits, block_size=block)
+
+
 def _prefill_shapes():
     """{arch: [(K, N)]} of every matrix the quantized forward multiplies:
     Qwen2-7B's projections and the paper ladder's (tied embeddings, so no
