@@ -67,7 +67,8 @@ GEMV_TC_ABLATIONS = {
     "kernel": [],
     # the packed words themselves are the A fragments: no table read, scale
     # product or conversion (and so no scale loads)
-    "no_decode": [("        decode_word<BITS>(words[i][q], bf16_bits_to_float(sc[i][q]), lut, pr[i]);",
+    "no_decode": [("      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut, pr[i]);",
+                   "      for (int i = 0; i < ROWS; ++i)\n"
                    "        for (int p = 0; p < CPW / 2; ++p) pr[i][p] = words[i][q] >> p;")],
     # the fragments are folded by XOR into a register that reaches the
     # output, instead of multiplied (2 LOP3 for each mma)
@@ -78,19 +79,22 @@ GEMV_TC_ABLATIONS = {
     "no_x_loads": [("    load_x<CPW, VEC>(xrow, has_x, w0, n_words, xv);",
                     "    for (int q = 0; q < WPL; ++q)\n"
                     "      for (int p = 0; p < CPW / 2; ++p) xv[q][p] = 0x3f803f80u;")],
-    # the word copies read nothing (they zero-fill their ring slots)
-    "no_word_loads": [("      cp_async<16>(dst, r.w[i] + (ok ? w0 : 0), ok);",
-                       "      cp_async<16>(dst, r.w[i], false);")],
+    # words made in registers from their index
+    "no_word_loads": [("    load_words<VEC>(r, w0, words);",
+                       "    for (int i = 0; i < ROWS; ++i)\n"
+                       "      for (int q = 0; q < WPL; ++q) words[i][q] = (w0 + q) * 0x9E3779B9u + i;")],
 }
-# the tensor-core GEMV's knobs (warps a block, chunks of words in flight,
-# accumulator chains), each variant one text substitution of the defaults
+# the tensor-core GEMV's knobs (warps a block, the warps an SM must hold,
+# accumulator chains, words a lane takes a chunk), each variant one text
+# substitution of the defaults
 GEMV_TC_KNOBS = {"min_warps": "constexpr int MIN_WARPS = 4;",
                  "max_warps": "constexpr int MAX_WARPS = 16;",
-                 "stages": "constexpr int STAGES = 4;", "accs": "constexpr int ACCS = 2;"}
+                 "occupancy": "constexpr int OCCUPANCY = 0;", "accs": "constexpr int ACCS = 2;",
+                 "wpl": "constexpr int WPL = 4;"}
 GEMV_TC_CONFIGS = {
-    "s1": {"stages": 1}, "s2": {"stages": 2}, "s3": {"stages": 3}, "s6": {"stages": 6},
-    "acc1": {"accs": 1}, "w8": {"min_warps": 8, "max_warps": 8}, "min8": {"min_warps": 8},
-    "max8": {"max_warps": 8},
+    "acc1": {"accs": 1}, "occ40": {"occupancy": 40}, "occ48": {"occupancy": 48},
+    "wpl8": {"wpl": 8}, "wpl8_occ32": {"wpl": 8, "occupancy": 32},
+    "w8": {"min_warps": 8, "max_warps": 8}, "max8": {"max_warps": 8},
 }
 
 

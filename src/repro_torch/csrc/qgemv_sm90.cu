@@ -70,12 +70,11 @@ using bf16 = __nv_bfloat16;
 constexpr int MIN_WARPS = 4;
 constexpr int MAX_WARPS = 16;
 constexpr int FILL_PER_SM = 32;
-constexpr int STAGES = 4;   // chunks of words in flight a warp (cp.async ring)
-constexpr int ACCS = 2;     // accumulator tiles a warp, alternating by word
-constexpr int ROWS = 2;     // W rows a lane reads: g and g + 8
-constexpr int WPL = 4;      // words a lane takes per row and chunk: a uint4
+constexpr int OCCUPANCY = 0;  // if > 0, warps an SM must hold (caps the registers)
+constexpr int ACCS = 2;       // accumulator tiles a warp, alternating by k16 step
+constexpr int ROWS = 2;       // W rows a lane reads: g and g + 8
+constexpr int WPL = 4;        // words a lane takes per row and chunk: a uint4 (or two)
 constexpr int CHUNK = 4 * WPL;  // words per row and chunk: the row's 4 lanes
-constexpr int RING_BYTES = STAGES * ROWS * 32 * 16;  // a warp's ring
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn.bf16x2.f32
@@ -84,31 +83,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float bf16_bits_to_float(unsigned short v) {
   return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` (16 or 4) global -> shared, asynchronously; zero-filled unless ok
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// this thread's copies done but for its newest N groups
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // d += A . B on the tensor cores, bf16 operands, f32 sums
@@ -160,17 +134,41 @@ __device__ __forceinline__ int block_of(const Rows& r, int w) {
   return r.lg_wpb >= 0 ? w >> r.lg_wpb : w / r.wpb;
 }
 
-// the raw bf16 scale of each of the lane's words from w0 on, zero past the
-// row's end; the lane's words share one block when wpb is a multiple of WPL
+// each of the lane's words from w0 on, zero past the row's end: one uint4
+// a row, or single words where rows are not whole uint4s
+template <bool VEC>
+__device__ __forceinline__ void load_words(const Rows& r, int w0, uint32_t (&words)[ROWS][WPL]) {
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    if constexpr (VEC) {  // n_words % 4 == 0: each uint4 of words is all in or all out
+#pragma unroll
+      for (int j = 0; j < WPL / 4; ++j) {
+        const int w = w0 + 4 * j;
+        const uint4 v = w < r.n_words ? __ldg(reinterpret_cast<const uint4*>(r.w[i] + w))
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        words[i][4 * j] = v.x;
+        words[i][4 * j + 1] = v.y;
+        words[i][4 * j + 2] = v.z;
+        words[i][4 * j + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < WPL; ++q)
+        words[i][q] = w0 + q < r.n_words ? __ldg(r.w[i] + w0 + q) : 0u;
+    }
+  }
+}
+
+// the scale of each of the lane's words from w0 on, zero past the row's
+// end; the lane's words share one block when wpb is a multiple of WPL
 // (their first word is a multiple of WPL)
-__device__ __forceinline__ void load_scales(const Rows& r, int w0,
-                                            unsigned short (&s)[ROWS][WPL]) {
+__device__ __forceinline__ void load_scales(const Rows& r, int w0, float (&s)[ROWS][WPL]) {
   if (r.wpb % WPL == 0) {
     const bool ok = w0 < r.n_words;
     const int b = block_of(r, w0);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const unsigned short v = ok ? __ldg(r.s[i] + b) : static_cast<unsigned short>(0);
+      const float v = ok ? bf16_bits_to_float(__ldg(r.s[i] + b)) : 0.f;
 #pragma unroll
       for (int q = 0; q < WPL; ++q) s[i][q] = v;
     }
@@ -180,32 +178,9 @@ __device__ __forceinline__ void load_scales(const Rows& r, int w0,
       const bool ok = w0 + q < r.n_words;
       const int b = block_of(r, w0 + q);
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        s[i][q] = ok ? __ldg(r.s[i] + b) : static_cast<unsigned short>(0);
+      for (int i = 0; i < ROWS; ++i) s[i][q] = ok ? bf16_bits_to_float(__ldg(r.s[i] + b)) : 0.f;
     }
   }
-}
-
-// the lane's words of chunk c into ring slot `slot` (ROWS x 32 lanes of 16
-// bytes), zero past the row's end: one 16-byte copy a row, or four 4-byte
-// copies where rows are not whole uint4s
-template <bool VEC>
-__device__ __forceinline__ void issue_words(const Rows& r, uint4* slot, int lane, int w0) {
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const uint32_t dst = smem_u32(slot + i * 32 + lane);
-    if constexpr (VEC) {
-      const bool ok = w0 < r.n_words;
-      cp_async<16>(dst, r.w[i] + (ok ? w0 : 0), ok);
-    } else {
-#pragma unroll
-      for (int q = 0; q < WPL; ++q) {
-        const bool ok = w0 + q < r.n_words;
-        cp_async<4>(dst + 4 * q, r.w[i] + (ok ? w0 + q : 0), ok);
-      }
-    }
-  }
-  cp_async_commit();
 }
 
 // the bf16 pairs of x row g that words w0 .. w0 + 3 multiply: pairs
@@ -219,11 +194,12 @@ __device__ __forceinline__ void load_x(const bf16* xrow, bool has_x, int w0, int
       uint4 v[N16];
       uint32_t u[WPL][CPW / 2];
     } b;
-    const bool ok = has_x && w0 < n_words;
 #pragma unroll
-    for (int i = 0; i < N16; ++i)
+    for (int i = 0; i < N16; ++i) {  // uint4 i holds words w0 + 8i / CPW, all in or all out
+      const bool ok = has_x && w0 + 8 * i / CPW < n_words;
       b.v[i] = ok ? __ldg(reinterpret_cast<const uint4*>(xrow + static_cast<size_t>(w0) * CPW) + i)
                   : make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
     for (int q = 0; q < WPL; ++q)
 #pragma unroll
@@ -249,14 +225,13 @@ __device__ __forceinline__ void load_x(const bf16* xrow, bool has_x, int w0, int
 }
 
 template <int BITS, bool VEC, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, OCCUPANCY > WARPS ? OCCUPANCY / WARPS : 1)
 qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
                 const unsigned short* __restrict__ scales, const float* __restrict__ codebook,
                 bf16* __restrict__ y, int M, int N, int n_words, int wpb, int lg_wpb) {
   constexpr int CPW = 32 / BITS;
   constexpr int STEPS = CPW / 4;  // k16 steps a word feeds
   static_assert(CPW % 4 == 0, "whole k16 steps in a word");
-  extern __shared__ uint4 ring[];  // [WARPS][STAGES][ROWS][32 lanes]
   __shared__ float lut[1 << BITS];
   __shared__ float part[WARPS][32][4];
   for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) lut[i] = codebook[i];
@@ -280,49 +255,22 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
   r.lg_wpb = lg_wpb;
   const bool has_x = g < M;
   const bf16* xrow = x + static_cast<size_t>(has_x ? g : 0) * n_words * CPW;
-  uint4* my_ring = ring + warp * STAGES * ROWS * 32;
 
-  // Chunk c's words land in slot (c / WARPS) % STAGES, STAGES - 1 chunks
-  // ahead of their decode; chunks past the end are all masked (no access),
-  // so every iteration commits one group.  Scales come one chunk ahead,
-  // into registers; x (L1-resident) with its chunk.
   float d[ACCS][4] = {};
   const int n_chunks = (n_words + CHUNK - 1) / CHUNK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s)
-    issue_words<VEC>(r, my_ring + s * ROWS * 32, lane, (warp + s * WARPS) * CHUNK + t * WPL);
-  unsigned short sc_next[ROWS][WPL];
-  load_scales(r, warp * CHUNK + t * WPL, sc_next);
-  int it = 0;
-  for (int c = warp; c < n_chunks; c += WARPS, ++it) {
+  for (int c = warp; c < n_chunks; c += WARPS) {
     const int w0 = c * CHUNK + t * WPL;
-    issue_words<VEC>(r, my_ring + ((it + STAGES - 1) % STAGES) * ROWS * 32, lane,
-                     w0 + (STAGES - 1) * WARPS * CHUNK);
-    unsigned short sc[ROWS][WPL];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int q = 0; q < WPL; ++q) sc[i][q] = sc_next[i][q];
-    load_scales(r, w0 + WARPS * CHUNK, sc_next);
-    uint32_t xv[WPL][CPW / 2];
-    load_x<CPW, VEC>(xrow, has_x, w0, n_words, xv);
-    cp_async_wait<STAGES - 1>();
-    const uint4* slot = my_ring + (it % STAGES) * ROWS * 32;
     uint32_t words[ROWS][WPL];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const uint4 v = slot[i * 32 + lane];
-      words[i][0] = v.x;
-      words[i][1] = v.y;
-      words[i][2] = v.z;
-      words[i][3] = v.w;
-    }
+    float sc[ROWS][WPL];
+    uint32_t xv[WPL][CPW / 2];
+    load_words<VEC>(r, w0, words);
+    load_scales(r, w0, sc);
+    load_x<CPW, VEC>(xrow, has_x, w0, n_words, xv);
 #pragma unroll
     for (int q = 0; q < WPL; ++q) {
       uint32_t pr[ROWS][CPW / 2];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        decode_word<BITS>(words[i][q], bf16_bits_to_float(sc[i][q]), lut, pr[i]);
+      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut, pr[i]);
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {
         const uint32_t a[4] = {pr[0][2 * st], pr[1][2 * st], pr[0][2 * st + 1],
@@ -331,7 +279,6 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
       }
     }
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -365,15 +312,7 @@ struct Args {
 
 template <int BITS, bool VEC, int WARPS>
 int launch_kernel(const Args& a, unsigned grid, cudaStream_t stream) {
-  constexpr int SMEM = WARPS * RING_BYTES;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(qgemv_tc_kernel<BITS, VEC, WARPS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
-  qgemv_tc_kernel<BITS, VEC, WARPS><<<grid, WARPS * 32, SMEM, stream>>>(
+  qgemv_tc_kernel<BITS, VEC, WARPS><<<grid, WARPS * 32, 0, stream>>>(
       a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.n_words, a.wpb, a.lg_wpb);
   return static_cast<int>(cudaGetLastError());
 }
@@ -430,7 +369,7 @@ extern "C" int qmatmul_gemv_tc(const void* x, const void* packed, const void* sc
   const Args a{static_cast<const bf16*>(x), static_cast<const uint32_t*>(packed),
                static_cast<const unsigned short*>(scales), static_cast<const float*>(codebook),
                static_cast<bf16*>(y), M, N, n_words, wpb, lg};
-  const bool vec = n_words % WPL == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  const bool vec = n_words % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 4: return launch<4>(a, vec, s);
