@@ -60,20 +60,21 @@ ABLATIONS = {
     # the producer copies no packed words (the decode reads stale ones)
     "no_word_copy": [("        cp_async16(ps + i * 16,", "        if (false) cp_async16(ps + i * 16,")],
 }
-TC_KEEP = [("  float d[ACCS][4] = {};", "  float d[ACCS][4] = {};\n  uint32_t keep = 0u;"),
-           ("    part[warp][lane][e] = v;", "    part[warp][lane][e] = v + __uint_as_float(keep & 1u);")]
+TC_KEEP = [("  float d[4] = {};", "  float d[4] = {};\n  uint32_t keep = 0u;"),
+           ("  for (int e = 0; e < 4; ++e) part[warp][lane][e] = d[e];",
+            "  for (int e = 0; e < 4; ++e) part[warp][lane][e] = d[e] + __uint_as_float(keep & 1u);")]
 # the tensor-core GEMV (qgemv_sm90.cu)
 GEMV_TC_ABLATIONS = {
     "kernel": [],
     # the packed words themselves are the A fragments: no table read, scale
     # product or conversion (and so no scale loads)
-    "no_decode": [("      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut, pr[i]);",
+    "no_decode": [("      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut_addr, pr[i]);",
                    "      for (int i = 0; i < ROWS; ++i)\n"
                    "        for (int p = 0; p < CPW / 2; ++p) pr[i][p] = words[i][q] >> p;")],
     # the fragments are folded by XOR into a register that reaches the
     # output, instead of multiplied (2 LOP3 for each mma)
     "no_mma": TC_KEEP + [
-        ("        mma_16816(d[(q * STEPS + st) % ACCS], a, xv[q][2 * st], xv[q][2 * st + 1]);",
+        ("        mma_16816(d, a, xv[q][2 * st], xv[q][2 * st + 1]);",
          "        keep ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ xv[q][2 * st] ^ xv[q][2 * st + 1];")],
     # B fragments from a constant
     "no_x_loads": [("    load_x<CPW, VEC>(xrow, has_x, w0, n_words, xv);",
@@ -84,17 +85,16 @@ GEMV_TC_ABLATIONS = {
                        "    for (int i = 0; i < ROWS; ++i)\n"
                        "      for (int q = 0; q < WPL; ++q) words[i][q] = (w0 + q) * 0x9E3779B9u + i;")],
 }
-# the tensor-core GEMV's knobs (warps a block, the warps an SM must hold,
-# accumulator chains, words a lane takes a chunk), each variant one text
-# substitution of the defaults
+# the tensor-core GEMV's knobs (warps a block, the warps an SM must hold),
+# each variant one text substitution of the defaults; and the table read
+# through a generic pointer (an address add a code more)
 GEMV_TC_KNOBS = {"min_warps": "constexpr int MIN_WARPS = 4;",
                  "max_warps": "constexpr int MAX_WARPS = 16;",
-                 "occupancy": "constexpr int OCCUPANCY = 0;", "accs": "constexpr int ACCS = 2;",
-                 "wpl": "constexpr int WPL = 4;"}
-GEMV_TC_CONFIGS = {
-    "acc1": {"accs": 1}, "occ40": {"occupancy": 40}, "occ48": {"occupancy": 48},
-    "wpl8": {"wpl": 8}, "wpl8_occ32": {"wpl": 8, "occupancy": 32},
-    "w8": {"min_warps": 8, "max_warps": 8}, "max8": {"max_warps": 8},
+                 "occupancy": "constexpr int OCCUPANCY = 40;"}
+GEMV_TC_CONFIGS = {"occ0": {"occupancy": 0}, "w8": {"min_warps": 8, "max_warps": 8}}
+GEMV_TC_VARIANTS = {
+    "lut_generic": [('  asm("ld.shared.f32 %0, [%1];\\n" : "=f"(v) : "r"(addr));',
+                     "  v = *static_cast<const float*>(__cvta_shared_to_generic(addr));")],
 }
 
 
@@ -236,6 +236,8 @@ def decode(torch, dev):
             for n, s in GEMV_TC_ABLATIONS.items()]
     jobs += [("qgemv_sm90.cu", "qmatmul_gemv_tc", f"gemv_tc_cfg_{n}", knob_subs(c))
              for n, c in GEMV_TC_CONFIGS.items()]
+    jobs += [("qgemv_sm90.cu", "qmatmul_gemv_tc", f"gemv_tc_cfg_{n}", s)
+             for n, s in GEMV_TC_VARIANTS.items()]
     jobs += [("qmatmul.cu", "qmatmul_gemv", f"gemv_simt_{n}", s)
              for n, s in GEMV_SIMT_ABLATIONS.items()]
     libs = build_all(jobs)

@@ -20,9 +20,12 @@
 // (1.13 ms for a Qwen2-7B decode step at 4 bits, b64).  The CUDA-core kernel
 // issues ~12 instructions a code (decode, one FMA per row, x widened to f32
 // for every word).  Here the tensor cores take the products and x as it is
-// stored; what is left on the CUDA cores is the decode: a shift and a mask,
-// a read of the 2^bits-entry table in shared memory, an f32 product with the
-// scale, and one cvt.rn.bf16x2.f32 a pair.
+// stored; what is left on the CUDA cores is the decode: the code's byte
+// offset into the 2^bits-entry table in shared memory (at 4 bits one shift
+// and one mask for four codes, then a byte permute each), the table read
+// (one LDS, the table's address folded into it), an f32 product with the
+// scale, and one cvt.rn.bf16x2.f32 a pair: about 4 instructions a code,
+// whose issue alone takes about as long as the bytes.
 //
 // Products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with
 //   A = 16 output columns x k16 of W,  B = k16 x 8 rows of x (rows >= M are
@@ -49,10 +52,19 @@
 // .. 4s + 3 in step s); its x are cpw consecutive bf16 of row g, 16 bytes at
 // 4 bits.  Where a row's word count is not a multiple of 4, or the words do
 // not start on 16 bytes, the same words are read one at a time.  The
-// block's 8 warps take the chunks in turn (warp w: chunks w, w + 8, ...),
-// and their D tiles are summed through shared memory in warp order.  K and
-// N tails are masked here: words past a row's end get zero x and a zero
-// scale; columns past N read column N - 1 and are not written.
+// block's warps take the chunks in turn (warp w: chunks w, w + WARPS, ...),
+// loading each chunk's words, scales and x straight into registers; their
+// accumulator tiles are summed through shared memory in warp order.  WARPS is 4, 8 or 16, the fewest
+// that put 32 warps on every SM: 4 for gate/up and the lm_head (each warp
+// keeps more K), 16 for the 3584- and 512-column shapes.  Registers are
+// capped so that an SM holds 40 warps.  K and N tails are masked here:
+// words past a row's end get zero x and a zero scale; columns past N read
+// column N - 1 and are not written.
+// Tried on the card and not kept (PERF.md): the next chunk's loads
+// in registers ahead of the decode, and a per-warp cp.async ring of words
+// in shared memory (both slower: more registers, or more shared-memory
+// traffic beside the table reads), two m16 tiles a warp, 8 words a lane,
+// two accumulator tiles a warp.
 // K comes from kernels/ops.py padded to lcm(cpw, B): K == n_words * cpw.
 
 #include <cuda_bf16.h>
@@ -70,10 +82,9 @@ using bf16 = __nv_bfloat16;
 constexpr int MIN_WARPS = 4;
 constexpr int MAX_WARPS = 16;
 constexpr int FILL_PER_SM = 32;
-constexpr int OCCUPANCY = 0;  // if > 0, warps an SM must hold (caps the registers)
-constexpr int ACCS = 2;       // accumulator tiles a warp, alternating by k16 step
-constexpr int ROWS = 2;       // W rows a lane reads: g and g + 8
-constexpr int WPL = 4;        // words a lane takes per row and chunk: a uint4 (or two)
+constexpr int OCCUPANCY = 40;   // warps an SM must hold, if > 0 (caps the registers)
+constexpr int ROWS = 2;         // W rows a lane reads: g and g + 8
+constexpr int WPL = 4;          // words a lane takes per row and chunk: a uint4
 constexpr int CHUNK = 4 * WPL;  // words per row and chunk: the row's 4 lanes
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -83,6 +94,25 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float bf16_bits_to_float(unsigned short v) {
   return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the f32 at shared address `addr`: a table's address plus a code's byte
+// offset, which ptxas folds into one LDS with an immediate base
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// the byte offset into the table of code j of `word`
+template <int BITS>
+__device__ __forceinline__ uint32_t code_offset(uint32_t word, int j) {
+  constexpr uint32_t MASK4 = ((1u << BITS) - 1u) << 2;
+  return (j * BITS >= 2 ? word >> (j * BITS - 2) : word << (2 - j * BITS)) & MASK4;
 }
 
 // d += A . B on the tensor cores, bf16 operands, f32 sums
@@ -96,29 +126,25 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // a word's CPW codes, decoded and scaled, as bf16 pairs: pair p holds codes
-// 2p (low) and 2p + 1
+// 2p (low) and 2p + 1.  lut is the table's shared address.
 template <int BITS>
-__device__ __forceinline__ void decode_word(uint32_t word, float s, const float* lut,
+__device__ __forceinline__ void decode_word(uint32_t word, float s, uint32_t lut,
                                             uint32_t (&pr)[32 / BITS / 2]) {
   constexpr int PAIRS = 32 / BITS / 2;
   if constexpr (BITS == 4) {
-    // the byte offsets into lut of codes 0, 2, 4, 6 (even) and 1, 3, 5, 7
-    // (odd), one a byte, from one shift and one mask each; a byte permute
-    // takes each out
+    // the byte offsets of codes 0, 2, 4, 6 (even) and 1, 3, 5, 7 (odd), one
+    // a byte, from one shift and one mask each; a byte permute takes each out
     const uint32_t even = (word << 2) & 0x3C3C3C3Cu;
     const uint32_t odd = (word >> 2) & 0x3C3C3C3Cu;
-    const char* base = reinterpret_cast<const char*>(lut);
 #pragma unroll
     for (int p = 0; p < PAIRS; ++p)
-      pr[p] = pack_bf16x2(
-          *reinterpret_cast<const float*>(base + __byte_perm(even, 0u, 0x4440u + p)) * s,
-          *reinterpret_cast<const float*>(base + __byte_perm(odd, 0u, 0x4440u + p)) * s);
+      pr[p] = pack_bf16x2(lds_f32(lut + __byte_perm(even, 0u, 0x4440u + p)) * s,
+                          lds_f32(lut + __byte_perm(odd, 0u, 0x4440u + p)) * s);
   } else {
-    constexpr unsigned MASK = (1u << BITS) - 1u;
 #pragma unroll
     for (int p = 0; p < PAIRS; ++p)
-      pr[p] = pack_bf16x2(lut[(word >> (2 * p * BITS)) & MASK] * s,
-                          lut[(word >> ((2 * p + 1) * BITS)) & MASK] * s);
+      pr[p] = pack_bf16x2(lds_f32(lut + code_offset<BITS>(word, 2 * p)) * s,
+                          lds_f32(lut + code_offset<BITS>(word, 2 * p + 1)) * s);
   }
 }
 
@@ -140,17 +166,13 @@ template <bool VEC>
 __device__ __forceinline__ void load_words(const Rows& r, int w0, uint32_t (&words)[ROWS][WPL]) {
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
-    if constexpr (VEC) {  // n_words % 4 == 0: each uint4 of words is all in or all out
-#pragma unroll
-      for (int j = 0; j < WPL / 4; ++j) {
-        const int w = w0 + 4 * j;
-        const uint4 v = w < r.n_words ? __ldg(reinterpret_cast<const uint4*>(r.w[i] + w))
-                                      : make_uint4(0u, 0u, 0u, 0u);
-        words[i][4 * j] = v.x;
-        words[i][4 * j + 1] = v.y;
-        words[i][4 * j + 2] = v.z;
-        words[i][4 * j + 3] = v.w;
-      }
+    if constexpr (VEC) {  // n_words % 4 == 0: the lane's four words are all in or all out
+      const uint4 v = w0 < r.n_words ? __ldg(reinterpret_cast<const uint4*>(r.w[i] + w0))
+                                     : make_uint4(0u, 0u, 0u, 0u);
+      words[i][0] = v.x;
+      words[i][1] = v.y;
+      words[i][2] = v.z;
+      words[i][3] = v.w;
     } else {
 #pragma unroll
       for (int q = 0; q < WPL; ++q)
@@ -194,12 +216,11 @@ __device__ __forceinline__ void load_x(const bf16* xrow, bool has_x, int w0, int
       uint4 v[N16];
       uint32_t u[WPL][CPW / 2];
     } b;
+    const bool ok = has_x && w0 < n_words;
 #pragma unroll
-    for (int i = 0; i < N16; ++i) {  // uint4 i holds words w0 + 8i / CPW, all in or all out
-      const bool ok = has_x && w0 + 8 * i / CPW < n_words;
+    for (int i = 0; i < N16; ++i)
       b.v[i] = ok ? __ldg(reinterpret_cast<const uint4*>(xrow + static_cast<size_t>(w0) * CPW) + i)
                   : make_uint4(0u, 0u, 0u, 0u);
-    }
 #pragma unroll
     for (int q = 0; q < WPL; ++q)
 #pragma unroll
@@ -255,8 +276,9 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
   r.lg_wpb = lg_wpb;
   const bool has_x = g < M;
   const bf16* xrow = x + static_cast<size_t>(has_x ? g : 0) * n_words * CPW;
+  const uint32_t lut_addr = smem_u32(lut);
 
-  float d[ACCS][4] = {};
+  float d[4] = {};
   const int n_chunks = (n_words + CHUNK - 1) / CHUNK;
   for (int c = warp; c < n_chunks; c += WARPS) {
     const int w0 = c * CHUNK + t * WPL;
@@ -270,23 +292,18 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
     for (int q = 0; q < WPL; ++q) {
       uint32_t pr[ROWS][CPW / 2];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut, pr[i]);
+      for (int i = 0; i < ROWS; ++i) decode_word<BITS>(words[i][q], sc[i][q], lut_addr, pr[i]);
 #pragma unroll
       for (int st = 0; st < STEPS; ++st) {
         const uint32_t a[4] = {pr[0][2 * st], pr[1][2 * st], pr[0][2 * st + 1],
                                pr[1][2 * st + 1]};
-        mma_16816(d[(q * STEPS + st) % ACCS], a, xv[q][2 * st], xv[q][2 * st + 1]);
+        mma_16816(d, a, xv[q][2 * st], xv[q][2 * st + 1]);
       }
     }
   }
 
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < ACCS; ++j) v += d[j][e];
-    part[warp][lane][e] = v;
-  }
+  for (int e = 0; e < 4; ++e) part[warp][lane][e] = d[e];
   __syncthreads();
   if (threadIdx.x < 16 * 8) {
     // y[m, n0 + n] is e = 2 (n / 8) + m % 2 of lane 4 (n % 8) + m / 2 in every warp

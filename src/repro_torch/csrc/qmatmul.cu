@@ -37,7 +37,9 @@
 //     shared memory reduce the block.  The row count is a template parameter
 //     (1, 2, 4, 8), so a batch-1 step does an eighth of a batch-8 step's
 //     arithmetic.  On the CUDA cores this is bound by instructions (~6 per
-//     decoded code and column, plus an FMA per row), not by bytes.
+//     decoded code and column, plus an FMA per row), not by bytes: without
+//     its decode a decode step's launches take 40 % less time, without its
+//     word loads 15 % less (scripts/qgemm_ablate.py --gemv, PERF.md).
 //   qgemm_simt (M > 8, f32 x): a tiled CUDA-core product in f32, since the
 //     tensor cores would round f32 activations.
 // Both take K from the wrapper already tile-aligned: K == n_words * cpw and

@@ -25,11 +25,10 @@ bits with ``block_size % cpw == 0`` (the whole serving path) goes to
 each packed word as its lane's A fragment); the rest (f32 x; 3, 5 and 6
 bits) to the CUDA-core GEMV of ``csrc/qmatmul.cu``.  At prefill the 2*M*N*K
 operations, so bf16 activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128)
-x 128 output tiles
-on Hopper's ``wgmma``, x copied as pre-laid-out tile images by the copy
-engine and the packed words by ``cp.async`` into a ring of stages, the
-weight dequantized into shared memory while the tensor cores multiply the
-previous K step.  The wrapper allocates the tile images (``x_tiles_shape``)
+x 128 output tiles on Hopper's ``wgmma``, x copied as pre-laid-out tile
+images by the copy engine and the packed words by ``cp.async`` into a ring
+of stages, the weight dequantized into shared memory while the tensor cores
+multiply the previous K step.  The wrapper allocates the tile images (``x_tiles_shape``)
 and, where a grid has fewer tiles than SMs and K is split across blocks
 (``split_k``), the f32 partial sums that a second, fixed-order pass adds.
 f32 activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu``.

@@ -15,8 +15,12 @@ One interpret-mode case of B1 and B2 (marked ``kernel``) is held against
 the plain version, as the reference's own tests run them; B3's whole grid
 runs in interpret mode, one compilation per bit width.  Cases
 marked ``cuda`` hold each CUDA kernel against its plain version and skip
-without a GPU.  The last tests check the default device and that the port
-never imports jax or ``repro``.
+without a GPU; among them the tensor-core GEMV (``qmatmul_gemv_tc``) over
+its row counts, column and K tails, widths, data types and blocks.  On the
+CPU: which operands ``gemv_route`` sends to it, that the routed widths are
+the kernel sources' cases, and that the launchers refuse what their
+kernels do not take.  The last tests check the default device and that
+the port never imports jax or ``repro``.
 """
 
 import ast
