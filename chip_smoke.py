@@ -12,26 +12,31 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                bf16 ulp at the max) at Qwen2-7B's shapes, both GEMVs' and
                the tensor-core GEMM's edges (3 to 8 bits) and split-K
                shapes and the paper sweep's shapes, the KV dequant
-               (bit-exact) and the blockwise encode (bit-exact codes and
-               scale bits).
+               (bit-exact), the blockwise encode (bit-exact codes and
+               scale bits), the encode to the stored form (bit-exact words
+               and scale bits) and the fused decode attention over the
+               packed cache (<= 2^-6 * max|out| per row and head).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
-               quantized on the card through the encode kernel (4-bit
-               float, block 64; one launch per quantized matrix), Engine
-               with a kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.
-               Checks finite logits and the kernel launches per decode step
-               (every GEMV on the tensor cores, qgemv_sm90).
+               quantized on the card (4-bit float, block 64; one
+               quantize_pack launch per quantized matrix), Engine with a
+               kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.  Checks
+               finite logits and the kernel launches per decode step (every
+               GEMV on the tensor cores, qgemv_sm90; one fused attention a
+               layer and no standalone KV dequant).
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
                card (paper.common.TRAIN_RECIPE), encodes every checkpoint
-               through the encode kernel and reads perplexity through the
+               through the encode kernels and reads perplexity through the
                fused GEMM (fig2: k in {3,4,5,6,8,16}; fig3 data types and
                block sizes); gates training progress and 8-bit perplexity.
   7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed; B1
                also per shape, beside torch.matmul per shape, and the
-               decode GEMV beside the CUDA-core GEMV on the same operands.
+               decode GEMV beside the CUDA-core GEMV on the same operands;
+               the encode beside the chain it replaced, the fused attention
+               beside the path it replaced at 288 and 4096 slots.
 Then the kernels line, the card's name and power limit, and the result.
 Needs no network, imports nothing of JAX or of the JAX package.
 """
@@ -48,11 +53,19 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 ARCH = "qwen2-7b"
 BATCH, PROMPT, NEW_TOKENS, KV_BITS = 4, 256, 32, 4
-# H100 SXM data-sheet rates: HBM bytes/s and dense bf16 tensor-core FLOP/s
+# H100 SXM data-sheet rates: HBM bytes/s, dense bf16 tensor-core FLOP/s and
+# f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 F32_REL_TOL = 2e-5          # tests/test_qmatmul_parity.py REL_TOL: f32 summation order
 BF16_REL_TOL = 2.0 ** -7    # one bf16 ulp at max|y|
+# the fused decode attention against its plain version, per (batch row,
+# head): two bf16 ulps at the row's max; only f32 summation order differs,
+# which can flip the bf16 rounding of a p or of the output
+ATT_REL_TOL = 2.0 ** -6
+LONG_CONTEXT = 4096          # the fused attention's second timing point
+MULTI_ROUND = 16384          # slots past one shared-memory round of the fused attention
 # fused vs dequant_einsum multiply the same bf16-rounded weights and differ
 # only in the order (and, on the tensor cores, the grouping) of their f32
 # sums.  That flips single bf16 roundings of activations, which carry through
@@ -97,7 +110,8 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    report = _build.build(["qgemv_sm90", "qmatmul", "qgemm_sm90", "kv_dequant", "quantize"])
+    report = _build.build(["qgemv_sm90", "qmatmul", "qgemm_sm90", "kv_dequant", "quantize",
+                           "quantize_pack", "kv_decode_attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
@@ -113,15 +127,21 @@ def main() -> int:
     del run
 
     kernels = []
-    for name, key in (("qmatmul_gemv", "gemv"), ("qmatmul_gemm", "gemm"),
-                      ("kv_dequant", "kv"), ("quantize_blocks", "b3")):
+    swept = dict(paper["launches"])
+    swept["gemm"] -= swept["gemm_simt"]   # the tensor-core GEMM's share
+    for name, key, count in (("qmatmul_gemv", "gemv", "gemv_tc"),
+                             ("qmatmul_gemv_simt", "gemv_simt", "gemv_simt"),
+                             ("qmatmul_gemm", "gemm", "gemm"),
+                             ("qgemm_simt", "gemm_simt", "gemm_simt"),
+                             ("kv_dequant", "kv", "kv"), ("kv_decode_attention", "attn", "attn"),
+                             ("quantize_blocks", "b3", "b3"), ("quantize_pack", "pack", "pack")):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": t["source"], "replaces": t["replaces"],
             # the main paths' launches: serving Qwen2-7B (its quantization
             # included) and the paper's sweep
-            "launches": t["launches"] + paper["launches"][key],
+            "launches": t["launches"] + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -152,7 +172,8 @@ def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import quantize as quantk
 
     g = _gen(torch, dev, SEED + 1)
-    worst = {"gemv": 0.0, "gemm": 0.0, "kv": 0.0, "b3": 0.0}
+    worst = {"gemv": 0.0, "gemv_simt": 0.0, "gemm": 0.0, "gemm_simt": 0.0, "kv": 0.0,
+             "attn": 0.0, "b3": 0.0, "pack": 0.0}
     n_checks = 0
 
     def check_b1(Ms, K, N, bits, dtype, block, xdt, main_path, launch=None):
@@ -177,6 +198,11 @@ def check_kernels(torch, dev) -> dict:
             if main_path:
                 key = "gemv" if xp.shape[0] <= qk.GEMV_MAX_M else "gemm"
                 worst[key] = max(worst[key], err)
+            elif launch is None:   # the CUDA-core routes, off the main paths
+                if M <= qk.GEMV_MAX_M and qk.gemv_route(xdt, bits, block) == "simt":
+                    worst["gemv_simt"] = max(worst["gemv_simt"], err)
+                elif M > qk.GEMV_MAX_M and xdt == torch.float32:
+                    worst["gemm_simt"] = max(worst["gemm_simt"], err)
             n_checks += 1
 
     # odd word tails and scale blocks that words straddle; the GEMVs at 1, 2,
@@ -285,10 +311,137 @@ def check_kernels(torch, dev) -> dict:
         w = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
         check_b3(w.reshape(-1).float().reshape(-1, 64), cb, f"Qwen2-7B item {rows}x{cols}")
         del w
+    n_checks += check_pack(torch, dev, g, cfg, worst)
+    n_checks += check_attention(torch, dev, g, cfg, worst)
     emit({"phase": "kernels", "checks": n_checks, "max_abs_err_main_shapes": worst,
           "tolerance": {"f32_rel": F32_REL_TOL, "bf16_rel_to_max": BF16_REL_TOL,
-                        "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact"}})
+                        "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact",
+                        "quantize_pack": "bit-exact",
+                        "kv_decode_attention_rel_to_row_max": ATT_REL_TOL}})
     return worst
+
+
+def _pack_rows(torch, dev, g, cb, rows, cols, block):
+    """[rows, cols] f32: blocks that hold the codebook's values and exact
+    midpoints (absmax a power of two, so x / scale is exact), an all-zero
+    row, then random rows of mixed scale."""
+    special = torch.cat([cb, (cb[:-1] + cb[1:]) / 2.0])
+    special = torch.cat([special, -special])
+    chunks = special.split(block - 1)
+    blocks = []
+    for c in chunks:
+        head = torch.ones(1, device=dev)
+        blk = torch.nn.functional.pad(torch.cat([head, c]), (0, block - 1 - c.numel()))
+        blocks.append(blk * 2.0 ** int(torch.randint(-6, 3, (1,), generator=g, device=dev)))
+    flat = torch.cat(blocks)
+    flat = torch.nn.functional.pad(flat, (0, -(-flat.numel() // cols) * cols - flat.numel()))
+    exact = flat.reshape(-1, cols)[: rows // 2]
+    rand = torch.randn((rows, cols), generator=g, device=dev) * torch.exp(
+        2 * torch.randn((rows, 1), generator=g, device=dev))
+    rand[: exact.shape[0]] = exact
+    rand[rows - 1] = 0.0
+    return rand
+
+
+def check_pack(torch, dev, g, cfg, worst) -> int:
+    """The encode to the stored form against its plain version: bit-exact
+    words and scale bits over 3 to 8 bits, blocks 16 to 1024, the four data
+    types, bf16 and f32 items, both layouts, odd row counts and word tails;
+    then Qwen2-7B's five item shapes as the serve phase stores them."""
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import quantize as quantk
+
+    n = 0
+
+    def one(stored, cb, bits, block, transposed, what):
+        nonlocal n
+        kp, ks = quantk.quantize_pack_cuda(stored, cb, bits=bits, block_size=block,
+                                           transposed=transposed)
+        pp, ps = quantk.quantize_pack_plain(stored, cb, bits=bits, block_size=block,
+                                            transposed=transposed)
+        torch.cuda.synchronize()
+        require(torch.equal(kp, pp) and torch.equal(ks.view(torch.int16), ps.view(torch.int16)),
+                f"quantize_pack {what}: words or scale bits differ")
+        worst["pack"] = max(worst["pack"], float((kp.long() - pp.long()).abs().max()),
+                            float((ks.float() - ps.float()).abs().max()))
+        n += 1
+
+    for bits in range(3, 9):
+        for dtype in ("int", "float", "dynamic", "quantile"):
+            base = torch.randn((4096,), generator=g, device=dev)
+            cb = make_codebook(dtype, bits, tensor=base)
+            for block in (16, 32, 64, 128, 1024):
+                rows, cols = (37, 3 * block) if block < 1024 else (9, 2 * block)
+                w = _pack_rows(torch, dev, g, cb, rows, cols, block)
+                for xdt in (torch.float32, torch.bfloat16):
+                    x = w.to(xdt)
+                    for transposed in (False, True):
+                        stored = x.T.contiguous() if transposed else x
+                        one(stored, cb, bits, block, transposed,
+                            f"{bits}-bit {dtype} b{block} {xdt} transposed={transposed}")
+    cb = make_codebook("float", 4, device=dev)
+    for rows, cols in _qwen_items(cfg):
+        transposed = rows != cfg.vocab_size
+        shape = (cols, rows) if transposed else (rows, cols)
+        stored = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        one(stored, cb, 4, 64, transposed, f"Qwen2-7B item {rows}x{cols}")
+        del stored
+        torch.cuda.empty_cache()
+    return n
+
+
+def _random_cache(torch, dev, g, spec, B, S, feat, n_holes=0):
+    """A packed cache of S slots, every slot written, n_holes of them
+    marked empty (pos -1)."""
+    from repro_torch.kernels import kv_dequant as kvd
+
+    cache = {}
+    for name in ("k", "v"):
+        x = torch.randn((B, S, feat), generator=g, device=dev).to(torch.bfloat16)
+        cache[f"{name}_packed"], cache[f"{name}_scales"] = kvd.encode_rows(x, spec)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    if n_holes:
+        holes = torch.randperm(S, generator=g, device=dev)[:n_holes]
+        pos[holes] = -1
+    cache["pos"] = pos
+    return cache
+
+
+def check_attention(torch, dev, g, cfg, worst) -> int:
+    """The fused decode attention against its plain version, per (batch
+    row, head) within ATT_REL_TOL of the row's max: kv4 and kv8, 1 to 4096
+    slots, empty slots and pos short of the last slot, batch 1 and 4, at
+    Qwen2-7B's heads and at tiny-650k's (kv_tol's model); and a cache of
+    MULTI_ROUND slots, whose CTA shares take more than one round of the
+    kernel's shared memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels import kv_dequant as kvd
+
+    n = 0
+    tiny = get_arch("tiny-650k")
+    for c in (cfg, tiny):
+        K, Dh, H = c.n_kv_heads, c.head_dim, c.n_heads
+        for bits in (4, 8):
+            spec = kvd.KVQuantSpec(bits=bits, block_size=c.kv_block_size, dtype_name="float")
+            for S, batches in ((1, (1, 4)), (17, (1, 4)), (288, (1, 4)),
+                               (LONG_CONTEXT, (1, 4)), (MULTI_ROUND, (1,))):
+                for B in batches:
+                    cache = _random_cache(torch, dev, g, spec, B, S, K * Dh, n_holes=S // 5)
+                    q = torch.randn((B, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+                    for pos in sorted({S - 1, max(0, S - 3)}):
+                        out = kat.decode_attention_packed_cuda(q, cache, pos, spec).float()
+                        ref = kat.decode_attention_packed_plain(q, cache, pos, spec).float()
+                        torch.cuda.synchronize()
+                        gap = (out - ref).abs().amax(-1)
+                        lim = ATT_REL_TOL * ref.abs().amax(-1)
+                        require(bool(torch.isfinite(out).all()) and bool((gap <= lim).all()),
+                                f"kv_decode_attention {c.name} kv{bits} S={S} B={B} pos={pos}: "
+                                f"max gap {float(gap.max())} over the row's 2^-6 * max")
+                        if c is cfg:
+                            worst["attn"] = max(worst["attn"], float(gap.max()))
+                        n += 1
+    return n
 
 
 def _qwen_items(cfg) -> dict:
@@ -305,14 +458,19 @@ def _counts():
     from repro_torch.kernels import kv_dequant as kvd
     from repro_torch.kernels import qmatmul as qk
 
+    from repro_torch.kernels import kv_attention as kat
     from repro_torch.kernels import quantize as quantk
 
     return {"gemv": qk.qmatmul_gemv.launches, "gemv_tc": qk.qmatmul_gemv_tc.launches,
-            "gemm": qk.qmatmul_gemm.launches, "kv": kvd.dequant_rows_cuda.launches,
-            "b3": quantk.quantize_blocks_cuda.launches}
+            "gemv_simt": qk.qmatmul_gemv_simt.launches, "gemm": qk.qmatmul_gemm.launches,
+            "gemm_simt": qk.qmatmul_gemm.simt_launches, "kv": kvd.dequant_rows_cuda.launches,
+            "attn": kat.decode_attention_packed_cuda.launches,
+            "b3": quantk.quantize_blocks_cuda.launches,
+            "pack": quantk.quantize_pack_cuda.launches}
 
 
 def _reset_counts():
+    from repro_torch.kernels import kv_attention as kat
     from repro_torch.kernels import kv_dequant as kvd
     from repro_torch.kernels import qmatmul as qk
     from repro_torch.kernels import quantize as quantk
@@ -321,8 +479,11 @@ def _reset_counts():
     qk.qmatmul_gemv_tc.launches = 0
     qk.qmatmul_gemv_simt.launches = 0
     qk.qmatmul_gemm.launches = 0
+    qk.qmatmul_gemm.simt_launches = 0
     kvd.dequant_rows_cuda.launches = 0
+    kat.decode_attention_packed_cuda.launches = 0
     quantk.quantize_blocks_cuda.launches = 0
+    quantk.quantize_pack_cuda.launches = 0
 
 
 def serve_main_path(torch, dev) -> dict:
@@ -338,17 +499,23 @@ def serve_main_path(torch, dev) -> dict:
     params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     _reset_counts()
+    # the quantization's own peak (the init's transients peak higher)
+    init_peak_bytes = torch.cuda.max_memory_allocated()
+    params_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     qparams = quantize_params(params, QuantConfig(bits=4, dtype="float", block_size=64),
                               cfg, device=dev)
     del params
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    quantize_peak_bytes = torch.cuda.max_memory_allocated()
     per_layer = 7   # wq, wk, wv, wo, w_gate, w_up, w_down
     quant_counts = _counts()
     n_items = per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)   # + lm_head
-    require(quant_counts == {"gemv": 0, "gemv_tc": 0, "gemm": 0, "kv": 0, "b3": n_items},
-            f"quantize_params launched {quant_counts}, want {n_items} encode launches")
+    require(quant_counts == {"gemv": 0, "gemv_tc": 0, "gemv_simt": 0, "gemm": 0,
+                             "gemm_simt": 0, "kv": 0, "attn": 0, "b3": 0, "pack": n_items},
+            f"quantize_params launched {quant_counts}, want {n_items} quantize_pack launches")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(torch, dev, SEED + 2),
                             device=dev)
     engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, device=dev)
@@ -366,10 +533,10 @@ def serve_main_path(torch, dev) -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t4
     counts = _counts()
-    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_bytes = max(init_peak_bytes, torch.cuda.max_memory_allocated())
     n_steps = NEW_TOKENS - 1
     b1_step = per_layer * cfg.n_layers + 1
-    b2_step = 2 * cfg.n_layers
+    b2_step = cfg.n_layers   # one fused attention a layer
     require(tuple(tokens.shape) == (BATCH, NEW_TOKENS), f"tokens shape {tuple(tokens.shape)}")
     require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens out of range")
     require(counts["gemm"] == per_layer * cfg.n_layers,
@@ -378,8 +545,9 @@ def serve_main_path(torch, dev) -> dict:
             f"{counts['gemv']} GEMV launches, want 1 + {n_steps} x {b1_step}")
     require(counts["gemv_tc"] == counts["gemv"],
             f"{counts['gemv_tc']} of {counts['gemv']} GEMV launches on the tensor cores")
-    require(counts["kv"] == n_steps * b2_step,
-            f"{counts['kv']} kv dequant launches, want {n_steps} x {b2_step}")
+    require(counts["attn"] == n_steps * b2_step and counts["kv"] == 0,
+            f"{counts['attn']} fused attention and {counts['kv']} kv dequant launches, want "
+            f"{n_steps} x {b2_step} and 0")
 
     # one more prefill and decode step with logits in hand
     logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=PROMPT + NEW_TOKENS)
@@ -389,8 +557,8 @@ def serve_main_path(torch, dev) -> dict:
     step_counts = _counts()
     require(bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all()),
             "non-finite logits")
-    require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemm": 0, "kv": b2_step,
-                            "b3": 0},
+    require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
+                            "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
             f"one decode step launched {step_counts}")
     # the same step's device time alone: replayed from a CUDA graph, without
     # the host's eager PyTorch overhead that the step above includes
@@ -405,10 +573,12 @@ def serve_main_path(torch, dev) -> dict:
           "decode_step_device_ms": step_device_ms,
           "tokens_per_s": BATCH * NEW_TOKENS / total_s, "generate_s": total_s,
           "max_memory_allocated_bytes": peak_bytes,
+          "quantize_peak_bytes": quantize_peak_bytes,
+          "quantize_peak_over_bf16_params_bytes": quantize_peak_bytes - params_bytes,
           "launches": counts, "launches_per_decode_step": step_counts,
           "launches_quantize": quant_counts})
-    require(counts["b3"] == 0, f"generate launched {counts['b3']} encodes")
-    counts["b3"] = quant_counts["b3"]
+    require(counts["b3"] == counts["pack"] == 0, f"generate launched encodes: {counts}")
+    counts["b3"], counts["pack"] = quant_counts["b3"], quant_counts["pack"]
     return {"cfg": cfg, "qparams": qparams, "prompts": prompts, "counts": counts}
 
 
@@ -447,9 +617,9 @@ def kv_tolerance(torch, dev) -> dict:
                             device=dev)
     gaps = {}
     for bits in (8, 4):
-        before = _counts()["kv"]
+        before = _counts()["attn"]
         gap, agree = kv_oracle_logit_gap(params, cfg.with_kv_quant(bits), prompts, 8, device=dev)
-        require(_counts()["kv"] > before, "kv dequant kernel not in the loop")
+        require(_counts()["attn"] > before, "fused decode attention not in the loop")
         require(gap <= KV_LOGIT_TOL[bits], f"kv{bits} logit gap {gap} > {KV_LOGIT_TOL[bits]}")
         gaps[bits] = {"gap": gap, "greedy_agreement": agree, "tol": KV_LOGIT_TOL[bits]}
     emit({"phase": "kv_tol", "arch": "tiny-650k", "weights": "4-bit float b64", "kv": gaps})
@@ -497,7 +667,7 @@ def paper_path(torch, dev) -> dict:
         rel = abs(by_k[8] / by_k[16] - 1.0)
         require(rel <= PPL_K8_REL_TOL, f"{name}: 8-bit perplexity {by_k[8]} is {rel:.4f} "
                                         f"off 16-bit {by_k[16]}")
-    require(counts["b3"] > 0 and counts["gemm"] > 0,
+    require(counts["pack"] > 0 and counts["gemm"] > 0,
             f"the sweep did not run through the encode kernel and the fused GEMM: {counts}")
     emit({"phase": "paper", "recipe": common.TRAIN_RECIPE, "models": models,
           "fig2_ppl": ppl, "fig2_optimal_precision": fig2["optimal_precision"],
@@ -535,9 +705,9 @@ def _time_ms(torch, fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -606,12 +776,19 @@ def time_kernels(torch, dev, run) -> dict:
         library_ms = _time_ms(torch, lib(list(zip(calls, dense))), reps)
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {"source": src_b1, "replaces": rep_b1,
-                     "launches": counts["gemv" if name == "qmatmul_gemv" else "gemm"],
+                     "launches": (counts["gemv_tc"] if name == "qmatmul_gemv"
+                                  else counts["gemm"] - counts["gemm_simt"]),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "cuda_core_gemv_ms": old_ms,
                      "per": "decode step (197 launches)" if with_head
                      else "prefill (196 launches)", "M": M, "bytes": nbytes, "flops": flops}
+        if old:
+            out["qmatmul_gemv_simt"] = {
+                "source": "src/repro_torch/csrc/qmatmul.cu", "replaces": rep_b1,
+                "launches": counts["gemv_simt"], "ms": old_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "per": "a decode step's operands (197 launches)"}
         per_shape = shapes_ms.setdefault(f"{name}_M{M}", {})
         for K, N in sorted({(c[3].k_dim, c[1].shape[0]) for c in calls}):
             pick = [i for i, c in enumerate(calls) if c[3].k_dim == K and c[1].shape[0] == N]
@@ -651,50 +828,191 @@ def time_kernels(torch, dev, run) -> dict:
         "ms": _time_ms(torch, kv(kvd.dequant_rows_cuda), 20),
         "plain_ms": _time_ms(torch, kv(kvd.dequant_rows_ref), 5),
         "bound_ms": kv_bound, "bound_by": kv_by, "library_ms": None,
-        "per": "decode step (56 launches)", "bytes": kv_bytes}
-    out["quantize_blocks"], shapes_ms["quantize_blocks_B64"] = _time_encode(
-        torch, dev, cfg, counts["b3"], g)
+        "per": "a decode step's caches (56 launches; the decode path now reads them through "
+               "kv_decode_attention)", "bytes": kv_bytes}
+    out["kv_decode_attention"] = _time_attention(torch, dev, cfg, counts["attn"], g)
+    out["qgemm_simt"] = _time_gemm_simt(torch, dev, counts["gemm_simt"], g)
+    out["quantize_blocks"], out["quantize_pack"], shapes_ms["encode_B64"] = _time_encode(
+        torch, dev, cfg, counts, g)
     emit({"phase": "times", "card_rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S,
-                                           "bf16_flop_per_s": BF16_FLOP_PER_S},
+                                           "bf16_flop_per_s": BF16_FLOP_PER_S,
+                                           "f32_flop_per_s": F32_FLOP_PER_S},
           "kernels": out, "per_shape": shapes_ms,
-          "library_note": {"qmatmul": "torch.matmul on the pre-dequantized bf16 weight",
+          "library_note": {"qmatmul": "torch.matmul on the pre-dequantized weight",
                            "kv_dequant": "no single PyTorch call computes it",
-                           "quantize_blocks": "no single PyTorch call computes it"}})
+                           "kv_decode_attention": "no single PyTorch call computes it",
+                           "quantize": "no single PyTorch call computes either encode"}})
     return out
 
 
-def _time_encode(torch, dev, cfg, launches, g):
-    """The encode kernel at each Qwen2-7B item shape (4-bit float, block
+def _time_attention(torch, dev, cfg, launches, g):
+    """The fused decode attention over one decode step (one launch a layer,
+    each layer its own random packed cache, batch 4, every slot valid) at
+    the serve phase's slots and at LONG_CONTEXT, beside the path it replaced
+    (two standalone KV dequant launches a layer and the eager attention) and
+    its plain version."""
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels import kv_dequant as kvd
+    from repro_torch.models import attention as attn
+
+    spec = kvd.kv_spec(cfg)
+    K, Dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    by_slots = {}
+    for S in (PROMPT + NEW_TOKENS, LONG_CONTEXT):
+        caches = [_random_cache(torch, dev, g, spec, BATCH, S, K * Dh)
+                  for _ in range(cfg.n_layers)]
+        q = torch.randn((BATCH, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+
+        def step(fn):
+            def go():
+                for c in caches:
+                    fn(c)
+            return go
+
+        def replaced(c):
+            k, v = attn.dequant_cache_kv(c, spec, K, Dh)
+            m, l, pv = attn.decode_attention_partial(q, k, v, c["pos"], S - 1)
+            return attn.combine_partials(m, l, pv).reshape(q.shape).to(q.dtype)
+
+        c0 = caches[0]
+        nbytes = cfg.n_layers * (sum(t.numel() * t.element_size() for t in c0.values())
+                                 + 2 * q.numel() * 2 + 4 * 2 ** spec.bits)
+        flops = cfg.n_layers * 4.0 * BATCH * H * S * Dh
+        bound_ms, bound_by = _bound(nbytes, flops)
+        by_slots[S] = {
+            "ms": _time_ms(torch, step(lambda c: kat.decode_attention_packed_cuda(
+                q, c, S - 1, spec)), 20),
+            "replaced_ms": _time_ms(torch, step(replaced), 5),
+            "plain_ms": _time_ms(torch, step(lambda c: kat.decode_attention_packed_plain(
+                q, c, S - 1, spec)), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        del caches
+        torch.cuda.empty_cache()
+    main = by_slots[PROMPT + NEW_TOKENS]
+    return {"source": "src/repro_torch/csrc/kv_decode_attention.cu",
+            "replaces": "src/repro/kernels/kv_dequant.py:159", "launches": launches,
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "per": f"decode step ({cfg.n_layers} launches, {PROMPT + NEW_TOKENS} slots)",
+            "replaced_ms": main["replaced_ms"], "by_slots": by_slots}
+
+
+def _time_gemm_simt(torch, dev, launches, g):
+    """B1's f32 CUDA-core GEMM (qgemm_simt) at the sweep's GEMM shapes: each
+    tiny-ladder matrix once at M = 1024 (4-bit float, block 64) with f32 x,
+    beside its plain version and torch.matmul on the same f32 operands (the
+    weight dequantized to f32); bound by f32 operations outside the tensor
+    cores or by bytes."""
+    from repro_torch.configs.tiny import TINY_FAMILY
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qmatmul as qk
+    from repro_torch.kernels.ref import dequantize_operand
+
+    M = 1024
+    calls = []
+    nbytes = flops = 0.0
+    for tcfg in TINY_FAMILY.values():
+        D, F = tcfg.d_model, tcfg.d_ff
+        for K, N in ((D, D), (D, F), (F, D)):
+            w = torch.randn((K, N), generator=g, device=dev) * 0.05
+            op = ops.prepare_operand(w, bits=4, dtype="float", block_size=64)
+            x = torch.randn((M, K), generator=g, device=dev)
+            xp, packed, scales = ops.pad_for_kernel(x, op)
+            calls.append((xp, packed, scales, op, dequantize_operand(op)))
+            nbytes += packed.numel() * 4 + scales.numel() * 2 + xp.numel() * 4 + M * N * 4
+            flops += 2.0 * M * N * xp.shape[1]
+
+    def run(fn):
+        def go():
+            for xp, packed, scales, op, _ in calls:
+                fn(xp, packed, scales, op.codebook, bits=op.bits, block_size=op.block_size)
+        return go
+
+    def lib():
+        for xp, _, _, _, wd in calls:
+            torch.matmul(xp, wd.T)
+
+    bound_ms, bound_by = _bound(nbytes, flops, F32_FLOP_PER_S)
+    return {"source": "src/repro_torch/csrc/qmatmul.cu", "replaces": "src/repro/kernels/qmatmul.py:97",
+            "launches": launches, "ms": _time_ms(torch, run(qk.qmatmul_gemm), 5),
+            "plain_ms": _time_ms(torch, run(qk.qmatmul_plain), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": _time_ms(torch, lib, 5),
+            "per": f"the sweep's {len(calls)} GEMM shapes once each, M = {M}, f32 x",
+            "bytes": nbytes, "flops": flops}
+
+
+def _peak_extra(torch, fn) -> int:
+    """Peak device memory fn takes above what is allocated when it starts."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _time_encode(torch, dev, cfg, counts, g):
+    """Both encode kernels at each Qwen2-7B item shape (4-bit float, block
     64), per launch and summed over one whole-model encode (one launch per
-    quantized matrix: 7 per layer and the lm_head)."""
+    quantized matrix: 7 per layer and the lm_head): quantize_blocks on its
+    f32 blocks (its contract), quantize_pack from the stored bf16 weight
+    beside the chain it replaced (to_structured(quantize_tensor(...)) through
+    quantize_blocks: copies, casts and packing around the old kernel)."""
     from repro_torch.core.codebooks import make_codebook
+    from repro_torch.core.qtensor import quantize_tensor, to_structured
     from repro_torch.kernels import quantize as quantk
 
     cb = make_codebook("float", 4, device=dev)
-    per_model = _qwen_items(cfg)
     per_shape = {}
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
-    for (rows, cols), n in per_model.items():
-        xb = torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16)
-        xb = xb.reshape(-1).float().reshape(-1, 64)
-        ms = _time_ms(torch, lambda: quantk.quantize_blocks_cuda(xb, cb), 10)
-        plain_ms = _time_ms(torch, lambda: quantk.quantize_blocks_plain(xb, cb), 3)
-        # its contract's bytes: 4 in and 4 of code per value, 4 of scale per block
-        nbytes = xb.numel() * 8 + xb.shape[0] * 4 + cb.numel() * 4
-        bound_ms = _bound(nbytes, 0.0)[0]
-        per_shape[f"{rows}x{cols}"] = {"ms_per_call": ms, "plain_ms_per_call": plain_ms,
-                                       "bound_ms_per_call": bound_ms, "per_model_encode": n}
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                       ("bytes", nbytes)):
-            tot[key] += n * v
+    keys = ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bytes", "ms", "plain_ms", "chain_ms",
+            "bound_ms", "bytes")
+    peaks = {"peak_extra_bytes": 0, "chain_peak_extra_bytes": 0}   # largest item's
+    tot = dict.fromkeys(keys, 0.0)
+    for (rows, cols), n in _qwen_items(cfg).items():
+        transposed = rows != cfg.vocab_size   # the matrices are stored [In, Out]
+        stored = torch.randn((cols, rows) if transposed else (rows, cols), generator=g,
+                             device=dev).to(torch.bfloat16)
+        view = stored.T if transposed else stored
+        xb = view.reshape(-1).float().reshape(-1, 64)
+        r = {"b3_ms": _time_ms(torch, lambda: quantk.quantize_blocks_cuda(xb, cb), 10),
+             "b3_plain_ms": _time_ms(torch, lambda: quantk.quantize_blocks_plain(xb, cb), 3),
+             # its contract's bytes: 4 in and 4 of code per value, 4 of scale per block
+             "b3_bytes": xb.numel() * 8 + xb.shape[0] * 4 + cb.numel() * 4}
         del xb
+        kw = dict(bits=4, block_size=64, transposed=transposed)
+        r["ms"] = _time_ms(torch, lambda: quantk.quantize_pack_cuda(stored, cb, **kw), 10)
+        r["plain_ms"] = _time_ms(torch, lambda: quantk.quantize_pack_plain(stored, cb, **kw), 2)
+        r["chain_ms"] = _time_ms(torch, lambda: to_structured(quantize_tensor(
+            view, bits=4, dtype="float", block_size=64)), 2)
+        # device memory one call takes beyond its input, outputs included
+        r["peak_extra_bytes"] = _peak_extra(torch, lambda: quantk.quantize_pack_cuda(
+            stored, cb, **kw))
+        r["chain_peak_extra_bytes"] = _peak_extra(torch, lambda: to_structured(quantize_tensor(
+            view, bits=4, dtype="float", block_size=64)))
+        # 2 bytes in, a packed word per 8 codes and a bf16 scale per block out
+        r["bytes"] = rows * cols * 2 + rows * (cols // 8) * 4 + rows * (cols // 64) * 2 \
+            + cb.numel() * 4
+        r["b3_bound_ms"] = _bound(r["b3_bytes"], 0.0)[0]
+        r["bound_ms"] = _bound(r["bytes"], 0.0)[0]
+        per_shape[f"{rows}x{cols}"] = {**r, "per_model_encode": n, "transposed": transposed}
+        for k in keys:
+            tot[k] += n * r[k]
+        for k in peaks:
+            peaks[k] = max(peaks[k], r[k])
+        del stored, view
         torch.cuda.empty_cache()
+    n_items = sum(_qwen_items(cfg).values())
+    common = {"bound_by": "bytes", "library_ms": None,
+              "per": f"one Qwen2-7B encode ({n_items} launches)"}
     return ({"source": "src/repro_torch/csrc/quantize.cu",
-             "replaces": "src/repro/kernels/quantize.py:33", "launches": launches,
+             "replaces": "src/repro/kernels/quantize.py:33", "launches": counts["b3"],
+             "ms": tot["b3_ms"], "plain_ms": tot["b3_plain_ms"], "bound_ms": tot["b3_bound_ms"],
+             "bytes": tot["b3_bytes"], **common},
+            {"source": "src/repro_torch/csrc/quantize_pack.cu",
+             "replaces": "src/repro/kernels/quantize.py:33", "launches": counts["pack"],
              "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-             "bound_by": "bytes", "library_ms": None,
-             "per": f"one Qwen2-7B encode ({sum(per_model.values())} launches)",
-             "bytes": tot["bytes"]}, per_shape)
+             "bytes": tot["bytes"], "replaced_chain_ms": tot["chain_ms"], **peaks, **common},
+            per_shape)
 
 
 if __name__ == "__main__":

@@ -93,29 +93,60 @@ def _not_in_slice(what: str):
         "blockwise weights; see ROADMAP.md queue A)")
 
 
+def _as_stored(item: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """A 2-D item as ``kernels/quantize.quantize_pack`` reads it: itself if
+    contiguous, its transpose (flagged) if that is, else a contiguous copy;
+    bf16 and f32 as they are, other types as f32."""
+    if item.dtype not in (torch.bfloat16, torch.float32):
+        item = item.to(torch.float32)
+    if item.is_contiguous():
+        return item, False
+    if item.T.is_contiguous():
+        return item.T, True
+    return item.contiguous(), False
+
+
 def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
                     block_size: int = 64, batch_dims: int = 0,
                     centering: bool = False, exponent_bits: int | None = None,
                     outlier_idx: torch.Tensor | None = None, outlier_axis: int = 0,
-                    transposed: bool = False,
+                    transposed: bool = False, structured: bool = False,
                     scale_dtype=torch.bfloat16) -> QuantizedTensor:
     """Quantize ``x`` on its device; the leading ``batch_dims`` axes are
-    quantized independently, one item at a time (the reference vmaps)."""
+    quantized independently, one item at a time (the reference vmaps).
+
+    With ``structured``, 2-D items whose rows hold whole blocks come back in
+    ``to_structured``'s row storage, encoded straight from the weight as
+    stored (a transposed view is read through its transpose) by
+    ``kernels/quantize.quantize_pack``: one kernel launch an item on the
+    card.  Other items take the flat route, the encode kernel and
+    ``packing.pack``; ``to_structured`` has nothing left to do for either."""
+    from repro_torch.kernels import quantize  # kernels.ops imports this module
+
     if centering:
         raise _not_in_slice("centering (paper App. B)")
     if outlier_idx is not None:
         raise _not_in_slice("proxy quantization outliers (paper §3)")
     batch_shape = tuple(x.shape[:batch_dims])
     quant_shape = tuple(x.shape[batch_dims:])
+    rows_of_blocks = (structured and len(quant_shape) == 2 and scale_dtype == torch.bfloat16
+                      and quant_shape[1] % block_size == 0)
     xb = x.reshape((-1,) + quant_shape)
     if dtype != "quantile":
         cb0 = make_codebook(dtype, bits, exponent_bits=exponent_bits, device=x.device)
     packed, scales, cbs = [], [], []
     for item in xb:
         cb = quantile_codebook(item, bits) if dtype == "quantile" else cb0.clone()
-        q = blockwise.encode(item, cb, block_size, scale_dtype=scale_dtype)
-        packed.append(packing.pack(q.codes.reshape(-1), bits))
-        scales.append(q.scales)
+        if rows_of_blocks:
+            stored, flipped = _as_stored(item)
+            p, s = quantize.quantize_pack(stored, cb, bits=bits, block_size=block_size,
+                                          transposed=flipped)
+            packed.append(p)
+            scales.append(s)
+        else:
+            q = blockwise.encode(item, cb, block_size, scale_dtype=scale_dtype)
+            packed.append(packing.pack(q.codes.reshape(-1), bits))
+            scales.append(q.scales)
         cbs.append(cb)
 
     def unbatch(parts):
@@ -127,7 +158,7 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
         codebook=unbatch(cbs), outlier_vals=None, outlier_idx=None,
         quant_shape=quant_shape, bits=bits, block_size=block_size,
         dtype_name=dtype, centering=False, outlier_axis=outlier_axis,
-        transposed=transposed, orig_dtype=dtype_name(x.dtype),
+        transposed=transposed, structured=rows_of_blocks, orig_dtype=dtype_name(x.dtype),
     )
 
 

@@ -22,8 +22,10 @@
 // constraint).  A thread reads its scale once per word (again only where a
 // word straddles two blocks) and writes its cpw values with one vector
 // store (16 bytes at kv4, 8 at kv8), so adjacent threads read adjacent
-// words and write adjacent vectors.  A fused decode-attention read that
-// never writes bf16 K/V back is later work.
+// words and write adjacent vectors.  The decode path reads the cache
+// through csrc/kv_decode_attention.cu, which dequantizes in registers and
+// never writes bf16 K/V back; this kernel stays as the standalone row
+// dequant (kernels/kv_dequant.dequant_rows), off the decode path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

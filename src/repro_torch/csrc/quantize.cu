@@ -26,9 +26,12 @@
 // values (any B: 16 and 32 leave lanes idle, 1024 gives each lane 32), so a
 // warp's loads and stores are coalesced; the absmax is a __shfl_xor_sync max
 // reduction, and the second pass re-reads the block from L1.  The bounds sit
-// in shared memory, loaded once per CUDA block of 8 warps.  Narrowing the
-// contract (bf16 in, uint8 or packed codes out) and vector loads are later
-// performance work.
+// in shared memory, loaded once per CUDA block of 8 warps.  The narrow
+// contract (the stored bf16 weight in, packed words and bf16 scales out) is
+// csrc/quantize_pack.cu, which encodes every row-structured item (cols % B
+// == 0: every serving weight); this kernel keeps the TPU kernel's contract
+// for the flat items (cols % B != 0, some of the paper sweep's) and for
+// kernels/ops.prepare_operand.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -11,8 +11,10 @@ Blocks and words never cross tokens, so every byte of a cached token lives
 in its row.  Only k in {4, 8} and the static codebooks (int, float,
 dynamic) serve a streaming cache.
 
-Reads go through ``dequant_rows``: for CUDA tensors it launches the CUDA
-kernel ``csrc/kv_dequant.cu``, which replaces the TPU kernel
+A decode step reads the cache through ``kernels/kv_attention``, whose
+kernel dequantizes in registers inside the attention.  ``dequant_rows`` is
+the standalone read: for CUDA tensors it launches the CUDA kernel
+``csrc/kv_dequant.cu``, which replaces the TPU kernel
 ``dequant_rows_pallas`` (src/repro/kernels/kv_dequant.py:159); for CPU
 tensors it runs the plain version, ``dequant_rows_ref``.  The reference
 makes its kernel opt-in (``kv_use_kernel``); here a CUDA tensor always takes

@@ -265,10 +265,13 @@ def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):
             entry = "qmatmul_gemm_f32"
     _build.check(status, entry)
     qmatmul_gemm.launches += 1
+    qmatmul_gemm.simt_launches += entry == "qmatmul_gemm_f32"
     return y
 
 
 qmatmul_gemm.launches = 0
+#: the launches of the f32 CUDA-core GEMM (``qgemm_simt``) among them
+qmatmul_gemm.simt_launches = 0
 
 
 def qmatmul_cuda(x, packed, scales, codebook, *, bits, block_size):

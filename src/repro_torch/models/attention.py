@@ -15,9 +15,11 @@ A cache is {"k","v": [B, S_c, K, Dh], "pos": [S_c]}, where ``pos[slot]``
 is the absolute position in that slot (-1 = empty).  A k-bit cache swaps
 k/v for {"k_packed","k_scales","v_packed","v_scales"} (layout in
 ``kernels/kv_dequant.py``): writes quantize the new token
-(append-quantize), reads dequantize the whole cache through
-``kv_dequant.dequant_rows`` — the CUDA kernel on the card.  Decode writes
-update the cache tensors **in place** (the reference returns new arrays).
+(append-quantize); a decode read goes through
+``kernels/kv_attention.decode_attention_packed`` — on the card one launch of
+the fused kernel a layer that dequantizes the cache in registers, on the
+CPU the dequant and the partials below.  Decode writes update the cache
+tensors **in place** (the reference returns new arrays).
 
 Not in this slice: sliding-window ring caches, per-row position vectors
 (continuous batching), the sharded combine and the paged cache.
@@ -29,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import kv_dequant
+from repro_torch.kernels import kv_attention, kv_dequant
 from repro_torch.models.layers import apply_rope, dense, rmsnorm
 
 NEG_INF = -1e30
@@ -223,8 +225,8 @@ def combine_partials(m, l, pv):
 
 
 def dequant_cache_kv(cache: dict, kvq, n_kv_heads: int, head_dim: int):
-    """bf16 k/v [B, S_c, K, Dh] from a packed cache — two launches of the
-    KV dequant kernel on the card."""
+    """bf16 k/v [B, S_c, K, Dh] from a packed cache (on the card, two
+    launches of the standalone KV dequant kernel)."""
     feat = n_kv_heads * head_dim
     shape = tuple(cache["k_packed"].shape[:2]) + (n_kv_heads, head_dim)
     k = kv_dequant.dequant_rows(cache["k_packed"], cache["k_scales"], kvq, feat)
@@ -233,10 +235,15 @@ def dequant_cache_kv(cache: dict, kvq, n_kv_heads: int, head_dim: int):
 
 
 def decode_attention(q, cache, pos: int, *, cap=0.0, window=0, kvq=None):
-    """Single-token attention against a cache; packed caches are
-    dequantized into the same masked partial math."""
+    """Single-token attention against a cache.  A packed cache is read by
+    ``kv_attention.decode_attention_packed`` (the fused kernel on the card,
+    which takes no soft-cap or window and raises on them); only on the CPU
+    does a soft-cap or a window dequantize it into the same partial math."""
     B, H, Dh = q.shape
     if kvq is not None and _is_quantized_cache(cache):
+        if q.device.type == "cuda" or not (cap or window):
+            return kv_attention.decode_attention_packed(q, cache, pos, kvq, cap=cap,
+                                                        window=window)
         feat = cache["k_packed"].shape[-1] * (32 // kvq.bits)
         k_cache, v_cache = dequant_cache_kv(cache, kvq, feat // Dh, Dh)
     else:

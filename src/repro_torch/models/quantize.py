@@ -7,7 +7,9 @@ projections, the MLP and lm_head.  Vectors (norms, biases) stay 16-bit, and
 so does the embedding by default.  Weights [..., In, Out] are stored
 TRANSPOSED ([..., Out, In], ``quantize.py:52-66``) so blocks run along the
 reduction dim, the fused dequant-GEMM's operand layout; lm_head [V, D] is
-already (out, in).
+already (out, in).  Each matrix is encoded from the weight as stored, with
+no transposed copy, by ``kernels/quantize.quantize_pack`` (one launch an
+item on the card).
 
 ``bits_report`` is the paper's x-axis, total model bits.
 
@@ -21,18 +23,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor, quantize_tensor, to_structured
+from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor, quantize_tensor
 from repro_torch.device import resolve_device
 from repro_torch.tree import leaves
 
 
 def _quantize_matrix(w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
-    """w [..., In, Out] -> QT storing [..., Out, In], blocks along In."""
+    """w [..., In, Out] -> QT storing [..., Out, In], blocks along In; each
+    item is encoded from w as stored, without a transposed copy."""
     wt = torch.swapaxes(w, -1, -2)
-    return to_structured(quantize_tensor(
+    return quantize_tensor(
         wt, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
         batch_dims=wt.ndim - 2, exponent_bits=qcfg.exponent_bits, transposed=True,
-    ))
+        structured=True,
+    )
 
 
 def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
@@ -40,10 +44,10 @@ def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTen
     [V, D] is already (out, in)."""
     if kind == "matrix":
         return _quantize_matrix(w, qcfg)
-    return to_structured(quantize_tensor(
+    return quantize_tensor(
         w, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
-        exponent_bits=qcfg.exponent_bits,
-    ))
+        exponent_bits=qcfg.exponent_bits, structured=True,
+    )
 
 
 def quantize_tree(params, cfg, *, qcfg: QuantConfig, device=None):
