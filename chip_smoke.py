@@ -43,6 +43,7 @@ Needs no network, imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -65,6 +66,10 @@ BF16_REL_TOL = 2.0 ** -7    # one bf16 ulp at max|y|
 # which can flip the bf16 rounding of a p or of the output
 ATT_REL_TOL = 2.0 ** -6
 LONG_CONTEXT = 4096          # the fused attention's second timing point
+ONE_TILE = 16                # its fixed cost: one 16-slot tile, on one CTA of a cluster
+# a logit soft-cap that bends the random scores of check_attention (about
+# N(0, 1)); gemma2's 50 would leave them nearly straight
+SOFTCAP = 5.0
 MULTI_ROUND = 16384          # slots past one shared-memory round of the fused attention
 # fused vs dequant_einsum multiply the same bf16-rounded weights and differ
 # only in the order (and, on the tensor cores, the grouping) of their f32
@@ -411,9 +416,9 @@ def check_attention(torch, dev, g, cfg, worst) -> int:
     """The fused decode attention against its plain version, per (batch
     row, head) within ATT_REL_TOL of the row's max: kv4 and kv8, 1 to 4096
     slots, empty slots and pos short of the last slot, batch 1 and 4, at
-    Qwen2-7B's heads and at tiny-650k's (kv_tol's model); and a cache of
+    Qwen2-7B's heads and at tiny-650k's (kv_tol's model); a cache of
     MULTI_ROUND slots, whose CTA shares take more than one round of the
-    kernel's shared memory."""
+    kernel's shared memory; and a logit soft-cap at 17 and 288 slots."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import kv_attention as kat
     from repro_torch.kernels import kv_dequant as kvd
@@ -424,20 +429,24 @@ def check_attention(torch, dev, g, cfg, worst) -> int:
         K, Dh, H = c.n_kv_heads, c.head_dim, c.n_heads
         for bits in (4, 8):
             spec = kvd.KVQuantSpec(bits=bits, block_size=c.kv_block_size, dtype_name="float")
-            for S, batches in ((1, (1, 4)), (17, (1, 4)), (288, (1, 4)),
-                               (LONG_CONTEXT, (1, 4)), (MULTI_ROUND, (1,))):
-                for B in batches:
+            for S, batches, caps in ((1, (1, 4), (0.0,)), (17, (1, 4), (0.0, SOFTCAP)),
+                                     (288, (1, 4), (0.0, SOFTCAP)),
+                                     (LONG_CONTEXT, (1, 4), (0.0,)), (MULTI_ROUND, (1,), (0.0,))):
+                for B, cap in itertools.product(batches, caps):
                     cache = _random_cache(torch, dev, g, spec, B, S, K * Dh, n_holes=S // 5)
                     q = torch.randn((B, H, Dh), generator=g, device=dev).to(torch.bfloat16)
                     for pos in sorted({S - 1, max(0, S - 3)}):
-                        out = kat.decode_attention_packed_cuda(q, cache, pos, spec).float()
-                        ref = kat.decode_attention_packed_plain(q, cache, pos, spec).float()
+                        out = kat.decode_attention_packed_cuda(q, cache, pos, spec,
+                                                               cap=cap).float()
+                        ref = kat.decode_attention_packed_plain(q, cache, pos, spec,
+                                                                cap=cap).float()
                         torch.cuda.synchronize()
                         gap = (out - ref).abs().amax(-1)
                         lim = ATT_REL_TOL * ref.abs().amax(-1)
                         require(bool(torch.isfinite(out).all()) and bool((gap <= lim).all()),
-                                f"kv_decode_attention {c.name} kv{bits} S={S} B={B} pos={pos}: "
-                                f"max gap {float(gap.max())} over the row's 2^-6 * max")
+                                f"kv_decode_attention {c.name} kv{bits} S={S} B={B} pos={pos} "
+                                f"cap={cap}: max gap {float(gap.max())} over the row's "
+                                f"2^-6 * max")
                         if c is cfg:
                             worst["attn"] = max(worst["attn"], float(gap.max()))
                         n += 1
@@ -848,7 +857,8 @@ def time_kernels(torch, dev, run) -> dict:
 def _time_attention(torch, dev, cfg, launches, g):
     """The fused decode attention over one decode step (one launch a layer,
     each layer its own random packed cache, batch 4, every slot valid) at
-    the serve phase's slots and at LONG_CONTEXT, beside the path it replaced
+    the serve phase's slots and at LONG_CONTEXT, and at ONE_TILE for its
+    fixed cost a launch (what does not grow with slots), beside the path it replaced
     (two standalone KV dequant launches a layer and the eager attention) and
     its plain version."""
     from repro_torch.kernels import kv_attention as kat
@@ -856,9 +866,10 @@ def _time_attention(torch, dev, cfg, launches, g):
     from repro_torch.models import attention as attn
 
     spec = kvd.kv_spec(cfg)
+    shape = (BATCH, -1, cfg.n_kv_heads, cfg.head_dim)
     K, Dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     by_slots = {}
-    for S in (PROMPT + NEW_TOKENS, LONG_CONTEXT):
+    for S in (ONE_TILE, PROMPT + NEW_TOKENS, LONG_CONTEXT):
         caches = [_random_cache(torch, dev, g, spec, BATCH, S, K * Dh)
                   for _ in range(cfg.n_layers)]
         q = torch.randn((BATCH, H, Dh), generator=g, device=dev).to(torch.bfloat16)
@@ -870,7 +881,8 @@ def _time_attention(torch, dev, cfg, launches, g):
             return go
 
         def replaced(c):
-            k, v = attn.dequant_cache_kv(c, spec, K, Dh)
+            k = kvd.dequant_rows(c["k_packed"], c["k_scales"], spec, K * Dh).reshape(shape)
+            v = kvd.dequant_rows(c["v_packed"], c["v_scales"], spec, K * Dh).reshape(shape)
             m, l, pv = attn.decode_attention_partial(q, k, v, c["pos"], S - 1)
             return attn.combine_partials(m, l, pv).reshape(q.shape).to(q.dtype)
 
@@ -951,15 +963,29 @@ def _peak_extra(torch, fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+def _old_encode_chain(view, cb, bits: int, block: int):
+    """The route quantize_pack replaced, from a 2-D item to its stored
+    form: blockwise.encode (a copy to padded f32 blocks, the old encode
+    kernel, casts), packing.pack of the flat codes, then to_structured's row
+    repack (an unpack and a second pack where rows end inside a word)."""
+    from repro_torch.core import blockwise, packing
+
+    rows, cols = view.shape
+    q = blockwise.encode(view, cb, block)
+    words = packing.pack(q.codes.reshape(-1), bits)
+    if cols % packing.codes_per_word(bits):
+        words = packing.pack(packing.unpack(words, bits, rows * cols).reshape(rows, cols), bits)
+    return words.reshape(rows, -1), q.scales.reshape(rows, cols // block)
+
+
 def _time_encode(torch, dev, cfg, counts, g):
     """Both encode kernels at each Qwen2-7B item shape (4-bit float, block
     64), per launch and summed over one whole-model encode (one launch per
     quantized matrix: 7 per layer and the lm_head): quantize_blocks on its
     f32 blocks (its contract), quantize_pack from the stored bf16 weight
-    beside the chain it replaced (to_structured(quantize_tensor(...)) through
-    quantize_blocks: copies, casts and packing around the old kernel)."""
+    beside the chain it replaced (_old_encode_chain: copies, casts and
+    packing around the old kernel), which must store the same words."""
     from repro_torch.core.codebooks import make_codebook
-    from repro_torch.core.qtensor import quantize_tensor, to_structured
     from repro_torch.kernels import quantize as quantk
 
     cb = make_codebook("float", 4, device=dev)
@@ -982,13 +1008,17 @@ def _time_encode(torch, dev, cfg, counts, g):
         kw = dict(bits=4, block_size=64, transposed=transposed)
         r["ms"] = _time_ms(torch, lambda: quantk.quantize_pack_cuda(stored, cb, **kw), 10)
         r["plain_ms"] = _time_ms(torch, lambda: quantk.quantize_pack_plain(stored, cb, **kw), 2)
-        r["chain_ms"] = _time_ms(torch, lambda: to_structured(quantize_tensor(
-            view, bits=4, dtype="float", block_size=64)), 2)
+        old = _old_encode_chain(view, cb, 4, 64)
+        new = quantk.quantize_pack_cuda(stored, cb, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(old, new)),
+                f"quantize_pack and the chain it replaced store different words at {rows}x{cols}")
+        del old, new
+        r["chain_ms"] = _time_ms(torch, lambda: _old_encode_chain(view, cb, 4, 64), 2)
         # device memory one call takes beyond its input, outputs included
         r["peak_extra_bytes"] = _peak_extra(torch, lambda: quantk.quantize_pack_cuda(
             stored, cb, **kw))
-        r["chain_peak_extra_bytes"] = _peak_extra(torch, lambda: to_structured(quantize_tensor(
-            view, bits=4, dtype="float", block_size=64)))
+        r["chain_peak_extra_bytes"] = _peak_extra(torch, lambda: _old_encode_chain(
+            view, cb, 4, 64))
         # 2 bytes in, a packed word per 8 codes and a bf16 scale per block out
         r["bytes"] = rows * cols * 2 + rows * (cols // 8) * 4 + rows * (cols // 64) * 2 \
             + cb.numel() * 4

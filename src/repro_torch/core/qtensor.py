@@ -110,16 +110,16 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
                     block_size: int = 64, batch_dims: int = 0,
                     centering: bool = False, exponent_bits: int | None = None,
                     outlier_idx: torch.Tensor | None = None, outlier_axis: int = 0,
-                    transposed: bool = False, structured: bool = False,
+                    transposed: bool = False,
                     scale_dtype=torch.bfloat16) -> QuantizedTensor:
     """Quantize ``x`` on its device; the leading ``batch_dims`` axes are
     quantized independently, one item at a time (the reference vmaps).
 
-    With ``structured``, 2-D items whose rows hold whole blocks come back in
+    2-D items whose rows hold whole blocks (with bf16 scales) come back in
     ``to_structured``'s row storage, encoded straight from the weight as
     stored (a transposed view is read through its transpose) by
     ``kernels/quantize.quantize_pack``: one kernel launch an item on the
-    card.  Other items take the flat route, the encode kernel and
+    card.  Other items keep the flat layout, through the encode kernel and
     ``packing.pack``; ``to_structured`` has nothing left to do for either."""
     from repro_torch.kernels import quantize  # kernels.ops imports this module
 
@@ -129,7 +129,7 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
         raise _not_in_slice("proxy quantization outliers (paper §3)")
     batch_shape = tuple(x.shape[:batch_dims])
     quant_shape = tuple(x.shape[batch_dims:])
-    rows_of_blocks = (structured and len(quant_shape) == 2 and scale_dtype == torch.bfloat16
+    rows_of_blocks = (len(quant_shape) == 2 and scale_dtype == torch.bfloat16
                       and quant_shape[1] % block_size == 0)
     xb = x.reshape((-1,) + quant_shape)
     if dtype != "quantile":

@@ -15,12 +15,13 @@
 //
 //   K[t, d]  = bf16_rn(codebook[code] * scale)      (V alike), as B2 computes
 //   s[t]     = (sum_d f32(q[h, d]) * f32(K[t, d])) * Dh^-0.5
+//   s[t]     = cap * tanh(s[t] / cap)                 (with a logit soft-cap)
 //   valid[t] = pos_arr[t] >= 0 && pos_arr[t] <= pos
 //   m        = max(max_{valid t} s[t], NEG_INF / 2)  over the whole cache
 //   p[t]     = valid[t] ? exp(s[t] - m) : 0,   l = sum_t p[t]   (f32)
 //   out[h]   = bf16_rn((sum_t f32(bf16_rn(p[t])) * f32(V[t, :])) / max(l, 1e-30))
 //
-// (no logit soft-cap, no window: the wrapper refuses them).  p is rounded
+// (no window: the wrapper refuses one).  p is rounded
 // to bf16 against the global max, as the plain version rounds it; a split
 // over S that rescaled partial results would round p differently, so the
 // cache's slots are split across the CTAs of a thread-block cluster that
@@ -73,6 +74,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int MAX_G = 8;     // query heads a KV head: the mma's n
 constexpr int MAX_SMEM = 232448;
 constexpr float NEG_HALF = -5e29f;   // NEG_INF / 2 of models/attention.py
+constexpr int MAX_DEVICES = 64;      // devices whose shared-memory attribute is remembered
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -123,8 +125,8 @@ struct Args {
   const float* codebook;      // f32 [2^bits]
   const int* pos_arr;         // [S]
   unsigned short* out;        // bf16 [B, H, Dh]
-  int S, W, NB, bs, H, G, pos, cap, sw;
-  float sm_scale;
+  int S, W, NB, bs, H, G, pos, cap, sw;  // cap: slots a round
+  float sm_scale, softcap;                // softcap: the logit soft-cap, 0 for none
 };
 
 // shared memory, in 4-byte words, shared by the host (its size, the slots
@@ -325,8 +327,13 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
           const int pa = __ldg(a.pos_arr + tok);
           valid = pa >= 0 && pa <= a.pos;
         }
-        const float s0 = valid ? d[2 * hh] * a.sm_scale : -INFINITY;
-        const float s1 = valid ? d[2 * hh + 1] * a.sm_scale : -INFINITY;
+        float s0 = d[2 * hh] * a.sm_scale, s1 = d[2 * hh + 1] * a.sm_scale;
+        if (a.softcap > 0.f) {
+          s0 = a.softcap * tanhf(s0 / a.softcap);
+          s1 = a.softcap * tanhf(s1 / a.softcap);
+        }
+        s0 = valid ? s0 : -INFINITY;
+        s1 = valid ? s1 : -INFINITY;
         if (2 * t < G) sc[(2 * t) * L.tpcp + r0 + i] = s0;
         if (2 * t + 1 < G) sc[(2 * t + 1) * L.tpcp + r0 + i] = s1;
         mx0 = fmaxf(mx0, s0);
@@ -472,13 +479,15 @@ int launch(Args a, int B, int K, cudaStream_t stream) {
   const Layout L = make_layout(a.S, a.G, DH, Sh::WPH, a.sw, a.cap);
   const size_t bytes = static_cast<size_t>(L.words) * 4;
   if (bytes > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(kv_decode_attention_kernel<BITS, DH>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               MAX_SMEM);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static bool attr[MAX_DEVICES] = {};  // the attribute is per device
+  if (dev >= MAX_DEVICES || !attr[dev]) {
+    e = cudaFuncSetAttribute(kv_decode_attention_kernel<BITS, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr = true;
+    if (dev < MAX_DEVICES) attr[dev] = true;
   }
   kv_decode_attention_kernel<BITS, DH><<<dim3(CLUSTER, K, B), THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -494,11 +503,12 @@ int launch(Args a, int B, int K, cudaStream_t stream) {
 // slots with 7 query heads a KV head at dh 128).  q, out bf16 [B, H, dh];
 // k/v packed int32 [B, S, W] and their scales bf16 [B, S, NB], all
 // contiguous, the words 16-byte aligned; codebook f32 [2^bits]; pos_arr
-// int32 [S].
+// int32 [S].  softcap > 0 caps the scores as cap * tanh(s / cap).
 extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks, const void* vp,
                                    const void* vs, const void* codebook, const void* pos_arr,
                                    void* out, int B, int H, int K, int S, int W, int NB, int bs,
-                                   int bits, int dh, int pos, float sm_scale, void* stream) {
+                                   int bits, int dh, int pos, float sm_scale, float softcap,
+                                   void* stream) {
   if ((bits != 4 && bits != 8) || (dh != 32 && dh != 64 && dh != 128) || K < 1 || H % K ||
       H / K > MAX_G || S < 1 || B < 1 || B > 65535 || K > 65535 || W * 32 != K * dh * bits ||
       bs < 1 || NB * bs != K * dh || bs % (32 / bits)) {
@@ -521,6 +531,7 @@ extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks
   a.G = H / K;
   a.pos = pos;
   a.sm_scale = sm_scale;
+  a.softcap = softcap;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits * 1000 + dh) {
     case 4032: return launch<4, 32>(a, B, K, st);

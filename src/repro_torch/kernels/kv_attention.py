@@ -22,12 +22,12 @@ its source.
 
 ``decode_attention_packed`` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; ``decode_attention_packed_cuda.launches``
-counts the launches.  Neither takes a logit soft-cap or a window (the port
-has no architecture with them yet), a bf16 cache, or bits other than 4 and
-8.  The kernel takes head dims 32, 64 and 128, up to 8 query heads a KV
-head, scale blocks of whole words, and as many slots as its shared memory
-holds (about 39 K at kv4 and kv8 with Qwen2-7B's 7 query heads a KV head;
-past that the launch fails).
+counts the launches.  Both take a logit soft-cap; only the plain version
+takes a sliding window (the port builds no windowed model yet).  Neither
+takes a bf16 cache or bits other than 4 and 8.  The kernel takes head dims
+32, 64 and 128, up to 8 query heads a KV head, scale blocks of whole words,
+and as many slots as its shared memory holds (about 39 K at kv4 and kv8
+with Qwen2-7B's 7 query heads a KV head; past that the launch fails).
 """
 
 from __future__ import annotations
@@ -46,13 +46,9 @@ KERNEL_HEAD_DIMS = (32, 64, 128)
 MAX_G = 8
 
 
-def _check(q: torch.Tensor, cache: dict, spec, cap: float, window: int):
+def _check(q: torch.Tensor, cache: dict, spec):
     """(B, H, Dh, S, feat) of a call, or raise for what neither the kernel
     nor its plain version takes."""
-    if cap:
-        raise ValueError(f"decode_attention_packed takes no logit soft-cap, got {cap}")
-    if window:
-        raise ValueError(f"decode_attention_packed takes no sliding window, got {window}")
     if spec is None or "k_packed" not in cache:
         raise ValueError("decode_attention_packed reads a packed k-bit cache, not a bf16 one")
     if spec.bits not in KERNEL_BITS:
@@ -74,17 +70,18 @@ def _check(q: torch.Tensor, cache: dict, spec, cap: float, window: int):
     return B, H, Dh, S, feat
 
 
-def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos: int,
-                                  spec: KVQuantSpec) -> torch.Tensor:
+def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos: int, spec: KVQuantSpec,
+                                  *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """The plain version: the cache dequantized to bf16 by the KV dequant's
     plain version, then the models' masked softmax partials and combine."""
     from repro_torch.models import attention  # models.attention imports this module
 
-    B, H, Dh, S, feat = _check(q, cache, spec, 0.0, 0)
+    B, H, Dh, S, feat = _check(q, cache, spec)
     shape = (B, S, feat // Dh, Dh)
     k = dequant_rows_ref(cache["k_packed"], cache["k_scales"], spec, feat).reshape(shape)
     v = dequant_rows_ref(cache["v_packed"], cache["v_scales"], spec, feat).reshape(shape)
-    m, l, pv = attention.decode_attention_partial(q, k, v, cache["pos"], pos)
+    m, l, pv = attention.decode_attention_partial(q, k, v, cache["pos"], pos, cap=cap,
+                                                  window=window)
     return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
 
 
@@ -92,17 +89,19 @@ def _lib():
     lib = _build.load("kv_decode_attention")
     if not getattr(lib, "_argtypes_set", False):
         lib.kv_decode_attention.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                                            + [ctypes.c_float, ctypes.c_void_p])
+                                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.kv_decode_attention.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
-def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int,
-                                 spec: KVQuantSpec) -> torch.Tensor:
+def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int, spec: KVQuantSpec,
+                                 *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Launch the kernel on a CUDA cache (one launch a layer); counts
     launches in ``.launches``."""
-    B, H, Dh, S, feat = _check(q, cache, spec, 0.0, 0)
+    if window:
+        raise ValueError(f"decode_attention_packed_cuda takes no sliding window, got {window}")
+    B, H, Dh, S, feat = _check(q, cache, spec)
     K = feat // Dh
     G = H // K
     bs, n_blocks, n_words = kv_layout(spec, feat)
@@ -133,7 +132,7 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int,
             q.data_ptr(), cache["k_packed"].data_ptr(), cache["k_scales"].data_ptr(),
             cache["v_packed"].data_ptr(), cache["v_scales"].data_ptr(), codebook.data_ptr(),
             cache["pos"].data_ptr(), out.data_ptr(), B, H, K, S, n_words, n_blocks, bs,
-            spec.bits, Dh, int(pos), float(Dh ** -0.5), stream)
+            spec.bits, Dh, int(pos), float(Dh ** -0.5), float(cap), stream)
     _build.check(status, "kv_decode_attention")
     decode_attention_packed_cuda.launches += 1
     return out
@@ -146,9 +145,8 @@ def decode_attention_packed(q: torch.Tensor, cache: dict, pos: int, spec: KVQuan
                             cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Single-token attention of q [B, H, Dh] over a packed k-bit cache:
     the fused kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check(q, cache, spec, cap, window)
     if q.device.type == "cuda":
-        return decode_attention_packed_cuda(q, cache, pos, spec)
+        return decode_attention_packed_cuda(q, cache, pos, spec, cap=cap, window=window)
     if q.device.type == "cpu":
-        return decode_attention_packed_plain(q, cache, pos, spec)
+        return decode_attention_packed_plain(q, cache, pos, spec, cap=cap, window=window)
     raise ValueError(f"decode_attention_packed runs on cuda or cpu tensors, not {q.device}")

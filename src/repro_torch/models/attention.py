@@ -224,30 +224,13 @@ def combine_partials(m, l, pv):
     return pv / torch.clamp(l, min=1e-30)[..., None]
 
 
-def dequant_cache_kv(cache: dict, kvq, n_kv_heads: int, head_dim: int):
-    """bf16 k/v [B, S_c, K, Dh] from a packed cache (on the card, two
-    launches of the standalone KV dequant kernel)."""
-    feat = n_kv_heads * head_dim
-    shape = tuple(cache["k_packed"].shape[:2]) + (n_kv_heads, head_dim)
-    k = kv_dequant.dequant_rows(cache["k_packed"], cache["k_scales"], kvq, feat)
-    v = kv_dequant.dequant_rows(cache["v_packed"], cache["v_scales"], kvq, feat)
-    return k.reshape(shape), v.reshape(shape)
-
-
 def decode_attention(q, cache, pos: int, *, cap=0.0, window=0, kvq=None):
     """Single-token attention against a cache.  A packed cache is read by
     ``kv_attention.decode_attention_packed`` (the fused kernel on the card,
-    which takes no soft-cap or window and raises on them); only on the CPU
-    does a soft-cap or a window dequantize it into the same partial math."""
-    B, H, Dh = q.shape
+    which raises on a window)."""
     if kvq is not None and _is_quantized_cache(cache):
-        if q.device.type == "cuda" or not (cap or window):
-            return kv_attention.decode_attention_packed(q, cache, pos, kvq, cap=cap,
-                                                        window=window)
-        feat = cache["k_packed"].shape[-1] * (32 // kvq.bits)
-        k_cache, v_cache = dequant_cache_kv(cache, kvq, feat // Dh, Dh)
-    else:
-        k_cache, v_cache = cache["k"], cache["v"]
-    m, l, pv = decode_attention_partial(q, k_cache, v_cache, cache["pos"], pos,
+        return kv_attention.decode_attention_packed(q, cache, pos, kvq, cap=cap, window=window)
+    B, H, Dh = q.shape
+    m, l, pv = decode_attention_partial(q, cache["k"], cache["v"], cache["pos"], pos,
                                         cap=cap, window=window)
     return combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)

@@ -35,7 +35,6 @@ def _quantize_matrix(w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
     return quantize_tensor(
         wt, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
         batch_dims=wt.ndim - 2, exponent_bits=qcfg.exponent_bits, transposed=True,
-        structured=True,
     )
 
 
@@ -46,7 +45,7 @@ def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTen
         return _quantize_matrix(w, qcfg)
     return quantize_tensor(
         w, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
-        exponent_bits=qcfg.exponent_bits, structured=True,
+        exponent_bits=qcfg.exponent_bits,
     )
 
 

@@ -12,7 +12,7 @@ On the CPU each wrapper runs its plain version:
   * ``decode_attention_packed``: within 2^-6 * max|ref| (two bf16 ulps at a
     row's max) of the reference's ``decode_attention`` over a packed kv4 and
     kv8 cache with empty slots and ``pos`` short of the last slot, per (batch
-    row, head); and ``Engine.generate`` at kv4 and kv8 gives the reference's
+    row, head), also under a logit soft-cap and a sliding window; and ``Engine.generate`` at kv4 and kv8 gives the reference's
     greedy tokens, with one fused-attention call a layer and step.
 The wrappers' refusals show on the CPU.  Cases marked ``cuda`` hold each
 kernel against its plain version on the card and skip without one.
@@ -33,6 +33,8 @@ from repro.kernels import kv_dequant as rkv  # noqa: E402
 from repro.models import attention as rattn  # noqa: E402
 from repro.models import lm as rlm  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.core import blockwise as tb  # noqa: E402
+from repro_torch.core import packing as tp  # noqa: E402
 from repro_torch.core import qtensor as tq  # noqa: E402
 from repro_torch.core.codebooks import make_codebook  # noqa: E402
 from repro_torch.kernels import kv_attention as tka  # noqa: E402
@@ -71,6 +73,18 @@ def _pack_input(block: int, seed: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+def _flat_chain(item: torch.Tensor, cb: torch.Tensor, bits: int, block: int):
+    """The route quantize_pack replaced: the flat encode of a 2-D item,
+    its flat words, then to_structured's row repack where rows hold whole
+    blocks."""
+    q = tb.encode(item, cb, block)
+    qt = tq.QuantizedTensor(packed=tp.pack(q.codes.reshape(-1), bits), scales=q.scales,
+                            means=None, codebook=cb, outlier_vals=None, outlier_idx=None,
+                            quant_shape=tuple(item.shape), bits=bits, block_size=block,
+                            dtype_name="float", centering=False)
+    return tq.to_structured(qt)
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_structured(bits: int, block: int):
     """The reference's stored form of one item for each data type, from f32
@@ -101,18 +115,16 @@ def test_quantize_pack_plain_bit_exact_with_reference(bits, block):
                 p, s = tquant.quantize_pack_plain(stored, cb, bits=bits, block_size=block,
                                                   transposed=flipped)
                 assert _bits_equal(p, packed) and _bits_equal(s, scales), (dtype, name, flipped)
-                # the route quantize_params takes, from the view it holds,
+                # quantize_tensor, from the view quantize_params holds,
                 # equals the flat encode and repack it replaces; with a
                 # static codebook, the reference too (the quantile codebook
                 # comes from two quantile implementations, within 1e-6:
                 # test_torch_codec.py)
                 view = stored.T if flipped else stored
-                qt = tq.quantize_tensor(view, bits=bits, dtype=dtype, block_size=block,
-                                        structured=True)
-                old = tq.to_structured(tq.quantize_tensor(view, bits=bits, dtype=dtype,
-                                                          block_size=block))
-                assert qt.structured and qt.packed.shape == packed.shape
-                for field in ("packed", "scales", "codebook"):
+                qt = tq.quantize_tensor(view, bits=bits, dtype=dtype, block_size=block)
+                old = _flat_chain(view, qt.codebook, bits, block)
+                assert qt.structured and old.structured and qt.packed.shape == packed.shape
+                for field in ("packed", "scales"):
                     assert _bits_equal(getattr(qt, field), getattr(old, field)), field
                 if dtype != "quantile":
                     assert _bits_equal(qt.codebook, cb)
@@ -123,14 +135,14 @@ def test_structured_route_keeps_flat_items_flat():
     """cols % B != 0 keeps the flat layout and the flat encode, as
     to_structured does; batched items are encoded one at a time."""
     w = torch.randn(3, 20, 72)
-    flat = tq.quantize_tensor(w, bits=4, block_size=64, batch_dims=1, structured=True)
-    assert not flat.structured
-    assert _bits_equal(flat.packed, tq.quantize_tensor(w, bits=4, block_size=64,
-                                                       batch_dims=1).packed)
-    rows = tq.quantize_tensor(w, bits=6, block_size=24, batch_dims=1, structured=True)
+    cb = make_codebook("float", 4, device="cpu")
+    flat = tq.quantize_tensor(w, bits=4, block_size=64, batch_dims=1)
+    assert not flat.structured and tq.to_structured(flat) is flat
+    assert _bits_equal(flat.packed, torch.stack([_flat_chain(i, cb, 4, 64).packed for i in w]))
+    rows = tq.quantize_tensor(w, bits=6, block_size=24, batch_dims=1)
     assert rows.structured and tuple(rows.packed.shape) == (3, 20, 15)
-    assert _bits_equal(rows.packed, tq.to_structured(tq.quantize_tensor(
-        w, bits=6, block_size=24, batch_dims=1)).packed)
+    cb6 = make_codebook("float", 6, device="cpu")
+    assert _bits_equal(rows.packed, torch.stack([_flat_chain(i, cb6, 6, 24).packed for i in w]))
 
 
 def test_quantize_params_sends_structured_items_through_quantize_pack(monkeypatch):
@@ -238,10 +250,26 @@ def test_decode_attention_packed_plain_matches_reference(bits, B, S, n_filled, p
         assert not out.float().abs().any()
 
 
+@pytest.mark.parametrize("cap,window", [(5.0, 0), (30.0, 0), (0.0, 7), (5.0, 7)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_decode_attention_packed_plain_takes_cap_and_window(bits, cap, window):
+    """A logit soft-cap and a sliding window on a packed cache: the
+    reference's decode_attention within the same tolerance."""
+    B, S, K, G, Dh, pos = 2, 24, 2, 7, 32, 20
+    q, cache, r_spec, t_spec = _kv_case(bits, B, S, K, G, Dh, 22, seed=bits + int(cap) + window)
+    ref = np.asarray(jax.jit(lambda q, c: rattn.decode_attention(
+        q, c, pos, cap=cap, window=window, kvq=r_spec))(jnp.asarray(q), cache)
+        .astype(jnp.float32))
+    out = tka.decode_attention_packed(_t(q), _port_cache(cache), pos, t_spec, cap=cap,
+                                      window=window)
+    gap = np.abs(out.float().numpy() - ref).max(-1)
+    assert (gap <= ATT_TOL * np.abs(ref).max(-1)).all(), gap.max()
+
+
 def test_decode_attention_routes_packed_caches_through_the_fused_call(monkeypatch):
-    """models.attention.decode_attention reads a packed cache through
-    decode_attention_packed (one call a layer); a bf16 cache, and on the
-    CPU a soft-capped read, keep their own path."""
+    """models.attention.decode_attention reads a packed cache, soft-capped
+    or not, through decode_attention_packed (one call a layer); a bf16 cache
+    keeps its own path."""
     calls = []
     real = tka.decode_attention_packed
 
@@ -255,20 +283,23 @@ def test_decode_attention_routes_packed_caches_through_the_fused_call(monkeypatc
     out = tattn.decode_attention(_t(q), c, 8, kvq=t_spec)
     assert len(calls) == 1
     capped = tattn.decode_attention(_t(q), c, 8, cap=30.0, kvq=t_spec)
-    assert len(calls) == 1 and capped.shape == out.shape
+    assert len(calls) == 2 and capped.shape == out.shape
     dense = {"k": torch.zeros(2, 9, 2, 32, dtype=torch.bfloat16),
              "v": torch.zeros(2, 9, 2, 32, dtype=torch.bfloat16), "pos": c["pos"]}
     tattn.decode_attention(_t(q), dense, 8)
-    assert len(calls) == 1
+    assert len(calls) == 2
 
 
 def test_decode_attention_packed_refuses_what_it_does_not_take():
+    """The kernel's wrapper refuses a window before it looks at the
+    device; neither route takes a bf16 cache, other bits or a q that does
+    not fit the cache."""
     q, cache, _, spec = _kv_case(4, 1, 5, 2, 2, 32, 5, seed=2)
     qt, c = _t(q), _port_cache(cache)
-    with pytest.raises(ValueError, match="soft-cap"):
-        tka.decode_attention_packed(qt, c, 4, spec, cap=50.0)
     with pytest.raises(ValueError, match="window"):
-        tka.decode_attention_packed(qt, c, 4, spec, window=4)
+        tka.decode_attention_packed_cuda(qt, c, 4, spec, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tka.decode_attention_packed_cuda(qt, c, 4, spec, cap=50.0)
     dense = {"k": torch.zeros(1, 5, 2, 32), "v": torch.zeros(1, 5, 2, 32), "pos": c["pos"]}
     with pytest.raises(ValueError, match="bf16 one"):
         tka.decode_attention_packed(qt, dense, 4, spec)
@@ -357,13 +388,14 @@ def test_quantize_pack_cuda_bit_exact(bits, dtype):
                          ATT_CASES + [(b, 4, 288, 260, 250) for b in (4, 8)]
                          + [(4, 1, 16384, 16000, 15990)])
 @pytest.mark.parametrize("K,G,Dh", [(2, 7, 32), (4, 7, 128), (4, 1, 32), (2, 4, 64)])
-def test_decode_attention_packed_cuda_matches_plain(bits, B, S, n_filled, pos, K, G, Dh):
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+def test_decode_attention_packed_cuda_matches_plain(bits, B, S, n_filled, pos, K, G, Dh, cap):
     _need_cuda()
     q, cache, _, spec = _kv_case(bits, B, S, K, G, Dh, n_filled, seed=S + K)
     c = {k: v.cuda() for k, v in _port_cache(cache).items()}
     before = tka.decode_attention_packed_cuda.launches
-    out = tka.decode_attention_packed_cuda(_t(q).cuda(), c, pos, spec).float()
-    plain = tka.decode_attention_packed_plain(_t(q).cuda(), c, pos, spec).float()
+    out = tka.decode_attention_packed_cuda(_t(q).cuda(), c, pos, spec, cap=cap).float()
+    plain = tka.decode_attention_packed_plain(_t(q).cuda(), c, pos, spec, cap=cap).float()
     torch.cuda.synchronize()
     assert tka.decode_attention_packed_cuda.launches == before + 1
     gap = (out - plain).abs().amax(-1)
