@@ -15,14 +15,29 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                (bit-exact), the blockwise encode (bit-exact codes and
                scale bits), the encode to the stored form (bit-exact words
                and scale bits) and the fused decode attention over the
-               packed cache (<= 2^-6 * max|out| per row and head).
+               packed cache (<= 2^-6 * max|out| per row and head), also at
+               a position a row with idle rows (exactly 0).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card (4-bit float, block 64; one
                quantize_pack launch per quantized matrix), Engine with a
-               kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens.  Checks
-               finite logits and the kernel launches per decode step (every
-               GEMV on the tensor cores, qgemv_sm90; one fused attention a
-               layer and no standalone KV dequant).
+               kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens, each
+               decode step a replay of the captured step.  Checks the
+               captured step's tokens against eager lm.decode_step calls
+               at kv16, kv8 and kv4 (identical), no host sync inside the
+               captured body, finite logits and the kernel launches of one
+               eager decode step (every GEMV on the tensor cores,
+               qgemv_sm90; one fused attention a layer and no standalone
+               KV dequant).
+  3b. server — the continuous-batching Server on the same weights with a kv4
+               cache and 8 slots: 24 requests of 16-512 prompt tokens and
+               16-64 new tokens with staggered arrivals, plain, with
+               prefill chunks of 128 and with two priority classes and
+               preemption.  Checks every request answered, slot invariants
+               at every token, chunked and preempted tokens identical to
+               the plain run's, spill and restore bit-exact, each request
+               teacher-forced through the Engine's step at batch 1 (logits
+               within 0.08, a differing greedy token a near-tie) and one
+               decode step over the pool's launches.
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
@@ -86,6 +101,13 @@ MODE_GAP_TOL = 0.5
 PPL_K8_REL_TOL = 0.01
 # training must have learnt: the last loss at least this many nats below the first
 MIN_LOSS_DROP = 1.0
+# the server phase: the pool, its traffic and the chunk size
+SERVER_SLOTS, SERVER_REQUESTS, SERVER_CHUNK = 8, 24, 128
+SERVER_PROMPT_LENS, SERVER_NEW_TOKENS = (16, 512), (16, 64)
+# Server against the per-request Engine at batch 1: the decode-consistency
+# bar of tests/test_decode_consistency.py (M = 8 and M = 1 may take
+# different GEMV plans, so tokens are held to it, not to identity)
+SERVER_LOGIT_TOL = 0.08
 
 
 def emit(obj) -> None:
@@ -125,10 +147,12 @@ def main() -> int:
 
     errs = check_kernels(torch, dev)
     run = serve_main_path(torch, dev)
+    server_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
     paper = paper_path(torch, dev)
     times = time_kernels(torch, dev, run)
+    run_server_counts = run["server_counts"]
     del run
 
     kernels = []
@@ -144,9 +168,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": t["source"], "replaces": t["replaces"],
-            # the main paths' launches: serving Qwen2-7B (its quantization
-            # included) and the paper's sweep
-            "launches": t["launches"] + swept[count],
+            # the main paths' launches: serving Qwen2-7B through the Engine
+            # (its quantization included) and through the Server, and the
+            # paper's sweep
+            "launches": t["launches"] + run_server_counts[count] + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -418,7 +443,9 @@ def check_attention(torch, dev, g, cfg, worst) -> int:
     slots, empty slots and pos short of the last slot, batch 1 and 4, at
     Qwen2-7B's heads and at tiny-650k's (kv_tol's model); a cache of
     MULTI_ROUND slots, whose CTA shares take more than one round of the
-    kernel's shared memory; and a logit soft-cap at 17 and 288 slots."""
+    kernel's shared memory; a logit soft-cap at 17 and 288 slots; and the
+    Server's form, a [B] position over a [B, S] position array, with idle
+    rows that must come out exactly 0."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import kv_attention as kat
     from repro_torch.kernels import kv_dequant as kvd
@@ -450,6 +477,32 @@ def check_attention(torch, dev, g, cfg, worst) -> int:
                         if c is cfg:
                             worst["attn"] = max(worst["attn"], float(gap.max()))
                         n += 1
+            # the Server's decode: a position a row over a position array a
+            # row, each row its own length, rows 1 and 5 idle (pos -1)
+            for S in (17, 288, SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]):
+                B = SERVER_SLOTS
+                cache = _random_cache(torch, dev, g, spec, B, S, K * Dh)
+                lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+                ar = torch.arange(S, device=dev)
+                cache["pos"] = torch.where(ar[None, :] < lens[:, None], ar[None, :],
+                                           torch.full_like(ar, -1)[None, :]).to(torch.int32)
+                pos = (lens - 1).to(torch.int32)
+                pos[1] = -1
+                pos[5] = -1
+                q = torch.randn((B, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+                out = kat.decode_attention_packed_cuda(q, cache, pos, spec).float()
+                ref = kat.decode_attention_packed_plain(q, cache, pos, spec).float()
+                torch.cuda.synchronize()
+                gap = (out - ref).abs().amax(-1)
+                lim = ATT_REL_TOL * ref.abs().amax(-1)
+                require(bool(torch.isfinite(out).all()) and bool((gap <= lim).all()),
+                        f"kv_decode_attention {c.name} kv{bits} S={S} at a position a row: max "
+                        f"gap {float(gap.max())} over the row's 2^-6 * max")
+                require(not bool(out[[1, 5]].abs().any()) and not bool(ref[[1, 5]].abs().any()),
+                        f"kv_decode_attention {c.name} kv{bits} S={S}: idle rows not exactly 0")
+                if c is cfg:
+                    worst["attn"] = max(worst["attn"], float(gap.max()))
+                n += 1
     return n
 
 
@@ -528,35 +581,57 @@ def serve_main_path(torch, dev) -> dict:
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(torch, dev, SEED + 2),
                             device=dev)
     engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, device=dev)
+    n_steps = NEW_TOKENS - 1
+    b1_step = per_layer * cfg.n_layers + 1
+    b2_step = cfg.n_layers   # one fused attention a layer
 
-    # prefill alone (and the first token), then the full run with counts
+    # the main path: a fresh Engine's generate.  Its first decode step
+    # captures the step: the capture's warm-up call and its recording tick
+    # the counters once each, the replays do not
+    _reset_counts()
+    with _capture_guard(torch) as syncs:
+        tokens = engine.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    counts = _counts()
+    require(not syncs, f"the captured decode step syncs with the host: {syncs[:5]}")
+    require(tuple(tokens.shape) == (BATCH, NEW_TOKENS), f"tokens shape {tuple(tokens.shape)}")
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens out of range")
+    require(counts["gemm"] == per_layer * cfg.n_layers,
+            f"prefill: {counts['gemm']} tiled qmatmul launches")
+    require(counts["gemv"] == 1 + 2 * b1_step,
+            f"{counts['gemv']} GEMV launches, want 1 (the prefill's head) + 2 x {b1_step} "
+            f"(the capture's warm-up and recording)")
+    require(counts["gemv_tc"] == counts["gemv"],
+            f"{counts['gemv_tc']} of {counts['gemv']} GEMV launches on the tensor cores")
+    require(counts["attn"] == 2 * b2_step and counts["kv"] == 0,
+            f"{counts['attn']} fused attention and {counts['kv']} kv dequant launches, want "
+            f"2 x {b2_step} and 0")
+
+    # prefill alone (and the first token), then the whole run again: each
+    # decode step a replay of the graph captured above
     engine.generate(prompts, 1)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     engine.generate(prompts, 1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t3
-    _reset_counts()
     t4 = time.perf_counter()
-    tokens = engine.generate(prompts, NEW_TOKENS)
+    again = engine.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t4
-    counts = _counts()
+    require(torch.equal(again, tokens), "a second generate gave other tokens")
+    # the same steps eagerly: the same kernels at the same shapes, so the
+    # same tokens, at kv16, kv8 and kv4 with 4-bit weights
+    eager, eager_ms = _eager_generate(torch, qparams, cfg, prompts)
+    identical = {KV_BITS: bool(torch.equal(eager, tokens))}
+    for kv in (16, 8):
+        c = cfg.with_kv_quant(kv)
+        graph_toks = Engine(qparams, c, max_seq_len=PROMPT + NEW_TOKENS,
+                            device=dev).generate(prompts, NEW_TOKENS)
+        identical[kv] = bool(torch.equal(_eager_generate(torch, qparams, c, prompts)[0],
+                                         graph_toks))
+    require(all(identical.values()), f"graph tokens differ from eager ones: {identical}")
     peak_bytes = max(init_peak_bytes, torch.cuda.max_memory_allocated())
-    n_steps = NEW_TOKENS - 1
-    b1_step = per_layer * cfg.n_layers + 1
-    b2_step = cfg.n_layers   # one fused attention a layer
-    require(tuple(tokens.shape) == (BATCH, NEW_TOKENS), f"tokens shape {tuple(tokens.shape)}")
-    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens out of range")
-    require(counts["gemm"] == per_layer * cfg.n_layers,
-            f"prefill: {counts['gemm']} tiled qmatmul launches")
-    require(counts["gemv"] == 1 + n_steps * b1_step,
-            f"{counts['gemv']} GEMV launches, want 1 + {n_steps} x {b1_step}")
-    require(counts["gemv_tc"] == counts["gemv"],
-            f"{counts['gemv_tc']} of {counts['gemv']} GEMV launches on the tensor cores")
-    require(counts["attn"] == n_steps * b2_step and counts["kv"] == 0,
-            f"{counts['attn']} fused attention and {counts['kv']} kv dequant launches, want "
-            f"{n_steps} x {b2_step} and 0")
 
     # one more prefill and decode step with logits in hand
     logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=PROMPT + NEW_TOKENS)
@@ -579,7 +654,10 @@ def serve_main_path(torch, dev) -> dict:
           "prompt_len": PROMPT, "new_tokens": NEW_TOKENS,
           "init_s": t1 - t0, "quantize_s": t2 - t1, "prefill_s": prefill_s,
           "decode_ms_per_step": (total_s - prefill_s) / n_steps * 1e3,
+          "decode_ms_per_step_eager": eager_ms,
           "decode_step_device_ms": step_device_ms,
+          "graph_tokens_equal_eager": {f"kv{k}": v for k, v in identical.items()},
+          "host_syncs_in_captured_step": len(syncs),
           "tokens_per_s": BATCH * NEW_TOKENS / total_s, "generate_s": total_s,
           "max_memory_allocated_bytes": peak_bytes,
           "quantize_peak_bytes": quantize_peak_bytes,
@@ -589,6 +667,351 @@ def serve_main_path(torch, dev) -> dict:
     require(counts["b3"] == counts["pack"] == 0, f"generate launched encodes: {counts}")
     counts["b3"], counts["pack"] = quant_counts["b3"], quant_counts["pack"]
     return {"cfg": cfg, "qparams": qparams, "prompts": prompts, "counts": counts}
+
+
+class _capture_guard:
+    """Records every .item(), .cpu(), .tolist(), .numpy(), int(), float(),
+    bool() or index use of a CUDA tensor inside the bodies that the port
+    captures as CUDA graphs (serving.engine.capture_graph, which the Engine
+    and the Server call), while the guard is open.  Yields the list of
+    calls seen."""
+
+    NAMES = ("item", "cpu", "tolist", "numpy", "__int__", "__float__", "__bool__", "__index__")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+        self.inside = False
+
+    def __enter__(self):
+        from repro_torch.serving import engine as engine_mod
+        from repro_torch.serving import server as server_mod
+
+        Tensor = self.torch.Tensor
+        self.saved = {n: getattr(Tensor, n) for n in self.NAMES}
+        self.own = {n for n in self.NAMES if n in Tensor.__dict__}
+        self.capture = engine_mod.capture_graph
+        self.mods = (engine_mod, server_mod)
+        guard = self
+
+        def watched(name, real):
+            def call(t, *a, **k):
+                if guard.inside and t.is_cuda:
+                    guard.calls.append(name)
+                return real(t, *a, **k)
+            return call
+
+        for n, real in self.saved.items():
+            setattr(Tensor, n, watched(n, real))
+
+        def capture(body, device, generator=None):
+            def guarded():
+                guard.inside = True
+                try:
+                    body()
+                finally:
+                    guard.inside = False
+            return guard.capture(guarded, device, generator)
+
+        for m in self.mods:
+            m.capture_graph = capture
+        return self.calls
+
+    def __exit__(self, *exc):
+        for n, real in self.saved.items():
+            if n in self.own:
+                setattr(self.torch.Tensor, n, real)
+            else:
+                delattr(self.torch.Tensor, n)
+        for m in self.mods:
+            m.capture_graph = self.capture
+        return False
+
+
+def _eager_generate(torch, qparams, cfg, prompts):
+    """Greedy tokens of eager lm.decode_step calls (no graph), and the host
+    clock's ms a step."""
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=PROMPT + NEW_TOKENS)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(1, NEW_TOKENS):
+            logits, caches = lm.decode_step(qparams, tok, caches, PROMPT + t - 1, cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (NEW_TOKENS - 1) * 1e3
+    return torch.stack(out, dim=1), ms
+
+
+def _server_requests(cfg):
+    """SERVER_REQUESTS requests from a seed: prompts of uniform random tokens
+    (16-512), budgets of 16-64 new tokens.  The first SERVER_SLOTS arrive
+    at step 0 and fill the pool (class 1, background); the rest arrive one
+    every two steps from step 4 (class 0, urgent), while the pool is busy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    reqs = []
+    for i in range(SERVER_REQUESTS):
+        L = int(rng.integers(SERVER_PROMPT_LENS[0], SERVER_PROMPT_LENS[1] + 1))
+        background = i < SERVER_SLOTS
+        reqs.append({"prompt": rng.integers(0, cfg.vocab_size, L),
+                     "max_new": int(rng.integers(SERVER_NEW_TOKENS[0], SERVER_NEW_TOKENS[1] + 1)),
+                     "arrival_time": 0.0 if background else float(4 + 2 * (i - SERVER_SLOTS)),
+                     "priority": 1 if background else 0})
+    return reqs
+
+
+def _checked_server(torch):
+    """The port's Server with two checks chip_smoke adds: each decode step's
+    logits rows of the decoding requests are kept (for the teacher-forced
+    comparison), and every restore of a spilled slot is spilled again and
+    held bit for bit against the spill."""
+    from repro_torch.models import lm
+    from repro_torch.serving import Server
+    from repro_torch.serving.engine import sample_token
+
+    class Checked(Server):
+        def __init__(self, *args, **kwargs):
+            self.kept = {}       # request id -> logits rows, one a decode step
+            self.restores = 0
+            super().__init__(*args, **kwargs)
+
+        def _decode_body(self):
+            logits, _ = lm.decode_step(self.params, self._tok, self.pool.caches,
+                                       self.pool._pos_dev, self.cfg)
+            if not hasattr(self, "logits"):
+                self.logits = torch.empty_like(logits)   # allocated by the warm-up call
+            self.logits.copy_(logits)
+            self._nxt.copy_(sample_token(logits, self._gen, self._temps_dev))
+
+        def _decode_once(self):
+            rows = {slot: req.id for slot, req in self.scheduler.running.items()
+                    if slot not in self._chunking}
+            n = super()._decode_once()
+            for slot, rid in rows.items():
+                self.kept.setdefault(rid, []).append(self.logits[slot].clone())
+            return n
+
+        def _resume(self, req, slot):
+            spill = self._spilled[req.id]
+            super()._resume(req, slot)
+            again = self.pool.spill_slot(slot)
+            same = all(torch.equal(a[k].view(torch.int16) if a[k].dtype == torch.bfloat16
+                                   else a[k],
+                                   b[k].view(torch.int16) if b[k].dtype == torch.bfloat16
+                                   else b[k])
+                       for a, b in zip(again["rows"], spill["rows"]) for k in a)
+            require(same and again["next_pos"] == spill["next_pos"],
+                    f"request {req.id}: the restored slot {slot} differs from its spill")
+            self.restores += 1
+
+    return Checked
+
+
+def server_path(torch, dev, run) -> dict:
+    """Phase 3b: the continuous-batching Server on Qwen2-7B at full width
+    and depth, 4-bit weights, a kv4 cache, SERVER_SLOTS slots."""
+    from repro_torch.serving import Server, Telemetry
+
+    cfg, qparams = run["cfg"], run["qparams"]
+    reqs = _server_requests(cfg)
+    cache_len = SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]
+    per_layer = 7
+    b1_step = per_layer * cfg.n_layers + 1
+    b2_step = cfg.n_layers
+    Checked = _checked_server(torch)
+
+    def serve(cls, *, classes=False, **kw):
+        srv = cls(qparams, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len, device=dev,
+                  **kw)
+
+        def check(_rid, tok):
+            require(0 <= tok < cfg.vocab_size, f"token {tok} out of range")
+            require(srv.pool.n_free + srv.pool.n_active == SERVER_SLOTS, "slots leaked")
+            busy = [s for s in range(SERVER_SLOTS) if srv.pool.active[s]]
+            require(sorted(srv.scheduler.running) == busy, "running slots != active slots")
+            require(all(0 <= srv.pool.next_pos[s] <= cache_len for s in busy
+                        if s not in srv._chunking), "a slot's position out of its row")
+
+        ids = [srv.submit(r["prompt"], r["max_new"], arrival_time=r["arrival_time"],
+                          priority=r["priority"] if classes else 0, on_token=check)
+               for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks = [res[i] for i in ids]
+        require(all(1 <= len(t) <= r["max_new"] for t, r in zip(toks, reqs)),
+                "a request went unanswered or past its budget")
+        require(srv.pool.n_free == SERVER_SLOTS and srv.scheduler.drained, "pool not drained")
+        return srv, ids, toks, wall
+
+    # the main path: a fresh Server (its construction captures the step:
+    # warm-up and recording tick the counters once each) serving the traffic
+    with torch.inference_mode():
+        tel = Telemetry()
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            srv, ids, plain, wall = serve(Server, telemetry=tel)
+        counts = _counts()
+        require(not syncs, f"the Server's captured step syncs with the host: {syncs[:5]}")
+        reg = tel.registry
+        admissions = int(reg.counter("serve_prefills_total").value)
+        steps = int(reg.counter("serve_decode_steps_total").value)
+        require(admissions == SERVER_REQUESTS, f"{admissions} admissions")
+        require(counts["attn"] == 2 * b2_step and counts["kv"] == 0,
+                f"server: {counts['attn']} fused attentions, want 2 x {b2_step} (the capture)")
+        require(counts["gemm"] == per_layer * cfg.n_layers * admissions
+                and counts["gemv"] == counts["gemv_tc"] == 2 * b1_step + admissions,
+                f"server launches {counts} for {admissions} admissions")
+        # one decode step over the (now idle) pool, eagerly: its launches
+        _reset_counts()
+        srv._decode_body()
+        torch.cuda.synchronize()
+        step_counts = _counts()
+        require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
+                                "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
+                f"one decode step over the pool launched {step_counts}")
+        step_device_ms = _time_graph(torch, srv._graph, 10)
+        ttft = reg.histogram("serve_ttft_seconds")
+        step_s = reg.histogram("serve_decode_step_seconds")
+        prefill_s = reg.histogram("serve_prefill_seconds")
+        n_tokens = sum(len(t) for t in plain)
+        del srv
+
+        # the same traffic: logits kept, then chunked, then two classes with
+        # preemption; every request's tokens as in the plain run
+        srv_r, rec_ids, kept_toks, _ = serve(Checked)
+        require(kept_toks == plain, "the Server gave other tokens on the same traffic")
+        tel_c = Telemetry()
+        srv_c, _, chunked, _ = serve(Server, telemetry=tel_c, prefill_chunk=SERVER_CHUNK)
+        n_chunks = int(tel_c.registry.counter("serve_prefill_chunks_total").value)
+        require(n_chunks > 0, "no prefill chunk ran")
+        require(chunked == plain, "chunked prefill changed tokens: "
+                f"{sum(a != b for a, b in zip(chunked, plain))} requests differ")
+        del srv_c
+        srv_p, _, preempted, _ = serve(Checked, classes=True, max_preemptions=2)
+        n_pre = srv_p.scheduler.n_preemptions
+        require(n_pre >= 1, "the two-class traffic forced no preemption")
+        require(srv_p.restores == n_pre, "a preempted request was not restored")
+        require(preempted == plain, "preemption changed tokens: "
+                f"{sum(a != b for a, b in zip(preempted, plain))} requests differ")
+        del srv_p
+
+        # each request teacher-forced on the Server's tokens through the
+        # Engine's step at batch 1, against the Server's kept logits
+        worst, ties, first_ties = _teacher_forced(torch, qparams, cfg, reqs, plain,
+                                                  [srv_r.kept[i] for i in rec_ids], cache_len)
+        del srv_r
+    emit({"phase": "server", "arch": ARCH, "depth": cfg.n_layers, "width": cfg.d_model,
+          "weights": "4-bit float b64", "kv_bits": cfg.kv_bits, "num_slots": SERVER_SLOTS,
+          "requests": SERVER_REQUESTS, "prompt_lens": SERVER_PROMPT_LENS,
+          "new_tokens": SERVER_NEW_TOKENS, "tokens": n_tokens, "serve_s": wall,
+          "tokens_per_s": n_tokens / wall, "decode_steps": steps,
+          "decode_ms_per_step_median": step_s.percentile(50) * 1e3,
+          "decode_ms_per_step_p90": step_s.percentile(90) * 1e3,
+          "decode_step_device_ms": step_device_ms,
+          "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
+          "prefill_s_median": prefill_s.percentile(50),
+          "admissions": admissions, "prefill_chunk": SERVER_CHUNK, "chunks": n_chunks,
+          "preemptions": n_pre, "chunked_tokens_identical": True,
+          "preempted_tokens_identical": True, "spill_restore_bit_exact": True,
+          "engine_b1_max_logit_gap": worst, "engine_b1_logit_tol": SERVER_LOGIT_TOL,
+          "engine_b1_greedy_near_ties": ties, "engine_b1_first_token_near_ties": first_ties,
+          "host_syncs_in_captured_step": len(syncs),
+          "launches": counts, "launches_per_decode_step": step_counts})
+    run["server_counts"] = counts
+    return counts
+
+
+def _time_graph(torch, graph, reps: int) -> float:
+    """Median device time of reps replays of a captured graph (CUDA events)."""
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _teacher_forced(torch, qparams, cfg, reqs, tokens, kept, cache_len):
+    """Each request alone (batch 1) through the Engine's path: a prefill at
+    its exact length, then the decode step (lm.decode_step over a cache of
+    the pool's length, captured once and replayed) fed the Server's tokens.
+    Returns the largest logit gap to the Server's kept logits (gated at
+    SERVER_LOGIT_TOL) and how many greedy tokens, decode and first, differ
+    from the Server's; each must be a near-tie within SERVER_LOGIT_TOL."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import capture_graph
+
+    dev = qparams["embed"].device
+    caches = lm.init_caches(cfg, 1, cache_len, device=dev)
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    box = {}
+
+    def body():
+        logits, _ = lm.decode_step(qparams, tok, caches, pos, cfg)
+        if "out" not in box:
+            box["out"] = torch.empty_like(logits)   # allocated by the warm-up call
+        box["out"].copy_(logits)
+        pos.add_(1)
+
+    graph = capture_graph(body, dev)
+    worst, ties, first_ties = 0.0, 0, 0
+    for r, toks, rows in zip(reqs, tokens, kept):
+        prompt = torch.as_tensor(r["prompt"], device=dev)[None]
+        logits, cc = lm.prefill(qparams, prompt, cfg, cache_len=cache_len)
+        first = logits[0].float()
+        top = int(first.argmax())
+        if top != toks[0]:
+            margin = float(first[top] - first[toks[0]])
+            require(margin <= SERVER_LOGIT_TOL,
+                    f"first token {toks[0]} against the Engine's {top}: margin {margin}")
+            first_ties += 1
+        for mine, theirs in zip(caches, cc):
+            for key in mine:
+                mine[key].copy_(theirs[key])
+        pos.fill_(prompt.shape[1])
+        require(len(rows) == len(toks) - 1, f"{len(rows)} kept steps for {len(toks)} tokens")
+        eng = []
+        for t in toks[:-1]:
+            tok.fill_(t)
+            graph.replay()
+            eng.append(box["out"][0].float())
+        if not eng:
+            continue
+        eng = torch.stack(eng)
+        srv = torch.stack(rows).float()
+        worst = max(worst, float((eng - srv).abs().max()))
+        nxt = torch.tensor(toks[1:], device=dev)
+        arg = eng.argmax(-1)
+        diff = arg != nxt
+        if bool(diff.any()):
+            idx = torch.arange(len(nxt), device=dev)
+            margins = (eng[idx, arg] - eng[idx, nxt])[diff]
+            require(float(margins.max()) <= SERVER_LOGIT_TOL,
+                    f"a greedy token differs from the Engine's by a margin of "
+                    f"{float(margins.max())}")
+            ties += int(diff.sum())
+    require(worst <= SERVER_LOGIT_TOL,
+            f"Server vs per-request Engine logit gap {worst} > {SERVER_LOGIT_TOL}")
+    del graph
+    return worst, ties, first_ties
 
 
 def mode_parity(torch, dev, run) -> float:
@@ -873,6 +1296,9 @@ def _time_attention(torch, dev, cfg, launches, g):
         caches = [_random_cache(torch, dev, g, spec, BATCH, S, K * Dh)
                   for _ in range(cfg.n_layers)]
         q = torch.randn((BATCH, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+        # the position in device memory, as the decode step passes it (an int
+        # would add a fill kernel to every launch)
+        pos = torch.full((), S - 1, dtype=torch.int32, device=dev)
 
         def step(fn):
             def go():
@@ -893,10 +1319,10 @@ def _time_attention(torch, dev, cfg, launches, g):
         bound_ms, bound_by = _bound(nbytes, flops)
         by_slots[S] = {
             "ms": _time_ms(torch, step(lambda c: kat.decode_attention_packed_cuda(
-                q, c, S - 1, spec)), 20),
+                q, c, pos, spec)), 20),
             "replaced_ms": _time_ms(torch, step(replaced), 5),
             "plain_ms": _time_ms(torch, step(lambda c: kat.decode_attention_packed_plain(
-                q, c, S - 1, spec)), 3),
+                q, c, pos, spec)), 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
         del caches
         torch.cuda.empty_cache()

@@ -201,7 +201,7 @@ def prefill(torch, dev):
         xp, packed, scales = ops.pad_for_kernel(x, op)
         ref = qk.qmatmul_plain(xp, packed, scales, op.codebook, bits=BITS,
                                block_size=BLOCK).float()
-        split = qk.split_k(M, N, xp.shape[1], BITS, sms)
+        split = qk.split_k(N, xp.shape[1], BITS, sms)
         shape = qk.split_workspace_shape(M, N, split)
         ws = torch.empty(shape, dtype=torch.float32, device=dev) if shape else None
         xt = torch.empty(qk.x_tiles_shape(M, xp.shape[1], BITS), dtype=torch.bfloat16,

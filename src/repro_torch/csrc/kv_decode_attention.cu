@@ -16,12 +16,17 @@
 //   K[t, d]  = bf16_rn(codebook[code] * scale)      (V alike), as B2 computes
 //   s[t]     = (sum_d f32(q[h, d]) * f32(K[t, d])) * Dh^-0.5
 //   s[t]     = cap * tanh(s[t] / cap)                 (with a logit soft-cap)
-//   valid[t] = pos_arr[t] >= 0 && pos_arr[t] <= pos
+//   valid[t] = pos_arr[b, t] >= 0 && pos_arr[b, t] <= pos[b]
 //   m        = max(max_{valid t} s[t], NEG_INF / 2)  over the whole cache
 //   p[t]     = valid[t] ? exp(s[t] - m) : 0,   l = sum_t p[t]   (f32)
 //   out[h]   = bf16_rn((sum_t f32(bf16_rn(p[t])) * f32(V[t, :])) / max(l, 1e-30))
 //
-// (no window: the wrapper refuses one).  p is rounded
+// (no window: the wrapper refuses one).  pos[b] and pos_arr[b, :] are read
+// from device memory at row strides pos_stride (0: one position for every
+// row, 1: a position a row) and pa_stride (0: one [S] array, S: an array a
+// row), so a launch captured in a CUDA graph reads each replay's positions.
+// A row with pos[b] < 0 (an idle slot of the serving pool) has no valid
+// slot: l = 0, p = 0 and its output is exactly 0.  p is rounded
 // to bf16 against the global max, as the plain version rounds it; a split
 // over S that rescaled partial results would round p differently, so the
 // cache's slots are split across the CTAs of a thread-block cluster that
@@ -123,9 +128,11 @@ struct Args {
   const unsigned short* ks;   // bf16 [B, S, NB] scales
   const unsigned short* vs;
   const float* codebook;      // f32 [2^bits]
-  const int* pos_arr;         // [S]
+  const int* pos_arr;         // [S] or [B, S]: pa_stride 0 or S
+  const int* pos;             // [1] or [B]: pos_stride 0 or 1
   unsigned short* out;        // bf16 [B, H, Dh]
-  int S, W, NB, bs, H, G, pos, cap, sw;  // cap: slots a round
+  int S, W, NB, bs, H, G, cap, sw;  // cap: slots a round
+  int pos_stride, pa_stride;
   float sm_scale, softcap;                // softcap: the logit soft-cap, 0 for none
 };
 
@@ -324,8 +331,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
         const int tok = tok0 + r0 + i;
         bool valid = tok < a.S;
         if (valid) {
-          const int pa = __ldg(a.pos_arr + tok);
-          valid = pa >= 0 && pa <= a.pos;
+          // read where used: held across the kernel they cost a spill
+          const int pa = __ldg(a.pos_arr + static_cast<long long>(b) * a.pa_stride + tok);
+          valid = pa >= 0 && pa <= __ldg(a.pos + b * a.pos_stride);
         }
         float s0 = d[2 * hh] * a.sm_scale, s1 = d[2 * hh + 1] * a.sm_scale;
         if (a.softcap > 0.f) {
@@ -503,15 +511,18 @@ int launch(Args a, int B, int K, cudaStream_t stream) {
 // slots with 7 query heads a KV head at dh 128).  q, out bf16 [B, H, dh];
 // k/v packed int32 [B, S, W] and their scales bf16 [B, S, NB], all
 // contiguous, the words 16-byte aligned; codebook f32 [2^bits]; pos_arr
-// int32 [S].  softcap > 0 caps the scores as cap * tanh(s / cap).
+// int32 [S] (pa_stride 0) or [B, S] (pa_stride S); pos int32 [1]
+// (pos_stride 0) or [B] (pos_stride 1).  softcap > 0 caps the scores as
+// cap * tanh(s / cap).
 extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks, const void* vp,
                                    const void* vs, const void* codebook, const void* pos_arr,
-                                   void* out, int B, int H, int K, int S, int W, int NB, int bs,
-                                   int bits, int dh, int pos, float sm_scale, float softcap,
-                                   void* stream) {
+                                   const void* pos, void* out, int B, int H, int K, int S, int W,
+                                   int NB, int bs, int bits, int dh, int pos_stride,
+                                   int pa_stride, float sm_scale, float softcap, void* stream) {
   if ((bits != 4 && bits != 8) || (dh != 32 && dh != 64 && dh != 128) || K < 1 || H % K ||
       H / K > MAX_G || S < 1 || B < 1 || B > 65535 || K > 65535 || W * 32 != K * dh * bits ||
-      bs < 1 || NB * bs != K * dh || bs % (32 / bits)) {
+      bs < 1 || NB * bs != K * dh || bs % (32 / bits) || (pos_stride != 0 && pos_stride != 1) ||
+      (pa_stride != 0 && pa_stride != S)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -522,6 +533,9 @@ extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks
   a.vs = static_cast<const unsigned short*>(vs);
   a.codebook = static_cast<const float*>(codebook);
   a.pos_arr = static_cast<const int*>(pos_arr);
+  a.pos = static_cast<const int*>(pos);
+  a.pos_stride = pos_stride;
+  a.pa_stride = pa_stride;
   a.out = static_cast<unsigned short*>(out);
   a.S = S;
   a.W = W;
@@ -529,7 +543,6 @@ extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks
   a.bs = bs;
   a.H = H;
   a.G = H / K;
-  a.pos = pos;
   a.sm_scale = sm_scale;
   a.softcap = softcap;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

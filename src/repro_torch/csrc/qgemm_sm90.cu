@@ -66,6 +66,7 @@ constexpr int WS_SLOTS = 2;   // decoded W tiles: one in the products, one being
 constexpr int MAX_STAGES = 8;
 constexpr int LBO = 128;      // bytes between core matrices adjacent along K
 constexpr int SMEM_BUDGET = 220 * 1024;  // dynamic shared memory a block may take
+constexpr int MAX_DEVICES = 64;          // devices whose shared-memory attribute is remembered
 
 __host__ __device__ constexpr int cgcd(int a, int b) { return b == 0 ? a : cgcd(b, a % b); }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -612,12 +613,15 @@ int launch(const Problem& p, const bf16* x, unsigned char* x_tiles, bf16* y, flo
   const int nk = (p.K + C::KC - 1) / C::KC;
   if (split < 1 || nk % split != 0 || (split > 1 && workspace == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qgemm_sm90_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static bool attr_set[MAX_DEVICES] = {};  // the attribute is per device
+  if (dev >= MAX_DEVICES || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(qgemm_sm90_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
+    if (dev < MAX_DEVICES) attr_set[dev] = true;
   }
   Problem q = p;
   q.nk = nk;

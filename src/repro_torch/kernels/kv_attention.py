@@ -10,7 +10,12 @@ reads its output; bf16 K and V never land in device memory:
 
   q        [B, H, Dh]      bf16, H = K * G query heads over K KV heads
   cache    {"k_packed", "v_packed": [B, S, W] int32, "k_scales",
-            "v_scales": [B, S, NB] bf16, "pos": [S] int32 (-1 = empty)}
+            "v_scales": [B, S, NB] bf16, "pos": [S] or [B, S] int32
+            (-1 = empty)}
+  pos      int32, 0-d (one position for every row, over "pos" [S]) or [B]
+           (a position a row over "pos" [B, S]; pos < 0 = an idle row,
+           whose output is exactly zero); read by the kernel from device
+           memory, so a captured graph reads each replay's positions
   out      [B, H, Dh]      bf16
 
 It computes what the plain version, ``decode_attention_packed_plain``,
@@ -65,18 +70,31 @@ def _check(q: torch.Tensor, cache: dict, spec):
     for key in ("v_packed", "k_scales", "v_scales"):
         if cache[key].shape[:2] != (B, S):
             raise ValueError(f"decode_attention_packed: {key} {tuple(cache[key].shape)}")
-    if cache["pos"].shape != (S,):
+    if cache["pos"].shape not in ((S,), (B, S)):
         raise ValueError(f"decode_attention_packed: pos {tuple(cache['pos'].shape)}, S = {S}")
     return B, H, Dh, S, feat
 
 
-def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos: int, spec: KVQuantSpec,
+def _positions(pos, cache: dict, B: int, device) -> torch.Tensor:
+    """The decode position as an int32 tensor that fits the cache's position
+    array: 0-d over [S], [B] over [B, S]; an int becomes a 0-d device fill."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int32, device=device)
+    want = () if cache["pos"].ndim == 1 else (B,)
+    if tuple(pos.shape) != want:
+        raise ValueError(f"decode_attention_packed: positions {tuple(pos.shape)} over a "
+                         f"position array {tuple(cache['pos'].shape)}")
+    return pos
+
+
+def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
                                   *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """The plain version: the cache dequantized to bf16 by the KV dequant's
     plain version, then the models' masked softmax partials and combine."""
     from repro_torch.models import attention  # models.attention imports this module
 
     B, H, Dh, S, feat = _check(q, cache, spec)
+    pos = _positions(pos, cache, B, q.device)
     shape = (B, S, feat // Dh, Dh)
     k = dequant_rows_ref(cache["k_packed"], cache["k_scales"], spec, feat).reshape(shape)
     v = dequant_rows_ref(cache["v_packed"], cache["v_scales"], spec, feat).reshape(shape)
@@ -88,20 +106,21 @@ def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos: int, spec: 
 def _lib():
     lib = _build.load("kv_decode_attention")
     if not getattr(lib, "_argtypes_set", False):
-        lib.kv_decode_attention.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        lib.kv_decode_attention.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                                             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.kv_decode_attention.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
-def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int, spec: KVQuantSpec,
+def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
                                  *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Launch the kernel on a CUDA cache (one launch a layer); counts
     launches in ``.launches``."""
     if window:
         raise ValueError(f"decode_attention_packed_cuda takes no sliding window, got {window}")
     B, H, Dh, S, feat = _check(q, cache, spec)
+    pos = _positions(pos, cache, B, q.device)
     K = feat // Dh
     G = H // K
     bs, n_blocks, n_words = kv_layout(spec, feat)
@@ -119,6 +138,9 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int, spec: K
         if t.dtype != dt or not t.is_contiguous() or t.device != q.device or t.data_ptr() % align:
             raise ValueError(f"decode_attention_packed_cuda: {key} must be contiguous {dt} on "
                              f"{q.device}, {align}-byte aligned")
+    if pos.dtype != torch.int32 or pos.device != q.device or not pos.is_contiguous():
+        raise ValueError(f"decode_attention_packed_cuda: positions must be contiguous int32 on "
+                         f"{q.device}")
     for key, n in (("k_packed", n_words), ("v_packed", n_words), ("k_scales", n_blocks),
                    ("v_scales", n_blocks)):
         if cache[key].shape[2] != n:
@@ -131,8 +153,9 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int, spec: K
         status = _lib().kv_decode_attention(
             q.data_ptr(), cache["k_packed"].data_ptr(), cache["k_scales"].data_ptr(),
             cache["v_packed"].data_ptr(), cache["v_scales"].data_ptr(), codebook.data_ptr(),
-            cache["pos"].data_ptr(), out.data_ptr(), B, H, K, S, n_words, n_blocks, bs,
-            spec.bits, Dh, int(pos), float(Dh ** -0.5), float(cap), stream)
+            cache["pos"].data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, K, S, n_words,
+            n_blocks, bs, spec.bits, Dh, 1 if pos.ndim else 0, S if cache["pos"].ndim == 2 else 0,
+            float(Dh ** -0.5), float(cap), stream)
     _build.check(status, "kv_decode_attention")
     decode_attention_packed_cuda.launches += 1
     return out
@@ -141,7 +164,7 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos: int, spec: K
 decode_attention_packed_cuda.launches = 0
 
 
-def decode_attention_packed(q: torch.Tensor, cache: dict, pos: int, spec: KVQuantSpec, *,
+def decode_attention_packed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec, *,
                             cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Single-token attention of q [B, H, Dh] over a packed k-bit cache:
     the fused kernel for CUDA tensors, the plain version for CPU tensors."""

@@ -67,13 +67,17 @@ MIN_SPLIT_STEPS = 2
 H100_SMS = 132
 
 
-def split_k(M: int, N: int, K: int, bits: int, sms: int = H100_SMS) -> int:
+def split_k(N: int, K: int, bits: int, sms: int = H100_SMS) -> int:
     """How many blocks share each output tile's K steps in the tensor-core
-    kernel.  A grid with at least ``sms`` tiles is not split.  Otherwise the
-    split is the smallest divisor of the K steps that brings the block count
-    to ``sms``, among those leaving each block >= MIN_SPLIT_STEPS steps; if
-    none does, the largest of those."""
-    tiles = -(-M // TILE_M[bits]) * -(-N // TILE_N)
+    kernel.  The split depends on N, K and the bit width alone, never on the
+    rows M: a row's sums then take the same order however many rows share
+    the call, so a chunked prefill's rows equal the plain prefill's bit for
+    bit.  Counting the columns' tiles of one row tile: a weight with at
+    least ``sms`` of them is not split.  Otherwise the split is the smallest
+    divisor of the K steps that brings the block count to ``sms``, among
+    those leaving each block >= MIN_SPLIT_STEPS steps; if none does, the
+    largest of those."""
+    tiles = -(-N // TILE_N)
     steps = -(-K // K_STEP[bits])
     if tiles >= sms:
         return 1
@@ -248,7 +252,7 @@ def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
-            split = split_k(M, N, K, bits, _sm_count(x.device.index or 0))
+            split = split_k(N, K, bits, _sm_count(x.device.index or 0))
             shape = split_workspace_shape(M, N, split)
             ws = (torch.empty(shape, dtype=torch.float32, device=x.device)
                   if shape else None)

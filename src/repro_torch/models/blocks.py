@@ -8,8 +8,12 @@ Python loop here: each step takes item i of every leaf (``take``).  Decode
 caches have the same stacked layout and are updated **in place** through
 those per-layer views.
 
-Not in this slice: MoE and SSM layers, sliding windows, the chunked
-prefill and sharding constraints.
+``apply_stack_prefill_chunk`` runs one chunk of a chunked prefill over a
+dense bf16 workspace.  A decode position is an int32 tensor (0-d or [B],
+``attention.write_cache_decode``), never turned into a host int.
+
+Not in this slice: MoE and SSM layers, sliding windows and sharding
+constraints.
 """
 
 from __future__ import annotations
@@ -83,13 +87,36 @@ def apply_layer_seq(p, x, *, cfg, positions, cache_len=None, write_cache=False):
     return x + mlp(p["ffn"], h, cfg), cache
 
 
-def apply_layer_decode(p, x, cache, pos: int, *, cfg):
-    """Single-token mode.  x [B,D]; pos is the position shared by all rows.
-    Writes this token into ``cache`` in place.  Returns x."""
+def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
+    """One layer over one chunk of a chunked prefill.  x [B,C,D] holds C
+    consecutive prompt rows from absolute position ``chunk_start``;
+    ``cache`` is this layer's dense bf16 workspace {"k","v": [B,Sb,K,Dh],
+    "pos": [Sb]}, already holding every earlier chunk.  Writes the chunk's
+    K/V in place, attends over the workspace and runs the same row-wise
+    math as ``apply_layer_seq``.  Returns x."""
+    C = x.shape[1]
+    positions = chunk_start + torch.arange(C, dtype=torch.int32, device=x.device)
     h = norm(p["mixer_norm"], x, cfg.norm_type)
-    # a fill on the device: torch.tensor([pos], device=cuda) would copy from
-    # the host and synchronise the stream once per layer
-    positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
+    q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
+    cache["k"][:, chunk_start: chunk_start + C] = k.to(cache["k"].dtype)
+    cache["v"][:, chunk_start: chunk_start + C] = v.to(cache["v"].dtype)
+    cache["pos"][chunk_start: chunk_start + C] = positions
+    o = attn_mod.prefill_chunk_attention(q, cache["k"], cache["v"], chunk_start,
+                                         cap=cfg.attn_logit_softcap)
+    o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], C, -1), mode=cfg.matmul_mode)
+    x = x + o
+    h = norm(p["ffn_norm"], x, cfg.norm_type)
+    return x + mlp(p["ffn"], h, cfg)
+
+
+def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg):
+    """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
+    row, -1 = idle) int32 tensor.  Writes this token into ``cache`` in
+    place.  Returns x."""
+    h = norm(p["mixer_norm"], x, cfg.norm_type)
+    # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
+    # rotates each row by its own position
+    positions = pos[:, None] if pos.ndim else pos[None]
     q, k, v = attn_mod.project_qkv(p["mixer"], h[:, None, :], cfg, positions)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     kvq = kv_spec(cfg)
@@ -121,19 +148,33 @@ def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=Fal
     return x, ({k: torch.stack([c[k] for c in caches]) for k in caches[0]},)
 
 
-def apply_stack_decode(stack, x, caches, pos: int, cfg):
-    """All layers in decode mode; ``caches`` (init_stack_cache's layout) are
-    updated in place.  Returns (x, caches)."""
+def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
+    """All layers over one prefill chunk; ``caches`` is a dense bf16
+    workspace in init_stack_cache's layout, updated in place.  Returns
+    (x, caches)."""
+    check_dense(cfg)
+    for i in range(cfg.n_layers):
+        x = apply_layer_prefill_chunk(take(stack[0], i), x, take(caches[0], i), chunk_start,
+                                      cfg=cfg)
+    return x, caches
+
+
+def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg):
+    """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
+    ``caches`` (init_stack_cache's layout) are updated in place.  Returns
+    (x, caches)."""
     check_dense(cfg)
     for i in range(cfg.n_layers):
         x = apply_layer_decode(take(stack[0], i), x, take(caches[0], i), pos, cfg=cfg)
     return x, caches
 
 
-def init_stack_cache(cfg, batch: int, cache_len: int, dtype=None, *, device=None):
-    """Empty caches in apply_stack_decode's layout."""
+def init_stack_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = False,
+                     device=None):
+    """Empty caches in apply_stack_decode's layout (``per_slot``: a position
+    array a row)."""
     check_dense(cfg)
     one = attn_mod.init_kv_cache(cfg, batch, cache_len, dtype or torch.bfloat16,
-                                 kvq=kv_spec(cfg), device=device)
+                                 kvq=kv_spec(cfg), per_slot=per_slot, device=device)
     return ({k: v.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * v.ndim)
              for k, v in one.items()},)

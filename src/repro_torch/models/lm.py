@@ -4,7 +4,8 @@ port of the dense path of ``repro/models/lm.py``.
 The parameter tree has the reference's keys (``embed``, ``stack``,
 ``final_norm``, ``lm_head`` when untied), so a reference tree carries
 across with ``interop.params_from_reference``.  Decode updates the caches
-in place.
+in place; its position lives in device memory (an int is accepted and
+filled on the device once), so a step can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks
+from repro_torch.models import attention, blocks
 from repro_torch.models.layers import Init, linear, matmul_rounded, norm, softcap
 
 
@@ -78,6 +79,20 @@ def backbone_seq(params, tokens, cfg, *, write_cache=False, cache_len=None):
     return norm(params["final_norm"], x, cfg.norm_type), caches
 
 
+def backbone_chunk(params, tokens, workspace, chunk_start: int, cfg):
+    """One chunk of a chunked prefill: the backbone over C consecutive
+    prompt rows from absolute position ``chunk_start``, against a dense bf16
+    ``workspace`` (init_caches of the kv16 twin config, batch 1, the bucket
+    length) that holds every earlier chunk's K/V and is updated in place.
+    Row-wise the math is ``backbone_seq``'s, and the chunk attention is
+    ``flash_attention``'s (``attention.prefill_chunk_attention``), so the
+    final chunk's rows match a plain prefill's.  Returns the normed hidden
+    [B, C, D]."""
+    x = embed_inputs(params, tokens, cfg)
+    x, _ = blocks.apply_stack_prefill_chunk(params["stack"], x, workspace, chunk_start, cfg)
+    return norm(params["final_norm"], x, cfg.norm_type)
+
+
 def loss_fn(params, tokens, labels, cfg, *, loss_chunk: int = 512):
     """Mean next-token cross entropy over labels >= 0, logits formed per
     sequence chunk (the tail past a whole number of chunks is dropped, as
@@ -106,16 +121,22 @@ def prefill(params, tokens, cfg, *, cache_len=None):
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 
-def decode_step(params, token, caches, pos: int, cfg):
-    """One decoding step: token [B] at position ``pos`` (shared by all
-    rows).  Returns (logits [B, V], caches), the caches updated in place."""
+def decode_step(params, token, caches, pos, cfg):
+    """One decoding step: token [B] at ``pos``: an int or a 0-d int32 tensor
+    (every row at one position, over shared caches) or a [B] one (a
+    position a row over per-slot caches, -1 = idle row).  Returns (logits
+    [B, V], caches), the caches updated in place.  Nothing here reads a
+    device value on the host, so the step can be captured as a CUDA graph."""
     x = embed_inputs(params, token, cfg)
+    pos = attention.as_position(pos, x.device)
     x, caches = blocks.apply_stack_decode(params["stack"], x, caches, pos, cfg)
     x = norm(params["final_norm"], x, cfg.norm_type)
     return logits_from_hidden(params, x, cfg), caches
 
 
-def init_caches(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *, device=None):
-    """Empty decode caches; packed k-bit leaves when cfg.kv_bits < 16."""
-    return blocks.init_stack_cache(cfg, batch, cache_len, dtype,
+def init_caches(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, *,
+                per_slot: bool = False, device=None):
+    """Empty decode caches; packed k-bit leaves when cfg.kv_bits < 16;
+    ``per_slot`` gives each row its own position array (the slot pool)."""
+    return blocks.init_stack_cache(cfg, batch, cache_len, dtype, per_slot=per_slot,
                                    device=resolve_device(device))

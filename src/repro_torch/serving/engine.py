@@ -7,9 +7,18 @@ temperature sampling and per-sequence EOS masking.  cfg.kv_bits < 16 serves
 from the packed k-bit cache; an Engine at kv_bits=16 is the bf16-cache
 oracle the quantized cache is held against (``kv_oracle_logit_gap``).
 
-PyTorch runs eagerly, so there is nothing to compile: prefill and decode
-are plain calls, and the caches are updated in place.  Sampling draws from
-a ``torch.Generator``.
+The reference jit-compiles its decode step; the port's analogue is a CUDA
+graph.  On the card ``generate`` captures one ``torch.cuda.CUDAGraph`` for
+each batch size (and sampling setting) over the Engine's cache length: the
+graph holds ``lm.decode_step``, ``sample_token`` and the EOS update, and it
+reads and writes static buffers (the token, the position as a device int32
+that the graph itself advances, the caches, ``done`` and the output row),
+so a step is one replay.  The prefill's caches are copied into the static
+caches before the first replay.  The EOS early exit stays a host check
+between replays, as in the reference.  If the capture fails, ``generate``
+raises: there is no eager fallback on the card.  On the CPU (the plain
+path, ``device='cpu'``) prefill and decode are eager calls.  Sampling draws
+from a ``torch.Generator``, registered with the graph when one is given.
 
 Not in this slice: the sharder, telemetry, the step profiler and
 construction from a PrecisionPlan.
@@ -31,16 +40,89 @@ KV_LOGIT_TOL = {8: 0.2, 4: 1.0}
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
-                 temperature: float) -> torch.Tensor:
+                 temperature) -> torch.Tensor:
     """Greedy at temperature 0, else a categorical draw (Gumbel-max, as
-    jax.random.categorical) at ``temperature``.  Returns int32 [B]."""
+    jax.random.categorical) at ``temperature``: a float, or a tensor of
+    per-row temperatures [B] (greedy where <= 0), as the continuous-batching
+    server samples its pool.  Returns int32 [B]."""
     greedy = torch.argmax(logits, dim=-1)
-    if temperature <= 0:
+    per_row = isinstance(temperature, torch.Tensor)
+    if not per_row and temperature <= 0:
         return greedy.to(torch.int32)
-    scaled = logits.to(torch.float32) / max(temperature, 1e-6)
+    scale = (torch.clamp(temperature.to(torch.float32), min=1e-6)[..., None] if per_row
+             else max(temperature, 1e-6))
+    scaled = logits.to(torch.float32) / scale
     u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
-    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    sampled = torch.argmax(scaled + gumbel, dim=-1)
+    if per_row:
+        sampled = torch.where(temperature > 0, sampled, greedy)
+    return sampled.to(torch.int32)
+
+
+def capture_graph(body, device: torch.device, generator: torch.Generator | None = None):
+    """``body`` captured as a ``torch.cuda.CUDAGraph``, after one warm-up
+    call on a side stream (PyTorch's CUDA-graph recipe); a ``generator``
+    that the body draws from is registered with the graph, and left in the
+    state it had before the warm-up, so the same seed draws the same
+    numbers whether or not a call captured.  The warm-up runs the body once
+    on its static buffers, so callers load their state after the capture.
+    Raises if the body cannot be captured (a host sync inside it, say)."""
+    state = generator.get_state() if generator is not None else None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        body()
+    if state is not None:
+        generator.set_state(state)
+    return graph
+
+
+class _DecodeGraph:
+    """The Engine's captured step for one batch size and sampling setting:
+    static buffers and the graph that reads and writes them."""
+
+    def __init__(self, engine: "Engine", batch: int, temperature: float,
+                 generator: torch.Generator | None):
+        dev, cfg = engine.device, engine.cfg
+        self.caches = lm.init_caches(cfg, batch, engine.max_seq_len, device=dev)
+        self.tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.done = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        self.out = torch.zeros((batch, engine.max_seq_len), dtype=torch.int32, device=dev)
+        self.col = torch.zeros((1,), dtype=torch.int64, device=dev)
+        eos = engine.eos_id
+
+        def body():
+            logits, _ = lm.decode_step(engine.params, self.tok, self.caches, self.pos, cfg)
+            nxt = sample_token(logits, generator, temperature)
+            if eos is not None:
+                nxt = torch.where(self.done, torch.full_like(nxt, eos), nxt)
+                self.done.logical_or_(nxt == eos)
+            self.tok.copy_(nxt)
+            self.out.index_copy_(1, self.col, nxt[:, None])
+            self.col.add_(1)
+            self.pos.add_(1)
+
+        self.graph = capture_graph(body, dev, generator if temperature > 0 else None)
+
+    def load(self, caches, tok: torch.Tensor, done: torch.Tensor, pos: int) -> None:
+        """The state after prefill into the static buffers (device copies
+        and fills only)."""
+        for mine, theirs in zip(self.caches, caches):
+            for key in mine:
+                mine[key].copy_(theirs[key])
+        self.tok.copy_(tok)
+        self.done.copy_(done)
+        self.out[:, 0].copy_(tok)
+        self.col.fill_(1)
+        self.pos.fill_(pos)
 
 
 @torch.inference_mode()
@@ -84,11 +166,22 @@ class Engine:
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.eos_id = eos_id
+        self._graphs: dict = {}   # (batch, temperature, generator) -> _DecodeGraph
+
+    def _decode_graph(self, batch: int, temperature: float = 0.0,
+                     generator: torch.Generator | None = None) -> "_DecodeGraph":
+        """The captured step for ``batch`` rows at this sampling setting,
+        captured on first use (CUDA only)."""
+        key = (batch, float(temperature), generator if temperature > 0 else None)
+        if key not in self._graphs:
+            self._graphs[key] = _DecodeGraph(self, batch, temperature, key[2])
+        return self._graphs[key]
 
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, *, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        """prompts [B, S] int -> tokens [B, <= max_new_tokens] int32."""
+        """prompts [B, S] int -> tokens [B, <= max_new_tokens] int32.  On
+        CUDA each decode step is one replay of the captured step."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S = prompts.shape
         if S + max_new_tokens > self.max_seq_len:
@@ -99,8 +192,19 @@ class Engine:
         tok = sample_token(logits, generator, temperature)
         done = (tok == self.eos_id) if self.eos_id is not None \
             else torch.zeros((B,), dtype=torch.bool, device=self.device)
+        if self.device.type == "cuda" and max_new_tokens > 1:
+            g = self._decode_graph(B, temperature, generator)
+            g.load(caches, tok, done, S)
+            del caches
+            n = 1
+            while n < max_new_tokens:
+                g.graph.replay()
+                n += 1
+                if self.eos_id is not None and bool(g.done.all()):
+                    break
+            return g.out[:, :n].clone()
         out = [tok]
-        for t in range(1, max_new_tokens):
+        for t in range(1, max_new_tokens):   # the plain path (CPU), eager
             logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg)
             tok = sample_token(logits, generator, temperature)
             if self.eos_id is not None:

@@ -453,9 +453,9 @@ def test_split_k_plan_for_main_path_shapes(arch, bits):
     """For every (M, K, N, bits) the Qwen2-7B prefill and the paper sweep
     launch at M = 1024 (K padded as kernels/ops pads it for each block size
     the sweep uses): the split divides the K steps, leaves each block at
-    least MIN_SPLIT_STEPS of them, brings the block count to the SM count
-    when any allowed split can, and sizes the workspace [split, M, N] and
-    the x tile images."""
+    least MIN_SPLIT_STEPS of them, brings the block count of one row tile
+    to the SM count when any allowed split can (the split does not depend
+    on M), and sizes the workspace [split, M, N] and the x tile images."""
     M = 1024
     sms = tqm.H100_SMS
     for K, N in _prefill_shapes()[arch]:
@@ -464,8 +464,8 @@ def test_split_k_plan_for_main_path_shapes(arch, bits):
             bk = cpw * block // np.gcd(cpw, block)
             Kp = -(-K // bk) * bk
             steps = -(-Kp // tqm.K_STEP[bits])
-            tiles = -(-M // tqm.TILE_M[bits]) * -(-N // tqm.TILE_N)
-            split = tqm.split_k(M, N, Kp, bits, sms)
+            tiles = -(-N // tqm.TILE_N)
+            split = tqm.split_k(N, Kp, bits, sms)
             allowed = [s for s in range(1, steps + 1) if steps % s == 0
                        and (s == 1 or steps // s >= tqm.MIN_SPLIT_STEPS)]
             assert split in allowed, (K, N, block, split)
@@ -483,14 +483,15 @@ def test_split_k_plan_for_main_path_shapes(arch, bits):
 
 
 def test_split_k_plan_of_qwen_prefill():
-    """At 4 bits a tile is 256 x 128: the k/v projections (N = 512, 16
-    tiles) and every N = 3584 projection (112 tiles) split K; 56 steps at
-    K = 3584 and 296 at K = 18944, whose smallest divisors reaching 132
-    blocks are 14 and 2.  Only gate/up (592 tiles) run unsplit."""
-    assert tqm.split_k(1024, 512, 3584, 4) == 14
-    assert tqm.split_k(1024, 3584, 3584, 4) == 2
-    assert tqm.split_k(1024, 3584, 18944, 4) == 2
-    assert tqm.split_k(1024, 18944, 3584, 4) == 1
+    """The split counts the column tiles of one row tile (128 columns): the
+    k/v projections (N = 512, 4 tiles) and every N = 3584 projection (28
+    tiles) split K; 56 steps at K = 3584 and 296 at K = 18944.  28 tiles
+    reach 132 blocks at 7 and 8; 4 tiles reach none, so the k/v projections
+    take the largest split, 28.  Only gate/up (148 tiles) run unsplit."""
+    assert tqm.split_k(512, 3584, 4) == 28
+    assert tqm.split_k(3584, 3584, 4) == 7
+    assert tqm.split_k(3584, 18944, 4) == 8
+    assert tqm.split_k(18944, 3584, 4) == 1
 
 
 def test_default_device_raises_without_cuda():
