@@ -9,7 +9,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   2. kernels — hold each kernel against its plain PyTorch version on the card:
                the fused dequant-GEMM (f32 activations: relative error
                <= 2e-5, f32 summation order; bf16: <= 2^-7 * max|y|, one
-               bf16 ulp at the max) at Qwen2-7B's shapes, both GEMVs' and
+               bf16 ulp at the max) at Qwen2-7B's shapes and the main
+               paths' row counts (1 to 8 rows, the Server's buckets and
+               chunks, the Engine's prefill), both GEMVs' and
                the tensor-core GEMM's edges (3 to 8 bits) and split-K
                shapes and the paper sweep's shapes, the KV dequant
                (bit-exact), the blockwise encode (bit-exact codes and
@@ -23,11 +25,14 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                kv4 cache: 4 prompts x 256 tokens, 32 greedy tokens, each
                decode step a replay of the captured step.  Checks the
                captured step's tokens against eager lm.decode_step calls
-               at kv16, kv8 and kv4 (identical), no host sync inside the
-               captured body, finite logits and the kernel launches of one
-               eager decode step (every GEMV on the tensor cores,
-               qgemv_sm90; one fused attention a layer and no standalone
-               KV dequant).
+               at kv16, kv8 and kv4 (identical), sampled tokens and the
+               generator's state against eager steps from the same seed
+               (identical; one captured step for every temperature), no
+               host sync inside the captured body, finite logits and the
+               kernel launches of one eager decode step and of one replay
+               (every GEMV on the tensor cores, qgemv_sm90; one fused
+               attention a layer and no standalone KV dequant).  A replay
+               adds its kernels' launches to the wrappers' counters.
   3b. server — the continuous-batching Server on the same weights with a kv4
                cache and 8 slots: 24 requests of 16-512 prompt tokens and
                16-64 new tokens with staggered arrivals, plain, with
@@ -263,8 +268,14 @@ def check_kernels(torch, dev) -> dict:
     cfg = get_arch(ARCH)
     D, F, KD, V = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim, cfg.vocab_size
     shapes = [(D, D), (D, KD), (D, F), (F, D), (D, V)]
+    # the row counts of the main paths: the Server's admission head (1), the
+    # Engine's and the pool's decode steps (BATCH, SERVER_SLOTS), the
+    # Server's bucketed prefills (16-512) and chunks, the Engine's prefill
+    server_ms = sorted({1 << i for i in range(4, SERVER_PROMPT_LENS[1].bit_length())}
+                       | {SERVER_CHUNK})
     for K, N in shapes:
-        check_b1((BATCH, BATCH * PROMPT), K, N, 4, "float", 64, torch.bfloat16, True)
+        check_b1((1, BATCH, SERVER_SLOTS, *server_ms, BATCH * PROMPT), K, N, 4, "float", 64,
+                 torch.bfloat16, True)
         check_b1((BATCH,), K, N, 4, "float", 64, torch.float32, False)
     # the tensor-core kernel's edges: rows around its 64-row slabs and its
     # 128- and 256-row tiles, columns around its 128-column tiles and off
@@ -516,36 +527,21 @@ def _qwen_items(cfg) -> dict:
             (V, D): 0 if cfg.tie_embeddings else 1}
 
 
+#: chip_smoke's names for the kernels' launch counters, in the order of
+#: kernels/launches.snapshot()
+_COUNT_KEYS = ("gemv", "gemv_tc", "gemv_simt", "gemm", "gemm_simt", "kv", "attn", "b3", "pack")
+
+
 def _counts():
-    from repro_torch.kernels import kv_dequant as kvd
-    from repro_torch.kernels import qmatmul as qk
+    from repro_torch.kernels import launches
 
-    from repro_torch.kernels import kv_attention as kat
-    from repro_torch.kernels import quantize as quantk
-
-    return {"gemv": qk.qmatmul_gemv.launches, "gemv_tc": qk.qmatmul_gemv_tc.launches,
-            "gemv_simt": qk.qmatmul_gemv_simt.launches, "gemm": qk.qmatmul_gemm.launches,
-            "gemm_simt": qk.qmatmul_gemm.simt_launches, "kv": kvd.dequant_rows_cuda.launches,
-            "attn": kat.decode_attention_packed_cuda.launches,
-            "b3": quantk.quantize_blocks_cuda.launches,
-            "pack": quantk.quantize_pack_cuda.launches}
+    return dict(zip(_COUNT_KEYS, launches.snapshot(), strict=True))
 
 
 def _reset_counts():
-    from repro_torch.kernels import kv_attention as kat
-    from repro_torch.kernels import kv_dequant as kvd
-    from repro_torch.kernels import qmatmul as qk
-    from repro_torch.kernels import quantize as quantk
+    from repro_torch.kernels import launches
 
-    qk.qmatmul_gemv.launches = 0
-    qk.qmatmul_gemv_tc.launches = 0
-    qk.qmatmul_gemv_simt.launches = 0
-    qk.qmatmul_gemm.launches = 0
-    qk.qmatmul_gemm.simt_launches = 0
-    kvd.dequant_rows_cuda.launches = 0
-    kat.decode_attention_packed_cuda.launches = 0
-    quantk.quantize_blocks_cuda.launches = 0
-    quantk.quantize_pack_cuda.launches = 0
+    launches.add([-n for n in launches.snapshot()])
 
 
 def serve_main_path(torch, dev) -> dict:
@@ -586,8 +582,8 @@ def serve_main_path(torch, dev) -> dict:
     b2_step = cfg.n_layers   # one fused attention a layer
 
     # the main path: a fresh Engine's generate.  Its first decode step
-    # captures the step: the capture's warm-up call and its recording tick
-    # the counters once each, the replays do not
+    # captures the step: the capture's warm-up call launches one step, the
+    # recording launches nothing and each replay launches one step
     _reset_counts()
     with _capture_guard(torch) as syncs:
         tokens = engine.generate(prompts, NEW_TOKENS)
@@ -598,14 +594,14 @@ def serve_main_path(torch, dev) -> dict:
     require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens out of range")
     require(counts["gemm"] == per_layer * cfg.n_layers,
             f"prefill: {counts['gemm']} tiled qmatmul launches")
-    require(counts["gemv"] == 1 + 2 * b1_step,
-            f"{counts['gemv']} GEMV launches, want 1 (the prefill's head) + 2 x {b1_step} "
-            f"(the capture's warm-up and recording)")
+    require(counts["gemv"] == 1 + NEW_TOKENS * b1_step,
+            f"{counts['gemv']} GEMV launches, want 1 (the prefill's head) + {NEW_TOKENS} x "
+            f"{b1_step} (the capture's warm-up and {n_steps} replays)")
     require(counts["gemv_tc"] == counts["gemv"],
             f"{counts['gemv_tc']} of {counts['gemv']} GEMV launches on the tensor cores")
-    require(counts["attn"] == 2 * b2_step and counts["kv"] == 0,
+    require(counts["attn"] == NEW_TOKENS * b2_step and counts["kv"] == 0,
             f"{counts['attn']} fused attention and {counts['kv']} kv dequant launches, want "
-            f"2 x {b2_step} and 0")
+            f"{NEW_TOKENS} x {b2_step} and 0")
 
     # prefill alone (and the first token), then the whole run again: each
     # decode step a replay of the graph captured above
@@ -631,6 +627,17 @@ def serve_main_path(torch, dev) -> dict:
         identical[kv] = bool(torch.equal(_eager_generate(torch, qparams, c, prompts)[0],
                                          graph_toks))
     require(all(identical.values()), f"graph tokens differ from eager ones: {identical}")
+    # sampling inside the captured step: the tokens and the generator state
+    # that eager steps give from the same seed, at two temperatures that
+    # replay the batch's one captured step
+    for temperature, seed in ((0.7, SEED + 3), (1.3, SEED + 4)):
+        mine, theirs = _gen(torch, dev, seed), _gen(torch, dev, seed)
+        sampled = engine.generate(prompts, NEW_TOKENS, temperature=temperature, generator=mine)
+        eager_s = _eager_generate(torch, qparams, cfg, prompts, temperature, theirs)[0]
+        require(torch.equal(sampled, eager_s) and not torch.equal(sampled, tokens)
+                and torch.equal(mine.get_state(), theirs.get_state()),
+                f"sampled graph tokens at temperature {temperature} differ from eager ones")
+    require(list(engine._graphs) == [BATCH], f"captured steps {list(engine._graphs)}")
     peak_bytes = max(init_peak_bytes, torch.cuda.max_memory_allocated())
 
     # one more prefill and decode step with logits in hand
@@ -644,6 +651,10 @@ def serve_main_path(torch, dev) -> dict:
     require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
                             "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
             f"one decode step launched {step_counts}")
+    _reset_counts()
+    engine._graphs[BATCH].step.replay()   # the static state is reloaded by each generate
+    torch.cuda.synchronize()
+    require(_counts() == step_counts, f"one replay launched {_counts()}")
     # the same step's device time alone: replayed from a CUDA graph, without
     # the host's eager PyTorch overhead that the step above includes
     step_device_ms = _time_ms(
@@ -728,20 +739,21 @@ class _capture_guard:
         return False
 
 
-def _eager_generate(torch, qparams, cfg, prompts):
-    """Greedy tokens of eager lm.decode_step calls (no graph), and the host
-    clock's ms a step."""
+def _eager_generate(torch, qparams, cfg, prompts, temperature=0.0, generator=None):
+    """Tokens of eager lm.decode_step calls (no graph), sampled as
+    Engine.generate samples, and the host clock's ms a step."""
     from repro_torch.models import lm
+    from repro_torch.serving.engine import sample_token
 
     with torch.inference_mode():
         logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=PROMPT + NEW_TOKENS)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = sample_token(logits, generator, temperature)
         out = [tok]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(1, NEW_TOKENS):
             logits, caches = lm.decode_step(qparams, tok, caches, PROMPT + t - 1, cfg)
-            tok = torch.argmax(logits, -1).to(torch.int32)
+            tok = sample_token(logits, generator, temperature)
             out.append(tok)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / (NEW_TOKENS - 1) * 1e3
@@ -853,8 +865,8 @@ def server_path(torch, dev, run) -> dict:
         require(srv.pool.n_free == SERVER_SLOTS and srv.scheduler.drained, "pool not drained")
         return srv, ids, toks, wall
 
-    # the main path: a fresh Server (its construction captures the step:
-    # warm-up and recording tick the counters once each) serving the traffic
+    # the main path: a fresh Server (its construction captures the step: the
+    # warm-up launches one step, each replay one more) serving the traffic
     with torch.inference_mode():
         tel = Telemetry()
         _reset_counts()
@@ -866,11 +878,12 @@ def server_path(torch, dev, run) -> dict:
         admissions = int(reg.counter("serve_prefills_total").value)
         steps = int(reg.counter("serve_decode_steps_total").value)
         require(admissions == SERVER_REQUESTS, f"{admissions} admissions")
-        require(counts["attn"] == 2 * b2_step and counts["kv"] == 0,
-                f"server: {counts['attn']} fused attentions, want 2 x {b2_step} (the capture)")
+        require(counts["attn"] == (1 + steps) * b2_step and counts["kv"] == 0,
+                f"server: {counts['attn']} fused attentions, want (1 + {steps}) x {b2_step} "
+                f"(the warm-up and {steps} replays)")
         require(counts["gemm"] == per_layer * cfg.n_layers * admissions
-                and counts["gemv"] == counts["gemv_tc"] == 2 * b1_step + admissions,
-                f"server launches {counts} for {admissions} admissions")
+                and counts["gemv"] == counts["gemv_tc"] == (1 + steps) * b1_step + admissions,
+                f"server launches {counts} for {admissions} admissions and {steps} steps")
         # one decode step over the (now idle) pool, eagerly: its launches
         _reset_counts()
         srv._decode_body()
@@ -879,6 +892,10 @@ def server_path(torch, dev, run) -> dict:
         require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
                                 "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
                 f"one decode step over the pool launched {step_counts}")
+        _reset_counts()
+        srv._graph.replay()
+        torch.cuda.synchronize()
+        require(_counts() == step_counts, f"one replay over the pool launched {_counts()}")
         step_device_ms = _time_graph(torch, srv._graph, 10)
         ttft = reg.histogram("serve_ttft_seconds")
         step_s = reg.histogram("serve_decode_step_seconds")

@@ -78,8 +78,9 @@ def _check(q: torch.Tensor, cache: dict, spec):
 def _positions(pos, cache: dict, B: int, device) -> torch.Tensor:
     """The decode position as an int32 tensor that fits the cache's position
     array: 0-d over [S], [B] over [B, S]; an int becomes a 0-d device fill."""
-    if not isinstance(pos, torch.Tensor):
-        pos = torch.full((), int(pos), dtype=torch.int32, device=device)
+    from repro_torch.models import attention  # models.attention imports this module
+
+    pos = attention.as_position(pos, device)
     want = () if cache["pos"].ndim == 1 else (B,)
     if tuple(pos.shape) != want:
         raise ValueError(f"decode_attention_packed: positions {tuple(pos.shape)} over a "

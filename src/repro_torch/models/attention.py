@@ -48,6 +48,10 @@ NEG_INF = -1e30
 #: bucket, the same prompt at its exact length and its chunks (starting at
 #: multiples of this) give the same rows bit for bit
 Q_PIECE = 128
+#: keys a step of ``flash_attention``'s online softmax: a chunked prefill
+#: (``prefill_chunk_attention``) equals the plain one bit for bit only while
+#: the whole bucketed prompt fits one such chunk
+KV_CHUNK = 1024
 
 
 def _is_quantized_cache(cache: dict) -> bool:
@@ -127,7 +131,7 @@ def _round_up(n: int, m: int) -> int:
 
 
 def flash_attention(q, k, v, *, q_start: int = 0, causal: bool = True, window: int = 0,
-                    cap: float = 0.0, chunk_kv: int = 1024):
+                    cap: float = 0.0, chunk_kv: int = KV_CHUNK):
     """Chunked online-softmax attention.  q [B,Sq,H,Dh]; k,v [B,Skv,K,Dh]
     (GQA: H = K*G); q_start is the absolute position of q[0].
 
@@ -178,9 +182,9 @@ def prefill_chunk_attention(q, k, v, q_pos: int, *, cap: float = 0.0):
     """One chunk of a chunked prefill: C query rows at absolute positions
     q_pos .. q_pos + C - 1 attend causally over a dense workspace k, v
     [B, Skv, K, Dh] that already holds every position up to the chunk's
-    last.  For Skv <= 1024 (one KV chunk of ``flash_attention``) this is
-    ``flash_attention``'s rows bit for bit where the two run the same
-    shapes (on the card: q_pos a multiple of ``Q_PIECE``): the online
+    last.  For Skv <= ``KV_CHUNK`` (one KV chunk of ``flash_attention``)
+    this is ``flash_attention``'s rows bit for bit where the two run the
+    same shapes (on the card: q_pos a multiple of ``Q_PIECE``): the online
     softmax then runs one step whose combine is exact (m = m_c, a = 0,
     b = 1), and both read a piece's keys up to the piece's end."""
     B, C, H, Dh = q.shape

@@ -9,16 +9,19 @@ oracle the quantized cache is held against (``kv_oracle_logit_gap``).
 
 The reference jit-compiles its decode step; the port's analogue is a CUDA
 graph.  On the card ``generate`` captures one ``torch.cuda.CUDAGraph`` for
-each batch size (and sampling setting) over the Engine's cache length: the
-graph holds ``lm.decode_step``, ``sample_token`` and the EOS update, and it
-reads and writes static buffers (the token, the position as a device int32
-that the graph itself advances, the caches, ``done`` and the output row),
-so a step is one replay.  The prefill's caches are copied into the static
-caches before the first replay.  The EOS early exit stays a host check
-between replays, as in the reference.  If the capture fails, ``generate``
-raises: there is no eager fallback on the card.  On the CPU (the plain
-path, ``device='cpu'``) prefill and decode are eager calls.  Sampling draws
-from a ``torch.Generator``, registered with the graph when one is given.
+each batch size over the Engine's cache length: the graph holds
+``lm.decode_step``, ``sample_token`` and the EOS update, and it reads and
+writes static buffers (the token, the position as a device int32 that the
+graph itself advances, the temperature a row, the caches, ``done`` and the
+output row), so a step is one replay.  The prefill's caches are copied into
+the static caches before the first replay.  The graph samples from a
+generator of the Engine's own, registered with it; a call that samples
+copies its generator's state (the device's default generator when none is
+given) into that one before the replays and back after them, so the same
+seed draws the same tokens as eager steps would.  The EOS early exit stays
+a host check between replays, as in the reference.  If the capture fails,
+``generate`` raises: there is no eager fallback on the card.  On the CPU
+(the plain path, ``device='cpu'``) prefill and decode are eager calls.
 
 Not in this slice: the sharder, telemetry, the step profiler and
 construction from a PrecisionPlan.
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import launches
 from repro_torch.models import lm
 
 #: stated per-token logit tolerance of a k-bit KV cache vs the bf16-cache
@@ -49,9 +53,13 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     per_row = isinstance(temperature, torch.Tensor)
     if not per_row and temperature <= 0:
         return greedy.to(torch.int32)
-    scale = (torch.clamp(temperature.to(torch.float32), min=1e-6)[..., None] if per_row
-             else max(temperature, 1e-6))
-    scaled = logits.to(torch.float32) / scale
+    # a float becomes a 0-d tensor: the same division as the per-row form
+    # (CUDA multiplies by the reciprocal of a Python scalar instead), so the
+    # captured steps, which sample at per-row temperatures, draw the tokens
+    # that eager calls at a float temperature draw
+    t = (temperature if per_row else
+         torch.full((), temperature, dtype=torch.float32, device=logits.device))
+    scaled = logits.to(torch.float32) / torch.clamp(t.to(torch.float32), min=1e-6)[..., None]
     u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
     sampled = torch.argmax(scaled + gumbel, dim=-1)
@@ -60,14 +68,29 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     return sampled.to(torch.int32)
 
 
+class CapturedStep:
+    """A body captured as a ``torch.cuda.CUDAGraph`` (``capture_graph``):
+    ``replay()`` runs it and adds the kernel launches that it recorded to
+    the wrappers' counters (``kernels/launches.py``)."""
+
+    def __init__(self, graph, launched: tuple[int, ...]):
+        self.graph = graph
+        self.launched = launched
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.add(self.launched)
+
+
 def capture_graph(body, device: torch.device, generator: torch.Generator | None = None):
-    """``body`` captured as a ``torch.cuda.CUDAGraph``, after one warm-up
-    call on a side stream (PyTorch's CUDA-graph recipe); a ``generator``
-    that the body draws from is registered with the graph, and left in the
-    state it had before the warm-up, so the same seed draws the same
-    numbers whether or not a call captured.  The warm-up runs the body once
-    on its static buffers, so callers load their state after the capture.
-    Raises if the body cannot be captured (a host sync inside it, say)."""
+    """``body`` captured as a ``CapturedStep``, after one warm-up call on a
+    side stream (PyTorch's CUDA-graph recipe); a ``generator`` that the body
+    draws from is registered with the graph, and left in the state it had
+    before the warm-up.  The warm-up runs the body once on its static
+    buffers, so callers load their state after the capture.  Its launches
+    count; the recording's do not (it launches nothing), they count at each
+    replay.  Raises if the body cannot be captured (a host sync inside it,
+    say)."""
     state = generator.get_state() if generator is not None else None
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -77,31 +100,34 @@ def capture_graph(body, device: torch.device, generator: torch.Generator | None 
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
+    before = launches.snapshot()
     with torch.cuda.graph(graph):
         body()
+    launched = tuple(a - b for a, b in zip(launches.snapshot(), before))
+    launches.add([-n for n in launched])
     if state is not None:
         generator.set_state(state)
-    return graph
+    return CapturedStep(graph, launched)
 
 
 class _DecodeGraph:
-    """The Engine's captured step for one batch size and sampling setting:
-    static buffers and the graph that reads and writes them."""
+    """The Engine's captured step for one batch size: static buffers and
+    the step that reads and writes them."""
 
-    def __init__(self, engine: "Engine", batch: int, temperature: float,
-                 generator: torch.Generator | None):
+    def __init__(self, engine: "Engine", batch: int):
         dev, cfg = engine.device, engine.cfg
         self.caches = lm.init_caches(cfg, batch, engine.max_seq_len, device=dev)
         self.tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
         self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.temps = torch.zeros((batch,), dtype=torch.float32, device=dev)
         self.done = torch.zeros((batch,), dtype=torch.bool, device=dev)
         self.out = torch.zeros((batch, engine.max_seq_len), dtype=torch.int32, device=dev)
         self.col = torch.zeros((1,), dtype=torch.int64, device=dev)
-        eos = engine.eos_id
+        eos, gen = engine.eos_id, engine._gen
 
         def body():
             logits, _ = lm.decode_step(engine.params, self.tok, self.caches, self.pos, cfg)
-            nxt = sample_token(logits, generator, temperature)
+            nxt = sample_token(logits, gen, self.temps)
             if eos is not None:
                 nxt = torch.where(self.done, torch.full_like(nxt, eos), nxt)
                 self.done.logical_or_(nxt == eos)
@@ -110,9 +136,10 @@ class _DecodeGraph:
             self.col.add_(1)
             self.pos.add_(1)
 
-        self.graph = capture_graph(body, dev, generator if temperature > 0 else None)
+        self.step = capture_graph(body, dev, gen)
 
-    def load(self, caches, tok: torch.Tensor, done: torch.Tensor, pos: int) -> None:
+    def load(self, caches, tok: torch.Tensor, done: torch.Tensor, pos: int,
+             temperature: float) -> None:
         """The state after prefill into the static buffers (device copies
         and fills only)."""
         for mine, theirs in zip(self.caches, caches):
@@ -123,6 +150,7 @@ class _DecodeGraph:
         self.out[:, 0].copy_(tok)
         self.col.fill_(1)
         self.pos.fill_(pos)
+        self.temps.fill_(temperature)
 
 
 @torch.inference_mode()
@@ -166,16 +194,16 @@ class Engine:
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.eos_id = eos_id
-        self._graphs: dict = {}   # (batch, temperature, generator) -> _DecodeGraph
+        self._graphs: dict[int, _DecodeGraph] = {}   # batch -> captured step
+        # the captured steps' generator (CUDA only; see the module docstring)
+        self._gen = torch.Generator(self.device) if self.device.type == "cuda" else None
 
-    def _decode_graph(self, batch: int, temperature: float = 0.0,
-                     generator: torch.Generator | None = None) -> "_DecodeGraph":
-        """The captured step for ``batch`` rows at this sampling setting,
-        captured on first use (CUDA only)."""
-        key = (batch, float(temperature), generator if temperature > 0 else None)
-        if key not in self._graphs:
-            self._graphs[key] = _DecodeGraph(self, batch, temperature, key[2])
-        return self._graphs[key]
+    def _decode_graph(self, batch: int) -> _DecodeGraph:
+        """The captured step for ``batch`` rows, captured on first use (CUDA
+        only)."""
+        if batch not in self._graphs:
+            self._graphs[batch] = _DecodeGraph(self, batch)
+        return self._graphs[batch]
 
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, *, temperature: float = 0.0,
@@ -193,15 +221,23 @@ class Engine:
         done = (tok == self.eos_id) if self.eos_id is not None \
             else torch.zeros((B,), dtype=torch.bool, device=self.device)
         if self.device.type == "cuda" and max_new_tokens > 1:
-            g = self._decode_graph(B, temperature, generator)
-            g.load(caches, tok, done, S)
+            g = self._decode_graph(B)
+            g.load(caches, tok, done, S, temperature)
             del caches
+            source = None
+            if temperature > 0:   # draw on from the caller's generator state
+                index = self.device.index
+                source = generator if generator is not None else torch.cuda.default_generators[
+                    torch.cuda.current_device() if index is None else index]
+                self._gen.set_state(source.get_state())
             n = 1
             while n < max_new_tokens:
-                g.graph.replay()
+                g.step.replay()
                 n += 1
                 if self.eos_id is not None and bool(g.done.all()):
                     break
+            if source is not None:
+                source.set_state(self._gen.get_state())
             return g.out[:, :n].clone()
         out = [tok]
         for t in range(1, max_new_tokens):   # the plain path (CPU), eager

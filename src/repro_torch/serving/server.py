@@ -25,7 +25,12 @@ stored and restoring them bit for bit later, so preempted streams are
 token-identical to an unpreempted run.  ``prefill_chunk=C`` splits long
 prompts into chunks interleaved with decode steps; the committed rows match
 a plain prefill's (``attention.prefill_chunk_attention``), so chunking never
-changes tokens.  Prompt-length bucketing is safe because every ported
+changes tokens.  That holds while the bucket fits one of
+flash_attention's KV chunks (``attention.KV_CHUNK``) and, on the card,
+while every chunk starts at a multiple of ``attention.Q_PIECE``: there C
+must be a multiple of it, and a bucket that is not (one capped at a cache
+length off that multiple) prefills plainly, as does a bucket past
+``KV_CHUNK``.  Prompt-length bucketing is safe because every ported
 model is causal full attention: padded positions are masked out of the
 cache (``kvcache.scatter_row``).
 
@@ -46,7 +51,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_dequant import kv_spec
-from repro_torch.models import lm
+from repro_torch.models import attention, lm
 from repro_torch.serving.engine import capture_graph, sample_token
 from repro_torch.serving.kvcache import SlotKVCache, scatter_row, workspace_to_row
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -57,12 +62,6 @@ def bucket_len(n: int, *, minimum: int = 8, cap: int | None = None) -> int:
     """Round up to a power of two (at least ``minimum``, at most ``cap``)."""
     b = max(minimum, 1 << max(0, n - 1).bit_length())
     return min(b, cap) if cap is not None else b
-
-
-#: flash_attention's KV-chunk size: a chunked prefill equals the plain one
-#: bit for bit only while the whole bucketed prompt fits one KV chunk
-#: (attention.prefill_chunk_attention); longer buckets prefill plainly
-_FLASH_KV_CHUNK = 1024
 
 
 class _ChunkState:
@@ -124,6 +123,11 @@ class Server:
                 raise ValueError("prefill_chunk needs a bucketing-safe arch (causal full "
                                  "attention, dense FFN)")
         self.device = resolve_device(device)
+        # chunk starts at multiples of this (see the module docstring)
+        self._chunk_align = attention.Q_PIECE if self.device.type == "cuda" else 1
+        if prefill_chunk is not None and prefill_chunk % self._chunk_align:
+            raise ValueError(f"on CUDA prefill_chunk must be a multiple of {self._chunk_align}"
+                             f" (attention.Q_PIECE), got {prefill_chunk}")
         self.telemetry = telemetry
         self.params = params
         self.cfg = cfg
@@ -291,7 +295,7 @@ class Server:
                 self._resume(req, slot)
                 continue
             if (self._prefill_chunk is not None and L > self._prefill_chunk
-                    and Sb <= _FLASH_KV_CHUNK):
+                    and Sb <= attention.KV_CHUNK and Sb % self._chunk_align == 0):
                 self._start_chunked(req, slot, L, Sb)
                 continue
             padded = np.zeros((1, Sb), dtype=np.int64)

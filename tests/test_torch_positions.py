@@ -14,11 +14,9 @@ the JAX package's.
   (tests/test_decode_consistency.py's bar), compiled without XLA's excess
   precision as in tests/test_torch_model.py.
 
-Cases marked ``cuda`` skip on the CPU: the fused attention's kernel at [B]
-positions with idle rows against its plain version (2^-6 of the row's max,
-idle rows exactly 0), the captured decode step (``Engine.generate``)
-against eager ``lm.decode_step`` calls, token for token, and its
-temperature sampling through a generator registered with the graph.
+The same forms on the card (the fused attention's kernel at [B] positions,
+the captured decode step) are held in tests/test_torch_on_card.py, which
+imports no JAX and so also runs where the card is.
 """
 
 import functools
@@ -45,7 +43,6 @@ from repro_torch.kernels import kv_dequant as tkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
-from repro_torch.serving import Engine  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -214,91 +211,3 @@ def test_decode_step_takes_int_and_0d_positions_alike():
     assert torch.equal(out[0][0], out[1][0])
     for key in out[0][1][0]:
         assert torch.equal(out[0][1][0][key], out[1][1][0][key])
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernels are built with nvcc and run on the card")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("K_,G_,Dh", [(2, 7, 32), (4, 7, 128), (2, 4, 64)])
-def test_fused_attention_kernel_at_vector_positions(bits, K_, G_, Dh):
-    """[B] positions over a [B, S] position array with idle rows: the kernel
-    within 2^-6 of each row's max of its plain version, idle rows exactly
-    0."""
-    _need_cuda()
-    Bc, Sc = 8, 300
-    rs = np.random.RandomState(bits + Dh)
-    spec = tkv.KVQuantSpec(bits=bits, block_size=64, dtype_name="float")
-    feat = K_ * Dh
-    k = torch.tensor(rs.randn(Bc, Sc, feat), dtype=torch.bfloat16, device="cuda")
-    v = torch.tensor(rs.randn(Bc, Sc, feat), dtype=torch.bfloat16, device="cuda")
-    kp, ks = tkv.encode_rows(k, spec)
-    vp, vs = tkv.encode_rows(v, spec)
-    lens = rs.randint(1, Sc, Bc)
-    ar = np.arange(Sc)
-    pos_arr = np.stack([np.where(ar < n, ar, -1) for n in lens]).astype(np.int32)
-    pos = (lens - 1).astype(np.int32)
-    pos[[1, 5]] = -1
-    cache = {"k_packed": kp, "k_scales": ks, "v_packed": vp, "v_scales": vs,
-             "pos": torch.from_numpy(pos_arr).cuda()}
-    q = torch.tensor(rs.randn(Bc, K_ * G_, Dh) * 2, dtype=torch.bfloat16, device="cuda")
-    p = torch.from_numpy(pos).cuda()
-    out = tka.decode_attention_packed_cuda(q, cache, p, spec).float()
-    plain = tka.decode_attention_packed_plain(q, cache, p, spec).float()
-    torch.cuda.synchronize()
-    gap = (out - plain).abs().amax(-1)
-    assert bool((gap <= ATT_TOL * plain.abs().amax(-1)).all()), float(gap.max())
-    assert not bool(out[[1, 5]].abs().any()) and not bool(plain[[1, 5]].abs().any())
-    assert bool(torch.isfinite(out).all())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv", [16, 8, 4])
-def test_engine_graph_tokens_equal_eager(kv):
-    """The captured step replays the kernels eager ``lm.decode_step`` calls
-    launch, at the same shapes: identical greedy tokens."""
-    _need_cuda()
-    cfg = get_arch("tiny-650k")
-    if kv < 16:
-        cfg = cfg.with_kv_quant(kv)
-    params = quantize_params(lm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
-                             QuantConfig(bits=4), cfg, device="cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
-                            generator=torch.Generator("cuda").manual_seed(1))
-    n = 24
-    graph = Engine(params, cfg, max_seq_len=16 + n, device="cuda").generate(prompts, n)
-    logits, caches = lm.prefill(params, prompts, cfg, cache_len=16 + n)
-    tok = torch.argmax(logits, -1).to(torch.int32)
-    eager = [tok]
-    for t in range(1, n):
-        logits, caches = lm.decode_step(params, tok, caches, 16 + t - 1, cfg)
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        eager.append(tok)
-    assert torch.equal(graph, torch.stack(eager, 1))
-
-
-@pytest.mark.cuda
-def test_engine_graph_samples_with_a_registered_generator():
-    """Temperature sampling inside the captured step draws from the caller's
-    generator (registered with the graph): the same seed gives the same
-    tokens, in range, and a high temperature leaves the greedy path."""
-    _need_cuda()
-    cfg = get_arch("tiny-160k").with_kv_quant(4)
-    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    prompts = torch.randint(0, cfg.vocab_size, (4, 8), device="cuda",
-                            generator=torch.Generator("cuda").manual_seed(2))
-    engine = Engine(params, cfg, max_seq_len=24, device="cuda")
-    gen = torch.Generator("cuda")
-    runs = [engine.generate(prompts, 12, temperature=100.0, generator=gen.manual_seed(5))
-            for _ in range(2)]
-    greedy = engine.generate(prompts, 12)
-    assert torch.equal(runs[0], runs[1])
-    assert bool(((runs[0] >= 0) & (runs[0] < cfg.vocab_size)).all())
-    assert not torch.equal(runs[0], greedy)

@@ -45,6 +45,7 @@ from repro_torch.models.quantize import quantize_params  # noqa: E402
 from repro_torch.serving import Engine, Server, SlotKVCache, Telemetry  # noqa: E402
 from repro_torch.serving import server as server_mod  # noqa: E402
 from repro_torch.serving import trace  # noqa: E402
+from repro_torch.serving.engine import sample_token  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -321,3 +322,39 @@ def test_workloads_serve_to_completion():
             assert all(0 <= t < cfg.vocab_size for t in res[rid])
         if kw:
             assert srv.scheduler.n_preemptions >= 1
+
+
+def test_sample_token_float_and_per_row_temperatures_draw_alike():
+    """A float temperature and the same temperature a row (the captured
+    steps' form) draw the same tokens from the same generator state; a row
+    at temperature 0 is greedy."""
+    rs = np.random.RandomState(5)
+    logits = torch.from_numpy(rs.randn(4, 300).astype(np.float32)).to(torch.bfloat16)
+    for t in (0.3, 0.8, 1.7):
+        a = sample_token(logits, torch.Generator().manual_seed(9), t)
+        b = sample_token(logits, torch.Generator().manual_seed(9), torch.full((4,), t))
+        assert torch.equal(a, b), t
+    mixed = sample_token(logits, torch.Generator().manual_seed(9),
+                         torch.tensor([0.0, 100.0, 0.0, 100.0]))
+    greedy = torch.argmax(logits, -1).to(torch.int32)
+    assert torch.equal(mixed[[0, 2]], greedy[[0, 2]])
+
+
+def test_launch_counters_cover_every_kernel_wrapper():
+    """kernels/launches.py moves every counter that a kernel wrapper keeps,
+    so a captured step's replays count all of its kernels."""
+    import inspect
+
+    from repro_torch.kernels import kv_attention, kv_dequant, launches, qmatmul, quantize
+
+    kept = {(fn.__qualname__, attr) for fn, attr in launches._counters()}
+    found = {(fn.__qualname__, attr)
+             for mod in (kv_attention, kv_dequant, qmatmul, quantize)
+             for _, fn in inspect.getmembers(mod, inspect.isfunction)
+             for attr in ("launches", "simt_launches") if hasattr(fn, attr)}
+    assert kept == found
+    before = launches.snapshot()
+    launches.add([1] * len(before))
+    assert launches.snapshot() == tuple(n + 1 for n in before)
+    launches.add([-1] * len(before))
+    assert launches.snapshot() == before
