@@ -18,7 +18,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                scale bits), the encode to the stored form (bit-exact words
                and scale bits) and the fused decode attention over the
                packed cache (<= 2^-6 * max|out| per row and head), also at
-               a position a row with idle rows (exactly 0).
+               a position a row with idle rows (exactly 0), and over a paged
+               cache (pages of 8, 16 and 64, a shuffled page map with shared
+               pages, holes and idle rows): bit-identical to the unpaged
+               kernel on the same cache gathered into rows.
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card (4-bit float, block 64; one
                quantize_pack launch per quantized matrix), Engine with a
@@ -43,6 +46,14 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                teacher-forced through the Engine's step at batch 1 (logits
                within 0.08, a differing greedy token a near-tie) and one
                decode step over the pool's launches.
+  3c. paged  — the same Server on the paged pool (pages of 16): the server
+               phase's 24 requests at kv4, the first 8 at kv8 and kv16, and
+               the two classes with preemption, tokens identical to the slot
+               pool's, every restore bit-exact, no page left after a drain,
+               197 GEMVs and 28 fused attentions a replay, no host sync in
+               the captured step; then 16 requests over two shared 512-token
+               prefixes on fewer pages than 8 unshared residents need: 8
+               residents at once, COW hits, the slot pool's tokens.
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
@@ -56,7 +67,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                also per shape, beside torch.matmul per shape, and the
                decode GEMV beside the CUDA-core GEMV on the same operands;
                the encode beside the chain it replaced, the fused attention
-               beside the path it replaced at 288 and 4096 slots.
+               beside the path it replaced at 288 and 4096 slots, and there
+               paged (pages of 16) beside unpaged at a position a row.
 Then the kernels line, the card's name and power limit, and the result.
 Needs no network, imports nothing of JAX or of the JAX package.
 """
@@ -113,6 +125,16 @@ SERVER_PROMPT_LENS, SERVER_NEW_TOKENS = (16, 512), (16, 64)
 # bar of tests/test_decode_consistency.py (M = 8 and M = 1 may take
 # different GEMV plans, so tokens are held to it, not to identity)
 SERVER_LOGIT_TOL = 0.08
+# the paged phase: its page size, the page sizes the kernel checks cover
+# (the reference's tests use 8), and the shared-prefix run: 16 requests
+# over two 512-token prefixes with 32-token suffixes, on 8 slots.  The
+# workload's Zipf-Markov process keeps a vocab x vocab transition matrix
+# (92 GB of f32 at Qwen2-7B's vocabulary), so its prompts draw from the
+# first SHARED_VOCAB token ids, all valid Qwen2-7B tokens
+PAGE_SIZE, PAGED_CHECK_SIZES = 16, (8, 16, 64)
+SHARED_REQUESTS, SHARED_PREFIX, SHARED_SUFFIX, SHARED_VOCAB = 16, 512, 32, 4096
+# the short kv8 and kv16 paged runs: the first requests of the server phase
+PAGED_SHORT_REQUESTS = 8
 
 
 def emit(obj) -> None:
@@ -153,11 +175,12 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     run = serve_main_path(torch, dev)
     server_path(torch, dev, run)
+    paged_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
     paper = paper_path(torch, dev)
     times = time_kernels(torch, dev, run)
-    run_server_counts = run["server_counts"]
+    run_server_counts, run_paged_counts = run["server_counts"], run["paged_counts"]
     del run
 
     kernels = []
@@ -174,9 +197,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": t["source"], "replaces": t["replaces"],
             # the main paths' launches: serving Qwen2-7B through the Engine
-            # (its quantization included) and through the Server, and the
-            # paper's sweep
-            "launches": t["launches"] + run_server_counts[count] + swept[count],
+            # (its quantization included), through the Server on the slot
+            # pool and on pages, and the paper's sweep
+            "launches": (t["launches"] + run_server_counts[count] + run_paged_counts[count]
+                         + swept[count]),
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -514,6 +538,82 @@ def check_attention(torch, dev, g, cfg, worst) -> int:
                 if c is cfg:
                     worst["attn"] = max(worst["attn"], float(gap.max()))
                 n += 1
+    n += check_paged_attention(torch, dev, g, cfg, worst)
+    return n
+
+
+def _paged_from_rows(torch, dev, g, cache, page_size, spare=3):
+    """The [B, S] rows of a per-row cache laid out in pages of page_size
+    under a shuffled page map [B, S / page_size]: (page-major cache with
+    `spare` unused pages and the empty trash page 0, page map)."""
+    B, S = cache["pos"].shape
+    P = S // page_size
+    n_pages = B * P + 1 + spare
+    ids = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * P] + 1).to(torch.int32)
+    page_map = ids.reshape(B, P).contiguous()
+    paged = {}
+    for key, leaf in cache.items():
+        out = torch.zeros((n_pages, page_size) + tuple(leaf.shape[2:]), dtype=leaf.dtype,
+                          device=dev)
+        if key == "pos":
+            out.fill_(-1)
+        out[page_map.reshape(-1).long()] = leaf.reshape((B * P, page_size)
+                                                         + tuple(leaf.shape[2:]))
+        paged[key] = out
+    return paged, page_map
+
+
+def check_paged_attention(torch, dev, g, cfg, worst) -> int:
+    """The fused attention over a paged cache, at Qwen2-7B's heads, kv4 and
+    kv8, pages of PAGED_CHECK_SIZES: the Server's form (a position a row,
+    rows 2 and 5 idle, rows of their own lengths) at the pool's length, and
+    4 rows at LONG_CONTEXT; a shuffled page map whose row 1 shares row 0's
+    first page (its positions then row 0's) and whose row 3 points its last
+    entry at the trash page.  Gates: bit-identical to the unpaged kernel on
+    the same cache gathered into rows (the same bytes in the same order),
+    within ATT_REL_TOL of each row's max of the paged plain version, idle
+    rows exactly 0."""
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels import kv_dequant as kvd
+
+    K, Dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    n = 0
+    for bits, ps in itertools.product((4, 8), PAGED_CHECK_SIZES):
+        spec = kvd.KVQuantSpec(bits=bits, block_size=cfg.kv_block_size, dtype_name="float")
+        for B, S in ((SERVER_SLOTS, SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]),
+                     (4, LONG_CONTEXT)):
+            rows = _random_cache(torch, dev, g, spec, B, S, K * Dh)
+            lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+            ar = torch.arange(S, device=dev)
+            rows["pos"] = torch.where(ar[None, :] < lens[:, None], ar[None, :],
+                                      torch.full_like(ar, -1)[None, :]).to(torch.int32)
+            holes = torch.rand((B, S), generator=g, device=dev) < 0.1
+            rows["pos"][holes] = -1
+            cache, page_map = _paged_from_rows(torch, dev, g, rows, ps)
+            page_map[1, 0] = page_map[0, 0]
+            page_map[3, -1] = 0
+            pos = (lens - 1).to(torch.int32)
+            idle = [2, 5] if B > 5 else [2]
+            pos[idle] = -1
+            q = torch.randn((B, H, Dh), generator=g, device=dev).to(torch.bfloat16)
+            out = kat.decode_attention_packed_cuda(q, cache, pos, spec, page_map=page_map,
+                                                   page_size=ps)
+            gathered = {key: kvd.gather_pages(leaf, page_map).contiguous()
+                        for key, leaf in cache.items()}
+            unpaged = kat.decode_attention_packed_cuda(q, gathered, pos, spec)
+            ref = kat.decode_attention_packed_plain(q, cache, pos, spec, page_map=page_map,
+                                                    page_size=ps).float()
+            torch.cuda.synchronize()
+            gap = (out.float() - ref).abs().amax(-1)
+            lim = ATT_REL_TOL * ref.abs().amax(-1)
+            where = f"kv_decode_attention paged kv{bits} ps={ps} B={B} S={S}"
+            require(bool(torch.equal(out.view(torch.int16), unpaged.view(torch.int16))),
+                    f"{where}: differs from the unpaged kernel on the gathered cache")
+            require(bool(torch.isfinite(out).all()) and bool((gap <= lim).all()),
+                    f"{where}: max gap {float(gap.max())} over the row's 2^-6 * max")
+            require(not bool(out[idle].abs().any()), f"{where}: idle rows not exactly 0")
+            worst["attn"] = max(worst["attn"], float(gap.max()))
+            n += 1
     return n
 
 
@@ -782,8 +882,9 @@ def _server_requests(cfg):
 def _checked_server(torch):
     """The port's Server with two checks chip_smoke adds: each decode step's
     logits rows of the decoding requests are kept (for the teacher-forced
-    comparison), and every restore of a spilled slot is spilled again and
-    held bit for bit against the spill."""
+    comparison), and every restore of a spilled slot is read back (a slot
+    row; paged, its private pages) and held bit for bit against the
+    spill."""
     from repro_torch.models import lm
     from repro_torch.serving import Server
     from repro_torch.serving.engine import sample_token
@@ -796,7 +897,8 @@ def _checked_server(torch):
 
         def _decode_body(self):
             logits, _ = lm.decode_step(self.params, self._tok, self.pool.caches,
-                                       self.pool._pos_dev, self.cfg)
+                                       self.pool._pos_dev, self.cfg,
+                                       decode_attn=self._decode_attn)
             if not hasattr(self, "logits"):
                 self.logits = torch.empty_like(logits)   # allocated by the warm-up call
             self.logits.copy_(logits)
@@ -813,17 +915,61 @@ def _checked_server(torch):
         def _resume(self, req, slot):
             spill = self._spilled[req.id]
             super()._resume(req, slot)
-            again = self.pool.spill_slot(slot)
+            again = (self.pool.private_rows(slot) if self._paged
+                     else self.pool.spill_slot(slot)["rows"])
             same = all(torch.equal(a[k].view(torch.int16) if a[k].dtype == torch.bfloat16
                                    else a[k],
                                    b[k].view(torch.int16) if b[k].dtype == torch.bfloat16
                                    else b[k])
-                       for a, b in zip(again["rows"], spill["rows"]) for k in a)
-            require(same and again["next_pos"] == spill["next_pos"],
+                       for a, b in zip(again, spill["rows"]) for k in a)
+            require(same and self.pool.next_pos[slot] == spill["next_pos"],
                     f"request {req.id}: the restored slot {slot} differs from its spill")
             self.restores += 1
 
     return Checked
+
+
+def _drive_server(torch, srv, traffic, *, classes=False):
+    """Submit ``traffic`` to a Server, run it until drained and check it as
+    it serves: every token in range, the pool's busy slots the scheduler's
+    running ones, positions inside a row; then every request answered within
+    its budget and the pool whole again (a paged pool: every page free, no
+    reference, nothing retained or sealed).  Returns (ids, tokens, wall
+    seconds, peak): the most residents at once and, paged, the pages in use
+    at that peak."""
+    pool, n_slots = srv.pool, srv.pool.num_slots
+    peak = {"residents": 0, "pages": 0}
+
+    def check(_rid, tok):
+        require(0 <= tok < srv.cfg.vocab_size, f"token {tok} out of range")
+        require(pool.n_free + pool.n_active == n_slots, "slots leaked")
+        busy = [s for s in range(n_slots) if pool.active[s]]
+        require(sorted(srv.scheduler.running) == busy, "running slots != active slots")
+        require(all(0 <= pool.next_pos[s] <= pool.cache_len for s in busy
+                    if s not in srv._chunking), "a slot's position out of its row")
+        n = len(busy)
+        if srv._paged and n >= peak["residents"]:
+            used = pool.allocator.n_usable - pool.allocator.n_free
+            peak["pages"] = used if n > peak["residents"] else max(peak["pages"], used)
+        peak["residents"] = max(peak["residents"], n)
+
+    ids = [srv.submit(r["prompt"], r["max_new"], arrival_time=r["arrival_time"],
+                      priority=r["priority"] if classes else 0, on_token=check)
+           for r in traffic]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = [res[i] for i in ids]
+    require(all(1 <= len(t) <= r["max_new"] for t, r in zip(toks, traffic)),
+            "a request went unanswered or past its budget")
+    require(pool.n_free == n_slots and srv.scheduler.drained, "pool not drained")
+    if srv._paged:
+        a = pool.allocator
+        require(a.n_free == a.n_usable and not a.ref and not a.retained and not a.prefix_index,
+                "pages left after the drain")
+    return ids, toks, wall, peak
 
 
 def server_path(torch, dev, run) -> dict:
@@ -842,27 +988,7 @@ def server_path(torch, dev, run) -> dict:
     def serve(cls, *, classes=False, **kw):
         srv = cls(qparams, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len, device=dev,
                   **kw)
-
-        def check(_rid, tok):
-            require(0 <= tok < cfg.vocab_size, f"token {tok} out of range")
-            require(srv.pool.n_free + srv.pool.n_active == SERVER_SLOTS, "slots leaked")
-            busy = [s for s in range(SERVER_SLOTS) if srv.pool.active[s]]
-            require(sorted(srv.scheduler.running) == busy, "running slots != active slots")
-            require(all(0 <= srv.pool.next_pos[s] <= cache_len for s in busy
-                        if s not in srv._chunking), "a slot's position out of its row")
-
-        ids = [srv.submit(r["prompt"], r["max_new"], arrival_time=r["arrival_time"],
-                          priority=r["priority"] if classes else 0, on_token=check)
-               for r in reqs]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = srv.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        toks = [res[i] for i in ids]
-        require(all(1 <= len(t) <= r["max_new"] for t, r in zip(toks, reqs)),
-                "a request went unanswered or past its budget")
-        require(srv.pool.n_free == SERVER_SLOTS and srv.scheduler.drained, "pool not drained")
+        ids, toks, wall, _ = _drive_server(torch, srv, reqs, classes=classes)
         return srv, ids, toks, wall
 
     # the main path: a fresh Server (its construction captures the step: the
@@ -945,7 +1071,178 @@ def server_path(torch, dev, run) -> dict:
           "host_syncs_in_captured_step": len(syncs),
           "launches": counts, "launches_per_decode_step": step_counts})
     run["server_counts"] = counts
+    run["server_plain"] = plain
     return counts
+
+
+def paged_path(torch, dev, run) -> dict:
+    """Phase 3c: the paged pool (Server(paged=True), pages of PAGE_SIZE) on
+    the server phase's weights, pool and traffic.  The 24 requests at kv4
+    (the main path: launches counted, no host sync in the captured step,
+    one replay's launches), the first PAGED_SHORT_REQUESTS at kv8 and kv16,
+    and the two-class traffic with preemption: every token the slot pool's.
+    Then the shared-prefix workload on a pool of fewer pages than 8 unshared
+    residents need: 8 residents at once, COW hits, the tokens of a slot
+    pool with a row a request.  No page left after any drain."""
+    from repro_torch.data import synthetic
+    from repro_torch.serving import Server, Telemetry
+
+    cfg, qparams, plain = run["cfg"], run["qparams"], run["server_plain"]
+    reqs = _server_requests(cfg)
+    cache_len = SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]
+    per_layer = 7
+    b1_step = per_layer * cfg.n_layers + 1
+    b2_step = cfg.n_layers
+    Checked = _checked_server(torch)
+    paged_kw = {"paged": True, "page_size": PAGE_SIZE}
+
+    def serve(cls, c, traffic, *, classes=False, num_slots=SERVER_SLOTS, **kw):
+        srv = cls(qparams, c, num_slots=num_slots, max_seq_len=cache_len, device=dev, **kw)
+        _, toks, wall, peak = _drive_server(torch, srv, traffic, classes=classes)
+        return srv, toks, wall, peak
+
+    def differ(a, b):
+        return sum(x != y for x, y in zip(a, b))
+
+    with torch.inference_mode():
+        # the main path: a fresh paged Server (its construction captures the
+        # step) serving the server phase's traffic at kv4
+        tel = Telemetry()
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            srv, toks, wall, peak = serve(Server, cfg, reqs, telemetry=tel, **paged_kw)
+        counts = _counts()
+        require(not syncs, f"the paged Server's captured step syncs with the host: {syncs[:5]}")
+        require(toks == plain, f"paged kv4 tokens differ from the slot pool's in "
+                f"{differ(toks, plain)} requests")
+        reg = tel.registry
+        admissions = int(reg.counter("serve_prefills_total").value)
+        steps = int(reg.counter("serve_decode_steps_total").value)
+        require(admissions == SERVER_REQUESTS, f"{admissions} admissions")
+        require(counts["attn"] == (1 + steps) * b2_step and counts["kv"] == 0,
+                f"paged: {counts['attn']} fused attentions, want (1 + {steps}) x {b2_step}")
+        require(counts["gemm"] == per_layer * cfg.n_layers * admissions
+                and counts["gemv"] == counts["gemv_tc"] == (1 + steps) * b1_step + admissions,
+                f"paged launches {counts} for {admissions} admissions and {steps} steps")
+        _reset_counts()
+        srv._decode_body()
+        torch.cuda.synchronize()
+        step_counts = _counts()
+        require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
+                                "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
+                f"one paged decode step launched {step_counts}")
+        _reset_counts()
+        srv._graph.replay()
+        torch.cuda.synchronize()
+        require(_counts() == step_counts, f"one paged replay launched {_counts()}")
+        step_device_ms = _time_graph(torch, srv._graph, 10)
+        ttft = reg.histogram("serve_ttft_seconds")
+        step_s = reg.histogram("serve_decode_step_seconds")
+        page_bytes = srv.pool.kv_bytes()["total"] / srv.pool.n_pages
+        main = {"tokens": sum(len(t) for t in toks), "serve_s": wall,
+                "tokens_per_s": sum(len(t) for t in toks) / wall, "decode_steps": steps,
+                "decode_ms_per_step_median": step_s.percentile(50) * 1e3,
+                "decode_ms_per_step_p90": step_s.percentile(90) * 1e3,
+                "decode_step_device_ms": step_device_ms,
+                "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
+                "peak_residents": peak["residents"], "pages_in_use_at_peak": peak["pages"],
+                "cow_hits": srv.pool.allocator.cow_hits,
+                "page_alloc_events": sum(e["name"] == "page_alloc" for e in tel.tracer.events),
+                "page_release_events": sum(e["name"] == "page_release"
+                                           for e in tel.tracer.events)}
+        pages_per_row = srv.pool.pages_per_seq
+        del srv
+
+        # kv8 and kv16 on a shorter run, against the slot pool at each
+        short = {}
+        for kv in (8, 16):
+            c = cfg.with_kv_quant(kv)
+            _, slot_toks, _, _ = serve(Server, c, reqs[:PAGED_SHORT_REQUESTS])
+            _, paged_toks, _, _ = serve(Server, c, reqs[:PAGED_SHORT_REQUESTS], **paged_kw)
+            require(paged_toks == slot_toks, f"paged kv{kv} tokens differ from the slot "
+                    f"pool's in {differ(paged_toks, slot_toks)} requests")
+            short[f"kv{kv}"] = True
+
+        # two classes with preemption: private pages spilled and restored
+        srv_p, preempted, _, _ = serve(Checked, cfg, reqs, classes=True, max_preemptions=2,
+                                       **paged_kw)
+        n_pre = srv_p.scheduler.n_preemptions
+        require(n_pre >= 1, "the two-class traffic forced no paged preemption")
+        require(srv_p.restores == n_pre, "a preempted request was not restored")
+        require(preempted == plain, f"paged preemption changed tokens in "
+                f"{differ(preempted, plain)} requests")
+        del srv_p
+
+        # the shared-prefix workload on fewer pages than 8 unshared residents
+        # need: room for both prefixes once and every resident's private pages
+        shared = synthetic.shared_prefix_workload(
+            SHARED_VOCAB, SHARED_REQUESTS, n_prefixes=2, prefix_len=SHARED_PREFIX,
+            suffix_len=SHARED_SUFFIX, seed=SEED, device="cpu")
+        need = max(-(-(len(r["prompt"]) + r["max_new"] - 1) // PAGE_SIZE) for r in shared)
+        private = need - SHARED_PREFIX // PAGE_SIZE
+        n_pages = 2 * need + (SERVER_SLOTS - 2) * private + 1
+        require(n_pages - 1 < SERVER_SLOTS * need, "the shared-prefix pool is not short")
+        tel_s = Telemetry()
+        srv_s, shared_toks, shared_wall, shared_peak = serve(
+            Server, cfg, shared, telemetry=tel_s, n_pages=n_pages, **paged_kw)
+        cow = srv_s.pool.allocator.cow_hits
+        ttft_s = tel_s.registry.histogram("serve_ttft_seconds")
+        step_ss = tel_s.registry.histogram("serve_decode_step_seconds")
+        prefill_ss = tel_s.registry.histogram("serve_prefill_seconds")
+        shared_steps = int(tel_s.registry.counter("serve_decode_steps_total").value)
+        del srv_s
+        # the slot pool with a row a request, and with the rows that the
+        # paged pool's bytes buy (whole rows of pages_per_row pages)
+        slot_runs = {}
+        for rows in (SERVER_SLOTS, (n_pages - 1) // pages_per_row):
+            tel_r = Telemetry()
+            _, slot_toks, slot_wall, _ = serve(Server, cfg, shared, num_slots=rows,
+                                               telemetry=tel_r)
+            slot_runs[rows] = {
+                "tokens_per_s": sum(len(t) for t in slot_toks) / slot_wall,
+                "decode_steps": int(tel_r.registry.counter("serve_decode_steps_total").value),
+                "ttft_s_median": tel_r.registry.histogram("serve_ttft_seconds").percentile(50),
+                "prefill_s_median":
+                    tel_r.registry.histogram("serve_prefill_seconds").percentile(50)}
+            if rows == SERVER_SLOTS:
+                slot_shared = slot_toks
+        require(shared_peak["residents"] == SERVER_SLOTS,
+                f"the shared-prefix run held {shared_peak['residents']} residents at once, "
+                f"want {SERVER_SLOTS}")
+        require(cow > 0, "the shared-prefix run made no COW hit")
+        require(shared_toks == slot_shared, f"shared-prefix paged tokens differ from the slot "
+                f"pool's in {differ(shared_toks, slot_shared)} requests")
+        n_shared_tokens = sum(len(t) for t in shared_toks)
+
+    slot_row_bytes = page_bytes * pages_per_row
+    out = {"phase": "paged", "arch": ARCH, "depth": cfg.n_layers, "width": cfg.d_model,
+           "weights": "4-bit float b64", "kv_bits": cfg.kv_bits, "page_size": PAGE_SIZE,
+           "num_slots": SERVER_SLOTS, "cache_len": cache_len, "requests": SERVER_REQUESTS,
+           **main, "host_syncs_in_captured_step": len(syncs),
+           "tokens_identical_to_slot_pool": {"kv4": True, **short},
+           "preemptions": n_pre, "preempted_tokens_identical": True,
+           "spill_restore_bit_exact": True,
+           "kv_bytes_per_page": page_bytes, "slot_pool_kv_bytes_per_row": slot_row_bytes,
+           "shared_prefix": {
+               "requests": SHARED_REQUESTS, "prefix_len": SHARED_PREFIX,
+               "suffix_len": SHARED_SUFFIX, "vocab": SHARED_VOCAB, "n_pages": n_pages,
+               "pages_8_unshared_residents_need": SERVER_SLOTS * need,
+               "slot_pool_rows_as_pages": SERVER_SLOTS * pages_per_row,
+               "peak_residents": shared_peak["residents"],
+               "pages_in_use_at_peak": shared_peak["pages"],
+               "kv_bytes_per_resident_at_peak": (shared_peak["pages"] * page_bytes
+                                                 / shared_peak["residents"]),
+               "cow_hits": cow, "tokens": n_shared_tokens, "serve_s": shared_wall,
+               "tokens_per_s": n_shared_tokens / shared_wall, "decode_steps": shared_steps,
+               "slot_pool_by_rows": slot_runs,
+               "decode_ms_per_step_median": step_ss.percentile(50) * 1e3,
+               "prefill_s_median": prefill_ss.percentile(50),
+               "ttft_s_median": ttft_s.percentile(50), "ttft_s_p90": ttft_s.percentile(90),
+               "tokens_identical_to_slot_pool": True},
+           "launches": counts, "launches_per_decode_step": step_counts}
+    emit(out)
+    run["paged_counts"] = counts
+    return out
 
 
 def _time_graph(torch, graph, reps: int) -> float:
@@ -1341,6 +1638,8 @@ def _time_attention(torch, dev, cfg, launches, g):
             "plain_ms": _time_ms(torch, step(lambda c: kat.decode_attention_packed_plain(
                 q, c, pos, spec)), 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        if S != ONE_TILE:
+            by_slots[S].update(_time_paged_attention(torch, dev, cfg, caches, q, g))
         del caches
         torch.cuda.empty_cache()
     main = by_slots[PROMPT + NEW_TOKENS]
@@ -1350,6 +1649,30 @@ def _time_attention(torch, dev, cfg, launches, g):
             "bound_by": main["bound_by"], "library_ms": None,
             "per": f"decode step ({cfg.n_layers} launches, {PROMPT + NEW_TOKENS} slots)",
             "replaced_ms": main["replaced_ms"], "by_slots": by_slots}
+
+
+def _time_paged_attention(torch, dev, cfg, caches, q, g) -> dict:
+    """The fused attention over the same caches as the Server reads them: a
+    position a row, unpaged over [B, S] rows and paged (pages of PAGE_SIZE,
+    a shuffled page map), beside the paged read's bound."""
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels import kv_dequant as kvd
+
+    spec = kvd.kv_spec(cfg)
+    B, S = q.shape[0], caches[0]["k_packed"].shape[1]
+    rows = [{**c, "pos": c["pos"].expand(B, S).contiguous()} for c in caches]
+    paged = [_paged_from_rows(torch, dev, g, r, PAGE_SIZE) for r in rows]
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    rows_ms = _time_ms(torch, lambda: [kat.decode_attention_packed_cuda(q, r, pos, spec)
+                                       for r in rows], 20)
+    paged_ms = _time_ms(torch, lambda: [kat.decode_attention_packed_cuda(
+        q, c, pos, spec, page_map=m, page_size=PAGE_SIZE) for c, m in paged], 20)
+    r0, m0 = rows[0], paged[0][1]
+    nbytes = len(caches) * (sum(t.numel() * t.element_size() for t in r0.values())
+                            + m0.numel() * 4 + 2 * q.numel() * 2 + 4 * 2 ** spec.bits)
+    bound_ms, bound_by = _bound(nbytes, len(caches) * 4.0 * B * cfg.n_heads * S * cfg.head_dim)
+    return {"rows_ms": rows_ms, "paged_ms": paged_ms, "paged_bound_ms": bound_ms,
+            "paged_bound_by": bound_by, "paged_bytes": nbytes}
 
 
 def _time_gemm_simt(torch, dev, launches, g):

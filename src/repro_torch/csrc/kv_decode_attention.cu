@@ -33,6 +33,17 @@
 // agree on m before any p is formed.  Only the order of f32 sums differs
 // from the plain version.
 //
+// A paged cache (the serving pool's page table, serving/pages.py) keeps
+// every leaf page-major: words [n_pages, ps, W], scales [n_pages, ps, NB]
+// and positions [n_pages, ps], ps a power of two.  Slot t of row b then
+// lives in row page_map[b * P + (t >> log2 ps)] * ps + (t & (ps - 1)) of all
+// three, S = P * ps is the logical length, and nothing else changes: the
+// slots a CTA takes, their order and every sum are those of the same cache
+// gathered into rows (kv_dequant.gather_pages), so the result is the
+// unpaged kernel's bit for bit.  Without a map the row is b * S + t.  The
+// map costs one 4-byte read (an L1 hit after the first) wherever a slot's
+// row is formed: its copies, and its position's read.
+//
 // What bounds it on an H100 SXM: bytes, the packed K and V and their scales
 // (8.9 MB a layer for Qwen2-7B at batch 4, 4096 slots, kv4: 2.7 us at 3.35
 // TB/s; 0.63 MB at 288 slots).  The products (4 * B * H * S * Dh) are far
@@ -136,6 +147,13 @@ struct Args {
   float sm_scale, softcap;                // softcap: the logit soft-cap, 0 for none
 };
 
+// the page table of a paged cache, a parameter of its own so that the
+// unpaged kernel's Args are the ones it always had
+struct Pages {
+  const int* map;             // [B, P] page ids, or null: rows b * S + t
+  int P, lps;                 // pages a row, log2 of the page size
+};
+
 // shared memory, in 4-byte words, shared by the host (its size, the slots
 // a round) and the kernel (its offsets)
 struct Layout {
@@ -176,11 +194,38 @@ struct Shape {
   static constexpr int NWV = FPL >= CPW ? FPL / CPW : 1;   // their words
 };
 
+// the row of slot t (< S) of batch row b in the leaves: b * S + t, or
+// through the page map (in 32 bits: a pool holds fewer than 2^31 slots)
+template <bool PAGED>
+__device__ __forceinline__ long long slot_row(const Args& a, const Pages& pg, int b, int t) {
+  if constexpr (PAGED) {
+    const int page = __ldg(pg.map + b * pg.P + (t >> pg.lps));
+    return static_cast<long long>((page << pg.lps) + (t & ((1 << pg.lps) - 1)));
+  } else {
+    return static_cast<long long>(b) * a.S + t;
+  }
+}
+
+// the parity of slot t's first scale of the head (element b_lo of its row):
+// which half of a 4-byte word of the staged scales it starts at
+template <bool PAGED>
+__device__ __forceinline__ int scale_parity(const Args& a, const Pages& pg, int b, int t,
+                                            int b_lo) {
+  if constexpr (PAGED) {
+    // an even NB keeps every row's parity; a slot past S is zero-filled
+    if (!(a.NB & 1) || t >= a.S) return b_lo & 1;
+    return static_cast<int>((slot_row<true>(a, pg, b, t) + b_lo) & 1);
+  } else {
+    return static_cast<int>(((static_cast<long long>(b) * a.S + t) * a.NB + b_lo) & 1);
+  }
+}
+
 // copy round `rnd`'s slots of one head's packed words and scales into buf
-template <int WPH>
+template <int WPH, bool PAGED>
 __device__ __forceinline__ void stage(uint32_t* buf, const uint32_t* words,
-                                      const unsigned short* scales, const Args& a, int b,
-                                      int kh, int t0, int n, int b_lo, int nbh) {
+                                      const unsigned short* scales, const Args& a,
+                                      const Pages& pg, int b, int kh, int t0, int n, int b_lo,
+                                      int nbh) {
   uint32_t* bw = buf;
   uint32_t* bsc = buf + n * WPH;
   for (int idx = threadIdx.x; idx < n * (WPH / 4); idx += THREADS) {
@@ -188,13 +233,14 @@ __device__ __forceinline__ void stage(uint32_t* buf, const uint32_t* words,
     const int t = t0 + i;
     const bool ok = t < a.S;
     const uint32_t* src =
-        ok ? words + (static_cast<long long>(b) * a.S + t) * a.W + kh * WPH + 4 * k : words;
+        ok ? words + slot_row<PAGED>(a, pg, b, t) * a.W + kh * WPH + 4 * k : words;
     cp_async16(bw + i * WPH + 4 * k, src, ok ? 16 : 0);
   }
   for (int idx = threadIdx.x; idx < n * a.sw; idx += THREADS) {
     const int i = idx / a.sw, k = idx - i * a.sw;
     const int t = t0 + i;
-    const long long e0 = (static_cast<long long>(b) * a.S + t) * a.NB + b_lo;
+    const long long row = (!PAGED || t < a.S) ? slot_row<PAGED>(a, pg, b, t) : 0;
+    const long long e0 = row * a.NB + b_lo;
     const long long e = (e0 & ~1LL) + 2 * k;  // first element of this 4-byte word
     long long avail = (e0 + nbh - e) * 2;
     avail = avail < 0 ? 0 : (avail > 4 ? 4 : avail);
@@ -203,9 +249,9 @@ __device__ __forceinline__ void stage(uint32_t* buf, const uint32_t* words,
   }
 }
 
-template <int BITS, int DH>
+template <int BITS, int DH, bool PAGED>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
-    kv_decode_attention_kernel(const Args a) {
+    kv_decode_attention_kernel(const Args a, const Pages pg) {
   using Sh = Shape<BITS, DH>;
   constexpr int CPW = Sh::CPW, WPH = Sh::WPH, WPL = Sh::WPL, MT = Sh::MT, FPL = Sh::FPL,
                 NWV = Sh::NWV;
@@ -241,9 +287,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
   // K and V of the first round in flight from the start
   if (rounds > 0) {
     const int n = min(a.cap, nt16);
-    stage<WPH>(kbuf, a.kp, a.ks, a, b, kh, tok0, n, b_lo, nbh);
+    stage<WPH, PAGED>(kbuf, a.kp, a.ks, a, pg, b, kh, tok0, n, b_lo, nbh);
     cp_async_commit();
-    stage<WPH>(vbuf, a.vp, a.vs, a, b, kh, tok0, n, b_lo, nbh);
+    stage<WPH, PAGED>(vbuf, a.vp, a.vs, a, pg, b, kh, tok0, n, b_lo, nbh);
     cp_async_commit();
   }
   for (int i = tid; i < (1 << BITS); i += THREADS) lut[i] = a.codebook[i];
@@ -280,7 +326,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     if (rnd == 0) {
       cp_async_wait<1>();  // K of round 0; V may still be in flight
     } else {
-      stage<WPH>(kbuf, a.kp, a.ks, a, b, kh, tok0 + r0, n, b_lo, nbh);
+      stage<WPH, PAGED>(kbuf, a.kp, a.ks, a, pg, b, kh, tok0 + r0, n, b_lo, nbh);
       cp_async_commit();
       cp_async_wait<0>();
     }
@@ -293,7 +339,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
       for (int hh = 0; hh < 2; ++hh) {
         const int i = tile * 16 + g + 8 * hh;
         const int tok = tok0 + r0 + i;
-        const int par = static_cast<int>(((static_cast<long long>(b) * a.S + tok) * a.NB + b_lo) & 1);
+        const int par = scale_parity<PAGED>(a, pg, b, tok, b_lo);
         const unsigned short* srow = bsc + i * 2 * a.sw + par;
         uint32_t w[WPL];
         if constexpr (WPL % 4 == 0) {
@@ -332,7 +378,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
         bool valid = tok < a.S;
         if (valid) {
           // read where used: held across the kernel they cost a spill
-          const int pa = __ldg(a.pos_arr + static_cast<long long>(b) * a.pa_stride + tok);
+          const long long at = PAGED ? slot_row<PAGED>(a, pg, b, tok)
+                                     : static_cast<long long>(b) * a.pa_stride + tok;
+          const int pa = __ldg(a.pos_arr + at);
           valid = pa >= 0 && pa <= __ldg(a.pos + b * a.pos_stride);
         }
         float s0 = d[2 * hh] * a.sm_scale, s1 = d[2 * hh + 1] * a.sm_scale;
@@ -400,7 +448,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
     const int n = min(a.cap, nt16 - r0);
     if (rnd > 0) {
       __syncthreads();  // every warp is done with the previous round's V
-      stage<WPH>(vbuf, a.vp, a.vs, a, b, kh, tok0 + r0, n, b_lo, nbh);
+      stage<WPH, PAGED>(vbuf, a.vp, a.vs, a, pg, b, kh, tok0 + r0, n, b_lo, nbh);
       cp_async_commit();
     }
     cp_async_wait<0>();
@@ -414,7 +462,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
       for (int k = 0; k < 4; ++k) {
         const int i = tile * 16 + 2 * t + (k & 1) + 8 * (k >> 1);
         const int tok = tok0 + r0 + i;
-        const int par = static_cast<int>(((static_cast<long long>(b) * a.S + tok) * a.NB + b_lo) & 1);
+        const int par = scale_parity<PAGED>(a, pg, b, tok, b_lo);
         const unsigned short* srow = bsc + i * 2 * a.sw + par;
 #pragma unroll
         for (int j = 0; j < NWV; ++j) {
@@ -472,8 +520,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 // the most slots a round (a multiple of 16, at most a CTA's share) whose
 // layout fits an SM, and the scale words a slot; cudaErrorInvalidValue
 // where not even 16 slots fit beside the scores of a CTA's share
-template <int BITS, int DH>
-int launch(Args a, int B, int K, cudaStream_t stream) {
+template <int BITS, int DH, bool PAGED>
+int launch(Args a, const Pages& pg, int B, int K, cudaStream_t stream) {
   using Sh = Shape<BITS, DH>;
   int nbh = 1;  // the scale blocks a head spans, at most
   for (int kh = 0; kh < K; ++kh) {
@@ -492,13 +540,20 @@ int launch(Args a, int B, int K, cudaStream_t stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   static bool attr[MAX_DEVICES] = {};  // the attribute is per device
   if (dev >= MAX_DEVICES || !attr[dev]) {
-    e = cudaFuncSetAttribute(kv_decode_attention_kernel<BITS, DH>,
+    e = cudaFuncSetAttribute(kv_decode_attention_kernel<BITS, DH, PAGED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < MAX_DEVICES) attr[dev] = true;
   }
-  kv_decode_attention_kernel<BITS, DH><<<dim3(CLUSTER, K, B), THREADS, bytes, stream>>>(a);
+  kv_decode_attention_kernel<BITS, DH, PAGED>
+      <<<dim3(CLUSTER, K, B), THREADS, bytes, stream>>>(a, pg);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS, int DH>
+int launch_either(const Args& a, const Pages& pg, int B, int K, cudaStream_t stream) {
+  return pg.map ? launch<BITS, DH, true>(a, pg, B, K, stream)
+                : launch<BITS, DH, false>(a, pg, B, K, stream);
 }
 
 }  // namespace
@@ -513,18 +568,31 @@ int launch(Args a, int B, int K, cudaStream_t stream) {
 // contiguous, the words 16-byte aligned; codebook f32 [2^bits]; pos_arr
 // int32 [S] (pa_stride 0) or [B, S] (pa_stride S); pos int32 [1]
 // (pos_stride 0) or [B] (pos_stride 1).  softcap > 0 caps the scores as
-// cap * tanh(s / cap).
+// cap * tanh(s / cap).  With page_map (int32 [B, P], page ids < n_pages)
+// the leaves are page-major, k/v [n_pages, ps, W], scales [n_pages, ps,
+// NB], pos_arr [n_pages, ps] (pa_stride -1), with ps a power of two,
+// P * ps == S and a position a row; without one P and ps are 0.
 extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks, const void* vp,
                                    const void* vs, const void* codebook, const void* pos_arr,
-                                   const void* pos, void* out, int B, int H, int K, int S, int W,
-                                   int NB, int bs, int bits, int dh, int pos_stride,
-                                   int pa_stride, float sm_scale, float softcap, void* stream) {
+                                   const void* pos, const void* page_map, void* out, int B,
+                                   int H, int K, int S, int W, int NB, int bs, int bits, int dh,
+                                   int pos_stride, int pa_stride, int P, int ps, float sm_scale,
+                                   float softcap, void* stream) {
   if ((bits != 4 && bits != 8) || (dh != 32 && dh != 64 && dh != 128) || K < 1 || H % K ||
       H / K > MAX_G || S < 1 || B < 1 || B > 65535 || K > 65535 || W * 32 != K * dh * bits ||
-      bs < 1 || NB * bs != K * dh || bs % (32 / bits) || (pos_stride != 0 && pos_stride != 1) ||
-      (pa_stride != 0 && pa_stride != S)) {
+      bs < 1 || NB * bs != K * dh || bs % (32 / bits) || (pos_stride != 0 && pos_stride != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (page_map ? (ps < 1 || (ps & (ps - 1)) || P < 1 || static_cast<long long>(P) * ps != S ||
+                  pa_stride != -1 || pos_stride != 1)
+               : (P != 0 || ps != 0 || (pa_stride != 0 && pa_stride != S))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Pages pg;
+  pg.map = static_cast<const int*>(page_map);
+  pg.P = P;
+  pg.lps = 0;
+  while (page_map && (1 << pg.lps) < ps) ++pg.lps;
   Args a;
   a.q = static_cast<const unsigned short*>(q);
   a.kp = static_cast<const uint32_t*>(kp);
@@ -547,12 +615,12 @@ extern "C" int kv_decode_attention(const void* q, const void* kp, const void* ks
   a.softcap = softcap;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits * 1000 + dh) {
-    case 4032: return launch<4, 32>(a, B, K, st);
-    case 4064: return launch<4, 64>(a, B, K, st);
-    case 4128: return launch<4, 128>(a, B, K, st);
-    case 8032: return launch<8, 32>(a, B, K, st);
-    case 8064: return launch<8, 64>(a, B, K, st);
-    case 8128: return launch<8, 128>(a, B, K, st);
+    case 4032: return launch_either<4, 32>(a, pg, B, K, st);
+    case 4064: return launch_either<4, 64>(a, pg, B, K, st);
+    case 4128: return launch_either<4, 128>(a, pg, B, K, st);
+    case 8032: return launch_either<8, 32>(a, pg, B, K, st);
+    case 8064: return launch_either<8, 64>(a, pg, B, K, st);
+    case 8128: return launch_either<8, 128>(a, pg, B, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,7 @@
 """Deterministic synthetic language: a Zipf-Markov process — port of
 ``repro/data/synthetic.py``: the training corpus and the continuous-batching
-server's workloads (``serving_workload``, ``two_class_workload``; the paged
-pool's ``shared_prefix_workload`` comes with pages).
+server's workloads (``serving_workload``, ``two_class_workload`` and the
+paged pool's ``shared_prefix_workload``).
 
 A power-law unigram distribution composed with low-rank bigram structure:
 language-like enough that tiny LMs learn a nontrivial conditional
@@ -134,6 +134,41 @@ def two_class_workload(vocab: int, n_requests: int, *, hi_frac: float = 0.25,
                      "max_new": int(rng.integers(4, 9)),
                      "arrival_time": float(rng.uniform(2.0, span)), "priority": 0})
     reqs.sort(key=lambda r: r["arrival_time"])
+    return reqs
+
+
+def shared_prefix_workload(vocab: int, n_requests: int, *, n_prefixes: int = 2,
+                           prefix_len: int = 24, suffix_len: int = 6, max_new_range=(8, 16),
+                           rate: float = 4.0, seed: int = 0, device=None) -> list:
+    """A multi-tenant chat-style trace: every prompt is one of
+    ``n_prefixes`` shared prefixes (the "system prompt") followed by a short
+    private suffix, with Poisson arrivals at ``rate`` requests per engine
+    step: the workload the paged pool's copy-on-write prefix sharing is
+    for.  A slot pool stores the prefix once a request, the paged pool once
+    a prefix.  All prompts have one length (prefix_len + suffix_len), so
+    every admission lands in one prefill bucket, which COW keys embed.
+
+    Returns dicts {prompt, max_new, arrival_time, priority, prefix_id}
+    sorted by arrival; deterministic in ``seed``."""
+    rng = np.random.default_rng(seed)
+    proc = ZipfMarkov(vocab, seed=seed, device=device)
+    L = prefix_len + suffix_len
+    prefixes = [_prompt(proc, seed + 41, p, L) for p in range(n_prefixes)]
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n_requests))
+    reqs = []
+    for i in range(n_requests):
+        p = int(rng.integers(0, n_prefixes))
+        # the private suffix overwrites the shared sample's tail, so the
+        # first prefix_len tokens stay shared across the group
+        prompt = prefixes[p].copy()
+        prompt[prefix_len:] = _prompt(proc, seed + 43, i, L - prefix_len)
+        reqs.append({
+            "prompt": prompt,
+            "max_new": int(rng.integers(max_new_range[0], max_new_range[1] + 1)),
+            "arrival_time": float(arrivals[i]),
+            "priority": 0,
+            "prefix_id": p,
+        })
     return reqs
 
 

@@ -18,6 +18,14 @@ reads its output; bf16 K and V never land in device memory:
            memory, so a captured graph reads each replay's positions
   out      [B, H, Dh]      bf16
 
+A paged cache (``serving/pages.py``) passes ``page_map`` [B, P] int32 (each
+row's page ids in table order) and ``page_size`` ps: its leaves are then
+page-major, [n_pages, ps, W], [n_pages, ps, NB] and "pos" [n_pages, ps],
+the logical length is S = P * ps, and pos is [B].  The kernel reads slot t
+of row b at row ``page_map[b, t // ps] * ps + t % ps`` of every leaf; the
+plain version gathers the pages (``kv_dequant.gather_pages``) and runs its
+unpaged body, so the two read the same values in the same order.
+
 It computes what the plain version, ``decode_attention_packed_plain``,
 computes with the models' own functions (``kv_dequant.dequant_rows_ref``,
 ``attention.decode_attention_partial``, ``attention.combine_partials``), up
@@ -43,7 +51,13 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels.kv_dequant import KVQuantSpec, dequant_rows_ref, kv_codebook, kv_layout
+from repro_torch.kernels.kv_dequant import (
+    KVQuantSpec,
+    dequant_rows_ref,
+    gather_pages,
+    kv_codebook,
+    kv_layout,
+)
 
 KERNEL_BITS = (4, 8)
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -51,7 +65,7 @@ KERNEL_HEAD_DIMS = (32, 64, 128)
 MAX_G = 8
 
 
-def _check(q: torch.Tensor, cache: dict, spec):
+def _check(q: torch.Tensor, cache: dict, spec, page_map=None, page_size=None):
     """(B, H, Dh, S, feat) of a call, or raise for what neither the kernel
     nor its plain version takes."""
     if spec is None or "k_packed" not in cache:
@@ -62,26 +76,44 @@ def _check(q: torch.Tensor, cache: dict, spec):
         raise ValueError(f"decode_attention_packed takes q [B, H, Dh], got {tuple(q.shape)}")
     B, H, Dh = q.shape
     kp = cache["k_packed"]
-    S, W = kp.shape[1:]
+    lead, W = tuple(kp.shape[:2]), kp.shape[2]
     feat = W * packing.codes_per_word(spec.bits)
-    if kp.shape[0] != B or feat % Dh or H % (feat // Dh):
+    if page_map is None:
+        if page_size is not None:
+            raise ValueError("decode_attention_packed: page_size without a page_map")
+        S = lead[1]
+        if lead[0] != B:
+            raise ValueError(f"decode_attention_packed: q {tuple(q.shape)} over a cache of "
+                             f"{lead[0]} rows")
+        pos_shapes = ((S,), (B, S))
+    else:
+        ps = lead[1]
+        if page_map.ndim != 2 or page_map.shape[0] != B or page_size != ps \
+                or ps & (ps - 1):
+            raise ValueError(f"decode_attention_packed: a page map [B, P] of {B} rows over "
+                             f"pages of a power-of-two {ps} slots (page_size {page_size}), "
+                             f"got {tuple(page_map.shape)}")
+        S = page_map.shape[1] * ps
+        pos_shapes = (lead,)
+    if feat % Dh or H % (feat // Dh):
         raise ValueError(f"decode_attention_packed: q {tuple(q.shape)} does not fit a cache "
                          f"of {W} words a slot at {spec.bits} bits")
     for key in ("v_packed", "k_scales", "v_scales"):
-        if cache[key].shape[:2] != (B, S):
+        if tuple(cache[key].shape[:2]) != lead:
             raise ValueError(f"decode_attention_packed: {key} {tuple(cache[key].shape)}")
-    if cache["pos"].shape not in ((S,), (B, S)):
+    if tuple(cache["pos"].shape) not in pos_shapes:
         raise ValueError(f"decode_attention_packed: pos {tuple(cache['pos'].shape)}, S = {S}")
     return B, H, Dh, S, feat
 
 
-def _positions(pos, cache: dict, B: int, device) -> torch.Tensor:
+def _positions(pos, cache: dict, B: int, device, paged: bool = False) -> torch.Tensor:
     """The decode position as an int32 tensor that fits the cache's position
-    array: 0-d over [S], [B] over [B, S]; an int becomes a 0-d device fill."""
+    array: 0-d over [S], [B] over [B, S] or over pages; an int becomes a
+    0-d device fill."""
     from repro_torch.models import attention  # models.attention imports this module
 
     pos = attention.as_position(pos, device)
-    want = () if cache["pos"].ndim == 1 else (B,)
+    want = () if cache["pos"].ndim == 1 and not paged else (B,)
     if tuple(pos.shape) != want:
         raise ValueError(f"decode_attention_packed: positions {tuple(pos.shape)} over a "
                          f"position array {tuple(cache['pos'].shape)}")
@@ -89,13 +121,17 @@ def _positions(pos, cache: dict, B: int, device) -> torch.Tensor:
 
 
 def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
-                                  *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """The plain version: the cache dequantized to bf16 by the KV dequant's
-    plain version, then the models' masked softmax partials and combine."""
+                                  *, cap: float = 0.0, window: int = 0, page_map=None,
+                                  page_size=None) -> torch.Tensor:
+    """The plain version: the cache (a paged one gathered into rows first)
+    dequantized to bf16 by the KV dequant's plain version, then the models'
+    masked softmax partials and combine."""
     from repro_torch.models import attention  # models.attention imports this module
 
-    B, H, Dh, S, feat = _check(q, cache, spec)
-    pos = _positions(pos, cache, B, q.device)
+    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+    pos = _positions(pos, cache, B, q.device, page_map is not None)
+    if page_map is not None:
+        cache = {key: gather_pages(leaf, page_map) for key, leaf in cache.items()}
     shape = (B, S, feat // Dh, Dh)
     k = dequant_rows_ref(cache["k_packed"], cache["k_scales"], spec, feat).reshape(shape)
     v = dequant_rows_ref(cache["v_packed"], cache["v_scales"], spec, feat).reshape(shape)
@@ -107,7 +143,7 @@ def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos, spec: KVQua
 def _lib():
     lib = _build.load("kv_decode_attention")
     if not getattr(lib, "_argtypes_set", False):
-        lib.kv_decode_attention.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        lib.kv_decode_attention.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                                             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.kv_decode_attention.restype = ctypes.c_int
         lib._argtypes_set = True
@@ -115,13 +151,15 @@ def _lib():
 
 
 def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
-                                 *, cap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """Launch the kernel on a CUDA cache (one launch a layer); counts
-    launches in ``.launches``."""
+                                 *, cap: float = 0.0, window: int = 0, page_map=None,
+                                 page_size=None) -> torch.Tensor:
+    """Launch the kernel on a CUDA cache, paged or not (one launch a layer);
+    counts launches in ``.launches``."""
     if window:
         raise ValueError(f"decode_attention_packed_cuda takes no sliding window, got {window}")
-    B, H, Dh, S, feat = _check(q, cache, spec)
-    pos = _positions(pos, cache, B, q.device)
+    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+    paged = page_map is not None
+    pos = _positions(pos, cache, B, q.device, paged)
     K = feat // Dh
     G = H // K
     bs, n_blocks, n_words = kv_layout(spec, feat)
@@ -142,6 +180,10 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuan
     if pos.dtype != torch.int32 or pos.device != q.device or not pos.is_contiguous():
         raise ValueError(f"decode_attention_packed_cuda: positions must be contiguous int32 on "
                          f"{q.device}")
+    if paged and (page_map.dtype != torch.int32 or page_map.device != q.device
+                  or not page_map.is_contiguous()):
+        raise ValueError(f"decode_attention_packed_cuda: the page map must be contiguous int32 "
+                         f"on {q.device}")
     for key, n in (("k_packed", n_words), ("v_packed", n_words), ("k_scales", n_blocks),
                    ("v_scales", n_blocks)):
         if cache[key].shape[2] != n:
@@ -154,8 +196,10 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuan
         status = _lib().kv_decode_attention(
             q.data_ptr(), cache["k_packed"].data_ptr(), cache["k_scales"].data_ptr(),
             cache["v_packed"].data_ptr(), cache["v_scales"].data_ptr(), codebook.data_ptr(),
-            cache["pos"].data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, K, S, n_words,
-            n_blocks, bs, spec.bits, Dh, 1 if pos.ndim else 0, S if cache["pos"].ndim == 2 else 0,
+            cache["pos"].data_ptr(), pos.data_ptr(), page_map.data_ptr() if paged else None,
+            out.data_ptr(), B, H, K, S, n_words, n_blocks, bs, spec.bits, Dh,
+            1 if pos.ndim else 0, -1 if paged else (S if cache["pos"].ndim == 2 else 0),
+            page_map.shape[1] if paged else 0, page_size if paged else 0,
             float(Dh ** -0.5), float(cap), stream)
     _build.check(status, "kv_decode_attention")
     decode_attention_packed_cuda.launches += 1
@@ -166,11 +210,14 @@ decode_attention_packed_cuda.launches = 0
 
 
 def decode_attention_packed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec, *,
-                            cap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """Single-token attention of q [B, H, Dh] over a packed k-bit cache:
-    the fused kernel for CUDA tensors, the plain version for CPU tensors."""
+                            cap: float = 0.0, window: int = 0, page_map=None,
+                            page_size=None) -> torch.Tensor:
+    """Single-token attention of q [B, H, Dh] over a packed k-bit cache,
+    paged or not: the fused kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    kw = dict(cap=cap, window=window, page_map=page_map, page_size=page_size)
     if q.device.type == "cuda":
-        return decode_attention_packed_cuda(q, cache, pos, spec, cap=cap, window=window)
+        return decode_attention_packed_cuda(q, cache, pos, spec, **kw)
     if q.device.type == "cpu":
-        return decode_attention_packed_plain(q, cache, pos, spec, cap=cap, window=window)
+        return decode_attention_packed_plain(q, cache, pos, spec, **kw)
     raise ValueError(f"decode_attention_packed runs on cuda or cpu tensors, not {q.device}")

@@ -21,7 +21,11 @@ makes its kernel opt-in (``kv_use_kernel``); here a CUDA tensor always takes
 the kernel.  What bounds the kernel (bytes; at decode shapes, launch
 latency) and its design are noted in its source.
 
-Not in this slice: ``gather_pages`` / ``dequant_pages`` (the paged pool).
+The paged pool (``serving/pages.py``) stores every leaf page-major,
+[n_pages, ps, ...]: ``gather_pages`` reads a leaf through a page map into
+the slot-pool row layout, and ``dequant_pages`` gathers, then dequantizes
+with ``dequant_rows``.  The decode step reads a paged cache through the
+fused attention instead, which follows the page map itself.
 """
 
 from __future__ import annotations
@@ -156,6 +160,26 @@ def dequant_rows(packed, scales, spec: KVQuantSpec, feat: int,
     flat = dequant_rows_cuda(packed.reshape(-1, packed.shape[-1]),
                              scales.reshape(-1, scales.shape[-1]), spec, feat)
     return flat.reshape(lead + (feat,))
+
+
+def gather_pages(leaf: torch.Tensor, page_map: torch.Tensor) -> torch.Tensor:
+    """A page-major leaf [n_pages, ps, ...] read through ``page_map`` [B, P]
+    (each row's page ids in table order): the contiguous [B, P * ps, ...]
+    view in which position p of row b sits at index p, the slot pool's row
+    layout.  Blocks and words run along the feature dim only, so a page
+    boundary never splits a token's quantization state."""
+    B, P = page_map.shape
+    g = torch.index_select(leaf, 0, page_map.reshape(-1).to(torch.int64))
+    return g.reshape((B, P * leaf.shape[1]) + tuple(leaf.shape[2:]))
+
+
+def dequant_pages(packed, scales, page_map, spec: KVQuantSpec, feat: int,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Paged packed words [n_pages, ps, W] and scales [n_pages, ps, NB]
+    gathered through ``page_map`` [B, P] and dequantized: [B, P * ps, feat]
+    (``dequant_rows``: the CUDA kernel for CUDA tensors)."""
+    return dequant_rows(gather_pages(packed, page_map), gather_pages(scales, page_map), spec,
+                        feat, out_dtype=out_dtype)
 
 
 def kv_stored_bytes_per_token(spec: Optional[KVQuantSpec], feat: int,

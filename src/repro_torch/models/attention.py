@@ -28,8 +28,13 @@ tensors **in place** (the reference returns new arrays).
 ``prefill_chunk_attention`` is one chunk of a chunked prefill, bitwise
 equal to ``flash_attention``'s rows for a prompt within one KV chunk.
 
-Not in this slice: sliding-window ring caches, the sharded combine and the
-paged cache.
+The paged pool (``serving/pages.py``) keeps every leaf page-major,
+[n_pages, ps, ...], and a row's page ids in a ``page_map`` [B, P]:
+``write_cache_paged`` writes a decode token through it and
+``paged_decode_attention`` reads through it (a packed cache in the fused
+kernel, which follows the map itself).
+
+Not in this slice: sliding-window ring caches and the sharded combine.
 """
 
 from __future__ import annotations
@@ -334,4 +339,62 @@ def decode_attention(q, cache, pos, *, cap=0.0, window=0, kvq=None):
     B, H, Dh = q.shape
     m, l, pv = decode_attention_partial(q, cache["k"], cache["v"], cache["pos"], pos,
                                         cap=cap, window=window)
+    return combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# the paged cache (serving/pages.py builds the decode step's closure)
+# --------------------------------------------------------------------------
+
+def write_cache_paged(cache: dict, k_new, v_new, pos, page_map, *, page_size: int,
+                      kvq=None) -> dict:
+    """Write one token's K/V [B, K, Dh] into page-major storage, in place.
+
+    ``cache`` leaves are [n_pages, ps, ...] with positions [n_pages, ps];
+    ``pos`` is a [B] int32 tensor (-1 = idle row) and ``page_map`` [B, P]
+    the rows' page ids (0 for unallocated entries).  Row b's token at
+    position p lands in page ``page_map[b, p // ps]`` at offset ``p % ps``.
+    Idle rows, positions past the table and table entries with no page go
+    to the trash page 0 with pos -1, so they stay as inert as the slot
+    pool's clamped idle writes and page 0 never holds a position.  The
+    indices stay on the device (``index_put_``), so the write can be
+    captured in a graph."""
+    pos = as_position(pos, k_new.device)
+    if pos.ndim != 1:
+        raise ValueError(f"paged writes take a position a row, got {tuple(pos.shape)}")
+    B = pos.shape[0]
+    S_total = page_map.shape[1] * page_size
+    safe = torch.clamp(pos, 0, S_total - 1).to(torch.int64)
+    rows = torch.arange(B, device=pos.device)
+    mapped = page_map[rows, safe // page_size].to(torch.int64)
+    live = (pos >= 0) & (pos < S_total) & (mapped != 0)
+    zero = torch.zeros_like(safe)
+    page = torch.where(live, mapped, zero)
+    off = torch.where(live, safe % page_size, zero)
+    quantized = kvq is not None and _is_quantized_cache(cache)
+    vals = (_encoded(k_new, v_new, kvq) if quantized else
+            (("k", k_new.to(cache["k"].dtype)), ("v", v_new.to(cache["v"].dtype))))
+    for key, val in vals:
+        cache[key].index_put_((page, off), val)
+    cache["pos"].index_put_((page, off), torch.where(live, pos, torch.full_like(pos, -1)))
+    return cache
+
+
+def paged_decode_attention(q, cache, pos, page_map, *, cap=0.0, kvq=None):
+    """Single-token attention of q [B, H, Dh] against a paged cache at
+    [B] positions.  A packed cache goes to the fused attention with the
+    page map (on the card the kernel reads through it; on the CPU its plain
+    version gathers the pages); a bf16 cache is gathered into rows
+    (``kv_dequant.gather_pages``, position p of row b at index p) and read
+    by the slot pool's masked partials, so the result is the slot pool's
+    for the same tokens."""
+    page_size = cache["pos"].shape[1]
+    if kvq is not None and _is_quantized_cache(cache):
+        return kv_attention.decode_attention_packed(q, cache, pos, kvq, cap=cap,
+                                                    page_map=page_map, page_size=page_size)
+    B, H, Dh = q.shape
+    k = kv_dequant.gather_pages(cache["k"], page_map)
+    v = kv_dequant.gather_pages(cache["v"], page_map)
+    pos_arr = kv_dequant.gather_pages(cache["pos"], page_map)
+    m, l, pv = decode_attention_partial(q, k, v, pos_arr, pos, cap=cap)
     return combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)

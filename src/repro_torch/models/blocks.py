@@ -10,7 +10,10 @@ those per-layer views.
 
 ``apply_stack_prefill_chunk`` runs one chunk of a chunked prefill over a
 dense bf16 workspace.  A decode position is an int32 tensor (0-d or [B],
-``attention.write_cache_decode``), never turned into a host int.
+``attention.write_cache_decode``), never turned into a host int.  A decode
+layer writes its token and attends through ``decode_attn``, the
+reference's hook: ``local_decode_attn`` over a slot cache by default, the
+paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
 Not in this slice: MoE and SSM layers, sliding windows and sharding
 constraints.
@@ -109,19 +112,25 @@ def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
     return x + mlp(p["ffn"], h, cfg)
 
 
-def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg):
+def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, kvq=None):
+    """Write one token's K/V into a slot cache, in place, and attend over
+    it: q [B,H,Dh], k_new/v_new [B,K,Dh].  Returns the attention output
+    [B,H,Dh]."""
+    attn_mod.write_cache_decode(cache, k_new, v_new, pos, kvq=kvq)
+    return attn_mod.decode_attention(q, cache, pos, cap=cap, kvq=kvq)
+
+
+def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, decode_attn=local_decode_attn):
     """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
-    row, -1 = idle) int32 tensor.  Writes this token into ``cache`` in
-    place.  Returns x."""
+    row, -1 = idle) int32 tensor.  ``decode_attn`` writes this token into
+    ``cache`` in place and attends.  Returns x."""
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
     # rotates each row by its own position
     positions = pos[:, None] if pos.ndim else pos[None]
     q, k, v = attn_mod.project_qkv(p["mixer"], h[:, None, :], cfg, positions)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    kvq = kv_spec(cfg)
-    attn_mod.write_cache_decode(cache, k, v, pos, kvq=kvq)
-    o = attn_mod.decode_attention(q, cache, pos, cap=cfg.attn_logit_softcap, kvq=kvq)
+    o = decode_attn(q, k, v, cache, pos, cap=cfg.attn_logit_softcap, kvq=kv_spec(cfg))
     x = x + dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
     return x + mlp(p["ffn"], h, cfg)
@@ -159,13 +168,15 @@ def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
     return x, caches
 
 
-def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg):
+def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg, *,
+                       decode_attn=local_decode_attn):
     """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
-    ``caches`` (init_stack_cache's layout) are updated in place.  Returns
-    (x, caches)."""
+    ``caches`` (init_stack_cache's layout) are updated in place through
+    ``decode_attn``.  Returns (x, caches)."""
     check_dense(cfg)
     for i in range(cfg.n_layers):
-        x = apply_layer_decode(take(stack[0], i), x, take(caches[0], i), pos, cfg=cfg)
+        x = apply_layer_decode(take(stack[0], i), x, take(caches[0], i), pos, cfg=cfg,
+                               decode_attn=decode_attn)
     return x, caches
 
 

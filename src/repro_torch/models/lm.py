@@ -121,15 +121,18 @@ def prefill(params, tokens, cfg, *, cache_len=None):
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 
-def decode_step(params, token, caches, pos, cfg):
+def decode_step(params, token, caches, pos, cfg, *, decode_attn=blocks.local_decode_attn):
     """One decoding step: token [B] at ``pos``: an int or a 0-d int32 tensor
     (every row at one position, over shared caches) or a [B] one (a
-    position a row over per-slot caches, -1 = idle row).  Returns (logits
-    [B, V], caches), the caches updated in place.  Nothing here reads a
-    device value on the host, so the step can be captured as a CUDA graph."""
+    position a row over per-slot caches, -1 = idle row).  ``decode_attn``
+    writes each layer's token and attends (the paged pool passes its own).
+    Returns (logits [B, V], caches), the caches updated in place.  Nothing
+    here reads a device value on the host, so the step can be captured as a
+    CUDA graph."""
     x = embed_inputs(params, token, cfg)
     pos = attention.as_position(pos, x.device)
-    x, caches = blocks.apply_stack_decode(params["stack"], x, caches, pos, cfg)
+    x, caches = blocks.apply_stack_decode(params["stack"], x, caches, pos, cfg,
+                                          decode_attn=decode_attn)
     x = norm(params["final_norm"], x, cfg.norm_type)
     return logits_from_hidden(params, x, cfg), caches
 

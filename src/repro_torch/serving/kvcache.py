@@ -103,14 +103,19 @@ class SlotKVCache:
         self.telemetry = telemetry
         self.caches = lm.init_caches(cfg, num_slots, cache_len, dtype, per_slot=True,
                                      device=device)
-        self.device = self.caches[0]["pos"].device
-        self._free = list(range(num_slots - 1, -1, -1))   # pop() -> lowest id
-        self.active = np.zeros(num_slots, dtype=bool)
-        # absolute position of the next token fed to each slot (-1 = idle)
-        self.next_pos = np.full(num_slots, -1, dtype=np.int64)
-        self._pos_dev = torch.full((num_slots,), -1, dtype=torch.int32, device=self.device)
+        self._init_slots()
         if telemetry.enabled:
             self.record_footprint()
+
+    def _init_slots(self) -> None:
+        """Every slot free and idle, on the caches' device."""
+        self.device = self.caches[0]["pos"].device
+        self._free = list(range(self.num_slots - 1, -1, -1))   # pop() -> lowest id
+        self.active = np.zeros(self.num_slots, dtype=bool)
+        # absolute position of the next token fed to each slot (-1 = idle)
+        self.next_pos = np.full(self.num_slots, -1, dtype=np.int64)
+        self._pos_dev = torch.full((self.num_slots,), -1, dtype=torch.int32,
+                                   device=self.device)
 
     # -- host-side bookkeeping -------------------------------------------
     @property

@@ -34,14 +34,25 @@ length off that multiple) prefills plainly, as does a bucket past
 model is causal full attention: padded positions are masked out of the
 cache (``kvcache.scatter_row``).
 
+``paged=True`` swaps the slot pool for the page-table pool
+(``serving/pages.py``): KV storage is one pool of ``n_pages`` pages of
+``page_size`` positions, each row a page table, and requests whose prompts
+share a prefix store its full pages once (copy-on-write).  The decode step
+reads and writes through the table, which the captured step reads from a
+static device buffer (refreshed by one copy before a step, only when the
+host table changed), so one graph serves every table.  Paged greedy tokens
+are the slot pool's at every kv_bits.  Preemption spills only a request's
+private pages and keeps its shared prefix resident; admission reserves a
+request's worst case in pages, and a request that could never fit the pool
+is refused at ``submit``.
+
 ``telemetry=`` (``serving/telemetry.py``, the no-op by default) turns the
 request lifecycle into spans and metrics, timed at the host with a fence
 after each dispatch; the steps themselves are the same with it on or off.
 
-Not in this slice: the paged pool (``paged=True``, ROADMAP A6), the mesh
-(``sharder=``, A11), construction from a precision plan (A8), the telemetry
-quant-health probes (``kv_probe_every``, A7) and the roofline profiler
-(A7).
+Not in this slice: the mesh (``sharder=``, ROADMAP A11), construction from
+a precision plan (A8), the telemetry quant-health probes
+(``kv_probe_every``, A7) and the roofline profiler (A7).
 """
 
 from __future__ import annotations
@@ -51,9 +62,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_dequant import kv_spec
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, blocks, lm
 from repro_torch.serving.engine import capture_graph, sample_token
 from repro_torch.serving.kvcache import SlotKVCache, scatter_row, workspace_to_row
+from repro_torch.serving.pages import PagedKVPool, paged_decode_attn_fn, scatter_pages
 from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.serving.telemetry import NOOP
 
@@ -104,12 +116,20 @@ class Server:
                  eos_id: int | None = None, seed: int = 0, dtype=torch.bfloat16,
                  matmul_mode: str | None = None, sharder=None, telemetry=NOOP,
                  prefill_chunk: int | None = None, aging_steps: int | None = 64,
-                 max_preemptions: int = 0, paged: bool = False, device=None):
+                 max_preemptions: int = 0, paged: bool = False, page_size: int = 16,
+                 n_pages: int | None = None, device=None):
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
         if paged:
-            raise NotImplementedError("the paged KV pool (paged=True) is not ported yet: "
-                                      "ROADMAP A6, pages")
+            if not _bucketing_safe(cfg):
+                raise ValueError("paged serving requires causal full attention in every "
+                                 "layer: SSM states and sliding-window rings do not "
+                                 "decompose into position-indexed pages")
+            if prefill_chunk is not None:
+                raise ValueError("prefill_chunk and paged are mutually exclusive (the chunk "
+                                 "workspace commits whole slot rows)")
+        elif n_pages is not None:
+            raise ValueError("n_pages requires paged=True")
         if sharder is not None:
             raise NotImplementedError("the Server on a mesh (sharder=) is not ported yet: "
                                       "ROADMAP A11")
@@ -133,8 +153,15 @@ class Server:
         self.cfg = cfg
         self.eos_id = eos_id
         self.kvq = kv_spec(cfg)   # None = bf16 cache; else packed k-bit
-        self.pool = SlotKVCache(cfg, num_slots, max_seq_len, dtype, telemetry=telemetry,
-                                device=self.device)
+        self._paged = paged
+        if paged:
+            self.pool = PagedKVPool(cfg, num_slots, max_seq_len, dtype, page_size=page_size,
+                                    n_pages=n_pages, telemetry=telemetry, device=self.device)
+            self._decode_attn = paged_decode_attn_fn(self.pool._page_map_dev, page_size)
+        else:
+            self.pool = SlotKVCache(cfg, num_slots, max_seq_len, dtype, telemetry=telemetry,
+                                    device=self.device)
+            self._decode_attn = blocks.local_decode_attn
         self.scheduler = Scheduler(eos_id=eos_id, telemetry=telemetry,
                                    aging_steps=aging_steps, max_preemptions=max_preemptions)
         self._gen = torch.Generator(device=self.device)
@@ -153,7 +180,8 @@ class Server:
         self._temps_dev = torch.zeros((num_slots,), dtype=torch.float32, device=self.device)
         self._nxt = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
         # captured while the pool is empty: the warm-up call's idle rows only
-        # park pos = -1 at a clamped slot of rows no request holds
+        # park pos = -1 at a clamped slot of rows no request holds (paged:
+        # at the trash page)
         self._graph = (capture_graph(self._decode_body, self.device, self._gen)
                        if self.device.type == "cuda" else None)
 
@@ -161,8 +189,21 @@ class Server:
     def _decode_body(self) -> None:
         """One decode step over the pool, on the static buffers."""
         logits, _ = lm.decode_step(self.params, self._tok, self.pool.caches,
-                                   self.pool._pos_dev, self.cfg)
+                                   self.pool._pos_dev, self.cfg, decode_attn=self._decode_attn)
         self._nxt.copy_(sample_token(logits, self._gen, self._temps_dev))
+
+    def _prefill_into_pages(self, padded: np.ndarray, length: int, pages: np.ndarray,
+                            write_mask: np.ndarray, temperature: float) -> torch.Tensor:
+        """The paged twin of ``_prefill_into_slot``: prefill [1, Sb] at its
+        own length, sample the first token at length - 1 and write the
+        request's own prompt pages (``write_mask``), leaving the COW-shared
+        prefix and the bucket's padding unwritten."""
+        prompt = torch.as_tensor(padded, device=self.device)
+        h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True)
+        logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
+        tok = sample_token(logits, self._gen, float(temperature))
+        scatter_pages(self.pool.caches, caches, pages, write_mask, length, self.pool.page_size)
+        return tok
 
     def _prefill_into_slot(self, padded: np.ndarray, length: int, slot: int,
                            temperature: float) -> torch.Tensor:
@@ -190,6 +231,12 @@ class Server:
                 f"prompt {len(prompt)} + max_new {max_new} needs "
                 f"{len(prompt) + max_new - 1} cache positions but the "
                 f"budget is {self.pool.cache_len}")
+        if self._paged:
+            need = self.pool.pages_needed(len(prompt), max_new)
+            if need > self.pool.allocator.n_usable:
+                raise ValueError(f"request needs {need} pages worst-case but the pool holds "
+                                 f"{self.pool.allocator.n_usable}: it could never be admitted "
+                                 f"(raise n_pages or lower max_new)")
         req = Request(prompt=prompt, max_new=max_new, temperature=temperature,
                       priority=priority, arrival_time=arrival_time, on_token=on_token)
         self.scheduler.submit(req)
@@ -247,10 +294,15 @@ class Server:
 
     def _retire(self, req, slot: int, reason: str) -> None:
         self.scheduler.retire(slot, self.steps)
-        self.pool.free(slot)
+        n_freed = self.pool.free(slot)
         tel = self.telemetry
         if tel.enabled:
-            tel.event("retire", tel.now(), request_id=req.id, step=self.steps,
+            now = tel.now()
+            if self._paged:
+                # before the retire event, which closes the request's lifecycle
+                tel.event("page_release", now, request_id=req.id, step=self.steps,
+                          n_pages=n_freed, reason=reason)
+            tel.event("retire", now, request_id=req.id, step=self.steps,
                       n_tokens=len(req.tokens), reason=reason)
 
     def _after_first(self, req, slot: int, first: int) -> None:
@@ -276,11 +328,18 @@ class Server:
                 break
             resume = req.id in self._spilled
             L = len(req.prompt)
-            Sb = bucket_len(L, cap=self.pool.cache_len) if self._bucketed else L
+            if self._paged:
+                # a bucket of whole pages: full prompt pages tile the padded
+                # length (and the bucket joins the COW key)
+                Sb = bucket_len(L, minimum=max(8, self.pool.page_size), cap=self.pool.cache_len)
+            else:
+                Sb = bucket_len(L, cap=self.pool.cache_len) if self._bucketed else L
             blocked = False
-            while not self.pool.n_free:
-                # a full pool: evict a strictly lower-priority victim if
-                # preemption is on (mid-chunk slots have no committed rows)
+            while not self._fits(req, resume, Sb):
+                # a full pool (no row, or not enough pages): evict a strictly
+                # lower-priority victim if preemption is on (mid-chunk slots
+                # have no committed rows); each eviction frees a row and its
+                # private pages, so the loop ends when victims run out
                 vslot = self.scheduler.preemption_victim(req, self.steps,
                                                          exclude=self._chunking)
                 if vslot is None:
@@ -300,13 +359,26 @@ class Server:
                 continue
             padded = np.zeros((1, Sb), dtype=np.int64)
             padded[0, :L] = req.prompt
+            if self._paged:
+                n_shared, n_new, pages, wmask = self.pool.admit_pages(slot, req.id, req.prompt,
+                                                                      req.max_new, Sb)
+                if tel.enabled:
+                    tel.event("page_alloc", tel.now(), request_id=req.id, step=self.steps,
+                              slot=slot, n_pages=n_new, n_shared=n_shared)
             if tel.enabled:
                 t0 = tel.now()
                 if req.t_submit is not None:
                     tel.span("queue_wait", req.t_submit, t0, request_id=req.id,
                              step=self.steps, steps=float(self.steps - req.arrival_time))
-            tok = self._prefill_into_slot(padded, L, slot, req.temperature)
-            self.pool.install_prefill(slot, L)
+            if self._paged:
+                tok = self._prefill_into_pages(padded, L, pages, wmask, req.temperature)
+                self.pool.install_prefill(slot, L)
+                # publish the full prompt pages before anything can preempt
+                # this slot (a spill retains sealed pages only)
+                self.pool.seal_slot(slot)
+            else:
+                tok = self._prefill_into_slot(padded, L, slot, req.temperature)
+                self.pool.install_prefill(slot, L)
             if tel.enabled:
                 _fence(tok)
                 t1 = tel.now()
@@ -318,6 +390,17 @@ class Server:
             self._after_first(req, slot, int(tok[0]))
             produced += 1
         return produced
+
+    def _fits(self, req: Request, resume: bool, Sb: int) -> bool:
+        """A free row and, paged, the pages this admission (or resume)
+        needs."""
+        if not self.pool.n_free:
+            return False
+        if not self._paged:
+            return True
+        if resume:
+            return self.pool.can_resume_pages(self._spilled[req.id]["n_private"])
+        return self.pool.can_admit_pages(req.prompt, req.max_new, Sb)
 
     def _preempt(self, slot: int, by: Request) -> None:
         """Evict the request in ``slot`` for the higher-priority ``by``: copy
@@ -334,6 +417,9 @@ class Server:
         self.pool.free(slot)
         if tel.enabled:
             t1 = tel.now()
+            if self._paged:
+                tel.event("page_release", t0, request_id=victim.id, step=self.steps,
+                          n_pages=spill["n_private"], reason="preempt")
             tel.event("preempt", t0, request_id=victim.id, step=self.steps, slot=slot,
                       by=by.id, n_tokens=len(victim.tokens))
             tel.span("spill", t0, t1, request_id=victim.id, step=self.steps, slot=slot,
@@ -350,7 +436,11 @@ class Server:
         self._temps[slot] = req.temperature
         if tel.enabled:
             _fence(self.pool.caches[0]["pos"])
-            tel.span("restore", t0, tel.now(), request_id=req.id, step=self.steps, slot=slot,
+            t1 = tel.now()
+            if self._paged:
+                tel.event("page_alloc", t0, request_id=req.id, step=self.steps, slot=slot,
+                          n_pages=spill["n_private"], n_shared=spill["n_retained"])
+            tel.span("restore", t0, t1, request_id=req.id, step=self.steps, slot=slot,
                      bytes_packed=spill["bytes_packed"])
 
     def _start_chunked(self, req: Request, slot: int, L: int, Sb: int) -> None:
@@ -431,6 +521,8 @@ class Server:
         self._temps_dev.copy_(torch.from_numpy(np.where(active, self._temps, 0.0)
                                                .astype(np.float32)))
         self.pool.pos_vector()
+        if self._paged:
+            self.pool.page_map_vector()
         tel = self.telemetry
         if tel.enabled:
             n_active = self.pool.n_active

@@ -14,7 +14,11 @@ where the card is (a machine without JAX):
   the launch counters tick at each replay as at an eager step;
 * the Server's chunked prefill: a chunk size off ``attention.Q_PIECE`` is
   refused, and a bucket capped at a cache length off it serves the tokens
-  of an unchunked Server.
+  of an unchunked Server;
+* the fused attention over a paged cache (a shuffled page map with shared
+  pages, holes and idle rows) bit-identical to the unpaged kernel on the
+  same cache gathered into rows, at pages of 8 and 16, and its refusals;
+  the paged Server's tokens equal to the slot pool's.
 """
 
 import numpy as np
@@ -225,3 +229,123 @@ def test_chunked_prefill_of_a_capped_bucket_token_identical(kv):
     assert [len(t) for t in plain] == budgets
     # 3 + 2 chunks; the capped bucket prefills plainly
     assert tel.registry.counter("serve_prefill_chunks_total").value == 5
+
+
+def _paged_cache(bits, n_pages, ps, B, P, K, Dh, seed):
+    """A page-major packed cache on the card: random rows, positions a run
+    with holes, the trash page empty; a shuffled page map with a page
+    shared by rows 0 and 1 and an unallocated entry."""
+    rs = np.random.RandomState(seed)
+    spec = tkv.KVQuantSpec(bits=bits, block_size=64, dtype_name="float")
+    cache = {}
+    for name in ("k", "v"):
+        x = torch.tensor(rs.randn(n_pages, ps, K * Dh), dtype=torch.bfloat16, device="cuda")
+        cache[f"{name}_packed"], cache[f"{name}_scales"] = tkv.encode_rows(x, spec)
+    pos = (np.arange(n_pages * ps) % (P * ps)).reshape(n_pages, ps)
+    pos[rs.rand(n_pages, ps) < 0.2] = -1
+    pos[0] = -1
+    cache["pos"] = torch.from_numpy(pos.astype(np.int32)).cuda()
+    page_map = rs.permutation(np.arange(1, n_pages))[: B * P].reshape(B, P)
+    page_map[1, 0] = page_map[0, 0]
+    page_map[-1, -1] = 0
+    return cache, torch.from_numpy(page_map.astype(np.int32)).cuda(), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_attention_bit_identical_to_unpaged_on_gathered_cache(bits, ps):
+    """The kernel reads a paged cache through its page map: the unpaged
+    kernel's output on the same cache gathered into rows, bit for bit;
+    within 2^-6 of each row's max of the paged plain version; idle rows 0."""
+    _need_cuda()
+    B, P, K, G, Dh = 6, 300 // ps, 4, 7, 128
+    cache, page_map, spec = _paged_cache(bits, B * P + 3, ps, B, P, K, Dh, seed=bits + ps)
+    rs = np.random.RandomState(ps)
+    q = torch.tensor(rs.randn(B, K * G, Dh) * 2, dtype=torch.bfloat16, device="cuda")
+    pos = torch.tensor([P * ps - 1, 40, -1, 100, P * ps - 9, -1], dtype=torch.int32,
+                       device="cuda")
+    before = tka.decode_attention_packed_cuda.launches
+    out = tka.decode_attention_packed_cuda(q, cache, pos, spec, page_map=page_map,
+                                           page_size=ps)
+    assert tka.decode_attention_packed_cuda.launches == before + 1
+    rows = {key: tkv.gather_pages(leaf, page_map).contiguous() for key, leaf in cache.items()}
+    unpaged = tka.decode_attention_packed_cuda(q, rows, pos, spec)
+    plain = tka.decode_attention_packed_plain(q, cache, pos, spec, page_map=page_map,
+                                              page_size=ps).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), unpaged.view(torch.int16))
+    gap = (out.float() - plain).abs().amax(-1)
+    assert bool((gap <= ATT_TOL * plain.abs().amax(-1)).all()), float(gap.max())
+    assert not bool(out[[2, 5]].abs().any()) and bool(out[[0, 1, 3, 4]].abs().any())
+
+
+@pytest.mark.cuda
+def test_paged_attention_refusals():
+    """The wrapper refuses a page size that is not the leaves' or not a
+    power of two, a page map off int32 and positions not a row each; the C
+    entry refuses P * ps != S, a map without its sizes and sizes without a
+    map (cudaErrorInvalidValue, 1)."""
+    _need_cuda()
+    B, P, ps, K, G, Dh = 2, 4, 16, 4, 7, 128
+    cache, page_map, spec = _paged_cache(4, B * P + 1, ps, B, P, K, Dh, seed=3)
+    q = torch.zeros((B, K * G, Dh), dtype=torch.bfloat16, device="cuda")
+    pos = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    for kw in (dict(page_map=page_map, page_size=8), dict(page_map=page_map),
+               dict(page_map=page_map.long(), page_size=ps), dict(page_size=ps)):
+        with pytest.raises(ValueError):
+            tka.decode_attention_packed_cuda(q, cache, pos, spec, **kw)
+    with pytest.raises(ValueError):
+        tka.decode_attention_packed_cuda(q, cache, torch.tensor(3, dtype=torch.int32,
+                                                                device="cuda"), spec,
+                                         page_map=page_map, page_size=ps)
+    lib = tka._lib()
+    out = torch.empty_like(q)
+    cb = tkv.kv_codebook(spec, q.device)
+    S = P * ps
+
+    def call(map_ptr, S_, pa_stride, P_, ps_):
+        return lib.kv_decode_attention(
+            q.data_ptr(), cache["k_packed"].data_ptr(), cache["k_scales"].data_ptr(),
+            cache["v_packed"].data_ptr(), cache["v_scales"].data_ptr(), cb.data_ptr(),
+            cache["pos"].data_ptr(), pos.data_ptr(), map_ptr, out.data_ptr(), B, K * G, K,
+            S_, K * Dh // 8, K * Dh // 64, 64, 4, Dh, 1, pa_stride, P_, ps_, Dh ** -0.5, 0.0,
+            torch.cuda.current_stream().cuda_stream)
+
+    assert call(page_map.data_ptr(), S, -1, P, ps) == 0
+    torch.cuda.synchronize()
+    for args in ((page_map.data_ptr(), S + 16, -1, P, ps),     # P * ps != S
+                 (page_map.data_ptr(), S, -1, P, 12),         # not a power of two
+                 (page_map.data_ptr(), S, S, P, ps),          # not page-major positions
+                 (None, S, S, P, ps),                         # sizes without a map
+                 (None, S, -1, 0, 0)):                        # page-major without a map
+        assert call(*args) == 1, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [16, 4])
+def test_paged_server_tokens_equal_slot_pool(kv):
+    """The paged Server (its step one captured graph reading the page map
+    from a device buffer) streams the slot pool's tokens, a shared-prefix
+    fork among the requests; no page is left after the drain."""
+    _need_cuda()
+    cfg = get_arch("tiny-650k")
+    cfg = cfg.with_kv_quant(kv) if kv < 16 else cfg
+    params = _q4_params(cfg)
+    rs = np.random.RandomState(kv + 1)
+    prompts = [rs.randint(0, cfg.vocab_size, L) for L in (40, 100)]
+    # a fork of the 100-token prompt's first four pages, admitted beside it
+    prompts.append(np.concatenate([prompts[1][:64], rs.randint(0, cfg.vocab_size, 20)]))
+    prompts += [rs.randint(0, cfg.vocab_size, L) for L in (23, 70)]
+
+    def serve(**kw):
+        srv = Server(params, cfg, num_slots=3, max_seq_len=256, device="cuda", **kw)
+        ids = [srv.submit(p, 12, arrival_time=float(i)) for i, p in enumerate(prompts)]
+        res = srv.run_until_drained()
+        return srv, [res[i] for i in ids]
+
+    _, slot = serve()
+    srv, paged = serve(paged=True, page_size=16)
+    assert paged == slot
+    a = srv.pool.allocator
+    assert a.cow_hits >= 4 and a.n_free == a.n_usable and not a.ref

@@ -294,8 +294,6 @@ def test_server_rejects_unported_options():
     kw = dict(num_slots=1, max_seq_len=16, device="cpu")
     with pytest.raises(ValueError):
         Server(params, cfg, prefill_chunk=0, **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        Server(params, cfg, paged=True, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         Server(params, cfg, sharder=object(), **kw)
     with pytest.raises(NotImplementedError, match="A7"):
