@@ -11,7 +11,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                <= 2e-5, f32 summation order; bf16: <= 2^-7 * max|y|, one
                bf16 ulp at the max) at Qwen2-7B's shapes and the main
                paths' row counts (1 to 8 rows, the Server's buckets and
-               chunks, the Engine's prefill), both GEMVs' and
+               chunks, the Engine's prefill; the decode GEMV also at 3, 5
+               and 6 bits), both GEMVs' (every width on the tensor cores;
+               on the CUDA cores f32 x and bf16 x whose scale blocks split
+               a group of 4 codes, each case gated on its launch) and
                the tensor-core GEMM's edges (3 to 8 bits) and split-K
                shapes and the paper sweep's shapes, the KV dequant
                (bit-exact), the blockwise encode (bit-exact codes and
@@ -36,6 +39,16 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                (every GEMV on the tensor cores, qgemv_sm90; one fused
                attention a layer and no standalone KV dequant).  A replay
                adds its kernels' launches to the wrappers' counters.
+  3a. bits   — the serve phase's Engine at 3, 5 and 6 bits (the same seeded
+               weights quantized at each width in turn, each freed before the
+               next): captured-step tokens identical to eager ones, one replay
+               197 tensor-core GEMVs, 0 CUDA-core ones and 28 fused
+               attentions, fused vs dequant_einsum logits within 0.5; each
+               width's step of GEMVs timed beside its bound, the CUDA-core
+               GEMV on the same operands and torch.matmul on the bf16 weights,
+               and its prefill's GEMMs as the path runs them (K padded to
+               whole words at every call) beside rows padded beforehand and
+               that copy alone.
   3b. server — the continuous-batching Server on the same weights with a kv4
                cache and 8 slots: 24 requests of 16-512 prompt tokens and
                16-64 new tokens with staggered arrivals, plain, with
@@ -65,7 +78,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed; B1
                also per shape, beside torch.matmul per shape, and the
-               decode GEMV beside the CUDA-core GEMV on the same operands;
+               decode GEMV beside the CUDA-core GEMV on the same operands,
+               and the CUDA-core GEMV on f32 x (what it serves) beside
+               torch.matmul on the same f32 operands; the f32 GEMM at the
+               paper sweep's shapes beside torch.matmul in f32;
                the encode beside the chain it replaced, the fused attention
                beside the path it replaced at 288 and 4096 slots, and there
                paged (pages of 16) beside unpaged at a position a row.
@@ -77,6 +93,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -135,6 +152,9 @@ PAGE_SIZE, PAGED_CHECK_SIZES = 16, (8, 16, 64)
 SHARED_REQUESTS, SHARED_PREFIX, SHARED_SUFFIX, SHARED_VOCAB = 16, 512, 32, 4096
 # the short kv8 and kv16 paged runs: the first requests of the server phase
 PAGED_SHORT_REQUESTS = 8
+# the bits phase: the widths below 8 other than 4 (the paper sweeps 3 to 8
+# bits; the reference's mixed-precision planner proposes 3, 5 and 6)
+LOW_BITS = (3, 5, 6)
 
 
 def emit(obj) -> None:
@@ -174,6 +194,7 @@ def main() -> int:
 
     errs = check_kernels(torch, dev)
     run = serve_main_path(torch, dev)
+    low_bits = serve_low_bits(torch, dev, run)
     server_path(torch, dev, run)
     paged_path(torch, dev, run)
     mode_parity(torch, dev, run)
@@ -205,6 +226,18 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    for bits in LOW_BITS:
+        t = low_bits[bits]
+        kernels.append({
+            "name": f"qmatmul_gemv_{bits}bit", "route": "cuda",
+            "source": "src/repro_torch/csrc/qgemv_sm90.cu",
+            "replaces": "src/repro/kernels/qmatmul.py:97",
+            # the bits phase's Engine at this width: its prefill's head, the
+            # capture's warm-up step and the replays
+            "launches": t["launches"]["gemv_tc"], "max_abs_err": errs[f"gemv{bits}"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -221,6 +254,30 @@ def _gen(torch, dev, seed):
     return g
 
 
+#: the tensor-core GEMV's odd scale blocks by width (kernels/qmatmul.py:
+#: tc_gemv_block_ok takes them all)
+ODD_TC_BLOCKS = {3: (12, 20, 40), 4: (16, 24, 40), 5: (12, 20, 44), 6: (4, 12, 20),
+                 7: (8, 12, 20), 8: (8, 12, 20)}
+
+
+#: scale blocks that split a group of 4 codes (at 4 bits a word of 8) by
+#: width, which send bf16 x to the CUDA-core GEMV
+SIMT_BF16_BLOCKS = {3: (6, 10), 4: (12, 20), 5: (6, 10), 6: (6, 10), 7: (6, 10), 8: (6, 10)}
+
+
+def _odd_k(bits: int, block: int) -> int:
+    """K = 200 at 4, 7 and 8 bits (rows of words off whole uint4s at the
+    blocks above); at 3, 5 and 6 bits the first whole multiple of
+    lcm(cpw, block) from 200 on whose word count is not a multiple of 4,
+    where there is one below 4000 (at 6 bits there is none)."""
+    if bits in (4, 7, 8):
+        return 200
+    cpw = 32 // bits
+    bk = cpw * block // math.gcd(cpw, block)
+    first = -(-200 // bk) * bk
+    return next((K for K in range(first, 4000, bk) if (K // cpw) % 4), first)
+
+
 def check_kernels(torch, dev) -> dict:
     """Phase 2: every kernel against its plain version on the same inputs."""
     from repro_torch.configs import get_arch
@@ -232,7 +289,7 @@ def check_kernels(torch, dev) -> dict:
 
     g = _gen(torch, dev, SEED + 1)
     worst = {"gemv": 0.0, "gemv_simt": 0.0, "gemm": 0.0, "gemm_simt": 0.0, "kv": 0.0,
-             "attn": 0.0, "b3": 0.0, "pack": 0.0}
+             "attn": 0.0, "b3": 0.0, "pack": 0.0, **{f"gemv{b}": 0.0 for b in LOW_BITS}}
     n_checks = 0
 
     def check_b1(Ms, K, N, bits, dtype, block, xdt, main_path, launch=None):
@@ -256,6 +313,8 @@ def check_kernels(torch, dev) -> dict:
                     f"max|err| {err} > {tol}")
             if main_path:
                 key = "gemv" if xp.shape[0] <= qk.GEMV_MAX_M else "gemm"
+                if key == "gemv" and bits in LOW_BITS:
+                    key = f"gemv{bits}"
                 worst[key] = max(worst[key], err)
             elif launch is None:   # the CUDA-core routes, off the main paths
                 if M <= qk.GEMV_MAX_M and qk.gemv_route(xdt, bits, block) == "simt":
@@ -271,12 +330,27 @@ def check_kernels(torch, dev) -> dict:
             for xdt in (torch.float32, torch.bfloat16):
                 for block in (16, 32):
                     check_b1((1, 2, 3, 5, 37), 200, 70, bits, dtype, block, xdt, False)
+    # bf16 x whose scale blocks split a group of 4 codes (at 4 bits a word):
+    # gemv_route sends them to the CUDA-core GEMV, every row count to 8
+    before_simt = qk.qmatmul_gemv_simt.launches
+    n_simt = 0
+    for bits, blocks in SIMT_BF16_BLOCKS.items():
+        for dtype in ("int", "float", "dynamic"):
+            for block in blocks:
+                require(qk.gemv_route(torch.bfloat16, bits, block) == "simt",
+                        f"bf16 x at {bits} bits, B {block} is not routed to the CUDA cores")
+                check_b1((1, 2, 3, 5, 8), 200, 70, bits, dtype, block, torch.bfloat16, False)
+                n_simt += 5
+    require(qk.qmatmul_gemv_simt.launches - before_simt == n_simt,
+            "the CUDA-core GEMV's bf16 cases did not launch it once per case")
     # the tensor-core GEMV's edges: every row count it instantiates nothing
     # for (it always multiplies 8), column tails around its 16-column
-    # blocks, K tails off its 128-code chunks (n_words % 16 != 0), at 4, 7
-    # and 8 bits over three data types and blocks; then rows of words not a
-    # multiple of 4, which it reads a word at a time, and scale blocks of a
-    # word count that is not a power of two
+    # blocks, K tails off its chunks of 16 words (n_words % 16 != 0), at
+    # every width over three data types and blocks; then rows of words not a
+    # multiple of 4, which it reads a word at a time, and odd scale blocks (a
+    # word count that is not a power of two at 4, 7 and 8 bits; at 3, 5 and
+    # 6 bits runs that meet more than two blocks, or blocks that are not a
+    # power of two)
     before_tc = qk.qmatmul_gemv_tc.launches
     for bits in qk.TC_GEMV_BITS:
         for dtype in ("int", "float", "dynamic"):
@@ -284,10 +358,11 @@ def check_kernels(torch, dev) -> dict:
                 for i, N in enumerate((8, 16, 17, 70, 512)):
                     check_b1((1, 2, 3, 4, 5, 8), (200, 328, 1000)[i % 3], N, bits, dtype,
                              block, torch.bfloat16, False, qk.qmatmul_gemv_tc)
-        for block in ((16, 24, 40) if bits == 4 else (8, 12, 20)):
-            check_b1((1, 4, 8), 200, 70, bits, "float", block, torch.bfloat16, False,
-                     qk.qmatmul_gemv_tc)
-    require(qk.qmatmul_gemv_tc.launches - before_tc == 3 * (3 * 3 * 5 * 6 + 3 * 3),
+        for block in ODD_TC_BLOCKS[bits]:
+            check_b1((1, 4, 8), _odd_k(bits, block), 70, bits, "float", block, torch.bfloat16,
+                     False, qk.qmatmul_gemv_tc)
+    require(qk.qmatmul_gemv_tc.launches - before_tc
+            == len(qk.TC_GEMV_BITS) * (3 * 3 * 5 * 6 + 3 * 3),
             "the tensor-core GEMV's edge grid did not launch once per case")
     cfg = get_arch(ARCH)
     D, F, KD, V = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim, cfg.vocab_size
@@ -301,6 +376,8 @@ def check_kernels(torch, dev) -> dict:
         check_b1((1, BATCH, SERVER_SLOTS, *server_ms, BATCH * PROMPT), K, N, 4, "float", 64,
                  torch.bfloat16, True)
         check_b1((BATCH,), K, N, 4, "float", 64, torch.float32, False)
+        for bits in LOW_BITS:   # the bits phase's decode GEMVs and prefill
+            check_b1((1, BATCH, BATCH * PROMPT), K, N, bits, "float", 64, torch.bfloat16, True)
     # the tensor-core kernel's edges: rows around its 64-row slabs and its
     # 128- and 256-row tiles, columns around its 128-column tiles and off
     # 16-byte rows, every bit width with blocks that words straddle; the
@@ -860,6 +937,83 @@ def _eager_generate(torch, qparams, cfg, prompts, temperature=0.0, generator=Non
     return torch.stack(out, dim=1), ms
 
 
+def serve_low_bits(torch, dev, run) -> dict:
+    """Phase 3a: the serve phase's Engine, prompts and kv4 cache with the same
+    seeded weights quantized at each of LOW_BITS (4-bit float's sibling
+    widths, block 64), one width at a time.  Per width: the main path's run
+    (a fresh Engine's generate, its counts set to 0 just before and read
+    just after), captured tokens against eager ones, one replay's launches,
+    fused vs dequant_einsum logits, and the step's GEMVs timed."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.serving import Engine
+
+    cfg, prompts = run["cfg"], run["prompts"]
+    b1_step, b2_step = 7 * cfg.n_layers + 1, cfg.n_layers
+    step_counts = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": b1_step, "gemv_tc": b1_step,
+                   "attn": b2_step}
+    g = _gen(torch, dev, SEED + 6)
+    params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    out = {}
+    for bits in LOW_BITS:
+        t0 = time.perf_counter()
+        qparams = quantize_params(params, QuantConfig(bits=bits, dtype="float", block_size=64),
+                                  cfg, device=dev)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, device=dev)
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            tokens = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts = _counts()
+        require(not syncs, f"{bits} bits: the captured step syncs with the host: {syncs[:5]}")
+        require(tuple(tokens.shape) == (BATCH, NEW_TOKENS)
+                and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                f"{bits} bits: tokens of shape {tuple(tokens.shape)} or out of range")
+        require(counts["gemv"] == counts["gemv_tc"] == 1 + NEW_TOKENS * b1_step
+                and counts["gemv_simt"] == 0 and counts["attn"] == NEW_TOKENS * b2_step
+                and counts["kv"] == 0,
+                f"{bits} bits: generate launched {counts}, want every GEMV on the tensor cores")
+        engine.generate(prompts, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.generate(prompts, 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        again = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t2
+        eager, eager_ms = _eager_generate(torch, qparams, cfg, prompts)
+        require(torch.equal(again, tokens) and torch.equal(eager, tokens),
+                f"{bits} bits: graph tokens differ from eager ones")
+        _reset_counts()
+        engine._graphs[BATCH].step.replay()
+        torch.cuda.synchronize()
+        replay = _counts()
+        require(replay == step_counts, f"{bits} bits: one replay launched {replay}")
+        modes = _mode_gap(torch, qparams, cfg, prompts)
+        del engine
+        times = _time_step_gemvs(torch, dev, cfg, qparams, g)
+        prefill_gemms = _time_prefill_gemms(torch, dev, cfg, qparams, g)
+        out[bits] = {**times, "launches": counts}
+        emit({"phase": "bits", "arch": ARCH, "weights": f"{bits}-bit float b64",
+              "kv_bits": KV_BITS, "batch": BATCH, "prompt_len": PROMPT, "new_tokens": NEW_TOKENS,
+              "quantize_s": quantize_s, "prefill_s": prefill_s,
+              "decode_ms_per_step": (generate_s - prefill_s) / (NEW_TOKENS - 1) * 1e3,
+              "decode_ms_per_step_eager": eager_ms, "graph_tokens_equal_eager": True,
+              "host_syncs_in_captured_step": len(syncs), "launches": counts,
+              "launches_per_replay": replay, "modes": modes, "gemv_step": times,
+              "prefill_gemms": prefill_gemms})
+        del qparams
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _server_requests(cfg):
     """SERVER_REQUESTS requests from a seed: prompts of uniform random tokens
     (16-512), budgets of 16-64 new tokens.  The first SERVER_SLOTS arrive
@@ -1328,11 +1482,11 @@ def _teacher_forced(torch, qparams, cfg, reqs, tokens, kept, cache_len):
     return worst, ties, first_ties
 
 
-def mode_parity(torch, dev, run) -> float:
-    """Phase 4: teacher-forced logits, fused kernel vs dequant_einsum."""
+def _mode_gap(torch, qparams, cfg, prompts) -> dict:
+    """Teacher-forced logits of the prompts, fused kernel vs dequant_einsum,
+    gated at MODE_GAP_TOL."""
     from repro_torch.models import lm
 
-    cfg, qparams, prompts = run["cfg"], run["qparams"], run["prompts"]
     out = {}
     with torch.inference_mode():
         for mode in ("fused", "dequant_einsum"):
@@ -1342,11 +1496,17 @@ def mode_parity(torch, dev, run) -> float:
     gap = float((out["fused"] - out["dequant_einsum"]).abs().max())
     require(bool(torch.isfinite(out["fused"]).all()), "non-finite fused logits")
     require(gap <= MODE_GAP_TOL, f"fused vs dequant_einsum logit gap {gap} > {MODE_GAP_TOL}")
-    emit({"phase": "modes", "max_abs_logit_gap": gap, "gate": MODE_GAP_TOL,
-          "max_abs_logit": float(out["fused"].abs().max()),
-          "argmax_agreement": float((out["fused"].argmax(-1) == out["dequant_einsum"].argmax(-1))
-                                    .float().mean())})
-    return gap
+    return {"max_abs_logit_gap": gap, "gate": MODE_GAP_TOL,
+            "max_abs_logit": float(out["fused"].abs().max()),
+            "argmax_agreement": float((out["fused"].argmax(-1) == out["dequant_einsum"].argmax(-1))
+                                      .float().mean())}
+
+
+def mode_parity(torch, dev, run) -> float:
+    """Phase 4: teacher-forced logits, fused kernel vs dequant_einsum."""
+    res = _mode_gap(torch, run["qparams"], run["cfg"], run["prompts"])
+    emit({"phase": "modes", **res})
+    return res["max_abs_logit_gap"]
 
 
 def kv_tolerance(torch, dev) -> dict:
@@ -1457,46 +1617,117 @@ def _bound(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _b1_calls(torch, dev, qparams, cfg, M, with_head, g):
+    """One decode step's (with the lm_head) or one prefill's B1 launches over
+    the model's quantized matrices, x of M random bf16 rows a K: [(x padded,
+    packed, scales, operand, x)], the matrices, and the bytes (packed words,
+    scales, codebook, x in and y out) and operations of the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import take
+
+    names = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
+             ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+    stack = qparams["stack"][0]
+    qts = [take(stack, i)[a][b]["w"] for i in range(cfg.n_layers) for a, b in names]
+    qts += [qparams["lm_head"]] if with_head else []
+    xs, calls = {}, []
+    nbytes = flops = 0.0
+    for qt in qts:
+        op = ops.operand_from_qtensor(qt)
+        N, K = qt.quant_shape
+        if K not in xs:
+            xs[K] = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        xp, packed, scales = ops.pad_for_kernel(xs[K], op)
+        calls.append((xp, packed, scales, op, xs[K]))
+        nbytes += (packed.numel() * 4 + scales.numel() * 2 + op.codebook.numel() * 4
+                   + M * K * 2 + M * N * 2)
+        flops += 2.0 * M * N * K
+    return calls, qts, nbytes, flops
+
+
+def _whole_words(calls, x_dtype):
+    """The same launches with x in x_dtype and K padded to whole packed
+    words (kernels/qmatmul.pad_to_whole_words), as the CUDA-core GEMV pads
+    them itself: padded here once, so that its times hold no copy of the
+    weight (at 4 bits, block 64, the padding is none)."""
+    from repro_torch.kernels import qmatmul as qk
+
+    return [(*qk.pad_to_whole_words(xp.to(x_dtype), packed, scales, bits=op.bits,
+                                    block_size=op.block_size), op, x.to(x_dtype))
+            for xp, packed, scales, op, x in calls]
+
+
+def _b1_run(calls, fn):
+    """The launches of `calls` through fn (a qmatmul launcher)."""
+    def go():
+        for xp, packed, scales, op, _ in calls:
+            fn(xp, packed, scales, op.codebook, bits=op.bits, block_size=op.block_size)
+    return go
+
+
+def _lib_run(torch, calls, dense):
+    """torch.matmul of each call's x with its matrix dequantized (dense)."""
+    def go():
+        for (_, _, _, _, x), w in zip(calls, dense):
+            torch.matmul(x, w.T)
+    return go
+
+
+def _time_step_gemvs(torch, dev, cfg, qparams, g) -> dict:
+    """A decode step's GEMVs (BATCH rows, 197 launches) through the routed
+    GEMV, the CUDA-core GEMV on the same operands, the plain version and
+    torch.matmul on the bf16 weights."""
+    from repro_torch.core.qtensor import dequantize_tensor
+    from repro_torch.kernels import qmatmul as qk
+
+    calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, BATCH, True, g)
+    ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv), 10)
+    simt_ms = _time_ms(torch, _b1_run(_whole_words(calls, torch.bfloat16),
+                                      qk.qmatmul_gemv_simt), 5)
+    plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
+    dense = [dequantize_tensor(qt, out_dtype=torch.bfloat16) for qt in qts]
+    library_ms = _time_ms(torch, _lib_run(torch, calls, dense), 10)
+    del calls, dense
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "cuda_core_gemv_ms": simt_ms, "bytes": nbytes,
+            "per": f"decode step ({len(qts)} launches, M = {BATCH})"}
+
+
+def _time_prefill_gemms(torch, dev, cfg, qparams, g) -> dict:
+    """A prefill's GEMMs (BATCH * PROMPT bf16 rows, 196 launches) as the
+    path runs them (rows as stored in; the launcher pads K to whole words,
+    a copy of each weight at 3, 5 and 6 bits), beside the same launches on
+    rows padded beforehand (no copy in the time) and that copy alone
+    (kernels/qmatmul.pad_to_whole_words over the 196 weights)."""
+    from repro_torch.kernels import qmatmul as qk
+
+    calls, _, _, _ = _b1_calls(torch, dev, qparams, cfg, BATCH * PROMPT, False, g)
+    path_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemm), 3)
+
+    def copy():
+        for xp, packed, scales, op, _ in calls:
+            qk.pad_to_whole_words(xp, packed, scales, bits=op.bits, block_size=op.block_size)
+
+    copy_ms = _time_ms(torch, copy, 3)
+    padded = _whole_words(calls, torch.bfloat16)
+    padded_ms = _time_ms(torch, _b1_run(padded, qk.qmatmul_gemm), 3)
+    del calls, padded
+    torch.cuda.empty_cache()
+    return {"ms": path_ms, "padded_ms": padded_ms, "copy_ms": copy_ms,
+            "per": f"prefill (196 launches, M = {BATCH * PROMPT})"}
+
+
 def time_kernels(torch, dev, run) -> dict:
     """Phase 7: the kernels at the main path's shapes, one decode step's and
     one prefill's worth of launches over the real quantized layers."""
     from repro_torch.core.qtensor import dequantize_tensor
     from repro_torch.kernels import kv_dequant as kvd
-    from repro_torch.kernels import ops
     from repro_torch.kernels import qmatmul as qk
-    from repro_torch.models.blocks import take
 
     cfg, qparams, counts = run["cfg"], run["qparams"], run["counts"]
-    names = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
-             ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
-    stack = qparams["stack"][0]
-    layers = [take(stack, i) for i in range(cfg.n_layers)]
-    qts = [layers[i][a][b]["w"] for i in range(cfg.n_layers) for a, b in names]
     g = _gen(torch, dev, SEED + 4)
-
-    def plan(M, with_head):
-        items = qts + ([qparams["lm_head"]] if with_head else [])
-        xs = {}
-        calls = []
-        nbytes = flops = 0.0
-        for qt in items:
-            op = ops.operand_from_qtensor(qt)
-            N, K = qt.quant_shape
-            if K not in xs:
-                xs[K] = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            xp, packed, scales = ops.pad_for_kernel(xs[K], op)
-            calls.append((xp, packed, scales, op, xs[K]))
-            nbytes += (packed.numel() * 4 + scales.numel() * 2 + op.codebook.numel() * 4
-                       + M * K * 2 + M * N * 2)
-            flops += 2.0 * M * N * K
-        return calls, nbytes, flops
-
-    def b1(calls, fn):
-        def go():
-            for xp, packed, scales, op, _ in calls:
-                fn(xp, packed, scales, op.codebook, bits=op.bits, block_size=op.block_size)
-        return go
-
     out = {}
     shapes_ms = {}
     rep_b1 = "src/repro/kernels/qmatmul.py:97"
@@ -1507,19 +1738,13 @@ def time_kernels(torch, dev, run) -> dict:
              qk.qmatmul_gemv_simt, 10),
             ("qmatmul_gemm", "src/repro_torch/csrc/qgemm_sm90.cu", BATCH * PROMPT, False,
              qk.qmatmul_gemm, None, 3)):
-        calls, nbytes, flops = plan(M, with_head)
-        ms = _time_ms(torch, b1(calls, fn), reps)
-        old_ms = _time_ms(torch, b1(calls, old), reps) if old else None
-        plain_ms = _time_ms(torch, b1(calls, qk.qmatmul_plain), 2)
-        dense = [dequantize_tensor(op_qt, out_dtype=torch.bfloat16)
-                 for op_qt in (qts + ([qparams["lm_head"]] if with_head else []))]
-
-        def lib(pairs):
-            def go():
-                for (_, _, _, _, x), w in pairs:
-                    torch.matmul(x, w.T)
-            return go
-        library_ms = _time_ms(torch, lib(list(zip(calls, dense))), reps)
+        calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, M, with_head, g)
+        ms = _time_ms(torch, _b1_run(calls, fn), reps)
+        old_calls = _whole_words(calls, torch.bfloat16) if old else None
+        old_ms = _time_ms(torch, _b1_run(old_calls, old), reps) if old else None
+        plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
+        dense = [dequantize_tensor(qt, out_dtype=torch.bfloat16) for qt in qts]
+        library_ms = _time_ms(torch, _lib_run(torch, calls, dense), reps)
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {"source": src_b1, "replaces": rep_b1,
                      "launches": (counts["gemv_tc"] if name == "qmatmul_gemv"
@@ -1529,26 +1754,23 @@ def time_kernels(torch, dev, run) -> dict:
                      "cuda_core_gemv_ms": old_ms,
                      "per": "decode step (197 launches)" if with_head
                      else "prefill (196 launches)", "M": M, "bytes": nbytes, "flops": flops}
-        if old:
-            out["qmatmul_gemv_simt"] = {
-                "source": "src/repro_torch/csrc/qmatmul.cu", "replaces": rep_b1,
-                "launches": counts["gemv_simt"], "ms": old_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                "per": "a decode step's operands (197 launches)"}
         per_shape = shapes_ms.setdefault(f"{name}_M{M}", {})
         for K, N in sorted({(c[3].k_dim, c[1].shape[0]) for c in calls}):
             pick = [i for i, c in enumerate(calls) if c[3].k_dim == K and c[1].shape[0] == N]
             sub = [calls[i] for i in pick]
-            sub_ms = _time_ms(torch, b1(sub, fn), reps) / len(sub)
-            sub_lib = _time_ms(torch, lib([(calls[i], dense[i]) for i in pick]), reps) / len(sub)
+            sub_ms = _time_ms(torch, _b1_run(sub, fn), reps) / len(sub)
+            sub_lib = _time_ms(torch, _lib_run(torch, sub, [dense[i] for i in pick]),
+                               reps) / len(sub)
             sb = sub[0][1].numel() * 4 + sub[0][2].numel() * 2 + M * K * 2 + M * N * 2
             per_shape[f"{K}x{N}"] = {"ms_per_call": sub_ms, "library_ms_per_call": sub_lib,
                                      "bound_ms_per_call": _bound(sb, 2.0 * M * N * K)[0],
                                      "calls": len(sub)}
             if old:
                 per_shape[f"{K}x{N}"]["cuda_core_gemv_ms_per_call"] = (
-                    _time_ms(torch, b1(sub, old), reps) / len(sub))
-        del calls, dense
+                    _time_ms(torch, _b1_run([old_calls[i] for i in pick], old), reps) / len(sub))
+        del calls, old_calls, dense
+        torch.cuda.empty_cache()
+    out["qmatmul_gemv_simt"] = _time_gemv_f32(torch, dev, cfg, qparams, counts, g)
 
     spec = kvd.kv_spec(cfg)
     feat = cfg.n_kv_heads * cfg.head_dim
@@ -1589,6 +1811,32 @@ def time_kernels(torch, dev, run) -> dict:
                            "kv_decode_attention": "no single PyTorch call computes it",
                            "quantize": "no single PyTorch call computes either encode"}})
     return out
+
+
+def _time_gemv_f32(torch, dev, cfg, qparams, counts, g) -> dict:
+    """The CUDA-core GEMV on what it serves, f32 x (gemv_route sends every
+    bf16 serving operand to the tensor cores): a decode step's 197 matrices
+    (4-bit float, block 64) with BATCH f32 rows, beside its plain version and
+    torch.matmul on the same f32 operands (the weights dequantized to f32)."""
+    from repro_torch.core.qtensor import dequantize_tensor
+    from repro_torch.kernels import qmatmul as qk
+
+    calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, BATCH, True, g)
+    calls = _whole_words(calls, torch.float32)
+    # x in and y out are f32: twice the bf16 plan's bytes
+    nbytes += sum(BATCH * (c[3].k_dim + c[1].shape[0]) * 2 for c in calls)
+    ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv_simt), 5)
+    plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
+    dense = [dequantize_tensor(qt, out_dtype=torch.float32) for qt in qts]
+    library_ms = _time_ms(torch, _lib_run(torch, calls, dense), 5)
+    del calls, dense
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(nbytes, flops, F32_FLOP_PER_S)
+    return {"source": "src/repro_torch/csrc/qmatmul.cu", "replaces": "src/repro/kernels/qmatmul.py:97",
+            "launches": counts["gemv_simt"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "per": f"a decode step's matrices with f32 x ({len(qts)} launches, M = {BATCH})",
+            "bytes": nbytes}
 
 
 def _time_attention(torch, dev, cfg, launches, g):
@@ -1680,31 +1928,46 @@ def _time_gemm_simt(torch, dev, launches, g):
     tiny-ladder matrix once at M = 1024 (4-bit float, block 64) with f32 x,
     beside its plain version and torch.matmul on the same f32 operands (the
     weight dequantized to f32); bound by f32 operations outside the tensor
-    cores or by bytes."""
+    cores or by bytes.  Then the same shapes at 3, 5 and 6 bits on rows as
+    stored, which it reads, beside rows padded to whole words beforehand
+    (kernels/qmatmul.pad_to_whole_words)."""
     from repro_torch.configs.tiny import TINY_FAMILY
     from repro_torch.kernels import ops
     from repro_torch.kernels import qmatmul as qk
     from repro_torch.kernels.ref import dequantize_operand
 
     M = 1024
-    calls = []
-    nbytes = flops = 0.0
-    for tcfg in TINY_FAMILY.values():
-        D, F = tcfg.d_model, tcfg.d_ff
-        for K, N in ((D, D), (D, F), (F, D)):
-            w = torch.randn((K, N), generator=g, device=dev) * 0.05
-            op = ops.prepare_operand(w, bits=4, dtype="float", block_size=64)
-            x = torch.randn((M, K), generator=g, device=dev)
-            xp, packed, scales = ops.pad_for_kernel(x, op)
-            calls.append((xp, packed, scales, op, dequantize_operand(op)))
-            nbytes += packed.numel() * 4 + scales.numel() * 2 + xp.numel() * 4 + M * N * 4
-            flops += 2.0 * M * N * xp.shape[1]
+    weights = [torch.randn((K, N), generator=g, device=dev) * 0.05
+               for tcfg in TINY_FAMILY.values()
+               for K, N in ((tcfg.d_model, tcfg.d_model), (tcfg.d_model, tcfg.d_ff),
+                            (tcfg.d_ff, tcfg.d_model))]
+    xs = {K: torch.randn((M, K), generator=g, device=dev) for K in {w.shape[0] for w in weights}}
 
-    def run(fn):
+    def operands(bits):
+        out = []
+        for w in weights:
+            op = ops.prepare_operand(w, bits=bits, dtype="float", block_size=64)
+            out.append((*ops.pad_for_kernel(xs[w.shape[0]], op), op))
+        return out
+
+    calls = [(*c, dequantize_operand(c[3])) for c in operands(4)]
+    nbytes = sum(c[1].numel() * 4 + c[2].numel() * 2 + c[0].numel() * 4
+                 + M * c[1].shape[0] * 4 for c in calls)
+    flops = sum(2.0 * M * c[1].shape[0] * c[0].shape[1] for c in calls)
+
+    def run(fn, calls=calls):
         def go():
-            for xp, packed, scales, op, _ in calls:
+            for xp, packed, scales, op, *_ in calls:
                 fn(xp, packed, scales, op.codebook, bits=op.bits, block_size=op.block_size)
         return go
+
+    by_bits = {}
+    for bits in LOW_BITS:
+        stored = operands(bits)
+        padded = [(*qk.pad_to_whole_words(xp, packed, scales, bits=bits, block_size=64), op)
+                  for xp, packed, scales, op in stored]
+        by_bits[bits] = {"stored_ms": _time_ms(torch, run(qk.qmatmul_gemm, stored), 5),
+                         "padded_ms": _time_ms(torch, run(qk.qmatmul_gemm, padded), 5)}
 
     def lib():
         for xp, _, _, _, wd in calls:
@@ -1716,7 +1979,7 @@ def _time_gemm_simt(torch, dev, launches, g):
             "plain_ms": _time_ms(torch, run(qk.qmatmul_plain), 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": _time_ms(torch, lib, 5),
             "per": f"the sweep's {len(calls)} GEMM shapes once each, M = {M}, f32 x",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, "rows_as_stored_by_bits": by_bits}
 
 
 def _peak_extra(torch, fn) -> int:

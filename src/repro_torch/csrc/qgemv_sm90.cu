@@ -1,31 +1,35 @@
 // Fused k-bit dequant-GEMV at decode on Hopper's tensor cores (sm_90a):
-// mma.sync with each packed word as its lane's A fragment.
+// mma.sync with the packed words as the lanes' A fragments.
 //
-// Replaces, for bf16 activations at 4, 7 and 8 bits, the decode half of the
-// TPU kernel src/repro/kernels/qmatmul.py:97 (qmatmul_pallas; bodies
+// Replaces, for bf16 activations at 3 to 8 bits, the decode half of the TPU
+// kernel src/repro/kernels/qmatmul.py:97 (qmatmul_pallas; bodies
 // _qmatmul_kernel, _unpack_tile, _dequant_codes).  csrc/qmatmul.cu's
-// CUDA-core qgemv keeps f32 activations and 3, 5 and 6 bits; kernels/
-// qmatmul.py:gemv_route picks between the two.
+// CUDA-core qgemv keeps f32 activations and scale blocks this kernel does
+// not take; kernels/qmatmul.py:gemv_route picks between the two.
 //
 //   y[M, N] = x[M, K] . W^T,   W[n, k] = bf16_rn(dq(code[n, k]) * scale[n, k / B])
 //
 // M <= 8 rows (a decode batch), x and y bf16, sums f32.  code[n, k] is
-// `bits` wide, packed cpw = 32 / bits to a 32-bit word (8 at 4 bits, 4 at 7
-// and 8), low bits first; dq is the f32 codebook, scale bf16 [N, K / B].
-// B % cpw == 0, so every word has one scale.  The weight is rounded to bf16
-// after an f32 product, once, as the TPU kernel does (qmatmul.py:80-85);
-// only the order of the f32 sums differs from dequantize-then-matmul.
+// `bits` wide, packed cpw = 32 / bits to a 32-bit word (10, 8, 6, 5, 4 and
+// 4 at 3 to 8 bits), low bits first; dq is the f32 codebook, scale bf16
+// [N, K / B].  At 4, 7 and 8 bits B % cpw == 0, so every word has one
+// scale; at 3, 5 and 6 bits B % 4 == 0, so every group of 4 codes has one.
+// The weight is rounded to bf16 after an f32 product, once, as the TPU
+// kernel does (qmatmul.py:80-85); only the order of the f32 sums differs
+// from dequantize-then-matmul.
 //
 // Bound on an H100 SXM (3.35 TB/s): bytes, the packed words and scales of W
-// (1.13 ms for a Qwen2-7B decode step at 4 bits, b64).  The CUDA-core kernel
+// (1.13 ms for a Qwen2-7B decode step at 4 bits, b64; 0.91, 1.47 and 1.75
+// ms at 3, 5 and 6 bits, rows as stored).  The CUDA-core kernel
 // issues ~12 instructions a code (decode, one FMA per row, x widened to f32
 // for every word).  Here the tensor cores take the products and x as it is
 // stored; what is left on the CUDA cores is the decode: the code's byte
 // offset into the 2^bits-entry table in shared memory (at 4 bits one shift
-// and one mask for four codes, then a byte permute each), the table read
-// (one LDS, the table's address folded into it), an f32 product with the
-// scale, and one cvt.rn.bf16x2.f32 a pair: about 4 instructions a code,
-// whose issue alone takes about as long as the bytes.
+// and one mask for four codes, then a byte permute each; elsewhere one
+// shift and one mask a code), the table read (one LDS, the table's address
+// folded into it), an f32 product with the scale, and one cvt.rn.bf16x2.f32
+// a pair: about 4 instructions a code, whose issue alone takes about as
+// long as the bytes.
 //
 // Products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with
 //   A = 16 output columns x k16 of W,  B = k16 x 8 rows of x (rows >= M are
@@ -37,27 +41,48 @@
 //   B  b0: k 2t, 2t+1, column g     b1: k 2t+8, 2t+9, column g
 //   D  d0, d1: row g, columns 2t, 2t+1    d2, d3: row g + 8, the same
 // A dot product does not depend on the order of k, so the kernel may pair
-// codes and activations in any order that W and x share.  Each lane's word
-// gives the logical k {2t, 2t+1, 2t+8, 2t+9} of a k16 step (4 codes, in
-// order): the physical k then depends on (t, word, code) and not on g, and
+// codes and activations in any order that W and x share.  Each group of 4
+// codes of a lane, in order, gives the logical k {2t, 2t+1, 2t+8, 2t+9} of
+// a k16 step: the physical k then depends on (t, group) and not on g, and
 // lane (g, t)'s B fragment is x[g] at the same physical k as its A.  Codes
-// that are neighbours in a word are neighbours in k, so the B registers are
-// x's bf16 pairs as stored: no conversion.
+// that are neighbours in a group are neighbours in k, so the B registers
+// are x's bf16 pairs as stored: no conversion.
 //
 // Layout: a block owns 16 output columns (grid ceil(N / 16)).  Row n's words
 // are cut into chunks of 16; in chunk c, lane (g, t) takes words 16c + 4t ..
 // 16c + 4t + 3 of rows n0 + g and n0 + g + 8, one uint4 each (a row's 4
-// lanes read 64 contiguous bytes).  Word q of lane t holds physical k =
-// cpw * (16c + 4t + q) + j, j < cpw, and feeds cpw / 4 k16 steps (codes 4s
-// .. 4s + 3 in step s); its x are cpw consecutive bf16 of row g, 16 bytes at
-// 4 bits.  Where a row's word count is not a multiple of 4, or the words do
-// not start on 16 bytes, the same words are read one at a time.  The
-// block's warps take the chunks in turn (warp w: chunks w, w + WARPS, ...),
-// loading each chunk's words, scales and x straight into registers; their
-// accumulator tiles are summed through shared memory in warp order.  WARPS is 4, 8 or 16, the fewest
-// that put 32 warps on every SM: 4 for gate/up and the lm_head (each warp
-// keeps more K), 16 for the 3584- and 512-column shapes.  Registers are
-// capped so that an SM holds 40 warps.  K and N tails are masked here:
+// lanes read 64 contiguous bytes).  Those words hold the 4 * cpw codes at
+// physical k = cpw * (16c + 4t) + j, j < 4 * cpw: cpw groups of 4, so a chunk
+// is cpw k16 steps, group s of every lane feeding step s.
+//   4, 7 and 8 bits (qgemv_tc_kernel): a word holds whole groups (cpw / 4 of
+//     them) and one scale; its x are cpw consecutive bf16 of row g, 16 bytes
+//     at 4 bits.
+//   3, 5 and 6 bits (qgemv_tc_run_kernel): a group may straddle two words (at
+//     3 bits codes 8 and 9 of one word and 0 and 1 of the next); which word
+//     and bit offset each code of group s takes is a compile-time constant
+//     of (bits, s), so the decode costs what it costs at 7 and 8 bits, and
+//     the 2 spare bits of each word are skipped.  The run starts at a
+//     multiple of 4 codes, so with B % 4 == 0 a group never straddles a
+//     scale block: the scale is looked up a group.  Where no run meets more
+//     than two blocks (B >= 4 * cpw - 4: B = 64 at every width) each row's
+//     two scales are loaded once a chunk and a group picks one by a compare;
+//     otherwise each group loads its own.  A group's x is one 8-byte load of
+//     two bf16 pairs (a run starts on 8 bytes only, at 6 bits).  Rows are
+//     read as stored, ceil(K / cpw) words (see the end of this note), so
+//     most do not start on 16 bytes and their words are read one at a time:
+//     slower than rows padded to whole uint4s (scripts/gemv_widths.py
+//     --padded, PERF.md), but padding copies the weight at every call.  Two
+//     aligned uint4s and 10 selects a row were slower still at 3 and 5 bits.
+// Where a row's word count is not a multiple of 4, or the words do not start
+// on 16 bytes, the same words are read one at a time.  The block's warps
+// take the chunks in turn (warp w: chunks w, w + WARPS, ...), loading each
+// chunk's words, scales and x straight into registers; their accumulator
+// tiles are summed through shared memory in warp order.  WARPS is 4, 8 or
+// 16, the fewest that put 32 warps on every SM: 4 for gate/up and the
+// lm_head (each warp keeps more K), 16 for the 3584- and 512-column shapes.
+// Registers are capped so that an SM holds 40 warps (32 for the run kernel,
+// whose x takes up to 20 registers a chunk; 24 where it loads a scale a
+// group).  K and N tails are masked here:
 // words past a row's end get zero x and a zero scale; columns past N read
 // column N - 1 and are not written.
 // Tried on the card and not kept (PERF.md): the next chunk's loads
@@ -65,7 +90,11 @@
 // in shared memory (both slower: more registers, or more shared-memory
 // traffic beside the table reads), two m16 tiles a warp, 8 words a lane,
 // two accumulator tiles a warp.
-// K comes from kernels/ops.py padded to lcm(cpw, B): K == n_words * cpw.
+// K comes from kernels/ops.py padded to whole scale blocks (K % B == 0).  At
+// 4, 7 and 8 bits K == n_words * cpw follows; at 3, 5 and 6 bits the rows
+// are read as stored, ceil(K / cpw) words (Qwen2-7B's rows of 3584 codes
+// take 359 words at 3 bits): padding them to whole words would copy the
+// weight at every call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +112,13 @@ constexpr int MIN_WARPS = 4;
 constexpr int MAX_WARPS = 16;
 constexpr int FILL_PER_SM = 32;
 constexpr int OCCUPANCY = 40;   // warps an SM must hold, if > 0 (caps the registers)
+constexpr int RUN_OCCUPANCY = 32;  // the same for the 3-, 5- and 6-bit kernel
+// blocks an SM must hold, for the 3-, 5- and 6-bit kernel: 32 warps, or 24
+// where each group loads its own scales (blocks that a run meets more than
+// twice, off the serving path), which need the registers
+constexpr int run_min_blocks(int warps, bool two) {
+  return (two ? RUN_OCCUPANCY : 24) > warps ? (two ? RUN_OCCUPANCY : 24) / warps : 1;
+}
 constexpr int ROWS = 2;         // W rows a lane reads: g and g + 8
 constexpr int WPL = 4;          // words a lane takes per row and chunk: a uint4
 constexpr int CHUNK = 4 * WPL;  // words per row and chunk: the row's 4 lanes
@@ -245,6 +281,31 @@ __device__ __forceinline__ void load_x(const bf16* xrow, bool has_x, int w0, int
   }
 }
 
+// y[:, n0 .. n0 + 15] from each warp's accumulator tile d, summed through
+// shared memory in warp order (the 3-, 5- and 6-bit kernel's epilogue;
+// qgemv_tc_kernel keeps its own copy inline, whose registers its 48-register
+// 4-bit build needs as they are)
+template <int WARPS>
+__device__ __forceinline__ void store_tile(float (&part)[WARPS][32][4], const float (&d)[4],
+                                           bf16* __restrict__ y, int M, int N, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) part[warp][lane][e] = d[e];
+  __syncthreads();
+  if (threadIdx.x < 16 * 8) {
+    // y[m, n0 + n] is e = 2 (n / 8) + m % 2 of lane 4 (n % 8) + m / 2 in every warp
+    const int m = threadIdx.x / 16;
+    const int n = threadIdx.x % 16;
+    const int src = (n & 7) * 4 + (m >> 1);
+    const int e = (n >> 3) * 2 + (m & 1);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sum += part[w][src][e];
+    if (m < M && n0 + n < N) y[static_cast<size_t>(m) * N + n0 + n] = __float2bfloat16_rn(sum);
+  }
+}
+
 template <int BITS, bool VEC, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32, OCCUPANCY > WARPS ? OCCUPANCY / WARPS : 1)
 qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
@@ -318,19 +379,132 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
   }
 }
 
+// 3, 5 and 6 bits: cpw groups of 4 codes a chunk, a group's codes taken
+// from the lane's 4 words of a row at offsets fixed by (BITS, group).  TWO:
+// no run meets more than two scale blocks, so a row's two scales are loaded
+// once a chunk (else a group loads its own).
+template <int BITS, bool VEC, int WARPS, bool TWO>
+__global__ void __launch_bounds__(WARPS * 32, run_min_blocks(WARPS, TWO))
+qgemv_tc_run_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
+                    const unsigned short* __restrict__ scales, const float* __restrict__ codebook,
+                    bf16* __restrict__ y, int M, int N, int K, int n_words, int block,
+                    int lg_block) {
+  constexpr int CPW = 32 / BITS;
+  constexpr int GROUPS = WPL * CPW / 4;  // k16 steps a chunk: CPW
+  static_assert(CPW % 4 != 0, "words that do not hold whole k16 steps");
+  __shared__ float lut[1 << BITS];
+  __shared__ float part[WARPS][32][4];
+  for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) lut[i] = codebook[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * 16;
+  const int n_blocks = K / block;
+  // row i is column n0 + 8i + g (past N: column N - 1, never written)
+  Rows r;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int n = min(n0 + 8 * i + g, N - 1);
+    r.w[i] = packed + static_cast<size_t>(n) * n_words;
+    r.s[i] = scales + static_cast<size_t>(n) * n_blocks;
+  }
+  r.n_words = n_words;
+  const bool has_x = g < M;
+  const bf16* xrow = x + static_cast<size_t>(has_x ? g : 0) * K;
+  const uint32_t lut_addr = smem_u32(lut);
+  const auto block_at = [&](int k) { return lg_block >= 0 ? k >> lg_block : k / block; };
+
+  float d[4] = {};
+  const int n_chunks = (n_words + CHUNK - 1) / CHUNK;
+  for (int c = warp; c < n_chunks; c += WARPS) {
+    const int w0 = c * CHUNK + t * WPL;
+    const int k0 = w0 * CPW;  // the run's first code, a multiple of 4
+    uint32_t words[ROWS][WPL];
+    load_words<VEC>(r, w0, words);
+    // group s's x: one 8-byte load, zero past the row's end (K % 4 == 0, so
+    // a group is all in or all out; with VEC, K == n_words * CPW, the whole
+    // run is)
+    uint2 xg[GROUPS];
+#pragma unroll
+    for (int s = 0; s < GROUPS; ++s) {
+      const bool ok = has_x && (VEC ? k0 < K : k0 + 4 * s < K);
+      xg[s] = ok ? __ldg(reinterpret_cast<const uint2*>(xrow + k0 + 4 * s)) : make_uint2(0u, 0u);
+    }
+    // TWO: the scales of the run's first block and the next, and the code
+    // offset in the run where the next begins
+    float sa[ROWS], sb[ROWS];
+    int next = 0;
+    if constexpr (TWO) {
+      const int b = block_at(k0);
+      next = (b + 1) * block - k0;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        sa[i] = k0 < K ? bf16_bits_to_float(__ldg(r.s[i] + b)) : 0.f;
+        sb[i] = b + 1 < n_blocks ? bf16_bits_to_float(__ldg(r.s[i] + b + 1)) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < GROUPS; ++s) {
+      float sc[ROWS];
+      if constexpr (TWO) {
+        const bool first = 4 * s < next;
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) sc[i] = first ? sa[i] : sb[i];
+      } else {
+        const int k = k0 + 4 * s;
+        const int b = block_at(k);
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+          sc[i] = k < K ? bf16_bits_to_float(__ldg(r.s[i] + b)) : 0.f;
+      }
+      // a[i]: codes 4s, 4s + 1 of row i (k 2t, 2t+1); a[2 + i]: 4s + 2, 4s + 3
+      uint32_t a[4];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int code = 4 * s + j;  // compile-time after unrolling
+          v[j] = lds_f32(lut_addr + code_offset<BITS>(words[i][code / CPW], code % CPW)) * sc[i];
+        }
+        a[i] = pack_bf16x2(v[0], v[1]);
+        a[2 + i] = pack_bf16x2(v[2], v[3]);
+      }
+      mma_16816(d, a, xg[s].x, xg[s].y);
+    }
+  }
+  store_tile<WARPS>(part, d, y, M, N, n0);
+}
+
 struct Args {
   const bf16* x;
   const uint32_t* packed;
   const unsigned short* scales;
   const float* codebook;
   bf16* y;
-  int M, N, n_words, wpb, lg_wpb;
+  int M, N, n_words, wpb, lg_wpb;  // words a scale block and its log2 (or -1): 4, 7, 8 bits
+  int K, block, lg_block;          // codes a row and a scale block, its log2 (or -1): 3, 5, 6 bits
 };
 
 template <int BITS, bool VEC, int WARPS>
 int launch_kernel(const Args& a, unsigned grid, cudaStream_t stream) {
-  qgemv_tc_kernel<BITS, VEC, WARPS><<<grid, WARPS * 32, 0, stream>>>(
-      a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.n_words, a.wpb, a.lg_wpb);
+  if constexpr ((32 / BITS) % 4 == 0) {
+    qgemv_tc_kernel<BITS, VEC, WARPS><<<grid, WARPS * 32, 0, stream>>>(
+        a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.n_words, a.wpb, a.lg_wpb);
+  } else {
+    // no run of 4 * cpw codes, starting 4-aligned, meets more than two blocks
+    if (a.block >= 4 * (32 / BITS) - 4)
+      qgemv_tc_run_kernel<BITS, VEC, WARPS, true><<<grid, WARPS * 32, 0, stream>>>(
+          a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.K, a.n_words, a.block,
+          a.lg_block);
+    else
+      qgemv_tc_run_kernel<BITS, VEC, WARPS, false><<<grid, WARPS * 32, 0, stream>>>(
+          a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.K, a.n_words, a.block,
+          a.lg_block);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,33 +537,46 @@ int launch(const Args& a, bool vec, cudaStream_t stream) {
   return launch_warps<BITS, 16>(a, vec, grid, stream);
 }
 
+// log2 of v, or -1 where v is not a power of two
+int log2_or_minus1(int v) {
+  if (v & (v - 1)) return -1;
+  int lg = 0;
+  while ((1 << lg) < v) ++lg;
+  return lg;
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape, bit width or block size it does not
-// take: 1 <= M <= 8, bits 4, 7 or 8, B % cpw == 0, K == n_words * cpw,
-// K % B == 0, and x on a 16-byte boundary (the wrapper checks).
+// take: 1 <= M <= 8, bits 3 to 8, K % B == 0, x on a 16-byte boundary
+// (the wrapper checks); at 4, 7 and 8 bits B % cpw == 0 and K == n_words *
+// cpw; at 3, 5 and 6 bits B % 4 == 0 and rows as they are stored, n_words
+// == ceil(K / cpw) (the last word's spare codes multiply zero x), so the
+// caller need not copy the weight to pad K to whole words.
 extern "C" int qmatmul_gemv_tc(const void* x, const void* packed, const void* scales,
                                const void* codebook, void* y, int M, int N, int K, int n_words,
                                int bits, int block_size, void* stream) {
-  if (bits != 4 && bits != 7 && bits != 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (bits < 3 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
   const int cpw = 32 / bits;
-  if (M < 1 || M > 8 || N < 1 || n_words < 1 || block_size < cpw || block_size % cpw != 0 ||
-      K != n_words * cpw || K % block_size != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+  const int unit = cpw % 4 == 0 ? cpw : 4;  // codes that must share a scale
+  const bool words_ok = cpw % 4 == 0 ? K == n_words * cpw : n_words == (K + cpw - 1) / cpw;
+  if (M < 1 || M > 8 || N < 1 || n_words < 1 || block_size < unit || block_size % unit != 0 ||
+      !words_ok || K % block_size != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = block_size / cpw;
-  int lg = -1;
-  if ((wpb & (wpb - 1)) == 0) {
-    lg = 0;
-    while ((1 << lg) < wpb) ++lg;
-  }
   const Args a{static_cast<const bf16*>(x), static_cast<const uint32_t*>(packed),
                static_cast<const unsigned short*>(scales), static_cast<const float*>(codebook),
-               static_cast<bf16*>(y), M, N, n_words, wpb, lg};
-  const bool vec = n_words % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+               static_cast<bf16*>(y), M, N, n_words, wpb, log2_or_minus1(wpb), K, block_size,
+               log2_or_minus1(block_size)};
+  const bool vec = n_words % 4 == 0 && K == n_words * cpw &&
+                   reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
+    case 3: return launch<3>(a, vec, s);
     case 4: return launch<4>(a, vec, s);
+    case 5: return launch<5>(a, vec, s);
+    case 6: return launch<6>(a, vec, s);
     case 7: return launch<7>(a, vec, s);
     case 8: return launch<8>(a, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,12 +1,12 @@
 """Wrappers around the kernels: the fused dequant-GEMM's operand preparation,
-QuantizedTensor interop and K and word-tail padding, and the blockwise
+QuantizedTensor interop and the activations' K padding, and the blockwise
 encode of a whole tensor — port of ``repro/kernels/ops.py``.
 
-``fused_matmul`` is the one path: ``qmatmul`` pads K and calls
-``kernels/qmatmul.qmatmul``, which launches the CUDA kernel for CUDA tensors
-and runs the plain version for CPU tensors.  Padding copies nothing when K
-is already aligned, as in every Qwen2-7B projection.  Unlike the reference,
-M and N are not padded: the kernels mask rows and columns.
+``fused_matmul`` is the one path: ``qmatmul`` pads x to the stored K and
+calls ``kernels/qmatmul.qmatmul`` with the weight as stored, which launches
+the CUDA kernel for CUDA tensors and runs the plain version for CPU
+tensors.  Unlike the reference, neither the weight's K nor M and N are
+padded here: the kernels read rows as stored and mask rows and columns.
 
 ``quantize_blocks`` ravels and pads a tensor to whole blocks and calls
 ``kernels/quantize.quantize_blocks``: the CUDA kernel for CUDA tensors, the
@@ -17,8 +17,6 @@ Not in this slice: the tensor-parallel dispatch scope (multi-GPU).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
@@ -28,10 +26,6 @@ from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels import qmatmul as qk
 from repro_torch.kernels import quantize as quantk
 from repro_torch.kernels.ref import QMatmulOperand
-
-
-def _lcm(a: int, b: int) -> int:
-    return a * b // math.gcd(a, b)
 
 
 def prepare_operand(w: torch.Tensor, *, bits: int, dtype: str = "float",
@@ -95,28 +89,15 @@ def _pad_x_to_k(x2: torch.Tensor, k_dim: int) -> torch.Tensor:
     return F.pad(x2, (0, k_dim - K)) if K < k_dim else x2
 
 
-def _pad_cols(t: torch.Tensor, cols: int) -> torch.Tensor:
-    """Zero-pad a 2-D tensor's last dim up to ``cols``; no copy when it fits."""
-    return t if t.shape[1] == cols else F.pad(t, (0, cols - t.shape[1]))
-
-
 def pad_for_kernel(x2: torch.Tensor, op: QMatmulOperand):
-    """The kernel inputs for x2 [M, K<=k_dim] and ``op``: K padded to
-    lcm(cpw, block), the packed words and scale blocks to match.  Zero words
-    decode against zero scales, so the padding contributes nothing.  M and N
-    stay as they are: the CUDA kernels mask rows and columns themselves (the
-    reference pads them to its Pallas tiles).  x comes back contiguous and
-    16-byte aligned.  Returns (x, packed, scales)."""
-    x2 = _pad_x_to_k(x2, op.k_dim)
-    cpw = packing.codes_per_word(op.bits)
-    bk = _lcm(cpw, op.block_size)
-    Kp = -(-x2.shape[1] // bk) * bk
-    xp = _pad_cols(x2, Kp).contiguous()
-    if xp.data_ptr() % 16:
-        xp = xp.clone()
-    return (xp,
-            _pad_cols(op.packed, Kp // cpw).contiguous(),
-            _pad_cols(op.scales, Kp // op.block_size).contiguous())
+    """The kernel inputs for x2 [M, K<=k_dim] and ``op``: x zero-padded to
+    ``k_dim`` (whole scale blocks), contiguous and on a 16-byte boundary,
+    and the packed words and scales as stored.  Returns (x, packed,
+    scales)."""
+    x2 = _pad_x_to_k(x2, op.k_dim).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    return x2, op.packed.contiguous(), op.scales.contiguous()
 
 
 def qmatmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:

@@ -19,11 +19,12 @@ What bounds it on the card, and what the design does about it (the sources
 say more): at decode (M <= 8) the packed weight bytes, so a GEMV whose
 blocks split each group of columns' K among their warps streams each packed
 word from device memory once and decodes it with a shared-memory table
-read.  ``gemv_route`` picks the GEMV from the operands: bf16 x at 4, 7 or 8
-bits with ``block_size % cpw == 0`` (the whole serving path) goes to
-``csrc/qgemv_sm90.cu``, which multiplies on the tensor cores (``mma.sync``,
-each packed word as its lane's A fragment); the rest (f32 x; 3, 5 and 6
-bits) to the CUDA-core GEMV of ``csrc/qmatmul.cu``.  At prefill the 2*M*N*K
+read.  ``gemv_route`` picks the GEMV from the operands: bf16 x at 3 to 8
+bits whose scale blocks hold whole groups of 4 codes (whole words at 4
+bits; the whole serving path) goes to ``csrc/qgemv_sm90.cu``, which
+multiplies on the tensor cores (``mma.sync``, the packed words as the
+lanes' A fragments); the rest (f32 x, and blocks that split a group) to the
+CUDA-core GEMV of ``csrc/qmatmul.cu``.  At prefill the 2*M*N*K
 operations, so bf16 activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128)
 x 128 output tiles on Hopper's ``wgmma``, x copied as pre-laid-out tile
 images by the copy engine and the packed words by ``cp.async`` into a ring
@@ -31,18 +32,29 @@ of stages, the weight dequantized into shared memory while the tensor cores
 multiply the previous K step.  The wrapper allocates the tile images (``x_tiles_shape``)
 and, where a grid has fewer tiles than SMs and K is split across blocks
 (``split_k``), the f32 partial sums that a second, fixed-order pass adds.
-f32 activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu``.
+f32 activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu``
+(128 x 64 tiles, a cp.async double buffer, split over K by ``simt_split``
+where a 1024-row call would not fill the SMs, and a fixed-order second
+pass).
 
 ``qmatmul`` takes the plain PyTorch version, ``qmatmul_plain``, only for
 CPU tensors; for CUDA tensors it launches a kernel or raises.  Each launch
 function counts its launches in a plain int, ``<function>.launches``.
-Callers pad K first (``kernels/ops.qmatmul``).
+Every launcher takes the packed rows as the model stores them: K a whole
+number of scale blocks (``kernels/ops.pad_for_kernel`` pads x to it) and
+ceil(K / cpw) words a row, the last word's spare codes multiplying zero x.
+The tensor-core GEMV and the f32 GEMM read them so; the CUDA-core GEMV,
+whose x loads need whole words, and the prefill GEMM, whose word copies
+need rows of whole 16-byte pieces, pad K first (``pad_k``: a copy of the
+weight at 3, 5 and 6 bits, cheaper at prefill than copying stored rows a
+word at a time, PERF.md).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -51,9 +63,10 @@ from repro_torch.kernels import _build
 
 #: rows up to which the GEMV kernel runs (one pass over the packed weight)
 GEMV_MAX_M = 8
-#: bit widths of the tensor-core GEMV (csrc/qgemv_sm90.cu): whole k16 steps
-#: in a packed word (8 codes at 4 bits, 4 at 7 and 8)
-TC_GEMV_BITS = (4, 7, 8)
+#: bit widths of the tensor-core GEMV (csrc/qgemv_sm90.cu): its k16 steps
+#: take each lane's codes 4 at a time, from one word (8 codes at 4 bits, 4
+#: at 7 and 8) or across two (10, 6 and 5 at 3, 5 and 6 bits)
+TC_GEMV_BITS = (3, 4, 5, 6, 7, 8)
 #: output tile of the tensor-core kernel by bit width (csrc/qgemm_sm90.cu
 #: tile_m, BN): 256 rows where the decode leaves registers for two slabs
 TILE_M = {3: 128, 4: 256, 5: 128, 6: 128, 7: 128, 8: 256}
@@ -97,13 +110,71 @@ def x_tiles_shape(M: int, K: int, bits: int):
     return (-(-M // TILE_M[bits]) * TILE_M[bits], -(-K // K_STEP[bits]) * K_STEP[bits])
 
 
+#: the f32 CUDA-core GEMM (qmatmul.cu qgemm_simt): its output tile, its
+#: codes per K step by bit width (SimtCfg<BITS>::BK: whole uint4s of words,
+#: at least 32 codes), the blocks an SM holds (SG_MIN_BLOCKS), and the row
+#: count whose tiles its split fills the SMs with (the paper sweep's
+#: perplexity batch)
+SIMT_TILE_M, SIMT_TILE_N = 128, 64
+SIMT_K_STEP = {3: 40, 4: 32, 5: 48, 6: 40, 7: 32, 8: 32}
+SIMT_BLOCKS_PER_SM = 3
+SIMT_SPLIT_ROWS = 1024
+
+
+def simt_split(N: int, K: int, bits: int, sms: int = H100_SMS) -> int:
+    """How many blocks share each output tile's K steps in the f32 GEMM.  A
+    function of N, K and the bit width, never of M, so a row's sums take
+    the same order whatever rows share the call: the tiles a
+    SIMT_SPLIT_ROWS-row call has, times the split, reach SIMT_BLOCKS_PER_SM
+    blocks an SM where the K steps allow, with at least MIN_SPLIT_STEPS
+    steps a split."""
+    tiles = -(-N // SIMT_TILE_N) * (SIMT_SPLIT_ROWS // SIMT_TILE_M)
+    steps = -(-K // SIMT_K_STEP[bits])
+    target = SIMT_BLOCKS_PER_SM * sms
+    if tiles >= target:
+        return 1
+    return max(1, min(steps // MIN_SPLIT_STEPS, -(-target // tiles)))
+
+
+def tc_gemv_block_ok(bits: int, block_size: int) -> bool:
+    """Do these scale blocks suit the tensor-core GEMV?  Each group of 4
+    codes it decodes takes one scale: at 3, 5 and 6 bits B % 4 == 0; at 4,
+    7 and 8 bits, whose kernel scales a word at a time, B % cpw == 0."""
+    cpw = packing.codes_per_word(bits)
+    return block_size % (cpw if cpw % 4 == 0 else 4) == 0
+
+
 def gemv_route(x_dtype, bits: int, block_size: int) -> str:
     """The GEMV for these operands: "tc" (tensor cores, csrc/qgemv_sm90.cu)
-    for bf16 x at 4, 7 or 8 bits whose scale blocks hold whole packed words,
-    else "simt" (CUDA cores, csrc/qmatmul.cu)."""
+    for bf16 x at 3 to 8 bits whose scale blocks ``tc_gemv_block_ok``
+    takes, else "simt" (CUDA cores, csrc/qmatmul.cu)."""
     tc = (x_dtype == torch.bfloat16 and bits in TC_GEMV_BITS
-          and block_size % packing.codes_per_word(bits) == 0)
+          and tc_gemv_block_ok(bits, block_size))
     return "tc" if tc else "simt"
+
+
+def _pad_cols(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """Zero-pad a 2-D tensor's last dim up to ``cols``; no copy when it fits."""
+    return t if t.shape[1] == cols else torch.nn.functional.pad(t, (0, cols - t.shape[1]))
+
+
+def pad_k(x, packed, scales, unit: int, *, bits: int, block_size: int):
+    """The operands with K zero-padded to a multiple of ``unit`` (a multiple
+    of B): x [M, K] and rows as stored in, (x, packed, scales) out, the rows
+    still as stored for the new K.  Zero words decode against zero scales
+    and multiply zero x, so the padding adds nothing to a sum.  No copy
+    where K is such a multiple already; else a copy of the weight."""
+    Kp = -(-x.shape[1] // unit) * unit
+    return (_pad_cols(x, Kp), _pad_cols(packed, -(-Kp // (32 // bits))).contiguous(),
+            _pad_cols(scales, Kp // block_size).contiguous())
+
+
+def pad_to_whole_words(x, packed, scales, *, bits: int, block_size: int):
+    """``pad_k`` to lcm(cpw, B): every row whole packed words and whole
+    scale blocks, as the CUDA-core GEMV takes them (a copy of the weight at
+    3, 5 and 6 bits at most widths)."""
+    return pad_k(x, packed, scales, math.lcm(32 // bits, block_size), bits=bits,
+                 block_size=block_size)
 
 
 def qmatmul_plain(x, packed, scales, codebook, *, bits: int,
@@ -125,7 +196,7 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.qmatmul_gemv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                      + [ctypes.c_void_p])
-        lib.qmatmul_gemm_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        lib.qmatmul_gemm_f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                          + [ctypes.c_void_p])
         for fn in (lib.qmatmul_gemv, lib.qmatmul_gemm_f32):
             fn.restype = ctypes.c_int
@@ -173,9 +244,10 @@ def _check_operands(x, packed, scales, codebook, bits, block_size):
         raise ValueError(f"qmatmul kernel takes 3 to 8 bits, got {bits}")
     M, K = x.shape
     N, n_words = packed.shape
-    if K != n_words * (32 // bits) or K % block_size or scales.shape != (N, K // block_size):
-        raise ValueError(f"qmatmul kernel needs K-aligned operands (kernels/ops.qmatmul "
-                         f"pads): x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+    if n_words != -(-K // (32 // bits)) or K % block_size or scales.shape != (N, K // block_size):
+        raise ValueError(f"qmatmul kernel needs rows as stored, K whole scale blocks "
+                         f"(kernels/ops.pad_for_kernel pads x): x {tuple(x.shape)}, "
+                         f"packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, bits {bits}, block {block_size}")
     if codebook.shape != (2**bits,):
         raise ValueError(f"qmatmul kernel: codebook must have {2**bits} entries")
@@ -193,7 +265,8 @@ def qmatmul_gemv_tc(x, packed, scales, codebook, *, bits, block_size):
     _check_operands(x, packed, scales, codebook, bits, block_size)
     if gemv_route(x.dtype, bits, block_size) != "tc":
         raise ValueError(f"qmatmul_gemv_tc takes bf16 x at {TC_GEMV_BITS} bits with whole "
-                         f"words per scale block, got {x.dtype}, {bits} bits, B {block_size}")
+                         f"groups of 4 codes (at 4 bits words) per scale block, got {x.dtype}, "
+                         f"{bits} bits, B {block_size}")
     M, K = x.shape
     N, n_words = packed.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -211,8 +284,9 @@ qmatmul_gemv_tc.launches = 0
 
 def qmatmul_gemv_simt(x, packed, scales, codebook, *, bits, block_size):
     """Launch the CUDA-core GEMV (M <= GEMV_MAX_M rows, f32 or bf16 x) on
-    CUDA tensors."""
+    CUDA tensors, K padded to whole words first."""
     _check_operands(x, packed, scales, codebook, bits, block_size)
+    x, packed, scales = pad_to_whole_words(x, packed, scales, bits=bits, block_size=block_size)
     M, K = x.shape
     N, n_words = packed.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -244,9 +318,14 @@ qmatmul_gemv.launches = 0
 
 def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):
     """Launch the tiled kernel on CUDA tensors: bf16 x on the tensor cores
-    (``qgemm_sm90.cu``, split over K where ``split_k`` says), f32 x on the
-    CUDA cores (``qmatmul.cu``)."""
+    (``qgemm_sm90.cu``, split over K where ``split_k`` says), K padded to
+    whole words and to pieces of 8 (its x tiles) first; f32 x on the CUDA
+    cores (``qmatmul.cu``, split over K where ``simt_split`` says), rows as
+    stored."""
     _check_operands(x, packed, scales, codebook, bits, block_size)
+    if x.dtype == torch.bfloat16:
+        x, packed, scales = pad_k(x, packed, scales, math.lcm(32 // bits, block_size, 8),
+                                  bits=bits, block_size=block_size)
     M, K = x.shape
     N, n_words = packed.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -263,9 +342,14 @@ def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):
                 M, N, K, n_words, bits, block_size, split, _stream(x))
             entry = "qgemm_sm90"
         else:
+            split = simt_split(N, K, bits, _sm_count(x.device.index or 0))
+            shape = split_workspace_shape(M, N, split)
+            ws = (torch.empty(shape, dtype=torch.float32, device=x.device)
+                  if shape else None)
             status = _lib().qmatmul_gemm_f32(
                 x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
-                y.data_ptr(), M, N, K, n_words, bits, block_size, _stream(x))
+                y.data_ptr(), ws.data_ptr() if ws is not None else None,
+                M, N, K, n_words, bits, block_size, split, _stream(x))
             entry = "qmatmul_gemm_f32"
     _build.check(status, entry)
     qmatmul_gemm.launches += 1

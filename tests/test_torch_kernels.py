@@ -17,14 +17,17 @@ runs in interpret mode, one compilation per bit width.  Cases
 marked ``cuda`` hold each CUDA kernel against its plain version and skip
 without a GPU; among them the tensor-core GEMV (``qmatmul_gemv_tc``) over
 its row counts, column and K tails, widths, data types and blocks.  On the
-CPU: which operands ``gemv_route`` sends to it, that the routed widths are
-the kernel sources' cases, and that the launchers refuse what their
-kernels do not take.  The last tests check the default device and that
+CPU: ``qmatmul_plain`` against ``qmatmul_ref`` at 3, 5 and 6 bits (words
+that do not hold whole groups of 4 codes), which operands ``gemv_route``
+sends to it, that the routed widths are the kernel sources' cases, the f32
+GEMM's K-split plan, and that the launchers refuse what their kernels do
+not take.  The last tests check the default device and that
 the port never imports jax or ``repro``.
 """
 
 import ast
 import functools
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -139,13 +142,97 @@ def test_qmatmul_plain_matches_reference(bits, dtype, block, M, K, N):
     assert np.abs(yb.float().numpy() - yb_ref).max() <= BF16_REL_TOL * np.abs(yb_ref).max()
 
 
+@functools.lru_cache(maxsize=None)
+def _low_bit_case(bits, block):
+    """A weight with K and N tails (K = 200 pads to lcm(cpw, block), N = 70)
+    and 5 rows of x, through the reference: its operand, qmatmul_ref on f32
+    x and on x rounded to bf16, and its fused jnp path on bf16 x (one
+    compilation a case)."""
+    rs = np.random.RandomState(bits * 1009 + block)
+    M, K, N = 5, 200, 70
+    w = (rs.randn(K, N) * 0.05).astype(np.float32)
+    x = rs.randn(M, K).astype(np.float32)
+
+    def ref(a, xf, xb):
+        op = rops.prepare_operand(a, bits=bits, dtype="float", block_size=block)
+        xk = jnp.pad(xf, ((0, 0), (0, op.k_dim - K)))
+        xbk = jnp.pad(xb, ((0, 0), (0, op.k_dim - K)))
+        return (op.packed, op.scales, op.codebook, r_qmatmul_ref(xk, op),
+                r_qmatmul_ref(xbk.astype(jnp.float32), op), rops.qmatmul_fused_jnp(xbk, op))
+
+    packed, scales, cb, y, y_bx, yb = jax.jit(ref)(jnp.asarray(w), jnp.asarray(x),
+                                                  jnp.asarray(x, jnp.bfloat16))
+    return (w, x, packed, scales, np.asarray(y), np.asarray(y_bx),
+            np.asarray(yb.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("bits", [3, 5, 6])
+def test_qmatmul_plain_matches_reference_at_3_5_6_bits(bits, block, xdt):
+    """The widths whose packed words do not hold whole groups of 4 codes
+    (cpw 10, 6 and 5): the port's operand is the reference's bit for bit,
+    and qmatmul_plain on it, in both layouts the kernels take (rows as
+    stored, which kernels/ops.pad_for_kernel gives every kernel, and K
+    padded to whole words, which the CUDA-core GEMV pads to itself), is
+    within 2e-5 of qmatmul_ref with f32 x, and
+    within one bf16 ulp at max|y| of qmatmul_ref and of the fused jnp path
+    with bf16 x."""
+    w, x, packed, scales, y, y_bx, yb = _low_bit_case(bits, block)
+    op = tops.prepare_operand(_t(w), bits=bits, dtype="float", block_size=block)
+    assert _bits_equal(op.packed, _t(packed)) and _bits_equal(op.scales, _t(scales))
+    xt = _t(x) if xdt == "float32" else _t(jnp.asarray(x, jnp.bfloat16))
+    cpw = 32 // bits
+    stored = tops.pad_for_kernel(xt, op)
+    whole = tqm.pad_to_whole_words(*stored, bits=bits, block_size=block)
+    assert stored[0].shape[1] == op.k_dim
+    assert stored[1].shape[1] == -(-op.k_dim // cpw)
+    assert whole[0].shape[1] == whole[1].shape[1] * cpw and whole[0].shape[1] % block == 0
+    for xp, pk, sc in (stored, whole):
+        out = tqm.qmatmul_plain(xp, pk, sc, op.codebook, bits=bits, block_size=block)
+        assert out.dtype == xt.dtype and tuple(out.shape) == (5, 70)
+        if xdt == "float32":
+            assert _rel_err(out.numpy(), y) < REL_TOL
+        else:
+            for ref in (y_bx, yb):
+                assert np.abs(out.float().numpy() - ref).max() <= \
+                    BF16_REL_TOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_pad_k_adds_nothing_to_the_product(bits):
+    """The launchers' K padding (kernels/qmatmul.pad_k): from rows as stored
+    to K a multiple of the unit the CUDA-core GEMV (lcm(cpw, B)) or the
+    prefill GEMM (lcm(cpw, B, 8)) takes, the rows still ceil(K / cpw) words
+    and whole scale blocks; the plain product on the padded operands within
+    2e-5 of the stored ones', and no copy where K is a multiple already."""
+    cpw = 32 // bits
+    rs = np.random.RandomState(bits + 300)
+    for block in (6, 10, 12, 16, 64):
+        for K in (90, 200):
+            op = tops.prepare_operand(torch.tensor(rs.randn(K, 33) * 0.05, dtype=torch.float32),
+                                      bits=bits, dtype="float", block_size=block)
+            stored = tops.pad_for_kernel(torch.tensor(rs.randn(5, K), dtype=torch.float32), op)
+            kw = dict(bits=bits, block_size=block)
+            y0 = tqm.qmatmul_plain(*stored, op.codebook, **kw).numpy()
+            for unit in (math.lcm(cpw, block), math.lcm(cpw, block, 8)):
+                xp, packed, scales = tqm.pad_k(*stored, unit, **kw)
+                Kp = xp.shape[1]
+                assert Kp % unit == 0 and Kp - unit < op.k_dim <= Kp
+                assert packed.shape == (33, -(-Kp // cpw)) and scales.shape == (33, Kp // block)
+                if Kp == op.k_dim:
+                    assert packed.data_ptr() == op.packed.data_ptr()
+                y1 = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw).numpy()
+                assert _rel_err(y1, y0) < REL_TOL, (block, K, unit)
+
+
 def test_qmatmul_leading_dims_and_padding():
     """[B, S, K] activations narrower than the stored K, as prefill gives."""
     x, _, _, t_op, y_ref, _ = _operands(5, "float", 32, 6, 90, 33, seed=7)
     y = tops.qmatmul(_t(x.reshape(2, 3, 90)), t_op)
     assert tuple(y.shape) == (2, 3, 33)
     assert _rel_err(y.reshape(6, 33).numpy(), y_ref) < REL_TOL
-    # only K is padded (to lcm(cpw, block) = 96); the kernels mask rows and columns
+    # only x's K is padded (to the stored 96); the kernels mask rows and columns
     for M in (6, 9):
         xp, packed, scales = tops.pad_for_kernel(torch.zeros(M, 90), t_op)
         assert tuple(xp.shape) == (M, 96) and packed.shape[1] * 6 == 96 == scales.shape[1] * 32
@@ -323,7 +410,7 @@ def test_quantize_blocks_cuda_kernel_bit_exact(bits, dtype):
 
 # the tensor-core GEMV's edges: every row count (it always multiplies 8 rows
 # and masks the rest), columns around its 16-column blocks, K off its
-# 128-code chunks, 4, 7 and 8 bits over three data types and blocks
+# chunks of 16 words, every width (3 to 8 bits) over three data types and blocks
 GEMV_TC_CASES = [(bits, dtype, block) for bits in tqm.TC_GEMV_BITS
                  for dtype in ("int", "float", "dynamic") for block in (16, 32, 64)]
 
@@ -366,31 +453,46 @@ def test_qmatmul_gemv_tc_single_word_rows(bits, block):
     _gemv_tc_check(bits, "float", block, (1, 4, 8), K, 70, seed=bits + block)
 
 
-def test_gemv_route_sends_bf16_whole_word_blocks_at_4_7_8_bits_to_tensor_cores():
-    """gemv_route picks the tensor-core GEMV exactly for bf16 x at 4, 7 or 8
-    bits with scale blocks of whole packed words, the CUDA-core one otherwise."""
+def test_gemv_route_sends_bf16_whole_group_blocks_at_3_to_8_bits_to_tensor_cores():
+    """gemv_route picks the tensor-core GEMV exactly for bf16 x at 3 to 8
+    bits whose scale blocks hold whole groups of 4 codes (at 4 bits whole
+    packed words of 8), the CUDA-core one otherwise: f32 x, and blocks that
+    split a group."""
     for x_dtype in (torch.float32, torch.bfloat16):
         for bits in range(3, 9):
-            for block in (4, 6, 8, 10, 12, 16, 20, 32, 48, 64, 1024):
-                tc = (x_dtype == torch.bfloat16 and bits in (4, 7, 8)
-                      and block % (32 // bits) == 0)
+            for block in (4, 6, 8, 10, 12, 16, 20, 24, 32, 48, 64, 1024):
+                unit = 8 if bits == 4 else 4
+                tc = x_dtype == torch.bfloat16 and block % unit == 0
                 assert tqm.gemv_route(x_dtype, bits, block) == ("tc" if tc else "simt"), \
                     (x_dtype, bits, block)
-    assert tqm.gemv_route(torch.bfloat16, 4, 64) == "tc"   # the serving path
+    for bits in range(3, 9):   # the serving path and the paper's widths at block 64
+        assert tqm.gemv_route(torch.bfloat16, bits, 64) == "tc"
+        assert tqm.gemv_route(torch.float32, bits, 64) == "simt"
 
 
 def test_gemv_routed_widths_match_kernel_source():
     """The bit widths gemv_route sends to the tensor cores are the case
-    labels of qgemv_sm90.cu's entry, and the CUDA-core GEMV and the prefill
-    GEMM instantiate every width the wrapper accepts (3 to 8)."""
+    labels of qgemv_sm90.cu's entry (every width, 3 to 8), whose block check
+    is the route's (whole words at 4, 7 and 8 bits, groups of 4 codes at 3,
+    5 and 6), and the CUDA-core GEMV, the f32 GEMM and the prefill GEMM
+    instantiate every width the wrapper accepts (3 to 8)."""
     import re
 
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     tc = (csrc / "qgemv_sm90.cu").read_text()
     assert {int(b) for b in re.findall(r"case (\d+): return launch<\1>", tc)} == \
-        set(tqm.TC_GEMV_BITS)
+        set(tqm.TC_GEMV_BITS) == set(range(3, 9))
+    assert "const int unit = cpw % 4 == 0 ? cpw : 4;" in tc
+    assert "block_size % unit != 0" in tc
+    for bits in range(3, 9):
+        cpw = 32 // bits
+        for block in range(1, 130):
+            assert tqm.tc_gemv_block_ok(bits, block) == \
+                (block % (cpw if cpw % 4 == 0 else 4) == 0), (bits, block)
     simt = (csrc / "qmatmul.cu").read_text()
     assert {int(b) for b in re.findall(r"case (\d+): gemv_rows<T, \1>", simt)} == set(range(3, 9))
+    assert {int(b) for b in re.findall(r"case (\d+): return simt_launch<\1>", simt)} == \
+        set(range(3, 9))
     sm90 = (csrc / "qgemm_sm90.cu").read_text()
     assert {int(b) for b in re.findall(r"case (\d+): return launch<\1>", sm90)} == \
         set(range(3, 9))
@@ -408,8 +510,9 @@ def test_kernel_wrappers_refuse_what_their_kernels_do_not_take():
         for launch in (tqm.qmatmul_gemv, tqm.qmatmul_gemv_simt, tqm.qmatmul_gemm):
             with pytest.raises(ValueError, match="3 to 8 bits"):
                 launch(x, packed, scales, cb, bits=bits, block_size=64)
-    for xdt, bits, block, K in ((torch.float32, 4, 64, 64), (torch.bfloat16, 5, 64, 192),
-                                (torch.bfloat16, 8, 6, 12)):
+    for xdt, bits, block, K in ((torch.float32, 4, 64, 64), (torch.bfloat16, 5, 6, 6),
+                                (torch.bfloat16, 8, 6, 12), (torch.bfloat16, 4, 4, 8),
+                                (torch.float32, 3, 64, 320)):
         packed = torch.zeros(16, K // (32 // bits), dtype=torch.int32)
         with pytest.raises(ValueError, match="qmatmul_gemv_tc takes"):
             tqm.qmatmul_gemv_tc(torch.zeros(4, K, dtype=xdt), packed,
@@ -445,6 +548,52 @@ def test_split_k_step_table_matches_kernel_source():
         cpw = 32 // bits
         step = cpw * 16 // np.gcd(cpw, 16)
         assert kc == -(-64 // step) * step, bits
+
+
+def test_simt_k_step_table_matches_kernel_source():
+    """SIMT_K_STEP is the f32 GEMM's BK: KW words a column, the fewest whole
+    uint4s holding at least 32 codes; SIMT_TILE_M/N and SIMT_BLOCKS_PER_SM
+    are its SG_BM (8 rows a thread across SG_THREADS / (SG_BN / 8)
+    threads), SG_BN and SG_MIN_BLOCKS."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "qmatmul.cu").read_text()
+    assert "static constexpr int KW = (32 + 4 * CPW - 1) / (4 * CPW) * 4;" in src
+    assert f"constexpr int SG_BN = {tqm.SIMT_TILE_N};" in src
+    assert "constexpr int SG_THREADS = 128;" in src
+    assert tqm.SIMT_TILE_M == 8 * (128 // (tqm.SIMT_TILE_N // 8))
+    assert f"constexpr int SG_MIN_BLOCKS = {tqm.SIMT_BLOCKS_PER_SM};" in src
+    for bits, kc in tqm.SIMT_K_STEP.items():
+        cpw = 32 // bits
+        assert kc == -(-32 // (4 * cpw)) * 4 * cpw, bits
+
+
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_simt_split_plan_for_the_sweep_shapes(bits):
+    """For the paper ladder's matrices (the f32 GEMM's shapes at M = 1024)
+    and ragged ones: the split never depends on M (it takes no M), leaves
+    each block at least MIN_SPLIT_STEPS K steps where it splits, brings the
+    blocks of a 1024-row call to SIMT_BLOCKS_PER_SM an SM where the steps
+    allow, and is no larger than that needs."""
+    sms = tqm.H100_SMS
+    target = tqm.SIMT_BLOCKS_PER_SM * sms
+    shapes = [s for arch, ks in _prefill_shapes().items() if arch != "qwen2-7b" for s in ks]
+    for K, N in shapes + [(200, 70), (3584, 512), (96, 65), (18944, 3584)]:
+        for block in (16, 32, 64):
+            cpw = 32 // bits
+            bk = cpw * block // np.gcd(cpw, block)
+            Kp = -(-K // bk) * bk
+            steps = -(-Kp // tqm.SIMT_K_STEP[bits])
+            tiles = -(-N // tqm.SIMT_TILE_N) * (tqm.SIMT_SPLIT_ROWS // tqm.SIMT_TILE_M)
+            split = tqm.simt_split(N, Kp, bits, sms)
+            assert split >= 1
+            if split > 1:
+                assert steps // split >= tqm.MIN_SPLIT_STEPS and tiles < target
+                assert tiles * (split - 1) < target
+            if tiles < target and split == 1:
+                assert steps // 2 < tqm.MIN_SPLIT_STEPS
+            if tiles < target and steps // tqm.MIN_SPLIT_STEPS >= -(-target // tiles):
+                assert tiles * split >= target
+            assert tqm.split_workspace_shape(1024, N, split) == \
+                ((split, 1024, N) if split > 1 else None)
 
 
 @pytest.mark.parametrize("arch", list(_prefill_shapes()))

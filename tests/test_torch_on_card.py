@@ -18,7 +18,18 @@ where the card is (a machine without JAX):
 * the fused attention over a paged cache (a shuffled page map with shared
   pages, holes and idle rows) bit-identical to the unpaged kernel on the
   same cache gathered into rows, at pages of 8 and 16, and its refusals;
-  the paged Server's tokens equal to the slot pool's.
+  the paged Server's tokens equal to the slot pool's;
+* B1's tensor-core GEMV at 3, 5 and 6 bits (the widths whose words do not
+  hold whole groups of 4 codes) against ``qmatmul_plain``: every row count
+  to 8, columns around its 16-column blocks, word counts off whole uint4s,
+  scale blocks of 16, 32 and 64 and odd ones; within one bf16 ulp at max|y|;
+* the CUDA-core GEMV on bf16 x whose scale blocks split a group of 4
+  codes, and the bf16 prefill GEMM given rows as stored (ceil(K / cpw)
+  words, which its launcher pads), against ``qmatmul_plain``;
+* the f32 GEMM (``qgemm_simt``) against ``qmatmul_plain`` at the paper
+  ladder's 12 matrices (M = 1024) and ragged shapes, within 2e-5 relative
+  (f32 summation order), and a row's result bit-identical alone and inside
+  a larger call (its K split depends on N and K only).
 """
 
 import numpy as np
@@ -29,12 +40,16 @@ from repro_torch.configs import QuantConfig, get_arch
 from repro_torch.kernels import kv_attention as tka
 from repro_torch.kernels import kv_dequant as tkv
 from repro_torch.kernels import launches
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qmatmul as tqm
 from repro_torch.models import lm
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving import Engine, Server, Telemetry
 from repro_torch.serving.engine import sample_token
 
 ATT_TOL = 2.0 ** -6          # two bf16 ulps at the row's max
+BF16_REL_TOL = 2.0 ** -7     # one bf16 ulp at max|y|
+F32_REL_TOL = 2e-5           # f32 summation order (tests/test_qmatmul_parity.py)
 
 
 def _need_cuda():
@@ -349,3 +364,160 @@ def test_paged_server_tokens_equal_slot_pool(kv):
     assert paged == slot
     a = srv.pool.allocator
     assert a.cow_hits >= 4 and a.n_free == a.n_usable and not a.ref
+
+
+def _b1(bits, dtype, block, K, N, rs):
+    w = torch.tensor(rs.randn(K, N) * 0.05, dtype=torch.float32, device="cuda")
+    return tops.prepare_operand(w, bits=bits, dtype=dtype, block_size=block)
+
+
+def _gemv_tc_matches_plain(op, Ms, rs):
+    """Each row count through qmatmul_gemv: one launch of the tensor-core
+    GEMV, within one bf16 ulp at max|y| of the plain version."""
+    for M in Ms:
+        x = torch.tensor(rs.randn(M, op.k_dim), device="cuda").to(torch.bfloat16)
+        xp, packed, scales = tops.pad_for_kernel(x, op)
+        kw = dict(bits=op.bits, block_size=op.block_size)
+        before = (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches)
+        y_k = tqm.qmatmul_gemv(xp, packed, scales, op.codebook, **kw).float()
+        y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
+        torch.cuda.synchronize()
+        assert (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches) == \
+            (before[0] + 1, before[1])
+        err = float((y_k - y_p).abs().max())
+        assert err <= BF16_REL_TOL * float(y_p.abs().max()), (M, op.k_dim, packed.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["int", "float", "dynamic"])
+@pytest.mark.parametrize("bits", [3, 5, 6])
+def test_tensor_core_gemv_at_3_5_6_bits_matches_plain(bits, dtype, block):
+    """Rows 1 to 8 (the kernel multiplies 8 and masks the rest), columns
+    around its 16-column blocks, K tails off its 16-word chunks."""
+    _need_cuda()
+    rs = np.random.RandomState(bits * 100 + block)
+    for i, N in enumerate((8, 16, 17, 70, 512)):
+        op = _b1(bits, dtype, block, (200, 328, 1000)[i % 3], N, rs)
+        _gemv_tc_matches_plain(op, (1, 2, 3, 4, 5, 8), rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(3, 12), (3, 20), (5, 12), (5, 20), (5, 44), (6, 4),
+                                        (6, 12), (6, 20)])
+def test_tensor_core_gemv_at_3_5_6_bits_odd_rows_and_blocks(bits, block):
+    """Rows of a word count off whole uint4s (read a word at a time; at 6
+    bits, with B % 4 == 0, every row is whole uint4s) and scale blocks other
+    than 16, 32 and 64 (a run of 4 * cpw codes meeting more than two of
+    them, or blocks of a non-power-of-two size)."""
+    _need_cuda()
+    cpw = 32 // bits
+    rs = np.random.RandomState(bits + block)
+    bk = cpw * block // np.gcd(cpw, block)
+    Ks = [K for K in range(bk, 40 * bk, bk) if (K // cpw) % 4][:2] or [bk, 3 * bk]
+    assert bits == 6 or all((K // cpw) % 4 for K in Ks), (bits, block)
+    for K in Ks:
+        _gemv_tc_matches_plain(_b1(bits, "float", block, K, 70, rs), (1, 4, 8), rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(3, 6), (3, 10), (4, 12), (4, 20), (5, 6), (5, 10),
+                                        (6, 6), (6, 10), (7, 6), (8, 10)])
+def test_cuda_core_gemv_bf16_at_blocks_that_split_a_group(bits, block):
+    """bf16 x whose scale blocks split a group of 4 codes (at 4 bits a word)
+    goes to the CUDA-core GEMV, which pads K to whole words itself: one
+    launch of it and none of the tensor-core GEMV, every row count to 8,
+    within one bf16 ulp at max|y| of the plain version."""
+    _need_cuda()
+    assert tqm.gemv_route(torch.bfloat16, bits, block) == "simt"
+    rs = np.random.RandomState(bits * 31 + block)
+    for dtype in ("int", "float", "dynamic"):
+        for K, N in ((200, 70), (1000, 17)):
+            op = _b1(bits, dtype, block, K, N, rs)
+            for M in (1, 2, 3, 5, 8):
+                x = torch.tensor(rs.randn(M, op.k_dim), device="cuda").to(torch.bfloat16)
+                xp, packed, scales = tops.pad_for_kernel(x, op)
+                kw = dict(bits=bits, block_size=block)
+                before = (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches)
+                y_k = tqm.qmatmul_gemv(xp, packed, scales, op.codebook, **kw).float()
+                y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
+                torch.cuda.synchronize()
+                assert (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches) == \
+                    (before[0], before[1] + 1)
+                err = float((y_k - y_p).abs().max())
+                assert err <= BF16_REL_TOL * float(y_p.abs().max()), (M, K, N, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 5, 6])
+def test_prefill_gemm_takes_rows_as_stored(bits):
+    """The bf16 prefill GEMM's launcher given rows as stored, ceil(K / cpw)
+    words (Qwen2-7B's K of 3584, a K tail, and a K off the kernel's pieces
+    of 8), which it pads to whole words itself: within one bf16 ulp at
+    max|y| of the plain version on the stored rows."""
+    _need_cuda()
+    rs = np.random.RandomState(bits + 40)
+    for M, K, N, block in ((1024, 3584, 512, 64), (130, 200, 136, 16), (9, 90, 70, 6)):
+        op = _b1(bits, "float", block, K, N, rs)
+        assert op.packed.shape[1] == -(-op.k_dim // (32 // bits))
+        x = torch.tensor(rs.randn(M, op.k_dim), device="cuda").to(torch.bfloat16)
+        xp, packed, scales = tops.pad_for_kernel(x, op)
+        assert packed.data_ptr() == op.packed.data_ptr()
+        kw = dict(bits=bits, block_size=block)
+        before = (tqm.qmatmul_gemm.launches, tqm.qmatmul_gemm.simt_launches)
+        y_k = tqm.qmatmul_gemm(xp, packed, scales, op.codebook, **kw).float()
+        y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw).float()
+        torch.cuda.synchronize()
+        assert (tqm.qmatmul_gemm.launches, tqm.qmatmul_gemm.simt_launches) == \
+            (before[0] + 1, before[1])
+        err = float((y_k - y_p).abs().max())
+        assert err <= BF16_REL_TOL * float(y_p.abs().max()), (M, K, N, block)
+
+
+def _gemm_f32_matches_plain(op, M, rs):
+    x = torch.tensor(rs.randn(M, op.k_dim), dtype=torch.float32, device="cuda")
+    xp, packed, scales = tops.pad_for_kernel(x, op)
+    kw = dict(bits=op.bits, block_size=op.block_size)
+    before = tqm.qmatmul_gemm.simt_launches
+    y_k = tqm.qmatmul_gemm(xp, packed, scales, op.codebook, **kw)
+    y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw)
+    torch.cuda.synchronize()
+    assert tqm.qmatmul_gemm.simt_launches == before + 1
+    err = float((y_k - y_p).abs().max())
+    assert err <= F32_REL_TOL * float(y_p.abs().max()), (M, op.k_dim, packed.shape, op.bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_gemm_f32_matches_plain(bits):
+    """The paper ladder's matrices at its perplexity batch (M = 1024), which
+    the K split reaches, then ragged rows, columns and K with blocks that
+    words straddle."""
+    _need_cuda()
+    from repro_torch.configs.tiny import TINY_FAMILY
+
+    rs = np.random.RandomState(bits)
+    for tcfg in TINY_FAMILY.values():
+        D, F = tcfg.d_model, tcfg.d_ff
+        for K, N in ((D, D), (D, F), (F, D)):
+            _gemm_f32_matches_plain(_b1(bits, "float", 64, K, N, rs), 1024, rs)
+    for M, K, N, block in ((9, 200, 70, 16), (130, 640, 136, 6), (257, 1000, 8, 20),
+                           (1000, 3584, 512, 32), (33, 96, 65, 12)):
+        _gemm_f32_matches_plain(_b1(bits, "int", block, K, N, rs), M, rs)
+
+
+@pytest.mark.cuda
+def test_gemm_f32_rows_do_not_depend_on_the_call():
+    """A row's sums take the same order whether it is computed alone or
+    among 1024 rows: the K split depends on N and K only."""
+    _need_cuda()
+    rs = np.random.RandomState(5)
+    for K, N in ((448, 1344), (1344, 448), (64, 64), (200, 70)):
+        op = _b1(4, "float", 64, K, N, rs)
+        x = torch.tensor(rs.randn(1024, op.k_dim), dtype=torch.float32, device="cuda")
+        xp, packed, scales = tops.pad_for_kernel(x, op)
+        kw = dict(bits=4, block_size=64)
+        big = tqm.qmatmul_gemm(xp, packed, scales, op.codebook, **kw)
+        for lo, hi in ((0, 9), (100, 357), (1000, 1024)):
+            alone = tqm.qmatmul_gemm(xp[lo:hi].contiguous(), packed, scales, op.codebook, **kw)
+            assert torch.equal(alone, big[lo:hi]), (K, N, lo, hi)
