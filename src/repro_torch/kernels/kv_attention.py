@@ -33,14 +33,23 @@ to the order of f32 sums: p is rounded to bf16 against the maximum over the
 whole cache.  What bounds the kernel (bytes) and its design are noted in
 its source.
 
-``decode_attention_packed`` launches the kernel for CUDA tensors and runs
-the plain version for CPU tensors; ``decode_attention_packed_cuda.launches``
-counts the launches.  Both take a logit soft-cap; only the plain version
-takes a sliding window (the port builds no windowed model yet).  Neither
-takes a bf16 cache or bits other than 4 and 8.  The kernel takes head dims
-32, 64 and 128, up to 8 query heads a KV head, scale blocks of whole words,
-and as many slots as its shared memory holds (about 39 K at kv4 and kv8
-with Qwen2-7B's 7 query heads a KV head; past that the launch fails).
+``decode_attention_packed`` routes by shapes alone.  On CUDA, where
+``fused_takes`` says the kernel takes the call, one launch of the kernel;
+elsewhere the routed read, ``decode_attention_packed_routed``: the layer's
+K and V dequantized by one launch of ``csrc/kv_dequant.cu`` (through the
+page map for a paged cache), then the models' masked partials and combine,
+the reference's own read (src/repro/models/attention.py:533-545, :597-613).
+For CPU tensors, the plain version.  ``decode_attention_packed_cuda``
+counts the kernel's launches in ``.launches`` and raises, before any
+launch, on every shape the rule routes.  The kernel takes head dims 32, 64
+and 128, up to 8 query heads a KV head, scale blocks of whole words and as
+many slots as its shared memory holds (39,808 at kv4 with Qwen2-7B's 7
+query heads a KV head); ``fused_takes`` mirrors those refusals and reads no
+device value, so the route is decided the same way inside a CUDA-graph
+capture.  All three take a logit soft-cap; a sliding window goes to the
+routed read on the card (the port builds no windowed model yet), and the
+kernel's wrapper raises on one.  None takes a bf16 cache or bits other
+than 4 and 8.
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ from repro_torch.core import packing
 from repro_torch.kernels import _build
 from repro_torch.kernels.kv_dequant import (
     KVQuantSpec,
-    dequant_rows_ref,
+    dequant_kv,
+    dequant_kv_plain,
     gather_pages,
     kv_codebook,
     kv_layout,
@@ -61,8 +71,64 @@ from repro_torch.kernels.kv_dequant import (
 
 KERNEL_BITS = (4, 8)
 KERNEL_HEAD_DIMS = (32, 64, 128)
-#: query heads a KV head that csrc/kv_decode_attention.cu takes (the mma's n)
+# csrc/kv_decode_attention.cu's constants: query heads a KV head (the mma's
+# n), CTAs a (batch row, KV head), warps a CTA, shared memory a CTA may take
 MAX_G = 8
+CLUSTER = 8
+WARPS = 4
+MAX_SMEM = 232448
+#: the kernel's grid takes at most this many batch rows and KV heads
+MAX_GRID_YZ = 65535
+
+
+def _smem_words(S: int, G: int, Dh: int, wph: int, sw: int, cap: int) -> int:
+    """4-byte words of shared memory a CTA takes: the kernel's make_layout
+    (csrc/kv_decode_attention.cu) with ``cap`` slots a round."""
+    tpc = ((S + CLUSTER - 1) // CLUSTER + 15) // 16 * 16
+    stage = cap * (wph + sw)
+    k_words = (max(stage, WARPS * MAX_G * Dh) + 3) // 4 * 4
+    v_words = (stage + 3) // 4 * 4
+    o_p = 256 + 3 * MAX_G + WARPS * MAX_G + MAX_G * Dh + G * (tpc + 4)
+    o_k = (o_p + (G * (tpc + 8) + 1) // 2 + 3) // 4 * 4
+    return o_k + k_words + v_words
+
+
+def fused_refusal(B: int, H: int, Dh: int, S: int, spec: KVQuantSpec, feat: int,
+                  window: int = 0):
+    """Why csrc/kv_decode_attention.cu does not take a call of q [B, H, Dh]
+    over a packed cache of S slots (paged or not) and ``feat`` features a
+    slot, or None where it does.  A pure function of shapes, mirroring the
+    kernel's own refusals: a sliding window, bits, head dim, query heads a
+    KV head, blocks that split a word, the grid, and its shared-memory
+    layout, whose slots a round (the kernel's ``cap`` loop) shrink from a
+    CTA's share to 16 before the kernel refuses, so it takes a cache where
+    16 do fit."""
+    if window:
+        return f"decode_attention_packed_cuda takes no sliding window, got {window}"
+    K = feat // Dh
+    G = H // K
+    bs, _, _ = kv_layout(spec, feat)
+    cpw = packing.codes_per_word(spec.bits)
+    if spec.bits not in KERNEL_BITS or Dh not in KERNEL_HEAD_DIMS or G > MAX_G or bs % cpw:
+        return (f"decode_attention_packed_cuda takes kv4 or kv8, head dims {KERNEL_HEAD_DIMS}, "
+                f"up to {MAX_G} query heads a KV head and scale blocks of whole words: got "
+                f"{spec.bits} bits, Dh {Dh}, G {G}, block {bs} at {cpw} codes a word")
+    if B > MAX_GRID_YZ or K > MAX_GRID_YZ:
+        return (f"decode_attention_packed_cuda takes up to {MAX_GRID_YZ} batch rows and KV "
+                f"heads, got {B} and {K}")
+    # the scale blocks a head spans, at most, and the 4-byte words that hold them
+    nbh = max((kh * Dh + Dh - 1) // bs - kh * Dh // bs + 1 for kh in range(K))
+    words = _smem_words(S, G, Dh, Dh * spec.bits // 32, (nbh + 2) // 2, 16)
+    if words * 4 > MAX_SMEM:
+        return (f"decode_attention_packed_cuda: the scores of {S} slots at G {G}, Dh {Dh} "
+                f"take {words * 4} bytes of shared memory a CTA, over {MAX_SMEM}")
+    return None
+
+
+def fused_takes(B: int, H: int, Dh: int, S: int, spec: KVQuantSpec, feat: int,
+                window: int = 0) -> bool:
+    """Whether the fused kernel takes the call (``fused_refusal`` is None)."""
+    return fused_refusal(B, H, Dh, S, spec, feat, window) is None
 
 
 def _check(q: torch.Tensor, cache: dict, spec, page_map=None, page_size=None):
@@ -120,24 +186,42 @@ def _positions(pos, cache: dict, B: int, device, paged: bool = False) -> torch.T
     return pos
 
 
+def _read_dequantized(q, cache, pos, spec, dequant, *, cap, window, page_map, page_size):
+    """The reference's read of a packed cache: K and V dequantized by
+    ``dequant`` (rows, or pages through the map), then the models' masked
+    softmax partials and combine."""
+    from repro_torch.models import attention  # models.attention imports this module
+
+    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+    pos = _positions(pos, cache, B, q.device, page_map is not None)
+    pos_arr = cache["pos"] if page_map is None else gather_pages(cache["pos"], page_map)
+    shape = (B, S, feat // Dh, Dh)
+    k, v = dequant(cache, spec, feat, page_map)
+    m, l, pv = attention.decode_attention_partial(q, k.reshape(shape), v.reshape(shape),
+                                                  pos_arr, pos, cap=cap, window=window)
+    return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
+
+
 def decode_attention_packed_plain(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
                                   *, cap: float = 0.0, window: int = 0, page_map=None,
                                   page_size=None) -> torch.Tensor:
     """The plain version: the cache (a paged one gathered into rows first)
     dequantized to bf16 by the KV dequant's plain version, then the models'
     masked softmax partials and combine."""
-    from repro_torch.models import attention  # models.attention imports this module
+    return _read_dequantized(q, cache, pos, spec, dequant_kv_plain, cap=cap, window=window,
+                             page_map=page_map, page_size=page_size)
 
-    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
-    pos = _positions(pos, cache, B, q.device, page_map is not None)
-    if page_map is not None:
-        cache = {key: gather_pages(leaf, page_map) for key, leaf in cache.items()}
-    shape = (B, S, feat // Dh, Dh)
-    k = dequant_rows_ref(cache["k_packed"], cache["k_scales"], spec, feat).reshape(shape)
-    v = dequant_rows_ref(cache["v_packed"], cache["v_scales"], spec, feat).reshape(shape)
-    m, l, pv = attention.decode_attention_partial(q, k, v, cache["pos"], pos, cap=cap,
-                                                  window=window)
-    return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
+
+def decode_attention_packed_routed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec,
+                                   *, cap: float = 0.0, window: int = 0, page_map=None,
+                                   page_size=None) -> torch.Tensor:
+    """The routed read, for the shapes the fused kernel does not take: the
+    plain version's composition with the layer's K and V dequantized by
+    ``kv_dequant.dequant_kv`` (one launch of csrc/kv_dequant.cu for CUDA
+    tensors, reading a paged cache through its map; the plain dequant for
+    CPU tensors, so there the two are one computation)."""
+    return _read_dequantized(q, cache, pos, spec, dequant_kv, cap=cap, window=window,
+                             page_map=page_map, page_size=page_size)
 
 
 def _lib():
@@ -155,19 +239,14 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuan
                                  page_size=None) -> torch.Tensor:
     """Launch the kernel on a CUDA cache, paged or not (one launch a layer);
     counts launches in ``.launches``."""
-    if window:
-        raise ValueError(f"decode_attention_packed_cuda takes no sliding window, got {window}")
     B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
     paged = page_map is not None
     pos = _positions(pos, cache, B, q.device, paged)
     K = feat // Dh
-    G = H // K
     bs, n_blocks, n_words = kv_layout(spec, feat)
-    cpw = packing.codes_per_word(spec.bits)
-    if Dh not in KERNEL_HEAD_DIMS or G > MAX_G or bs % cpw:
-        raise ValueError(f"decode_attention_packed_cuda takes head dims {KERNEL_HEAD_DIMS}, up "
-                         f"to {MAX_G} query heads a KV head and scale blocks of whole words: "
-                         f"got Dh {Dh}, G {G}, block {bs} at {cpw} codes a word")
+    refusal = fused_refusal(B, H, Dh, S, spec, feat, window)
+    if refusal:
+        raise ValueError(refusal)
     if q.dtype != torch.bfloat16 or not q.is_contiguous() or q.device.type != "cuda":
         raise ValueError("decode_attention_packed_cuda takes q as contiguous bf16 on CUDA")
     for key, dt, align in (("k_packed", torch.int32, 16), ("v_packed", torch.int32, 16),
@@ -213,11 +292,15 @@ def decode_attention_packed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec
                             cap: float = 0.0, window: int = 0, page_map=None,
                             page_size=None) -> torch.Tensor:
     """Single-token attention of q [B, H, Dh] over a packed k-bit cache,
-    paged or not: the fused kernel for CUDA tensors, the plain version for
+    paged or not: for CUDA tensors the fused kernel where ``fused_takes``
+    says it takes the shapes, else the routed read; the plain version for
     CPU tensors."""
     kw = dict(cap=cap, window=window, page_map=page_map, page_size=page_size)
     if q.device.type == "cuda":
-        return decode_attention_packed_cuda(q, cache, pos, spec, **kw)
+        B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+        if fused_takes(B, H, Dh, S, spec, feat, window):
+            return decode_attention_packed_cuda(q, cache, pos, spec, **kw)
+        return decode_attention_packed_routed(q, cache, pos, spec, **kw)
     if q.device.type == "cpu":
         return decode_attention_packed_plain(q, cache, pos, spec, **kw)
     raise ValueError(f"decode_attention_packed runs on cuda or cpu tensors, not {q.device}")

@@ -11,21 +11,22 @@ Blocks and words never cross tokens, so every byte of a cached token lives
 in its row.  Only k in {4, 8} and the static codebooks (int, float,
 dynamic) serve a streaming cache.
 
-A decode step reads the cache through ``kernels/kv_attention``, whose
-kernel dequantizes in registers inside the attention.  ``dequant_rows`` is
-the standalone read: for CUDA tensors it launches the CUDA kernel
-``csrc/kv_dequant.cu``, which replaces the TPU kernel
-``dequant_rows_pallas`` (src/repro/kernels/kv_dequant.py:159); for CPU
-tensors it runs the plain version, ``dequant_rows_ref``.  The reference
+A decode step reads the cache through ``kernels/kv_attention``.  Its fused
+kernel dequantizes in registers inside the attention; the shapes it does
+not take (``kv_attention.fused_takes``) are read through ``dequant_kv``,
+one launch a layer of the CUDA kernel ``csrc/kv_dequant.cu`` for K and V
+together, which replaces the TPU kernel ``dequant_rows_pallas``
+(src/repro/kernels/kv_dequant.py:159) and reads a paged cache through its
+page map.  ``dequant_rows`` (rows) and ``dequant_pages`` (pages) launch the
+same kernel on one leaf.  For CPU tensors each runs the plain version,
+``dequant_rows_ref`` (``dequant_kv_plain`` for a layer).  The reference
 makes its kernel opt-in (``kv_use_kernel``); here a CUDA tensor always takes
 the kernel.  What bounds the kernel (bytes; at decode shapes, launch
 latency) and its design are noted in its source.
 
 The paged pool (``serving/pages.py``) stores every leaf page-major,
 [n_pages, ps, ...]: ``gather_pages`` reads a leaf through a page map into
-the slot-pool row layout, and ``dequant_pages`` gathers, then dequantizes
-with ``dequant_rows``.  The decode step reads a paged cache through the
-fused attention instead, which follows the page map itself.
+the slot-pool row layout, which the plain versions read.
 """
 
 from __future__ import annotations
@@ -108,42 +109,72 @@ def dequant_rows_ref(packed, scales, spec: KVQuantSpec, feat: int,
 def _lib():
     lib = _build.load("kv_dequant")
     if not getattr(lib, "_argtypes_set", False):
-        lib.kv_dequant.argtypes = ([ctypes.c_void_p] * 4
-                                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                                   + [ctypes.c_void_p])
+        lib.kv_dequant.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong]
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.kv_dequant.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
+def dequant_kv_cuda(leaves, spec: KVQuantSpec, feat: int, page_map=None) -> list:
+    """Launch the kernel once over one or two (packed, scales) leaves of the
+    same shape (a layer's K and V) on CUDA: leaves of rows [..., W] / [...,
+    NB] give bf16 [..., feat]; with ``page_map`` [B, P] int32, page-major
+    leaves [n_pages, ps, W] / [n_pages, ps, NB] read through the map give
+    [B, P * ps, feat] (``gather_pages``'s layout, without its copy).
+    Counts launches in ``.launches``."""
+    bs, n_blocks, n_words = kv_layout(spec, feat)
+    packed0, scales0 = leaves[0]
+    if not 1 <= len(leaves) <= 2:
+        raise ValueError(f"kv dequant kernel takes one or two leaves, got {len(leaves)}")
+    for packed, scales in leaves:
+        if packed.dtype != torch.int32 or scales.dtype != torch.bfloat16:
+            raise TypeError("kv dequant kernel takes int32 packed words and bf16 scales")
+        if packed.shape != packed0.shape or packed.shape[-1] != n_words \
+                or tuple(scales.shape) != tuple(packed.shape[:-1]) + (n_blocks,):
+            raise ValueError(f"kv dequant kernel: packed {tuple(packed.shape)} / scales "
+                             f"{tuple(scales.shape)} do not fit feat={feat}, {spec}")
+        if not (packed.is_contiguous() and scales.is_contiguous()):
+            raise ValueError("kv dequant kernel takes contiguous leaves")
+    dev = packed0.device
+    if dev.type != "cuda" or any(t.device != dev for pair in leaves for t in pair):
+        raise ValueError("kv dequant kernel takes leaves on one CUDA device")
+    if page_map is None:
+        lead, lps, rows = tuple(packed0.shape[:-1]), 0, packed0.numel() // n_words
+    else:
+        ps = packed0.shape[1] if packed0.ndim == 3 else 0
+        if packed0.ndim != 3 or ps & (ps - 1) or page_map.ndim != 2 \
+                or page_map.dtype != torch.int32 or page_map.device != dev \
+                or not page_map.is_contiguous():
+            raise ValueError(f"kv dequant kernel: page-major leaves [n_pages, ps, W] with ps a "
+                             f"power of two and a contiguous int32 page map [B, P] on {dev}, "
+                             f"got {tuple(packed0.shape)} and {tuple(page_map.shape)}")
+        lead = (page_map.shape[0], page_map.shape[1] * ps)
+        lps, rows = ps.bit_length() - 1, lead[0] * lead[1]
+    outs = [torch.empty(lead + (feat,), dtype=torch.bfloat16, device=dev) for _ in leaves]
+    ptrs = [(p.data_ptr(), s.data_ptr(), o.data_ptr()) for (p, s), o in zip(leaves, outs)]
+    if len(ptrs) == 1:
+        ptrs.append((None, None, None))
+    codebook = kv_codebook(spec, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _lib().kv_dequant(
+            *ptrs[0], *ptrs[1], codebook.data_ptr(),
+            None if page_map is None else page_map.data_ptr(), lps, rows, n_words, n_blocks,
+            spec.bits, bs, stream)
+    _build.check(status, "kv_dequant")
+    dequant_kv_cuda.launches += 1
+    return outs
+
+
+dequant_kv_cuda.launches = 0
+
+
 def dequant_rows_cuda(packed: torch.Tensor, scales: torch.Tensor, spec: KVQuantSpec,
                       feat: int) -> torch.Tensor:
-    """Launch the kernel on flattened CUDA rows: packed [R, W] int32, scales
-    [R, NB] bf16 -> bf16 [R, feat].  Counts launches in ``.launches``."""
-    bs, n_blocks, n_words = kv_layout(spec, feat)
-    R = packed.shape[0]
-    if packed.dtype != torch.int32 or scales.dtype != torch.bfloat16:
-        raise TypeError("kv dequant kernel takes int32 packed words and bf16 scales")
-    if packed.shape != (R, n_words) or scales.shape != (R, n_blocks):
-        raise ValueError(f"kv dequant kernel: packed {tuple(packed.shape)} / scales "
-                         f"{tuple(scales.shape)} do not fit feat={feat}, {spec}")
-    if not (packed.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("kv dequant kernel takes contiguous rows")
-    if scales.device != packed.device:
-        raise ValueError("kv dequant kernel: packed and scales on different devices")
-    codebook = kv_codebook(spec, packed.device)
-    out = torch.empty((R, feat), dtype=torch.bfloat16, device=packed.device)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        status = _lib().kv_dequant(
-            packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(), out.data_ptr(),
-            R * n_words, n_words, n_blocks, spec.bits, bs, stream)
-    _build.check(status, "kv_dequant")
-    dequant_rows_cuda.launches += 1
-    return out
-
-
-dequant_rows_cuda.launches = 0
+    """The kernel on one leaf of CUDA rows: packed [..., W] int32, scales
+    [..., NB] bf16 -> bf16 [..., feat]."""
+    return dequant_kv_cuda([(packed, scales)], spec, feat)[0]
 
 
 def dequant_rows(packed, scales, spec: KVQuantSpec, feat: int,
@@ -156,10 +187,7 @@ def dequant_rows(packed, scales, spec: KVQuantSpec, feat: int,
         raise ValueError(f"dequant_rows runs on cuda or cpu tensors, not {packed.device}")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the kv dequant kernel writes bf16, not {out_dtype}")
-    lead = packed.shape[:-1]
-    flat = dequant_rows_cuda(packed.reshape(-1, packed.shape[-1]),
-                             scales.reshape(-1, scales.shape[-1]), spec, feat)
-    return flat.reshape(lead + (feat,))
+    return dequant_rows_cuda(packed.contiguous(), scales.contiguous(), spec, feat)
 
 
 def gather_pages(leaf: torch.Tensor, page_map: torch.Tensor) -> torch.Tensor:
@@ -176,10 +204,37 @@ def gather_pages(leaf: torch.Tensor, page_map: torch.Tensor) -> torch.Tensor:
 def dequant_pages(packed, scales, page_map, spec: KVQuantSpec, feat: int,
                   out_dtype=torch.bfloat16) -> torch.Tensor:
     """Paged packed words [n_pages, ps, W] and scales [n_pages, ps, NB]
-    gathered through ``page_map`` [B, P] and dequantized: [B, P * ps, feat]
-    (``dequant_rows``: the CUDA kernel for CUDA tensors)."""
+    read through ``page_map`` [B, P] and dequantized: [B, P * ps, feat].
+    On CUDA one launch of the kernel reads the pages through the map; on the
+    CPU the plain version gathers them first."""
+    if packed.device.type == "cuda" and out_dtype == torch.bfloat16:
+        return dequant_kv_cuda([(packed, scales)], spec, feat, page_map)[0]
     return dequant_rows(gather_pages(packed, page_map), gather_pages(scales, page_map), spec,
                         feat, out_dtype=out_dtype)
+
+
+_KV_LEAVES = (("k_packed", "k_scales"), ("v_packed", "v_scales"))
+
+
+def dequant_kv_plain(cache: dict, spec: KVQuantSpec, feat: int, page_map=None):
+    """The plain version of a layer's read: (K, V) bf16 [B, S, feat] of a
+    packed cache, a paged one gathered through ``page_map`` first."""
+    if page_map is not None:
+        cache = {key: gather_pages(cache[key], page_map) for pair in _KV_LEAVES for key in pair}
+    return tuple(dequant_rows_ref(cache[p], cache[s], spec, feat) for p, s in _KV_LEAVES)
+
+
+def dequant_kv(cache: dict, spec: KVQuantSpec, feat: int, page_map=None):
+    """A layer's K and V of a packed cache (rows, or pages through
+    ``page_map``) as bf16 [B, S, feat]: one launch of the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    dev = cache["k_packed"].device
+    if dev.type == "cuda":
+        return tuple(dequant_kv_cuda([(cache[p], cache[s]) for p, s in _KV_LEAVES], spec,
+                                     feat, page_map))
+    if dev.type == "cpu":
+        return dequant_kv_plain(cache, spec, feat, page_map)
+    raise ValueError(f"dequant_kv runs on cuda or cpu tensors, not {dev}")
 
 
 def kv_stored_bytes_per_token(spec: Optional[KVQuantSpec], feat: int,

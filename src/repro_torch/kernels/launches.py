@@ -17,7 +17,7 @@ def _counters() -> tuple:
 
     return ((qmatmul.qmatmul_gemv, "launches"), (qmatmul.qmatmul_gemv_tc, "launches"),
             (qmatmul.qmatmul_gemv_simt, "launches"), (qmatmul.qmatmul_gemm, "launches"),
-            (qmatmul.qmatmul_gemm, "simt_launches"), (kv_dequant.dequant_rows_cuda, "launches"),
+            (qmatmul.qmatmul_gemm, "simt_launches"), (kv_dequant.dequant_kv_cuda, "launches"),
             (kv_attention.decode_attention_packed_cuda, "launches"),
             (quantize.quantize_blocks_cuda, "launches"),
             (quantize.quantize_pack_cuda, "launches"))

@@ -9,9 +9,9 @@ Replaces the TPU kernel ``quantize_blocks_pallas``
   codes    [n_blocks, B]    int32, #{midpoint bounds < x / scale}
   scales   [n_blocks]       f32, max(absmax, 1e-12)
 
-The bounds are the codebook's f32 midpoints, computed here exactly as
-``core/codebooks.codebook_boundaries`` computes them, so the kernel and the
-plain version (``kernels/ref.quantize_blocks_ref``, a left searchsorted)
+The bounds are the codebook's f32 midpoints, computed by the kernel exactly
+as ``core/codebooks.codebook_boundaries`` computes them, so the kernel and
+the plain version (``kernels/ref.quantize_blocks_ref``, a left searchsorted)
 agree bit for bit.  What bounds the kernel (bytes) and its design are
 noted in its source.
 
@@ -84,14 +84,14 @@ def quantize_blocks_cuda(x_blocks: torch.Tensor, codebook: torch.Tensor):
         raise ValueError(f"quantize kernel: codebook on {codebook.device}, x on "
                          f"{x_blocks.device}")
     n_blocks, B = x_blocks.shape
-    bounds = codebook_boundaries(codebook.to(torch.float32)).contiguous()
+    codebook = codebook.to(torch.float32).contiguous()   # the kernel takes its midpoints
     codes = torch.empty((n_blocks, B), dtype=torch.int32, device=x_blocks.device)
     scales = torch.empty((n_blocks,), dtype=torch.float32, device=x_blocks.device)
     with torch.cuda.device(x_blocks.device):
         stream = torch.cuda.current_stream(x_blocks.device).cuda_stream
-        status = _lib().quantize_blocks(x_blocks.data_ptr(), bounds.data_ptr(),
+        status = _lib().quantize_blocks(x_blocks.data_ptr(), codebook.data_ptr(),
                                         codes.data_ptr(), scales.data_ptr(),
-                                        n_blocks, B, bounds.numel(), stream)
+                                        n_blocks, B, codebook.numel(), stream)
     _build.check(status, "quantize_blocks")
     quantize_blocks_cuda.launches += 1
     return codes, scales

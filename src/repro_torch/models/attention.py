@@ -21,8 +21,10 @@ k/v for {"k_packed","k_scales","v_packed","v_scales"} (layout in
 ``kernels/kv_dequant.py``): writes quantize the new token
 (append-quantize); a decode read goes through
 ``kernels/kv_attention.decode_attention_packed`` — on the card one launch of
-the fused kernel a layer that dequantizes the cache in registers, on the
-CPU the dequant and the partials below.  Decode writes update the cache
+the fused kernel a layer that dequantizes the cache in registers where it
+takes the shapes (``kv_attention.fused_takes``), else one launch of the KV
+dequant a layer and the partials below; on the CPU the dequant and the
+partials below.  Decode writes update the cache
 tensors **in place** (the reference returns new arrays).
 
 ``prefill_chunk_attention`` is one chunk of a chunked prefill, bitwise
@@ -32,7 +34,7 @@ The paged pool (``serving/pages.py``) keeps every leaf page-major,
 [n_pages, ps, ...], and a row's page ids in a ``page_map`` [B, P]:
 ``write_cache_paged`` writes a decode token through it and
 ``paged_decode_attention`` reads through it (a packed cache in the fused
-kernel, which follows the map itself).
+kernel or the KV dequant, which follow the map themselves).
 
 Not in this slice: sliding-window ring caches and the sharded combine.
 """
@@ -332,8 +334,9 @@ def combine_partials(m, l, pv):
 def decode_attention(q, cache, pos, *, cap=0.0, window=0, kvq=None):
     """Single-token attention against a cache at ``pos`` (an int, a 0-d or a
     [B] tensor, as ``write_cache_decode`` takes it).  A packed cache is read
-    by ``kv_attention.decode_attention_packed`` (the fused kernel on the
-    card, which raises on a window)."""
+    by ``kv_attention.decode_attention_packed`` (on the card the fused
+    kernel, or the routed read for the shapes and windows it does not
+    take)."""
     if kvq is not None and _is_quantized_cache(cache):
         return kv_attention.decode_attention_packed(q, cache, pos, kvq, cap=cap, window=window)
     B, H, Dh = q.shape
@@ -382,9 +385,9 @@ def write_cache_paged(cache: dict, k_new, v_new, pos, page_map, *, page_size: in
 
 def paged_decode_attention(q, cache, pos, page_map, *, cap=0.0, kvq=None):
     """Single-token attention of q [B, H, Dh] against a paged cache at
-    [B] positions.  A packed cache goes to the fused attention with the
-    page map (on the card the kernel reads through it; on the CPU its plain
-    version gathers the pages); a bf16 cache is gathered into rows
+    [B] positions.  A packed cache goes to ``decode_attention_packed`` with
+    the page map (on the card the fused kernel or the KV dequant reads
+    through it; on the CPU the plain version gathers the pages); a bf16 cache is gathered into rows
     (``kv_dequant.gather_pages``, position p of row b at index p) and read
     by the slot pool's masked partials, so the result is the slot pool's
     for the same tokens."""

@@ -13,7 +13,9 @@ On the CPU each wrapper runs its plain version:
     row's max) of the reference's ``decode_attention`` over a packed kv4 and
     kv8 cache with empty slots and ``pos`` short of the last slot, per (batch
     row, head), also under a logit soft-cap and a sliding window; and ``Engine.generate`` at kv4 and kv8 gives the reference's
-    greedy tokens, with one fused-attention call a layer and step.
+    greedy tokens on tiny-160k and on tiny-10m (head dim 56, which the
+    fused kernel does not take), with one ``decode_attention_packed`` call
+    a layer and step.
 The wrappers' refusals show on the CPU.  Cases marked ``cuda`` hold each
 kernel against its plain version on the card and skip without one.
 """
@@ -312,43 +314,73 @@ def test_decode_attention_packed_refuses_what_it_does_not_take():
         tka.decode_attention_packed(qt[:, :, :24], c, 4, spec)
 
 
+#: the reference's decode-consistency bar (tests/test_decode_consistency.py)
+LOGIT_TOL = 0.08
+
+
 @functools.lru_cache(maxsize=None)
-def _ref_greedy(name, kv, S, N):
+def _ref_model(name, kv, S, N):
+    """The reference's weights (PRNGKey(0)), prompts, prefill and decode
+    step, compiled without excess precision, so that the reference rounds
+    to bf16 where its code does, as the port does."""
     from repro.configs.registry import get_arch as r_get_arch
 
     rcfg = r_get_arch(name).with_kv_quant(kv)
     params = jax.jit(lambda k: rlm.init_params(k, rcfg))(jax.random.PRNGKey(0))
     prompts = np.random.RandomState(4).randint(0, rcfg.vocab_size, (2, S)).astype(np.int32)
-    logits, caches = jax.jit(lambda p, t: rlm.prefill(p, t, rcfg, cache_len=S + N))(
-        params, jnp.asarray(prompts))
-    ds = jax.jit(lambda p, t, c, pos: rlm.decode_step(p, t, c, pos, rcfg))
-    toks = [jnp.argmax(logits, -1).astype(jnp.int32)]
+    jit = functools.partial(jax.jit, compiler_options={"xla_allow_excess_precision": False})
+    pf = jit(lambda p, t: rlm.prefill(p, t, rcfg, cache_len=S + N))
+    ds = jit(lambda p, t, c, pos: rlm.decode_step(p, t, c, pos, rcfg))
+    return params, prompts, pf, ds
+
+
+def _ref_logits(name, kv, S, N, feed=None):
+    """The reference's greedy tokens [2, N] and the logits [2, N, V] each
+    step chose from; with ``feed`` [2, N] (teacher forcing) each decode step
+    takes feed's previous token instead of its own."""
+    params, prompts, pf, ds = _ref_model(name, kv, S, N)
+    logits, caches = pf(params, jnp.asarray(prompts))
+    out, toks = [np.asarray(logits.astype(jnp.float32))], [jnp.argmax(logits, -1)]
     for t in range(1, N):
-        logits, caches = ds(params, toks[-1], caches, jnp.int32(S + t - 1))
-        toks.append(jnp.argmax(logits, -1).astype(jnp.int32))
-    return params, prompts, np.stack([np.asarray(t) for t in toks], 1)
+        prev = toks[-1] if feed is None else jnp.asarray(feed[:, t - 1])
+        logits, caches = ds(params, prev.astype(jnp.int32), caches, jnp.int32(S + t - 1))
+        out.append(np.asarray(logits.astype(jnp.float32)))
+        toks.append(jnp.argmax(logits, -1))
+    return np.stack([np.asarray(t) for t in toks], 1), np.stack(out, 1)
 
 
+@pytest.mark.parametrize("name", ["tiny-160k", "tiny-10m"])
 @pytest.mark.parametrize("kv", [4, 8])
-def test_engine_greedy_tokens_at_kv4_kv8(kv, monkeypatch):
+def test_engine_greedy_tokens_at_kv4_kv8(kv, name, monkeypatch):
     """The whole slice at small size: the port's Engine over the
-    reference's weights at a packed cache gives the reference's greedy
-    tokens, reading the cache through one fused-attention call a layer and
-    decode step."""
+    reference's weights at a packed cache picks the reference's greedy
+    tokens, reading the cache through one decode_attention_packed call a
+    layer and decode step (on the card tiny-160k's go to the fused kernel,
+    tiny-10m's, head dim 56, to the routed read).  Each port token is the
+    reference's argmax, teacher-forced on the port's tokens, or within the
+    reference's decode-consistency bar of it: tiny-10m's random logits hold
+    ties within a bf16 ulp (0.0078 at its first token), where the port's
+    logits, within the bar of the reference's (tests/test_torch_model.py),
+    may pick the other token.  tiny-160k's tokens are the reference's free
+    greedy run, token for token."""
     from repro_torch.configs import get_arch
     from repro_torch.serving import Engine
 
-    name, S, N = "tiny-160k", 12, 8
-    params, prompts, ref = _ref_greedy(name, kv, S, N)
+    S, N = 12, 8
+    params, prompts, _, _ = _ref_model(name, kv, S, N)
     cfg = get_arch(name).with_kv_quant(kv)
     calls = []
     real = tka.decode_attention_packed
     monkeypatch.setattr(tka, "decode_attention_packed",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     ported = interop.params_from_reference(jax.tree.map(np.asarray, params), device="cpu")
-    toks = Engine(ported, cfg, max_seq_len=S + N, device="cpu").generate(prompts, N)
-    np.testing.assert_array_equal(toks.numpy(), ref)
+    toks = Engine(ported, cfg, max_seq_len=S + N, device="cpu").generate(prompts, N).numpy()
     assert len(calls) == cfg.n_layers * (N - 1)
+    if name == "tiny-160k":
+        np.testing.assert_array_equal(toks, _ref_logits(name, kv, S, N)[0])
+    ref_toks, logits = _ref_logits(name, kv, S, N, feed=toks)
+    chosen = np.take_along_axis(logits, toks[..., None], -1)[..., 0]
+    assert (logits.max(-1) - chosen <= LOGIT_TOL).all(), (toks, ref_toks)
 
 
 # ---------------------------------------------------------------------------

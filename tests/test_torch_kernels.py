@@ -9,7 +9,8 @@ held against the reference's oracles here:
   * KV dequant (B2) and ``encode_rows``: bit-exact;
   * blockwise encode (B3): codes and scale bits identical to the reference's
     Pallas kernel in interpret mode and to its ``quantize_blocks_ref``, over
-    bits 3..8 x {int, float, dynamic, quantile} x B {16, 48, 64, 1024}, on
+    bits 3..8 x {int, float, dynamic, quantile} x B {16, 32, 33, 48, 64,
+    128, 256, 1024}, on
     inputs that hold codebook values and exact midpoints.
 One interpret-mode case of B1 and B2 (marked ``kernel``) is held against
 the plain version, as the reference's own tests run them; B3's whole grid
@@ -281,7 +282,9 @@ def test_kv_dequant_plain_matches_pallas_interpret():
     assert _bits_equal(tkv.dequant_rows(_t(p), _t(s), t_spec, 128), _t(out))
 
 
-ENCODE_BLOCKS = (16, 48, 64, 1024)
+# the paper sweep's blocks (32 to 1024; paper/fig3_blocksize.py) and 16, 48
+# and an odd 33, which the CUDA kernel encodes with its one-warp body
+ENCODE_BLOCKS = (16, 32, 33, 48, 64, 128, 256, 1024)
 
 
 def _encode_input(cb: np.ndarray, block: int, seed: int) -> np.ndarray:

@@ -29,7 +29,15 @@ where the card is (a machine without JAX):
 * the f32 GEMM (``qgemm_simt``) against ``qmatmul_plain`` at the paper
   ladder's 12 matrices (M = 1024) and ragged shapes, within 2e-5 relative
   (f32 summation order), and a row's result bit-identical alone and inside
-  a larger call (its K split depends on N and K only).
+  a larger call (its K split depends on N and K only);
+* the routed read of a packed cache (shapes the fused attention does not
+  take: head dims 56 and 120, a 40,960-slot cache at Qwen2-7B's heads)
+  against its plain version within 2^-6 of each row's max, idle rows 0,
+  paged bit-identical to unpaged, the fused kernel's wrapper raising there;
+  the KV dequant kernel bit-exact (one leaf, K and V in one launch, pages
+  through a map); the flat encode bit-exact at blocks of 1 to 2048 on
+  midpoints, ±0 and subnormals; tiny-10m at kv4 and kv8 through the
+  Engine (graph tokens = eager ones) and the Server (pages = slots).
 """
 
 import numpy as np
@@ -521,3 +529,220 @@ def test_gemm_f32_rows_do_not_depend_on_the_call():
         for lo, hi in ((0, 9), (100, 357), (1000, 1024)):
             alone = tqm.qmatmul_gemm(xp[lo:hi].contiguous(), packed, scales, op.codebook, **kw)
             assert torch.equal(alone, big[lo:hi]), (K, N, lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# the routed read of a packed cache (kernels/kv_attention.fused_takes says
+# the fused kernel does not take the shapes), the KV dequant that carries
+# it, and the flat encode (csrc/quantize.cu)
+# ---------------------------------------------------------------------------
+
+def _routed_case(bits, B, S, K, G, Dh, seed):
+    """A packed cache on the card whose rows have their own lengths (empty
+    slots past them and 10 % holes), q, and [B] positions, row 1 idle."""
+    rs = np.random.RandomState(seed)
+    spec = tkv.KVQuantSpec(bits=bits, block_size=64, dtype_name="float")
+    cache = {}
+    for name in ("k", "v"):
+        x = torch.tensor(rs.randn(B, S, K * Dh), dtype=torch.bfloat16, device="cuda")
+        cache[f"{name}_packed"], cache[f"{name}_scales"] = tkv.encode_rows(x, spec)
+    lens = rs.randint(S // 2, S + 1, B)
+    ar = np.arange(S)
+    pos_arr = np.stack([np.where(ar < n, ar, -1) for n in lens])
+    pos_arr[rs.rand(B, S) < 0.1] = -1
+    cache["pos"] = torch.from_numpy(pos_arr.astype(np.int32)).cuda()
+    pos = torch.from_numpy((lens - 1).astype(np.int32)).cuda()
+    if B > 1:
+        pos[1] = -1
+    q = torch.tensor(rs.randn(B, K * G, Dh) * 2, dtype=torch.bfloat16, device="cuda")
+    return q, cache, pos, spec
+
+
+def _to_pages(cache, ps, seed):
+    """The [B, S] rows of a cache in pages of ps under a shuffled page map,
+    the trash page 0 empty."""
+    B, S = cache["pos"].shape
+    P = S // ps
+    ids = np.random.RandomState(seed).permutation(np.arange(1, B * P + 2))[: B * P]
+    page_map = torch.from_numpy(ids.reshape(B, P).astype(np.int32)).cuda()
+    out = {}
+    for key, leaf in cache.items():
+        pages = torch.zeros((B * P + 2, ps) + tuple(leaf.shape[2:]), dtype=leaf.dtype,
+                            device="cuda")
+        if key == "pos":
+            pages.fill_(-1)
+        pages[page_map.reshape(-1).long()] = leaf.reshape((B * P, ps) + tuple(leaf.shape[2:]))
+        out[key] = pages
+    return out, page_map
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,B,S,K,G,Dh", [
+    (4, 4, 304, 8, 1, 56), (8, 4, 304, 8, 1, 56),       # tiny-10m's heads
+    (4, 3, 288, 8, 4, 120), (8, 2, 160, 2, 8, 120),      # h2o-danube-3-4b's head dim, G 4 and 8
+    (4, 1, 40960, 4, 7, 128)])                          # Qwen2-7B's heads, past the kernel
+def test_routed_read_matches_plain(bits, B, S, K, G, Dh):
+    """decode_attention_packed takes the routed read (one KV dequant launch,
+    no fused attention), within 2^-6 of each row's max of the plain version,
+    idle rows exactly 0; the same cache in pages of 16 gives the rows' result
+    bit for bit; the fused kernel's wrapper raises before any launch."""
+    _need_cuda()
+    q, cache, pos, spec = _routed_case(bits, B, S, K, G, Dh, seed=bits + S + Dh)
+    assert not tka.fused_takes(B, K * G, Dh, S, spec, K * Dh)
+    before = launches.snapshot()
+    attn0, kv0 = tka.decode_attention_packed_cuda.launches, tkv.dequant_kv_cuda.launches
+    out = tka.decode_attention_packed(q, cache, pos, spec)
+    assert tka.decode_attention_packed_cuda.launches == attn0
+    assert tkv.dequant_kv_cuda.launches == kv0 + 1
+    plain = tka.decode_attention_packed_plain(q, cache, pos, spec).float()
+    torch.cuda.synchronize()
+    gap = (out.float() - plain).abs().amax(-1)
+    assert bool(torch.isfinite(out).all())
+    assert bool((gap <= ATT_TOL * plain.abs().amax(-1)).all()), float(gap.max())
+    if B > 1:
+        assert not bool(out[1].abs().any()) and not bool(plain[1].abs().any())
+    paged, page_map = _to_pages(cache, 16, seed=S)
+    out_p = tka.decode_attention_packed(q, paged, pos, spec, page_map=page_map, page_size=16)
+    torch.cuda.synchronize()
+    assert torch.equal(out_p.view(torch.int16), out.view(torch.int16))
+    launched = launches.snapshot()
+    with pytest.raises(ValueError, match="decode_attention_packed_cuda"):
+        tka.decode_attention_packed_cuda(q, cache, pos, spec)
+    with pytest.raises(ValueError, match="decode_attention_packed_cuda"):
+        tka.decode_attention_packed_cuda(q, paged, pos, spec, page_map=page_map, page_size=16)
+    assert launches.snapshot() == launched
+    assert sum(launches.snapshot()) - sum(before) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("feat,block", [(448, 64), (960, 64), (48, 6), (40, 8), (512, 32)])
+def test_kv_dequant_kernel_bit_exact_rows_pages_and_kv(bits, feat, block):
+    """The KV dequant kernel against dequant_rows_ref: one leaf of 37 rows,
+    K and V of [3, 37] rows in one launch, and K and V of pages of 8
+    through a shuffled page map (3 rows of 5 pages, a page shared), bit for
+    bit.  The feature widths give 1, 2 and 4 words a thread, and blocks of 6
+    split words."""
+    _need_cuda()
+    if feat % (32 // bits):
+        pytest.skip(f"{feat} features do not fill {bits}-bit words")
+    spec = tkv.KVQuantSpec(bits=bits, block_size=block, dtype_name="float")
+    rs = np.random.RandomState(bits + feat + block)
+
+    def leaf(*lead):
+        x = torch.tensor(rs.randn(*lead, feat) * rs.lognormal(0, 1, lead + (1,)),
+                         dtype=torch.bfloat16, device="cuda")
+        return tkv.encode_rows(x, spec)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    p, s = leaf(37)
+    assert same(tkv.dequant_rows_cuda(p, s, spec, feat), tkv.dequant_rows_ref(p, s, spec, feat))
+    (kp, ks), (vp, vs) = leaf(3, 37), leaf(3, 37)
+    before = tkv.dequant_kv_cuda.launches
+    k, v = tkv.dequant_kv_cuda([(kp, ks), (vp, vs)], spec, feat)
+    assert tkv.dequant_kv_cuda.launches == before + 1
+    assert same(k, tkv.dequant_rows_ref(kp, ks, spec, feat))
+    assert same(v, tkv.dequant_rows_ref(vp, vs, spec, feat))
+    (kp, ks), (vp, vs) = leaf(17, 8), leaf(17, 8)
+    page_map = torch.from_numpy(rs.permutation(np.arange(1, 17))[:15].reshape(3, 5)
+                                .astype(np.int32)).cuda()
+    page_map[2, 0] = page_map[0, 0]
+    cache = {"k_packed": kp, "k_scales": ks, "v_packed": vp, "v_scales": vs}
+    k, v = tkv.dequant_kv(cache, spec, feat, page_map)
+    kr, vr = tkv.dequant_kv_plain(cache, spec, feat, page_map)
+    assert tuple(k.shape) == (3, 40, feat) and same(k, kr) and same(v, vr)
+    assert same(tkv.dequant_pages(kp, ks, page_map, spec, feat), kr)
+
+
+def _encode_cases(cb: np.ndarray, block: int, rs) -> np.ndarray:
+    """Blocks [n, block] whose absmax is a power of two s and whose other
+    values are the codebook's values and midpoints times s (x / s hits them
+    exactly), blocks of +0, of -0 and of subnormals, blocks mixing ±0 and
+    subnormals with a normal value, then random blocks of mixed scale."""
+    special = np.concatenate([cb, (cb[:-1] + cb[1:]) / np.float32(2.0)]).astype(np.float32)
+    special = np.concatenate([special, -special])
+    rows = []
+    if block == 1:
+        rows += [[v] for v in special]
+    else:
+        for i in range(0, special.size, block - 1):
+            s = np.float32(2.0 ** rs.randint(-6, 3))
+            blk = np.concatenate([[np.float32(1.0)], special[i: i + block - 1]]) * s
+            rows.append(np.pad(blk, (0, block - blk.size)))
+    tiny = np.float32(1e-40) * np.arange(1, block + 1, dtype=np.float32)
+    rows += [np.zeros(block, np.float32), -np.zeros(block, np.float32), tiny, -tiny,
+             np.where(np.arange(block) % 2, -np.float32(0.0), tiny)]
+    mixed = np.where(np.arange(block) % 3 == 0, -np.float32(0.0), tiny)
+    mixed[-1] = np.float32(0.75)
+    rows.append(mixed)
+    n_rand = max(8, 4096 // block)
+    rows += list((rs.randn(n_rand, block) * rs.lognormal(0, 2, (n_rand, 1))).astype(np.float32))
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_quantize_blocks_cuda_bit_exact_over_blocks(bits):
+    """The flat encode against its plain version, codes and scale bits,
+    over blocks that take its vector body (32 to 1024, and 100: a group of
+    25 lanes in 32) and its one-warp body (1, 3 and 2048), a codebook of
+    each data type, on values at the codebook's points and midpoints, ±0
+    and subnormals; and x off 16 bytes (the one-warp body again)."""
+    _need_cuda()
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import quantize as tquant
+
+    rs = np.random.RandomState(bits)
+    before = tquant.quantize_blocks_cuda.launches
+    n = 0
+    for dtype in ("int", "float", "dynamic", "quantile"):
+        base = torch.tensor(rs.standard_t(4, 4096).astype(np.float32), device="cuda")
+        cb = make_codebook(dtype, bits, tensor=base)
+        for block in (1, 3, 32, 64, 100, 128, 256, 1024, 2048):
+            xb = torch.from_numpy(_encode_cases(cb.cpu().numpy(), block, rs)).cuda()
+            for x in (xb, torch.cat([torch.zeros(1, device="cuda"), xb.reshape(-1)])[1:]
+                      .reshape(xb.shape)):
+                kc, ks = tquant.quantize_blocks_cuda(x, cb)
+                pc, ps = tquant.quantize_blocks_plain(x, cb)
+                torch.cuda.synchronize()
+                assert torch.equal(kc, pc), (dtype, block, x.data_ptr() % 16)
+                assert torch.equal(ks.view(torch.int32), ps.view(torch.int32)), (dtype, block)
+                n += 1
+    assert tquant.quantize_blocks_cuda.launches == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [4, 8])
+def test_tiny_10m_decodes_from_a_packed_cache(kv):
+    """tiny-10m (head dim 56) at kv4 and kv8: the Engine's captured steps
+    give its eager steps' tokens, each step one KV dequant launch a layer
+    and no fused attention, counted at each replay; the Server on slots and
+    on pages of 16 streams the same tokens for every request."""
+    _need_cuda()
+    cfg = get_arch("tiny-10m").with_kv_quant(kv)
+    params = _q4_params(cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(kv))
+    n = 16
+    attn0, kv0 = tka.decode_attention_packed_cuda.launches, tkv.dequant_kv_cuda.launches
+    graph = Engine(params, cfg, max_seq_len=16 + n, device="cuda").generate(prompts, n)
+    torch.cuda.synchronize()
+    assert tka.decode_attention_packed_cuda.launches == attn0
+    # the capture's warm-up step and n - 1 replays, a launch a layer each
+    assert tkv.dequant_kv_cuda.launches - kv0 == n * cfg.n_layers
+    assert torch.equal(graph, _eager(params, cfg, prompts, n, 0.0, None, 16 + n))
+    rs = np.random.RandomState(kv)
+    reqs = [rs.randint(0, cfg.vocab_size, L) for L in (40, 100, 23, 70)]
+
+    def serve(**kw):
+        srv = Server(params, cfg, num_slots=3, max_seq_len=256, device="cuda", **kw)
+        ids = [srv.submit(p, 12, arrival_time=float(i)) for i, p in enumerate(reqs)]
+        res = srv.run_until_drained()
+        return [res[i] for i in ids]
+
+    slot = serve()
+    assert [len(t) for t in slot] == [12] * len(reqs)
+    assert serve(paged=True, page_size=16) == slot
+    assert tka.decode_attention_packed_cuda.launches == attn0
