@@ -12,9 +12,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                bf16 ulp at the max) at Qwen2-7B's shapes and the main
                paths' row counts (1 to 8 rows, the Server's buckets and
                chunks, the Engine's prefill; the decode GEMV also at 3, 5
-               and 6 bits), both GEMVs' (every width on the tensor cores;
-               on the CUDA cores f32 x and bf16 x whose scale blocks split
-               a group of 4 codes, each case gated on its launch) and
+               and 6 bits), both GEMVs' (every width on the tensor cores in
+               bf16; qmatmul.cu's GEMV, TF32 on the tensor cores, on bf16 x
+               whose scale blocks split a group of 4 codes and on f32 x at
+               every width, 1 to 8 rows, rows as stored with word tails and
+               odd blocks, kernel_bench's and Qwen2-7B's shapes, each case
+               gated on its launch, and a row bit-identical alone and among
+               8 rows) and
                the tensor-core GEMM's edges (3 to 8 bits) and split-K
                shapes and the paper sweep's shapes, the KV dequant
                (bit-exact: one leaf, a layer's K and V in one launch, and
@@ -91,13 +95,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                fused GEMM (fig2: k in {3,4,5,6,8,16}; fig3 data types and
                block sizes); gates training progress and 8-bit perplexity,
                and records the flat encodes' inputs for the times phase.
+  6a. bench  — paper/kernel_bench.py through its entry point (gate off, as
+               the suite runner calls it, with its kernel smoke): f32 x, M,
+               K, N = 8, 2048, 2048 at int3, int4, float4 and int8, block
+               64; every fused call one launch of qmatmul.cu's GEMV
+               (qmatmul_gemv_simt) and no other kernel, the smoke within
+               2e-5 of the oracle; prints each row's us and the speedups.
   7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed; B1
                also per shape, beside torch.matmul per shape, and the
-               decode GEMV beside the CUDA-core GEMV on the same operands,
-               and the CUDA-core GEMV on f32 x (what it serves) beside
-               torch.matmul on the same f32 operands; the f32 GEMM at the
+               decode GEMV beside qmatmul.cu's GEMV on the same operands,
+               and qmatmul.cu's GEMV on f32 x (what it serves) at 1, 4 and 8
+               rows, each beside torch.matmul on the same f32 operands and
+               its bound (bytes, or 3xTF32's products); the f32 GEMM at the
                paper sweep's shapes beside torch.matmul in f32;
                the encode beside the chain it replaced, the fused attention
                beside the path it replaced at 288 and 4096 slots, and there
@@ -186,6 +197,8 @@ ROUTED_PROMPT_LENS, ROUTED_NEW_TOKENS = (16, 200), (8, 32)
 # the first power-of-two cache the fused attention refuses at Qwen2-7B's
 # heads (its shared memory holds 39,808 slots at kv4): read by the route
 LONG_ROUTED = 40960
+# 3xTF32: three TF32 products for each f32 one, on the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 def emit(obj) -> None:
@@ -232,8 +245,10 @@ def main() -> int:
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
     paper = paper_path(torch, dev)
+    bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
-    main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"])
+    main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
+                   bench["launches"])
     del run
 
     kernels = []
@@ -251,8 +266,8 @@ def main() -> int:
             "source": t["source"], "replaces": t["replaces"],
             # the main paths' launches: serving Qwen2-7B through the Engine
             # (its quantization included), through the Server on the slot
-            # pool and on pages, tiny-10m's routed read (Engine and Server)
-            # and the paper's sweep
+            # pool and on pages, tiny-10m's routed read (Engine and Server),
+            # kernel_bench and the paper's sweep
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -295,6 +310,12 @@ ODD_TC_BLOCKS = {3: (12, 20, 40), 4: (16, 24, 40), 5: (12, 20, 44), 6: (4, 12, 2
 #: scale blocks that split a group of 4 codes (at 4 bits a word of 8) by
 #: width, which send bf16 x to the CUDA-core GEMV
 SIMT_BF16_BLOCKS = {3: (6, 10), 4: (12, 20), 5: (6, 10), 6: (6, 10), 7: (6, 10), 8: (6, 10)}
+#: the f32 GEMV's scale blocks: whole groups of its runs at some widths (16,
+#: 32, 64: the scale factored out of a group's products), blocks that its
+#: groups or words straddle, and odd ones (x rows off 16 bytes)
+F32_GEMV_BLOCKS = (16, 32, 64, 6, 10, 12, 20)
+#: the f32 GEMV's row counts at Qwen2-7B's shapes (times phase: the same)
+F32_GEMV_MS = (1, BATCH, 8)
 
 
 def _odd_k(bits: int, block: int) -> int:
@@ -318,6 +339,7 @@ def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import qmatmul as qk
     from repro_torch.kernels import quantize as quantk
+    from repro_torch.paper import kernel_bench as kb
 
     g = _gen(torch, dev, SEED + 1)
     worst = {"gemv": 0.0, "gemv_simt": 0.0, "gemm": 0.0, "gemm_simt": 0.0, "kv": 0.0,
@@ -376,6 +398,25 @@ def check_kernels(torch, dev) -> dict:
                 n_simt += 5
     require(qk.qmatmul_gemv_simt.launches - before_simt == n_simt,
             "the CUDA-core GEMV's bf16 cases did not launch it once per case")
+    # f32 x, the GEMV of qmatmul.cu on every route it has: every width and
+    # row count to 8, rows as stored with word tails and x rows off 16
+    # bytes, blocks of whole groups (the scale factored out) and blocks that
+    # groups or words straddle; then kernel_bench's shape
+    before_simt = qk.qmatmul_gemv_simt.launches
+    n_simt = 0
+    for bits in range(3, 9):
+        for block in F32_GEMV_BLOCKS:
+            for dtype in ("int", "float", "dynamic"):
+                check_b1(tuple(range(1, qk.GEMV_MAX_M + 1)), 200, 70, bits, dtype, block,
+                         torch.float32, False)
+                n_simt += qk.GEMV_MAX_M
+            check_b1((1, 8), 1000, 17, bits, "float", block, torch.float32, False)
+            n_simt += 2
+    for bits, dtype in kb.TAGS:   # kernel_bench's weights, rows as stored
+        check_b1((1, 4, kb.M), kb.K, kb.N, bits, dtype, 64, torch.float32, False)
+        n_simt += 3
+    require(qk.qmatmul_gemv_simt.launches - before_simt == n_simt,
+            "the f32 GEMV cases did not launch qmatmul_gemv_simt once per case")
     # the tensor-core GEMV's edges: every row count it instantiates nothing
     # for (it always multiplies 8), column tails around its 16-column
     # blocks, K tails off its chunks of 16 words (n_words % 16 != 0), at
@@ -405,12 +446,30 @@ def check_kernels(torch, dev) -> dict:
     # Server's bucketed prefills (16-512) and chunks, the Engine's prefill
     server_ms = sorted({1 << i for i in range(4, SERVER_PROMPT_LENS[1].bit_length())}
                        | {SERVER_CHUNK})
+    before_simt = qk.qmatmul_gemv_simt.launches
     for K, N in shapes:
         check_b1((1, BATCH, SERVER_SLOTS, *server_ms, BATCH * PROMPT), K, N, 4, "float", 64,
                  torch.bfloat16, True)
-        check_b1((BATCH,), K, N, 4, "float", 64, torch.float32, False)
+        check_b1(F32_GEMV_MS, K, N, 4, "float", 64, torch.float32, False)
         for bits in LOW_BITS:   # the bits phase's decode GEMVs and prefill
             check_b1((1, BATCH, BATCH * PROMPT), K, N, bits, "float", 64, torch.bfloat16, True)
+    require(qk.qmatmul_gemv_simt.launches - before_simt == len(shapes) * len(F32_GEMV_MS),
+            "Qwen2-7B's shapes with f32 x did not launch qmatmul_gemv_simt once per case")
+    # a row's result does not depend on the rows sharing the call: row 0 of
+    # an 8-row call equals the 1-row call bit for bit, on every f32 route
+    for (K, N), bits, dtype, block in ([(kn, 4, "float", 64) for kn in shapes]
+                                       + [((kb.K, kb.N), b, dt, 64) for b, dt in kb.TAGS]
+                                       + [((200, 70), b, "int", 6) for b in (3, 4, 6)]):
+        w = torch.randn((K, N), generator=g, device=dev) * 0.05
+        op = ops.prepare_operand(w, bits=bits, dtype=dtype, block_size=block)
+        x8 = torch.randn((qk.GEMV_MAX_M, op.k_dim), generator=g, device=dev)
+        kw = dict(bits=bits, block_size=block)
+        y8 = qk.qmatmul_gemv_simt(x8, op.packed, op.scales, op.codebook, **kw)
+        y1 = qk.qmatmul_gemv_simt(x8[:1].contiguous(), op.packed, op.scales, op.codebook, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(y8[:1], y1), f"f32 GEMV {K}x{N} {dtype}{bits} b{block}: row 0 "
+                                         f"differs alone and among {qk.GEMV_MAX_M} rows")
+        n_checks += 1
     # the tensor-core kernel's edges: rows around its 64-row slabs and its
     # 128- and 256-row tiles, columns around its 128-column tiles and off
     # 16-byte rows, every bit width with blocks that words straddle; the
@@ -1890,6 +1949,62 @@ def paper_path(torch, dev) -> dict:
     return {"launches": counts, "sweep_s": t2 - t1, "flat_items": flat}
 
 
+def bench_path(torch, dev) -> dict:
+    """Phase 6a: paper/kernel_bench.py on the card through its entry point,
+    gate=False as the suite runner calls it, with its kernel smoke.  Each of
+    its fused calls must be one launch of the f32 GEMV (qmatmul_gemv_simt)
+    and no other kernel, each dequant_einsum call none, and the smoke within
+    its 2e-5 (kernel_bench asserts it)."""
+    from repro_torch.paper import kernel_bench as kb
+
+    def log(*args):
+        print(*args, file=sys.stderr, flush=True)
+
+    real, calls = kb.linear, []
+
+    def counted(x, w, bias=None, *, mode="dequant_einsum"):
+        before = _counts()
+        y = real(x, w, bias, mode=mode)
+        after = _counts()
+        calls.append((mode, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        return y
+
+    _reset_counts()
+    kb.linear = counted
+    t0 = time.perf_counter()
+    try:
+        rows, out = kb.run(log=log, smoke=True, gate=False, device=dev)
+    finally:
+        kb.linear = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    fused = [d for mode, d in calls if mode == "fused"]
+    # a warm-up and 30 timed calls a weight at least (common.timed_robust)
+    require(len(fused) >= 31 * len(kb.TAGS)
+            and all(d == {"gemv": 1, "gemv_simt": 1} for d in fused),
+            f"kernel_bench's fused calls are not one qmatmul_gemv_simt launch each: "
+            f"{[d for d in fused if d != {'gemv': 1, 'gemv_simt': 1}][:3]}")
+    require(all(not d for mode, d in calls if mode != "fused"),
+            "a dequant_einsum call of kernel_bench launched a GEMV")
+    require(counts["gemv_simt"] == len(fused) + 1 and counts["gemv_tc"] == 0,
+            f"kernel_bench (and its smoke) launched {counts}")
+    names = [r[0] for r in rows]
+    tags = [f"{dt}{b}" for b, dt in kb.TAGS]
+    require(names == ["kernel/dense_f32"] + [f"kernel/{k}_{t}" for t in tags
+                                             for k in ("dequant_einsum", "fused")]
+            + ["kernel/cuda_kernel_smoke"], f"kernel_bench's rows: {names}")
+    smoke = out["kernel_smoke"]
+    require(smoke["ok"] and smoke["rel_err"] < kb.SMOKE_REL_TOL,
+            f"kernel_bench's kernel smoke: {smoke}")
+    emit({"phase": "bench", "shape": out["shape"], "weights_block": 64,
+          "us_per_call": {r[0]: r[1] for r in rows},
+          "speedup": {t: out["fused"][t]["speedup"] for t in tags},
+          "kernel_smoke": smoke, "fused_calls": len(fused), "launches": counts,
+          "seconds": seconds, "meta": out["meta"]})
+    return {"launches": counts}
+
+
 class flat_encodes:
     """Records (x_blocks, codebook) of every flat-item encode on the card
     (kernels/quantize.quantize_blocks, which core/blockwise.encode and
@@ -1997,16 +2112,20 @@ def _b1_calls(torch, dev, qparams, cfg, M, with_head, g):
     return calls, qts, nbytes, flops
 
 
-def _whole_words(calls, x_dtype):
-    """The same launches with x in x_dtype and K padded to whole packed
-    words (kernels/qmatmul.pad_to_whole_words), as the CUDA-core GEMV pads
-    them itself: padded here once, so that its times hold no copy of the
-    weight (at 4 bits, block 64, the padding is none)."""
+def _pad_words(xp, packed, scales, op):
+    """The operands with K padded to whole packed words and scale blocks
+    (kernels/qmatmul.pad_k to lcm(cpw, B)): a copy of the weight at 3, 5 and
+    6 bits, none at 4 bits, block 64."""
     from repro_torch.kernels import qmatmul as qk
 
-    return [(*qk.pad_to_whole_words(xp.to(x_dtype), packed, scales, bits=op.bits,
-                                    block_size=op.block_size), op, x.to(x_dtype))
-            for xp, packed, scales, op, x in calls]
+    return qk.pad_k(xp, packed, scales, math.lcm(32 // op.bits, op.block_size), bits=op.bits,
+                    block_size=op.block_size)
+
+
+def _whole_words(calls):
+    """The same launches with K padded to whole packed words beforehand
+    (``_pad_words``), so that their times hold no copy of the weight."""
+    return [(*_pad_words(xp, packed, scales, op), op, x) for xp, packed, scales, op, x in calls]
 
 
 def _b1_run(calls, fn):
@@ -2034,8 +2153,7 @@ def _time_step_gemvs(torch, dev, cfg, qparams, g) -> dict:
 
     calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, BATCH, True, g)
     ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv), 10)
-    simt_ms = _time_ms(torch, _b1_run(_whole_words(calls, torch.bfloat16),
-                                      qk.qmatmul_gemv_simt), 5)
+    simt_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv_simt), 5)
     plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
     dense = [dequantize_tensor(qt, out_dtype=torch.bfloat16) for qt in qts]
     library_ms = _time_ms(torch, _lib_run(torch, calls, dense), 10)
@@ -2052,7 +2170,7 @@ def _time_prefill_gemms(torch, dev, cfg, qparams, g) -> dict:
     path runs them (rows as stored in; the launcher pads K to whole words,
     a copy of each weight at 3, 5 and 6 bits), beside the same launches on
     rows padded beforehand (no copy in the time) and that copy alone
-    (kernels/qmatmul.pad_to_whole_words over the 196 weights)."""
+    (``_pad_words`` over the 196 weights)."""
     from repro_torch.kernels import qmatmul as qk
 
     calls, _, _, _ = _b1_calls(torch, dev, qparams, cfg, BATCH * PROMPT, False, g)
@@ -2060,10 +2178,10 @@ def _time_prefill_gemms(torch, dev, cfg, qparams, g) -> dict:
 
     def copy():
         for xp, packed, scales, op, _ in calls:
-            qk.pad_to_whole_words(xp, packed, scales, bits=op.bits, block_size=op.block_size)
+            _pad_words(xp, packed, scales, op)
 
     copy_ms = _time_ms(torch, copy, 3)
-    padded = _whole_words(calls, torch.bfloat16)
+    padded = _whole_words(calls)
     padded_ms = _time_ms(torch, _b1_run(padded, qk.qmatmul_gemm), 3)
     del calls, padded
     torch.cuda.empty_cache()
@@ -2094,8 +2212,7 @@ def time_kernels(torch, dev, run, paper) -> dict:
              qk.qmatmul_gemm, None, 3)):
         calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, M, with_head, g)
         ms = _time_ms(torch, _b1_run(calls, fn), reps)
-        old_calls = _whole_words(calls, torch.bfloat16) if old else None
-        old_ms = _time_ms(torch, _b1_run(old_calls, old), reps) if old else None
+        old_ms = _time_ms(torch, _b1_run(calls, old), reps) if old else None
         plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
         dense = [dequantize_tensor(qt, out_dtype=torch.bfloat16) for qt in qts]
         library_ms = _time_ms(torch, _lib_run(torch, calls, dense), reps)
@@ -2121,10 +2238,10 @@ def time_kernels(torch, dev, run, paper) -> dict:
                                      "calls": len(sub)}
             if old:
                 per_shape[f"{K}x{N}"]["cuda_core_gemv_ms_per_call"] = (
-                    _time_ms(torch, _b1_run([old_calls[i] for i in pick], old), reps) / len(sub))
-        del calls, old_calls, dense
+                    _time_ms(torch, _b1_run(sub, old), reps) / len(sub))
+        del calls, dense
         torch.cuda.empty_cache()
-    out["qmatmul_gemv_simt"] = _time_gemv_f32(torch, dev, cfg, qparams, counts, g)
+    out["qmatmul_gemv_simt"] = _time_gemv_f32(torch, dev, cfg, qparams, counts["gemv_simt"], g)
 
     out["kv_dequant"] = _time_kv_dequant(torch, dev, cfg, counts["kv"], g)
     out["kv_decode_attention"] = _time_attention(torch, dev, cfg, counts["attn"], g)
@@ -2196,30 +2313,40 @@ def _time_kv_dequant(torch, dev, cfg, launches, g) -> dict:
                    f"one, {PROMPT + NEW_TOKENS} slots)", "by_slots": by_slots}
 
 
-def _time_gemv_f32(torch, dev, cfg, qparams, counts, g) -> dict:
-    """The CUDA-core GEMV on what it serves, f32 x (gemv_route sends every
-    bf16 serving operand to the tensor cores): a decode step's 197 matrices
-    (4-bit float, block 64) with BATCH f32 rows, beside its plain version and
-    torch.matmul on the same f32 operands (the weights dequantized to f32)."""
+def _time_gemv_f32(torch, dev, cfg, qparams, launches, g) -> dict:
+    """qmatmul.cu's GEMV on what it serves, f32 x (gemv_route sends every
+    bf16 serving operand to qgemv_sm90.cu): a decode step's 197 matrices
+    (4-bit float, block 64, rows as stored) at each of F32_GEMV_MS rows,
+    beside its plain version, torch.matmul on the same f32 operands (the
+    weights dequantized to f32) and its bound: the bytes, or the products
+    at 3xTF32's rate."""
     from repro_torch.core.qtensor import dequantize_tensor
     from repro_torch.kernels import qmatmul as qk
 
-    calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, BATCH, True, g)
-    calls = _whole_words(calls, torch.float32)
-    # x in and y out are f32: twice the bf16 plan's bytes
-    nbytes += sum(BATCH * (c[3].k_dim + c[1].shape[0]) * 2 for c in calls)
-    ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv_simt), 5)
-    plain_ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2)
-    dense = [dequantize_tensor(qt, out_dtype=torch.float32) for qt in qts]
-    library_ms = _time_ms(torch, _lib_run(torch, calls, dense), 5)
-    del calls, dense
+    dense, by_rows = None, {}
+    for M in F32_GEMV_MS:
+        calls, qts, nbytes, flops = _b1_calls(torch, dev, qparams, cfg, M, True, g)
+        calls = [(xp.float(), packed, scales, op, x.float()) for xp, packed, scales, op, x in calls]
+        # x in and y out are f32: twice the bf16 plan's bytes
+        nbytes += sum(M * (c[3].k_dim + c[1].shape[0]) * 2 for c in calls)
+        if dense is None:
+            dense = [dequantize_tensor(qt, out_dtype=torch.float32) for qt in qts]
+        bound_ms, bound_by = _bound(nbytes, flops, TF32X3_FLOP_PER_S)
+        by_rows[M] = {"ms": _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv_simt), 5),
+                      "plain_ms": _time_ms(torch, _b1_run(calls, qk.qmatmul_plain), 2),
+                      "library_ms": _time_ms(torch, _lib_run(torch, calls, dense), 5),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                      "flops": flops}
+        del calls
+    del dense
     torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(nbytes, flops, F32_FLOP_PER_S)
-    return {"source": "src/repro_torch/csrc/qmatmul.cu", "replaces": "src/repro/kernels/qmatmul.py:97",
-            "launches": counts["gemv_simt"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "per": f"a decode step's matrices with f32 x ({len(qts)} launches, M = {BATCH})",
-            "bytes": nbytes}
+    main = by_rows[BATCH]
+    return {"source": "src/repro_torch/csrc/qmatmul.cu",
+            "replaces": "src/repro/kernels/qmatmul.py:97", "launches": launches,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "per": f"a decode step's matrices with f32 x ({7 * cfg.n_layers + 1} launches, "
+                   f"M = {BATCH})", "by_rows": by_rows,
+            "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "tf32x3_flop_per_s": TF32X3_FLOP_PER_S}}
 
 
 def _time_attention(torch, dev, cfg, launches, g):
@@ -2313,7 +2440,7 @@ def _time_gemm_simt(torch, dev, launches, g):
     weight dequantized to f32); bound by f32 operations outside the tensor
     cores or by bytes.  Then the same shapes at 3, 5 and 6 bits on rows as
     stored, which it reads, beside rows padded to whole words beforehand
-    (kernels/qmatmul.pad_to_whole_words)."""
+    (``_pad_words``)."""
     from repro_torch.configs.tiny import TINY_FAMILY
     from repro_torch.kernels import ops
     from repro_torch.kernels import qmatmul as qk
@@ -2347,8 +2474,7 @@ def _time_gemm_simt(torch, dev, launches, g):
     by_bits = {}
     for bits in LOW_BITS:
         stored = operands(bits)
-        padded = [(*qk.pad_to_whole_words(xp, packed, scales, bits=bits, block_size=64), op)
-                  for xp, packed, scales, op in stored]
+        padded = [(*_pad_words(xp, packed, scales, op), op) for xp, packed, scales, op in stored]
         by_bits[bits] = {"stored_ms": _time_ms(torch, run(qk.qmatmul_gemm, stored), 5),
                          "padded_ms": _time_ms(torch, run(qk.qmatmul_gemm, padded), 5)}
 

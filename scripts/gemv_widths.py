@@ -15,8 +15,8 @@ MB L2).  Times are device times: the step's launches captured in a CUDA
 graph, the median of 10 replays by CUDA events.  Beside each: the bytes
 bound (words and scales at 3.35 TB/s), and with --library torch.matmul on
 random bf16 weights of the same shapes (a time yardstick, not the same
-values).  With --padded the rows are padded to whole uint4s of words as
-kernels/qmatmul.pad_to_whole_words pads them (K to lcm(cpw, 64)), the layout
+values).  With --padded the rows are padded to whole uint4s of words (K
+to lcm(cpw, 64), as kernels/qmatmul.pad_k pads them), the layout
 that needs a copy of the weight at 3, 5 and 6 bits.  `--csrc` builds
 qgemv_sm90.cu from another tree (say a parent
 commit unpacked with git archive) with the port's nvcc flags; a width its

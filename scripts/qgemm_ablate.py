@@ -5,8 +5,8 @@ removed at a time, at Qwen2-7B's shapes.
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc:
 
     python3 scripts/qgemm_ablate.py          # prefill GEMM, csrc/qgemm_sm90.cu
-    python3 scripts/qgemm_ablate.py --gemv   # decode GEMVs, csrc/qgemv_sm90.cu
-                                             # and qmatmul.cu's CUDA-core qgemv
+    python3 scripts/qgemm_ablate.py --gemv   # the decode GEMV, csrc/qgemv_sm90.cu
+                                             # (qmatmul.cu's: scripts/gemv_f32.py --ablate)
 
 Each variant is the kernel's source with one text substitution (the tables
 below), built with the port's nvcc flags into build/ablate/.  A variant
@@ -103,32 +103,9 @@ def knob_subs(cfg):
             for k, v in cfg.items()]
 
 
-# the CUDA-core GEMV (qmatmul.cu's qgemv_kernel), the same four cuts
-SIMT_FMA = "          for (int r = 0; r < MR; ++r) acc[c][r] = fmaf(xv[r][j], wv, acc[c][r]);"
-GEMV_SIMT_ABLATIONS = {
-    "kernel": [],
-    "no_decode": [("          const float wv = Act<T>::round(lut[(words[u][c] >> (j * BITS)) & MASK] * s[c]);",
-                   "          const float wv = __uint_as_float(words[u][c] >> j);")],
-    # the FMAs' operands folded by XOR into a register that reaches the
-    # output: one fold a decoded value and one an activation, a quarter of
-    # the FMAs' count at 4 rows and 4 columns
-    "no_products": [
-        ("  float acc[GV_COLS][MR];", "  float acc[GV_COLS][MR];\n  unsigned keep = 0u;"),
-        ("  // every lane holds its warp's sums;",
-         "  acc[0][0] += __uint_as_float(keep & 1u);\n  // every lane holds its warp's sums;"),
-        ("        ++rem;\n#pragma unroll\n        for (int c = 0; c < GV_COLS; ++c) {",
-         "        ++rem;\n        for (int r = 0; r < MR; ++r) keep ^= __float_as_uint(xv[r][j]);\n"
-         "#pragma unroll\n        for (int c = 0; c < GV_COLS; ++c) {"),
-        (SIMT_FMA, "          keep ^= __float_as_uint(wv);")],
-    "no_x_loads": [("          load_run<T, CPW>(x + static_cast<size_t>(r) * K + k0, xv[r]);",
-                    "          for (int j = 0; j < CPW; ++j) xv[r][j] = __int_as_float(k0 + j);")],
-    "no_word_loads": [("      for (int c = 0; c < GV_COLS; ++c) words[u][c] = w < n_words ? __ldg(wrow[c] + w) : 0u;",
-                       "      for (int c = 0; c < GV_COLS; ++c) words[u][c] = w * 0x9E3779B9u + c;")],
-}
 ARGTYPES = {
     "qgemm_sm90": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "qmatmul_gemv_tc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "qmatmul_gemv": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 
 
@@ -238,8 +215,6 @@ def decode(torch, dev):
              for n, c in GEMV_TC_CONFIGS.items()]
     jobs += [("qgemv_sm90.cu", "qmatmul_gemv_tc", f"gemv_tc_cfg_{n}", s)
              for n, s in GEMV_TC_VARIANTS.items()]
-    jobs += [("qmatmul.cu", "qmatmul_gemv", f"gemv_simt_{n}", s)
-             for n, s in GEMV_SIMT_ABLATIONS.items()]
     libs = build_all(jobs)
     g = torch.Generator(device=dev).manual_seed(0)
     cb = make_codebook("float", BITS, device=dev)
@@ -255,11 +230,9 @@ def decode(torch, dev):
         ref = qk.qmatmul_plain(x, *weights[0], cb, bits=BITS, block_size=BLOCK).float()
         y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
         for name, fn in libs.items():
-            tail = (1,) if "simt" in name else ()   # qmatmul_gemv's x_is_bf16
-
-            def launch(packed, scales, fn=fn, tail=tail, name=name):
+            def launch(packed, scales, fn=fn, name=name):
                 status = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), cb.data_ptr(),
-                            y.data_ptr(), M, N, K, n_words, BITS, BLOCK, *tail,
+                            y.data_ptr(), M, N, K, n_words, BITS, BLOCK,
                             torch.cuda.current_stream().cuda_stream)
                 if status:
                     raise RuntimeError(f"{name}: cudaError_t {status}")

@@ -1,5 +1,7 @@
-// Fused k-bit dequant-GEMM on the CUDA cores (sm_90a): the decode GEMV and
-// the f32-activation tiled product.
+// Fused k-bit dequant-GEMM for the operands qgemv_sm90.cu and qgemm_sm90.cu
+// do not take (sm_90a): the decode GEMV for f32 activations (and bf16 ones
+// whose scale blocks split a group of 4 codes), on the tensor cores in TF32,
+// and the f32-activation tiled product on the CUDA cores.
 //
 // Replaces, with qgemm_sm90.cu (bf16 activations at prefill), the TPU kernel
 // src/repro/kernels/qmatmul.py::qmatmul_pallas (bodies _qmatmul_kernel,
@@ -13,33 +15,53 @@
 // weight is rounded to the activation type before the product, as the TPU
 // kernel does (qmatmul.py:80-85), so the result equals the
 // dequant-then-matmul path up to f32 summation order.  Sums run in f32; y is
-// written in x's type (f32 or bf16).
+// written in x's type (f32 or bf16).  Both kernels take K % B == 0 and the
+// rows as stored, n_words == ceil(K / cpw): words past a row's end read as
+// zero, x past K as zero (so the last word's spare codes multiply zero),
+// and scales past K / B as zero, so no caller pads the weight.
 //
-// What bounds it on an H100 SXM (3.35 TB/s): at decode (M = batch, a few
-// rows) bytes — the packed codes and bf16 scales of W, about 0.28 of the
-// bf16 weight at 4 bits, b64.
-//
-// Design: both kernels decode a code with a shift, a mask and a read of a
-// 2^bits-entry table in shared memory, the codebook copied there once per
-// block: the TPU's compare-select tree (qmatmul.py:28-33) is a VPU
-// constraint.
-//   qgemv (M <= 8, decode, for what kernels/qmatmul.py:gemv_route does not
-//     send to qgemv_sm90.cu's tensor cores: f32 x, and bf16 x whose scale
-//     blocks split a group of 4 codes, or at 4 bits a word): a block owns 4 output columns
-//     and splits their K among its 4 warps, which read interleaved 128-byte
-//     runs of packed words
-//     (2 words a column in flight per lane), so every packed byte is read
-//     from device memory once; the K split keeps enough warps in flight for
-//     the 512-column wk/wv and the long-K w_down.  A lane reads the
-//     activations its word multiplies straight from global memory (x is at
-//     most a few hundred KB and stays in L1/L2) with the widest aligned
-//     vector loads and sums all rows at once; shuffles and a pass through
-//     shared memory reduce the block.  The row count is a template parameter
-//     (1, 2, 4, 8), so a batch-1 step does an eighth of a batch-8 step's
-//     arithmetic.  On the CUDA cores this is bound by instructions (~6 per
-//     decoded code and column, plus an FMA per row), not by bytes: without
-//     its decode a decode step's launches take 40 % less time, without its
-//     word loads 15 % less (scripts/qgemm_ablate.py --gemv, PERF.md).
+//   qgemv (M <= 8, decode, what kernels/qmatmul.py:gemv_route does not send
+//     to qgemv_sm90.cu: f32 x, and bf16 x whose scale blocks split a group
+//     of 4 codes).  Bound on an H100 SXM by bytes: the packed words and bf16
+//     scales, with x in and y out (1.134 ms for a Qwen2-7B decode step's 197
+//     matrices at 4 bits, b64, f32 x, M = 4, at 3.35 TB/s).  Multiplied on
+//     the CUDA cores, an FMA a code, column and row after a table read and
+//     a scale product a code and column, it runs at 5.3x that (PERF.md).
+//     Here mma.sync.m16n8k8 in TF32 takes the products: A is 16 output
+//     columns x 8 codes decoded from the packed words, B x's M <= 8 rows
+//     (rows >= M are zero), which fit n8 exactly, and a row's sums do not
+//     depend on the other rows (bit-identical at M = 1 and 8).  TF32 keeps
+//     11 significant bits, so an f32 operand v is split, hi = cvt.rna.tf32(v),
+//     lo = v - hi, and three products are summed, lo.hi + hi.lo + hi.hi
+//     (3xTF32; the dropped lo.lo is ~2^-22 of a product).  The codebook is
+//     split once a block into a table of (hi, lo) pairs in shared memory; a
+//     code decodes with a shift and a mask (at 4 bits a byte permute) and
+//     one table read.  Where every value is TF32 already (the float
+//     codebooks at 3 and 4 bits), the block reads hi alone (4 bytes a code)
+//     and skips lo.hi.  x is split where a lane loads it.  With f32 x and
+//     scale blocks that hold whole groups (B % (4 * run) == 0 below: B = 64
+//     at 4, 7 and 8 bits), the scale is taken out of the products: a group's
+//     products are summed unscaled, one accumulator a product so that they
+//     do not wait on each other, and the sums scaled once (s * sum(cb . x)
+//     differs from sum(f32(cb * s) . x) by f32 rounding alone).  Elsewhere
+//     (3, 5 and 6 bits at B = 64, odd blocks, and bf16 x, whose weight the
+//     TPU kernel rounds to bf16 before the product) each code is scaled,
+//     rounded to x's type and then split; a bf16 weight and bf16 x are TF32
+//     already, so one product a step is exact.
+//     Layout: a block owns GV_COLS = 32 output columns, two m16 tiles a warp
+//     (grid ceil(N / 32)); lane (g, t) reads columns n0 + 8 r + g, r < 4.  A
+//     column's words are cut into groups of 4 runs of 2 words, lane t taking
+//     run t by one 8-byte load: 20, 16, 12, 10, 8 and 8 codes at 3 to 8 bits.
+//     Step s of a group takes codes 2s and 2s + 1 of every lane's run as
+//     logical k t and t + 4, so a step's 8 codes lie in one group, and lane
+//     (g, t)'s B fragment is x[g] at its own two codes: neighbours in x.
+//     The block's warps take the groups in turn, from N alone 4, 8 or 16
+//     warps a block so that a launch puts 32 warps on every SM where the
+//     columns allow; their accumulator tiles are summed through shared
+//     memory in warp order.  What holds it at ~4x its bound (PERF.md,
+//     scripts/gemv_f32.py --ablate): no single part; cutting the products,
+//     the decode, the word loads, the x loads or the scale loads each saves
+//     5-15 %.  A 512-column launch costs ~10 us on latency alone.
 //   qgemm_simt (M > 8, f32 x): a tiled CUDA-core product in f32, since the
 //     tensor cores would round f32 activations (TF32 keeps ~3 digits).
 //     Bound by its f32 operations (67 TFLOP/s outside the tensor cores):
@@ -60,11 +82,6 @@
 //     simt_split, from N, K and the bit width only, so a row's sums do not
 //     depend on the rows sharing the call), each writing f32 partial sums
 //     that a second pass adds in a fixed order.
-// Both take K % B == 0.  qgemv takes K == n_words * cpw (the wrapper pads K
-// to whole words, kernels/qmatmul.py:pad_to_whole_words); qgemm_simt takes
-// the rows as stored, n_words == ceil(K / cpw), since its copies zero x
-// past K and the words past a row's end and its decode zeroes the scales
-// past K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +97,7 @@ struct Act;
 template <>
 struct Act<float> {
   using Raw = float;
+  static constexpr bool IS_F32 = true;
   static __device__ __forceinline__ float from_raw(float v) { return v; }
   static __device__ __forceinline__ float store(float v) { return v; }
   static __device__ __forceinline__ float round(float v) { return v; }
@@ -88,6 +106,7 @@ struct Act<float> {
 template <>
 struct Act<bf16> {
   using Raw = unsigned short;
+  static constexpr bool IS_F32 = false;
   static __device__ __forceinline__ float from_raw(unsigned short v) {
     return __uint_as_float(static_cast<unsigned>(v) << 16);
   }
@@ -96,11 +115,6 @@ struct Act<bf16> {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-
-// The code -> value table in shared memory: a copy of the codebook.
-__device__ __forceinline__ void fill_lut(float* lut, int n, const float* codebook) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) lut[i] = codebook[i];
-}
 
 template <int BYTES>
 struct VecOf;
@@ -117,10 +131,9 @@ __host__ __device__ constexpr int widest_vec(int bytes) {
   return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
 }
 
-// The N activations at p, widened to f32.  p is aligned to the widest
-// power of two (<= 16) that divides N * sizeof(T): x's base is 16-byte
-// aligned (the wrapper checks), and every row and word offset is a multiple
-// of N * sizeof(T) since K is a multiple of cpw = N.
+// The N activations at p, widened to f32, by the widest vector loads that
+// N * sizeof(T) bytes allow; p lies on a multiple of that width (the
+// caller checks).
 template <typename T, int N>
 __device__ __forceinline__ void load_run(const T* __restrict__ p, float (&v)[N]) {
   using Raw = typename Act<T>::Raw;
@@ -137,113 +150,319 @@ __device__ __forceinline__ void load_run(const T* __restrict__ p, float (&v)[N])
   for (int j = 0; j < N; ++j) v[j] = Act<T>::from_raw(u.raw[j]);
 }
 
-constexpr int GV_WARPS = 4;   // warps per block, splitting K
-constexpr int GV_COLS = 4;    // output columns per block
-constexpr int GV_UNROLL = 2;  // packed words per column and lane in flight
-constexpr int GV_STRIDE = 32 * GV_WARPS;  // words between a lane's successive words
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <typename T, int BITS, int MR>
-__global__ void __launch_bounds__(GV_WARPS * 32)
+__device__ __forceinline__ float bf16_bits_to_float(unsigned short v) {
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
+// ---------------------------------------------------------------------------
+// qgemv: M <= 8 rows, on the tensor cores in TF32
+
+// warps a block: the fewest of GV_MIN_WARPS, 2 * GV_MIN_WARPS, ...
+// GV_MAX_WARPS that put GV_FILL_PER_SM warps on every SM (from N alone)
+constexpr int GV_MIN_WARPS = 4;
+constexpr int GV_MAX_WARPS = 16;
+constexpr int GV_FILL_PER_SM = 32;
+constexpr int GV_OCCUPANCY = 24;  // warps an SM must hold (caps the registers)
+constexpr int GV_TILES = 2;       // m16 tiles a warp: 16 * GV_TILES output columns a block
+constexpr int GV_COLS = 16 * GV_TILES;
+constexpr int GV_LANE_WORDS = 2;  // words a lane reads of each of its columns a chunk
+
+template <int BITS>
+struct GvCfg {
+  static constexpr int CPW = 32 / BITS;
+  static constexpr int RUN = 2;                      // words of a column a lane takes a group
+  static constexpr int RUN_CODES = RUN * CPW;        // 20, 16, 12, 10, 8, 8 at 3 to 8 bits
+  static constexpr int STEPS = RUN_CODES / 2;        // k8 products a group
+  static constexpr int GROUP_WORDS = 4 * RUN;        // a column's words a group: 4 lanes' runs
+  static constexpr int GROUP_CODES = 4 * RUN_CODES;  // 80, 64, 48, 40, 32, 32
+  static constexpr int UNROLL = GV_LANE_WORDS / RUN;  // groups a chunk
+};
+
+// v rounded to TF32 (10 mantissa bits, to nearest, ties away), as an f32
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// the f32 (pair) at shared address `addr`: a table's address plus a code's
+// byte offset, which ptxas folds into one LDS with an immediate base
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// d += A . B on the tensor cores, m16n8k8, TF32 operands (the 13 low bits
+// of each f32 are not read), f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// A lane's run of one column: its RUN words, and the byte offset into the
+// table (8-byte entries) of its code j (word j / CPW, bits (j % CPW) *
+// BITS).  At 4 bits a word's 8 offsets come from two shifts and masks
+// (even: codes 0, 2, 4, 6, odd: 1, 3, 5, 7, one a byte) and a byte permute
+// each; elsewhere from a shift and a mask each.
+template <int BITS, int RUN>
+struct Run {
+  static constexpr int CPW = 32 / BITS;
+  uint32_t w[RUN];
+  uint32_t even[RUN], odd[RUN];
+
+  __device__ __forceinline__ void prepare() {
+    if constexpr (BITS == 4) {
+#pragma unroll
+      for (int q = 0; q < RUN; ++q) {
+        even[q] = (w[q] << 3) & 0x78787878u;
+        odd[q] = (w[q] >> 1) & 0x78787878u;
+      }
+    }
+  }
+  __device__ __forceinline__ uint32_t offset(int j) const {
+    if constexpr (BITS == 4) {
+      const int q = j / 8;
+      return __byte_perm(j % 2 ? odd[q] : even[q], 0u, 0x4440u + (j % 8) / 2);
+    } else {
+      constexpr uint32_t MASK8 = ((1u << BITS) - 1u) << 3;
+      const uint32_t word = w[j / CPW];
+      const int sh = (j % CPW) * BITS;
+      return (sh >= 3 ? word >> (sh - 3) : word << (3 - sh)) & MASK8;
+    }
+  }
+};
+
+// A lane's columns n0 + 8 r + g: their packed rows and scale rows.
+template <int ROWS>
+struct LaneCols {
+  const uint32_t* w[ROWS];
+  const unsigned short* s[ROWS];
+};
+
+// The warp's chunks (warp, warp + WARPS, ...) of the lane's columns into
+// d.  GS: the scale blocks hold whole groups (B % GROUP_CODES == 0), so a
+// group's codes share one scale a column.  With f32 x that scale is taken
+// out of the products (FACTOR): a group's products are summed unscaled
+// from the table's TF32 parts (hi, lo) of each code value, then scaled
+// once; EXACT: every value is TF32 (lo = 0), so the table's hi alone is
+// read and the lo . hi product is not issued.  Otherwise each code is
+// scaled, rounded to x's type and split after its table read.
+template <typename T, int BITS, int WARPS, bool GS, bool EXACT>
+__device__ __forceinline__ void qgemv_chunks(const T* __restrict__ xrow, bool has_x,
+                                             const LaneCols<2 * GV_TILES>& cols,
+                                             uint32_t tab_addr, float (&d)[GV_TILES][4], int K,
+                                             int n_words, int block, int lg_block, int n_blocks) {
+  using C = GvCfg<BITS>;
+  using Raw = typename Act<T>::Raw;
+  constexpr bool F32 = Act<T>::IS_F32;
+  constexpr bool FACTOR = F32 && GS;
+  // products a step: lo . hi (unless EXACT), hi . lo, hi . hi (3xTF32), or
+  // the one product of bf16 operands, which are TF32 already
+  constexpr int P = !F32 ? 1 : FACTOR && EXACT ? 2 : 3;
+  constexpr int ROWS = 2 * GV_TILES;
+  constexpr int VB = widest_vec(C::RUN_CODES * static_cast<int>(sizeof(T)));
+  const int t = threadIdx.x & 3;
+  // every row's runs start on a multiple of VB bytes (x does, the wrapper checks)
+  const bool xvec = static_cast<long>(K) * static_cast<long>(sizeof(T)) % VB == 0;
+  // a lane's two words are one aligned 8-byte load
+  const bool wvec = n_words % 2 == 0 && reinterpret_cast<uintptr_t>(cols.w[0]) % 8 == 0;
+  const auto scale_at = [&](int r, int b) {
+    return b < n_blocks ? bf16_bits_to_float(__ldg(cols.s[r] + b)) : 0.f;
+  };
+  const int n_groups = (n_words + C::GROUP_WORDS - 1) / C::GROUP_WORDS;
+  const int n_chunks = (n_groups + C::UNROLL - 1) / C::UNROLL;
+  for (int c = threadIdx.x / 32; c < n_chunks; c += WARPS) {
+    // the chunk's words, zero past the row's end
+    Run<BITS, C::RUN> run[C::UNROLL][ROWS];
+#pragma unroll
+    for (int u = 0; u < C::UNROLL; ++u)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int w = (c * C::UNROLL + u) * C::GROUP_WORDS + t * C::RUN;
+        if (wvec) {
+          const uint2 v = w < n_words ? __ldg(reinterpret_cast<const uint2*>(cols.w[r] + w))
+                                      : make_uint2(0u, 0u);
+          run[u][r].w[0] = v.x;
+          run[u][r].w[1] = v.y;
+        } else {
+#pragma unroll
+          for (int q = 0; q < C::RUN; ++q)
+            run[u][r].w[q] = w + q < n_words ? __ldg(cols.w[r] + w + q) : 0u;
+        }
+      }
+    // x[g] at each group's run (zero past K: the last word's spare codes),
+    // by vector loads where the chunk lies inside K, and each column's scale
+    // at each run's first code; all issued before the chunk's products
+    const int kc = c * C::UNROLL * C::GROUP_CODES + t * C::RUN_CODES;  // group 0's run
+    float xv[C::UNROLL][C::RUN_CODES];
+    if (has_x && xvec && kc + (C::UNROLL - 1) * C::GROUP_CODES + C::RUN_CODES <= K) {
+#pragma unroll
+      for (int u = 0; u < C::UNROLL; ++u)
+        load_run<T, C::RUN_CODES>(xrow + kc + u * C::GROUP_CODES, xv[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < C::UNROLL; ++u)
+#pragma unroll
+        for (int j = 0; j < C::RUN_CODES; ++j) {
+          const int k = kc + u * C::GROUP_CODES + j;
+          xv[u][j] = has_x && k < K
+                         ? Act<T>::from_raw(__ldg(reinterpret_cast<const Raw*>(xrow) + k))
+                         : 0.f;
+        }
+    }
+    float sg[C::UNROLL][ROWS];
+#pragma unroll
+    for (int u = 0; u < C::UNROLL; ++u) {
+      const int k0 = kc + u * C::GROUP_CODES;
+      const int b = lg_block >= 0 ? k0 >> lg_block : k0 / block;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) sg[u][r] = scale_at(r, b);
+    }
+#pragma unroll
+    for (int u = 0; u < C::UNROLL; ++u) {
+      const int k0 = kc + u * C::GROUP_CODES;  // the run's first code
+      // (!GS) the run's block and the code where the next begins
+      int b = lg_block >= 0 ? k0 >> lg_block : k0 / block;
+      int next = (b + 1) * block;
+      float s[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        s[r] = sg[u][r];
+        run[u][r].prepare();
+      }
+      // the group's sums, one accumulator a product, so that a step's
+      // products do not wait on each other
+      float cs[GV_TILES][P][4] = {};
+#pragma unroll
+      for (int st = 0; st < C::STEPS; ++st) {
+        // codes 2 st and 2 st + 1 of the run are logical k t and t + 4:
+        // a0 (column g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        float ahi[GV_TILES][4], alo[GV_TILES][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * st + h;
+          if constexpr (!GS) {
+            if (k0 + j == next) {
+              ++b;
+              next += block;
+#pragma unroll
+              for (int r = 0; r < ROWS; ++r) s[r] = scale_at(r, b);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const int e = r % 2 + 2 * h;
+            if constexpr (FACTOR && EXACT) {
+              ahi[r / 2][e] = lds_f32(tab_addr + run[u][r].offset(j));
+            } else if constexpr (FACTOR) {
+              const float2 v = lds_f32x2(tab_addr + run[u][r].offset(j));
+              ahi[r / 2][e] = v.x;
+              alo[r / 2][e] = v.y;
+            } else {
+              const float w = Act<T>::round(lds_f32(tab_addr + run[u][r].offset(j)) * s[r]);
+              const float hi = F32 ? to_tf32(w) : w;
+              ahi[r / 2][e] = hi;
+              alo[r / 2][e] = w - hi;
+            }
+          }
+        }
+        const float x0 = xv[u][2 * st], x1 = xv[u][2 * st + 1];
+        const float xh0 = F32 ? to_tf32(x0) : x0;
+        const float xh1 = F32 ? to_tf32(x1) : x1;
+#pragma unroll
+        for (int tile = 0; tile < GV_TILES; ++tile) {
+          if constexpr (P == 3) mma_tf32(cs[tile][0], alo[tile], xh0, xh1);
+          if constexpr (P >= 2) mma_tf32(cs[tile][P - 2], ahi[tile], x0 - xh0, x1 - xh1);
+          mma_tf32(cs[tile][P - 1], ahi[tile], xh0, xh1);
+        }
+      }
+#pragma unroll
+      for (int tile = 0; tile < GV_TILES; ++tile)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = cs[tile][0][e];
+#pragma unroll
+          for (int q = 1; q < P; ++q) sum += cs[tile][q][e];
+          d[tile][e] = FACTOR ? fmaf(s[2 * tile + e / 2], sum, d[tile][e]) : d[tile][e] + sum;
+        }
+    }
+  }
+}
+
+template <typename T, int BITS, int WARPS, bool GS>
+__global__ void __launch_bounds__(WARPS * 32, GV_OCCUPANCY > WARPS ? GV_OCCUPANCY / WARPS : 1)
 qgemv_kernel(const T* __restrict__ x, const uint32_t* __restrict__ packed,
-             const bf16* __restrict__ scales, const float* __restrict__ codebook,
-             T* __restrict__ y, int M, int N, int K, int n_words, int block_size) {
-  constexpr int CPW = 32 / BITS;
-  constexpr unsigned MASK = (1u << BITS) - 1u;
-  static_assert(GV_COLS * MR <= 32, "one lane per (column, row) sum");
-  __shared__ float lut[1 << BITS];
-  __shared__ float part[GV_WARPS][GV_COLS * MR];
-  fill_lut(lut, 1 << BITS, codebook);
-  __syncthreads();
+             const unsigned short* __restrict__ scales, const float* __restrict__ codebook,
+             T* __restrict__ y, int M, int N, int K, int n_words, int block, int lg_block) {
+  constexpr bool FACTOR = Act<T>::IS_F32 && GS;
+  constexpr int ROWS = 2 * GV_TILES;
+  __shared__ float2 tab[1 << BITS];
+  __shared__ float part[WARPS][32][4 * GV_TILES];
+  bool tf32 = true;
+  for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) {
+    const float v = codebook[i];
+    const float hi = to_tf32(v);
+    tab[i] = FACTOR ? make_float2(hi, v - hi) : make_float2(v, 0.f);
+    tf32 = tf32 && hi == v;
+  }
+  // every code value is TF32 (the float codebooks at 3 and 4 bits among them)
+  const bool exact = __syncthreads_and(tf32);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
   const int n0 = blockIdx.x * GV_COLS;
-  const int n_blocks = K / block_size;
-  // columns past N re-read column N - 1 and are never written
-  const uint32_t* wrow[GV_COLS];
-  const bf16* srow[GV_COLS];
+  const int n_blocks = K / block;
+  // row r is column n0 + 8 r + g (past N: column N - 1, never written)
+  LaneCols<ROWS> cols;
 #pragma unroll
-  for (int c = 0; c < GV_COLS; ++c) {
-    const int n = min(n0 + c, N - 1);
-    wrow[c] = packed + static_cast<size_t>(n) * n_words;
-    srow[c] = scales + static_cast<size_t>(n) * n_blocks;
+  for (int r = 0; r < ROWS; ++r) {
+    const int n = min(n0 + 8 * r + g, N - 1);
+    cols.w[r] = packed + static_cast<size_t>(n) * n_words;
+    cols.s[r] = scales + static_cast<size_t>(n) * n_blocks;
+  }
+  const bool has_x = g < M;
+  const T* xrow = x + static_cast<size_t>(has_x ? g : 0) * K;
+  const uint32_t tab_addr = smem_addr(tab);
+  float d[GV_TILES][4] = {};
+  if (FACTOR && exact) {
+    if constexpr (FACTOR)
+      qgemv_chunks<T, BITS, WARPS, GS, true>(xrow, has_x, cols, tab_addr, d, K, n_words, block,
+                                             lg_block, n_blocks);
+  } else {
+    qgemv_chunks<T, BITS, WARPS, GS, false>(xrow, has_x, cols, tab_addr, d, K, n_words, block,
+                                            lg_block, n_blocks);
   }
 
-  float acc[GV_COLS][MR];
+  // y[m, n0 + 16 tile + n] is e = 4 tile + 2 (n / 8) + m % 2 of lane
+  // 4 (n % 8) + m / 2 in every warp; the warps' sums are added in order
 #pragma unroll
-  for (int c = 0; c < GV_COLS; ++c)
+  for (int tile = 0; tile < GV_TILES; ++tile)
 #pragma unroll
-    for (int r = 0; r < MR; ++r) acc[c][r] = 0.f;
-
-  for (int wb = warp * 32 + lane; wb < n_words; wb += GV_STRIDE * GV_UNROLL) {
-    uint32_t words[GV_UNROLL][GV_COLS];
-#pragma unroll
-    for (int u = 0; u < GV_UNROLL; ++u) {
-      const int w = wb + GV_STRIDE * u;
-#pragma unroll
-      for (int c = 0; c < GV_COLS; ++c) words[u][c] = w < n_words ? __ldg(wrow[c] + w) : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < GV_UNROLL; ++u) {
-      const int w = wb + GV_STRIDE * u;
-      if (w >= n_words) break;
-      const int k0 = w * CPW;
-      float xv[MR][CPW];
-#pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        if (r < M) {
-          load_run<T, CPW>(x + static_cast<size_t>(r) * K + k0, xv[r]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < CPW; ++j) xv[r][j] = 0.f;
-        }
-      }
-      int blk = k0 / block_size;
-      int rem = k0 - blk * block_size;
-      float s[GV_COLS];
-#pragma unroll
-      for (int c = 0; c < GV_COLS; ++c) s[c] = __bfloat162float(srow[c][blk]);
-#pragma unroll
-      for (int j = 0; j < CPW; ++j) {
-        if (rem == block_size) {  // this word straddles two scale blocks
-          ++blk;
-          rem = 0;
-#pragma unroll
-          for (int c = 0; c < GV_COLS; ++c) s[c] = __bfloat162float(srow[c][blk]);
-        }
-        ++rem;
-#pragma unroll
-        for (int c = 0; c < GV_COLS; ++c) {
-          const float wv = Act<T>::round(lut[(words[u][c] >> (j * BITS)) & MASK] * s[c]);
-#pragma unroll
-          for (int r = 0; r < MR; ++r) acc[c][r] = fmaf(xv[r][j], wv, acc[c][r]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int c = 0; c < GV_COLS; ++c)
-#pragma unroll
-    for (int r = 0; r < MR; ++r)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[c][r] += __shfl_xor_sync(0xffffffffu, acc[c][r], off);
-
-  // every lane holds its warp's sums; lane c * MR + r hands (r, n0 + c) on
-#pragma unroll
-  for (int c = 0; c < GV_COLS; ++c)
-#pragma unroll
-    for (int r = 0; r < MR; ++r)
-      if (lane == c * MR + r) part[warp][c * MR + r] = acc[c][r];
+    for (int e = 0; e < 4; ++e) part[warp][lane][4 * tile + e] = d[tile][e];
   __syncthreads();
-  if (threadIdx.x < GV_COLS * MR) {
-    const int c = threadIdx.x / MR;
-    const int r = threadIdx.x - c * MR;
+  for (int i = threadIdx.x; i < 8 * GV_COLS; i += WARPS * 32) {
+    const int m = i / GV_COLS;
+    const int n = i % GV_COLS;
+    const int src = (n & 7) * 4 + (m >> 1);
+    const int e = 4 * (n / 16) + ((n >> 3) & 1) * 2 + (m & 1);
     float sum = 0.f;
 #pragma unroll
-    for (int wp = 0; wp < GV_WARPS; ++wp) sum += part[wp][threadIdx.x];
-    if (n0 + c < N && r < M) y[static_cast<size_t>(r) * N + n0 + c] = Act<T>::store(sum);
+    for (int w = 0; w < WARPS; ++w) sum += part[w][src][e];
+    if (m < M && n0 + n < N) y[static_cast<size_t>(m) * N + n0 + n] = Act<T>::store(sum);
   }
 }
 
@@ -283,9 +502,6 @@ struct SimtCfg {
   static constexpr int SMEM = (2 * X_FLOATS + BK * SP + 256) * 4 + 2 * W_WORDS * 4;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !ok
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -566,55 +782,71 @@ int simt_launch(SimtProblem p, float* y, float* workspace, cudaStream_t stream) 
   return static_cast<int>(cudaGetLastError());
 }
 
-struct Args {
+struct GemvArgs {
   const void* x;
   const uint32_t* packed;
-  const bf16* scales;
+  const unsigned short* scales;
   const float* codebook;
   void* y;
-  int M, N, K, n_words, block_size;
+  int M, N, K, n_words, block, lg_block;
   cudaStream_t stream;
 };
 
-template <typename T, int BITS, int MR>
-void gemv_launch(const Args& a) {
+template <typename T, int BITS, int WARPS>
+void gemv_launch(const GemvArgs& a) {
   const dim3 grid((a.N + GV_COLS - 1) / GV_COLS);
-  qgemv_kernel<T, BITS, MR><<<grid, GV_WARPS * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.x), a.packed, a.scales, a.codebook, static_cast<T*>(a.y), a.M,
-      a.N, a.K, a.n_words, a.block_size);
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+  if (a.block % GvCfg<BITS>::GROUP_CODES == 0)
+    qgemv_kernel<T, BITS, WARPS, true><<<grid, WARPS * 32, 0, a.stream>>>(
+        x, a.packed, a.scales, a.codebook, y, a.M, a.N, a.K, a.n_words, a.block, a.lg_block);
+  else
+    qgemv_kernel<T, BITS, WARPS, false><<<grid, WARPS * 32, 0, a.stream>>>(
+        x, a.packed, a.scales, a.codebook, y, a.M, a.N, a.K, a.n_words, a.block, a.lg_block);
+}
+
+// streaming multiprocessors of the current device, read once per device
+int sm_count() {
+  static int counts[SG_MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= SG_MAX_DEVICES) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 132;
+  return counts[dev];
 }
 
 template <typename T, int BITS>
-void gemv_rows(const Args& a) {
-  if (a.M <= 1) {
-    gemv_launch<T, BITS, 1>(a);
-  } else if (a.M <= 2) {
-    gemv_launch<T, BITS, 2>(a);
-  } else if (a.M <= 4) {
-    gemv_launch<T, BITS, 4>(a);
-  } else {
-    gemv_launch<T, BITS, 8>(a);
-  }
+void gemv_warps(const GemvArgs& a) {
+  static_assert(GV_MIN_WARPS >= 4 && GV_MAX_WARPS <= 16, "4, 8 or 16 warps a block");
+  const long blocks = (a.N + GV_COLS - 1) / GV_COLS;
+  const long fill = static_cast<long>(sm_count()) * GV_FILL_PER_SM;
+  int warps = GV_MIN_WARPS;
+  while (warps < GV_MAX_WARPS && blocks * warps < fill) warps *= 2;
+  if (warps == 4) gemv_launch<T, BITS, 4>(a);
+  else if (warps == 8) gemv_launch<T, BITS, 8>(a);
+  else gemv_launch<T, BITS, 16>(a);
 }
 
 template <typename T>
-bool gemv_bits(int bits, const Args& a) {
+bool gemv_bits(int bits, const GemvArgs& a) {
   switch (bits) {
-    case 3: gemv_rows<T, 3>(a); return true;
-    case 4: gemv_rows<T, 4>(a); return true;
-    case 5: gemv_rows<T, 5>(a); return true;
-    case 6: gemv_rows<T, 6>(a); return true;
-    case 7: gemv_rows<T, 7>(a); return true;
-    case 8: gemv_rows<T, 8>(a); return true;
+    case 3: gemv_warps<T, 3>(a); return true;
+    case 4: gemv_warps<T, 4>(a); return true;
+    case 5: gemv_warps<T, 5>(a); return true;
+    case 6: gemv_warps<T, 6>(a); return true;
+    case 7: gemv_warps<T, 7>(a); return true;
+    case 8: gemv_warps<T, 8>(a); return true;
     default: return false;
   }
 }
 
-Args make_args(const void* x, const void* packed, const void* scales, const void* codebook,
-               void* y, int M, int N, int K, int n_words, int block_size, void* stream) {
-  return Args{x, static_cast<const uint32_t*>(packed), static_cast<const bf16*>(scales),
-              static_cast<const float*>(codebook), y, M, N, K, n_words, block_size,
-              static_cast<cudaStream_t>(stream)};
+// log2 of v, or -1 where v is not a power of two
+int log2_or_minus1(int v) {
+  if (v & (v - 1)) return -1;
+  int lg = 0;
+  while ((1 << lg) < v) ++lg;
+  return lg;
 }
 
 }  // namespace
@@ -622,14 +854,19 @@ Args make_args(const void* x, const void* packed, const void* scales, const void
 // Each entry point launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or bit width it does not take.
 
+// Rows as stored: n_words == ceil(K / cpw), the last word's spare codes
+// multiplying zero x; K % B == 0; x on a 16-byte boundary.
 extern "C" int qmatmul_gemv(const void* x, const void* packed, const void* scales,
                             const void* codebook, void* y, int M, int N, int K, int n_words,
                             int bits, int block_size, int x_is_bf16, void* stream) {
-  if (M < 1 || M > 8 || N < 1 || bits < 3 || bits > 8 || block_size < 1 ||
-      K % block_size != 0 || K != n_words * (32 / bits))
+  if (M < 1 || M > 8 || N < 1 || K < 1 || bits < 3 || bits > 8 || block_size < 1 ||
+      K % block_size != 0 || n_words != (K + 32 / bits - 1) / (32 / bits) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(x, packed, scales, codebook, y, M, N, K, n_words, block_size,
-                           stream);
+  const GemvArgs a{x, static_cast<const uint32_t*>(packed),
+                   static_cast<const unsigned short*>(scales),
+                   static_cast<const float*>(codebook), y, M, N, K, n_words, block_size,
+                   log2_or_minus1(block_size), static_cast<cudaStream_t>(stream)};
   const bool ok = x_is_bf16 ? gemv_bits<bf16>(bits, a) : gemv_bits<float>(bits, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -644,8 +881,7 @@ extern "C" int qmatmul_gemm_f32(const void* x, const void* packed, const void* s
   if (M < 1 || N < 1 || bits < 3 || bits > 8 || block_size < 1 || K % block_size != 0 ||
       n_words != (K + 32 / bits - 1) / (32 / bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  int lg = (block_size & (block_size - 1)) == 0 ? 0 : -1;  // log2 of a power-of-two block
-  while (lg >= 0 && (1 << lg) < block_size) ++lg;
+  const int lg = log2_or_minus1(block_size);
   const SimtProblem p{static_cast<const float*>(x), static_cast<const uint32_t*>(packed),
                       static_cast<const bf16*>(scales), static_cast<const float*>(codebook),
                       nullptr, M, N, K, n_words, block_size, lg, split,

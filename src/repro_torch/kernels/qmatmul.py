@@ -16,26 +16,29 @@ summation order.  Every data type decodes through its codebook; for int the
 table equals the TPU kernel's arithmetic ``clip(c-h, -h, h)/h`` bit for bit.
 
 What bounds it on the card, and what the design does about it (the sources
-say more): at decode (M <= 8) the packed weight bytes, so a GEMV whose
-blocks split each group of columns' K among their warps streams each packed
-word from device memory once and decodes it with a shared-memory table
-read.  ``gemv_route`` picks the GEMV from the operands: bf16 x at 3 to 8
-bits whose scale blocks hold whole groups of 4 codes (whole words at 4
-bits; the whole serving path) goes to ``csrc/qgemv_sm90.cu``, which
-multiplies on the tensor cores (``mma.sync``, the packed words as the
-lanes' A fragments); the rest (f32 x, and blocks that split a group) to the
-CUDA-core GEMV of ``csrc/qmatmul.cu``.  At prefill the 2*M*N*K
-operations, so bf16 activations go to ``csrc/qgemm_sm90.cu``: 256 (or 128)
-x 128 output tiles on Hopper's ``wgmma``, x copied as pre-laid-out tile
-images by the copy engine and the packed words by ``cp.async`` into a ring
-of stages, the weight dequantized into shared memory while the tensor cores
-multiply the previous K step.  The wrapper allocates the tile images (``x_tiles_shape``)
-and, where a grid has fewer tiles than SMs and K is split across blocks
-(``split_k``), the f32 partial sums that a second, fixed-order pass adds.
-f32 activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu``
-(128 x 64 tiles, a cp.async double buffer, split over K by ``simt_split``
-where a 1024-row call would not fill the SMs, and a fixed-order second
-pass).
+say more): at decode (M <= 8) the packed weight bytes.  ``gemv_route``
+picks the GEMV from the operands.  bf16 x at 3 to 8 bits whose scale
+blocks hold whole groups of 4 codes (whole words at 4 bits; the whole
+serving path) goes to ``csrc/qgemv_sm90.cu``, which multiplies on the
+tensor cores (``mma.sync`` in bf16, the packed words as the lanes' A
+fragments).  The rest, f32 x and blocks that split a group, goes to the
+GEMV of ``csrc/qmatmul.cu``, also on the tensor cores: ``mma.sync`` in
+TF32, f32 operands split into two TF32 parts and three products summed
+(3xTF32, about f32's precision), the codebook's parts in a shared-memory
+table, and with f32 x and blocks of whole groups the scale taken out of
+each group's sum.  Both GEMVs' blocks split each group of columns' K among
+their warps, so every packed word is read from device memory once.  At
+prefill the 2*M*N*K operations bound it, so bf16 activations go to
+``csrc/qgemm_sm90.cu``: 256 (or 128) x 128 output tiles on Hopper's
+``wgmma``, x copied as pre-laid-out tile images by the copy engine and the
+packed words by ``cp.async`` into a ring of stages, the weight dequantized
+into shared memory while the tensor cores multiply the previous K step.
+The wrapper allocates the tile images (``x_tiles_shape``) and, where a
+grid has fewer tiles than SMs and K is split across blocks (``split_k``),
+the f32 partial sums that a second, fixed-order pass adds.  f32
+activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu`` (128 x
+64 tiles, a cp.async double buffer, split over K by ``simt_split`` where a
+1024-row call would not fill the SMs, and a fixed-order second pass).
 
 ``qmatmul`` takes the plain PyTorch version, ``qmatmul_plain``, only for
 CPU tensors; for CUDA tensors it launches a kernel or raises.  Each launch
@@ -43,11 +46,10 @@ function counts its launches in a plain int, ``<function>.launches``.
 Every launcher takes the packed rows as the model stores them: K a whole
 number of scale blocks (``kernels/ops.pad_for_kernel`` pads x to it) and
 ceil(K / cpw) words a row, the last word's spare codes multiplying zero x.
-The tensor-core GEMV and the f32 GEMM read them so; the CUDA-core GEMV,
-whose x loads need whole words, and the prefill GEMM, whose word copies
-need rows of whole 16-byte pieces, pad K first (``pad_k``: a copy of the
-weight at 3, 5 and 6 bits, cheaper at prefill than copying stored rows a
-word at a time, PERF.md).
+Both GEMVs and the f32 GEMM read them so; the prefill GEMM, whose word
+copies need rows of whole 16-byte pieces, pads K first (``pad_k``: a copy
+of the weight at 3, 5 and 6 bits, cheaper at prefill than copying stored
+rows a word at a time, PERF.md).
 """
 
 from __future__ import annotations
@@ -145,9 +147,9 @@ def tc_gemv_block_ok(bits: int, block_size: int) -> bool:
 
 
 def gemv_route(x_dtype, bits: int, block_size: int) -> str:
-    """The GEMV for these operands: "tc" (tensor cores, csrc/qgemv_sm90.cu)
-    for bf16 x at 3 to 8 bits whose scale blocks ``tc_gemv_block_ok``
-    takes, else "simt" (CUDA cores, csrc/qmatmul.cu)."""
+    """The GEMV for these operands: "tc" (csrc/qgemv_sm90.cu) for bf16 x at
+    3 to 8 bits whose scale blocks ``tc_gemv_block_ok`` takes, else "simt"
+    (csrc/qmatmul.cu's GEMV, TF32 on the tensor cores)."""
     tc = (x_dtype == torch.bfloat16 and bits in TC_GEMV_BITS
           and tc_gemv_block_ok(bits, block_size))
     return "tc" if tc else "simt"
@@ -167,14 +169,6 @@ def pad_k(x, packed, scales, unit: int, *, bits: int, block_size: int):
     Kp = -(-x.shape[1] // unit) * unit
     return (_pad_cols(x, Kp), _pad_cols(packed, -(-Kp // (32 // bits))).contiguous(),
             _pad_cols(scales, Kp // block_size).contiguous())
-
-
-def pad_to_whole_words(x, packed, scales, *, bits: int, block_size: int):
-    """``pad_k`` to lcm(cpw, B): every row whole packed words and whole
-    scale blocks, as the CUDA-core GEMV takes them (a copy of the weight at
-    3, 5 and 6 bits at most widths)."""
-    return pad_k(x, packed, scales, math.lcm(32 // bits, block_size), bits=bits,
-                 block_size=block_size)
 
 
 def qmatmul_plain(x, packed, scales, codebook, *, bits: int,
@@ -283,10 +277,10 @@ qmatmul_gemv_tc.launches = 0
 
 
 def qmatmul_gemv_simt(x, packed, scales, codebook, *, bits, block_size):
-    """Launch the CUDA-core GEMV (M <= GEMV_MAX_M rows, f32 or bf16 x) on
-    CUDA tensors, K padded to whole words first."""
+    """Launch the GEMV of ``csrc/qmatmul.cu`` (M <= GEMV_MAX_M rows, f32 or
+    bf16 x; the operands ``gemv_route`` sends to "simt") on CUDA tensors,
+    the rows as stored."""
     _check_operands(x, packed, scales, codebook, bits, block_size)
-    x, packed, scales = pad_to_whole_words(x, packed, scales, bits=bits, block_size=block_size)
     M, K = x.shape
     N, n_words = packed.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)

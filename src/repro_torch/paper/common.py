@@ -1,6 +1,6 @@
 """Shared infrastructure of the paper's experiments — port of
 ``benchmarks/common.py``: train the tiny model ladder, quantize and
-evaluate it, write JSON results.
+evaluate it, time a call, stamp and write JSON results and CSV rows.
 
 The ladder is trained on the device at every call (``trained_family``);
 the reference's checkpoint cache comes with the checkpoint manager (ROADMAP
@@ -10,15 +10,19 @@ queue A9).  Results go to ``artifacts/bench_torch/`` (ignored by git).
 from __future__ import annotations
 
 import json
+import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.tiny import TINY_FAMILY
 from repro_torch.data.synthetic import ZipfMarkov, generator
 from repro_torch.models.quantize import bits_report, quantize_params
 from repro_torch.serving import perplexity
+from repro_torch.serving.telemetry import LATENCY_BUCKETS, Histogram
 from repro_torch.train import loop
 from repro_torch.tree import leaves
 
@@ -71,6 +75,72 @@ def evaluate_quant(cfg, params, qcfg, toks):
     rep = bits_report(qp)
     return (perplexity(qp, cfg, toks, device=dev), rep["avg_bits_per_param"],
             rep["total_bits_ideal"])
+
+
+def _fence(result) -> None:
+    """Wait for the device work behind ``result`` (the reference's
+    ``block_until_ready``): ``torch.cuda.synchronize()`` for a CUDA tensor."""
+    if isinstance(result, torch.Tensor) and result.device.type == "cuda":
+        torch.cuda.synchronize(result.device)
+
+
+def sample_times(fn, *args, repeats=30) -> Histogram:
+    """Per-call wall times (one fence per call) into a serving-telemetry
+    Histogram, after one warm-up call: benches and the live server share one
+    sample type and its estimators (``serving/telemetry.py``)."""
+    _fence(fn(*args))
+    h = Histogram(LATENCY_BUCKETS)
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        _fence(fn(*args))
+        h.observe(time.perf_counter() - t0)
+    return h
+
+
+def timed(fn, *args, repeats=3):
+    """Mean wall time per call after a warm-up (us)."""
+    return sample_times(fn, *args, repeats=repeats).mean * 1e6
+
+
+def timed_robust(fn, *args, repeats=30):
+    """Per-call wall times, mean of the fastest half (us): preemption and
+    other tenants only ever add time, so the fast half is the hardware's."""
+    return sample_times(fn, *args, repeats=repeats).fastest_mean(0.5) * 1e6
+
+
+def run_meta(cli_args: dict | None = None, device=None) -> dict:
+    """Provenance stamp of a bench JSON: the commit, torch and CUDA versions,
+    and the device (CUDA unless ``device`` says otherwise) with, on a card,
+    its name and power limit."""
+    try:
+        sha = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ART.parent, capture_output=True,
+                             text=True, timeout=10).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        sha = "unknown"
+    dev = torch.device(device if device is not None else "cuda")
+    meta = {"git_sha": sha, "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda, "platform": dev.type,
+            "created_at": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+            "args": dict(cli_args) if cli_args else {}}
+    if dev.type == "cuda":
+        meta["device_kind"] = torch.cuda.get_device_name(dev)
+        meta["n_devices"] = torch.cuda.device_count()
+        try:
+            meta["power_limit"] = subprocess.run(
+                ["nvidia-smi", "-i", str(dev.index or 0), "--query-gpu=power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip() or "unknown"
+        except (OSError, subprocess.SubprocessError):
+            meta["power_limit"] = "unknown"
+    else:
+        meta["device_kind"], meta["n_devices"] = "cpu", 1
+    return meta
+
+
+def emit(rows):
+    """CSV rows: name,us_per_call,derived."""
+    for name, us, derived in rows:
+        print(f"{name},{us:.1f},{derived}")
 
 
 def save_json(name, obj):

@@ -175,7 +175,7 @@ def test_qmatmul_plain_matches_reference_at_3_5_6_bits(bits, block, xdt):
     (cpw 10, 6 and 5): the port's operand is the reference's bit for bit,
     and qmatmul_plain on it, in both layouts the kernels take (rows as
     stored, which kernels/ops.pad_for_kernel gives every kernel, and K
-    padded to whole words, which the CUDA-core GEMV pads to itself), is
+    padded to whole words, which the bf16 prefill GEMM's launcher pads to), is
     within 2e-5 of qmatmul_ref with f32 x, and
     within one bf16 ulp at max|y| of qmatmul_ref and of the fused jnp path
     with bf16 x."""
@@ -185,7 +185,7 @@ def test_qmatmul_plain_matches_reference_at_3_5_6_bits(bits, block, xdt):
     xt = _t(x) if xdt == "float32" else _t(jnp.asarray(x, jnp.bfloat16))
     cpw = 32 // bits
     stored = tops.pad_for_kernel(xt, op)
-    whole = tqm.pad_to_whole_words(*stored, bits=bits, block_size=block)
+    whole = tqm.pad_k(*stored, math.lcm(cpw, block, 8), bits=bits, block_size=block)
     assert stored[0].shape[1] == op.k_dim
     assert stored[1].shape[1] == -(-op.k_dim // cpw)
     assert whole[0].shape[1] == whole[1].shape[1] * cpw and whole[0].shape[1] % block == 0
@@ -203,7 +203,7 @@ def test_qmatmul_plain_matches_reference_at_3_5_6_bits(bits, block, xdt):
 @pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
 def test_pad_k_adds_nothing_to_the_product(bits):
     """The launchers' K padding (kernels/qmatmul.pad_k): from rows as stored
-    to K a multiple of the unit the CUDA-core GEMV (lcm(cpw, B)) or the
+    to K a multiple of whole words and blocks (lcm(cpw, B)) or of what the
     prefill GEMM (lcm(cpw, B, 8)) takes, the rows still ceil(K / cpw) words
     and whole scale blocks; the plain product on the padded operands within
     2e-5 of the stored ones', and no copy where K is a multiple already."""
@@ -493,7 +493,7 @@ def test_gemv_routed_widths_match_kernel_source():
             assert tqm.tc_gemv_block_ok(bits, block) == \
                 (block % (cpw if cpw % 4 == 0 else 4) == 0), (bits, block)
     simt = (csrc / "qmatmul.cu").read_text()
-    assert {int(b) for b in re.findall(r"case (\d+): gemv_rows<T, \1>", simt)} == set(range(3, 9))
+    assert {int(b) for b in re.findall(r"case (\d+): gemv_warps<T, \1>", simt)} == set(range(3, 9))
     assert {int(b) for b in re.findall(r"case (\d+): return simt_launch<\1>", simt)} == \
         set(range(3, 9))
     sm90 = (csrc / "qgemm_sm90.cu").read_text()

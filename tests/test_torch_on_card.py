@@ -23,9 +23,13 @@ where the card is (a machine without JAX):
   hold whole groups of 4 codes) against ``qmatmul_plain``: every row count
   to 8, columns around its 16-column blocks, word counts off whole uint4s,
   scale blocks of 16, 32 and 64 and odd ones; within one bf16 ulp at max|y|;
-* the CUDA-core GEMV on bf16 x whose scale blocks split a group of 4
-  codes, and the bf16 prefill GEMM given rows as stored (ceil(K / cpw)
-  words, which its launcher pads), against ``qmatmul_plain``;
+* qmatmul.cu's GEMV (gemv_route's "simt": TF32 on the tensor cores) on
+  bf16 x whose scale blocks split a group of 4 codes, within one bf16 ulp,
+  and on f32 x at 3 to 8 bits, 1 to 8 rows, rows as stored with word tails,
+  odd blocks, kernel_bench's and Qwen2-7B's shapes, within 2e-5 relative,
+  one launch each, a row bit-identical alone and among 8; the bf16 prefill
+  GEMM given rows as stored (ceil(K / cpw) words, which its launcher pads),
+  against ``qmatmul_plain``;
 * the f32 GEMM (``qgemm_simt``) against ``qmatmul_plain`` at the paper
   ladder's 12 matrices (M = 1024) and ragged shapes, within 2e-5 relative
   (f32 summation order), and a row's result bit-identical alone and inside
@@ -433,9 +437,9 @@ def test_tensor_core_gemv_at_3_5_6_bits_odd_rows_and_blocks(bits, block):
                                         (6, 6), (6, 10), (7, 6), (8, 10)])
 def test_cuda_core_gemv_bf16_at_blocks_that_split_a_group(bits, block):
     """bf16 x whose scale blocks split a group of 4 codes (at 4 bits a word)
-    goes to the CUDA-core GEMV, which pads K to whole words itself: one
-    launch of it and none of the tensor-core GEMV, every row count to 8,
-    within one bf16 ulp at max|y| of the plain version."""
+    goes to qmatmul.cu's GEMV, which reads the rows as stored: one launch
+    of it and none of the tensor-core GEMV, every row count to 8, within
+    one bf16 ulp at max|y| of the plain version."""
     _need_cuda()
     assert tqm.gemv_route(torch.bfloat16, bits, block) == "simt"
     rs = np.random.RandomState(bits * 31 + block)
@@ -454,6 +458,78 @@ def test_cuda_core_gemv_bf16_at_blocks_that_split_a_group(bits, block):
                     (before[0], before[1] + 1)
                 err = float((y_k - y_p).abs().max())
                 assert err <= BF16_REL_TOL * float(y_p.abs().max()), (M, K, N, dtype)
+
+
+def _gemv_f32_matches_plain(op, Ms, rs):
+    """Each row count through qmatmul_gemv with f32 x: one launch of
+    qmatmul.cu's GEMV (gemv_route's "simt") on the operands as stored, none
+    of the tensor-core GEMV, within 2e-5 relative of the plain version."""
+    for M in Ms:
+        x = torch.tensor(rs.randn(M, op.k_dim), dtype=torch.float32, device="cuda")
+        xp, packed, scales = tops.pad_for_kernel(x, op)
+        assert packed.data_ptr() == op.packed.data_ptr()
+        kw = dict(bits=op.bits, block_size=op.block_size)
+        before = (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches)
+        y_k = tqm.qmatmul_gemv(xp, packed, scales, op.codebook, **kw)
+        y_p = tqm.qmatmul_plain(xp, packed, scales, op.codebook, **kw)
+        torch.cuda.synchronize()
+        assert (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemv_simt.launches) == \
+            (before[0], before[1] + 1)
+        assert y_k.dtype == torch.float32 and bool(torch.isfinite(y_k).all())
+        err = float((y_k - y_p).abs().max())
+        assert err <= F32_REL_TOL * float(y_p.abs().max()), (M, op.k_dim, packed.shape, op.bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 32, 64, 6, 10, 12, 20])
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 7, 8])
+def test_gemv_f32_matches_plain(bits, block):
+    """f32 x at every width and row count to 8, rows as stored: K tails off
+    whole words, scale blocks of whole groups (the scale factored out of a
+    group's products) and blocks that groups or words straddle, and x rows
+    off 16 bytes (K = 1002 at block 6)."""
+    _need_cuda()
+    rs = np.random.RandomState(bits * 37 + block)
+    for dtype in ("int", "float", "dynamic"):
+        _gemv_f32_matches_plain(_b1(bits, dtype, block, 200, 70, rs), range(1, 9), rs)
+    _gemv_f32_matches_plain(_b1(bits, "float", block, 1000, 17, rs), (1, 3, 8), rs)
+
+
+@pytest.mark.cuda
+def test_gemv_f32_at_the_bench_and_qwen2_7b_shapes():
+    """kernel_bench's four weights (M, K, N = 8, 2048, 2048 at int3, int4,
+    float4 and int8, block 64) and Qwen2-7B's matrix shapes with the
+    lm_head (4-bit float, block 64) at 1, 4 and 8 rows."""
+    _need_cuda()
+    from repro_torch.paper import kernel_bench as kb
+
+    rs = np.random.RandomState(11)
+    for bits, dtype in kb.TAGS:
+        _gemv_f32_matches_plain(_b1(bits, dtype, 64, kb.K, kb.N, rs), (1, 4, kb.M), rs)
+    cfg = get_arch("qwen2-7b")
+    D, F, KD = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim
+    for K, N in ((D, D), (D, KD), (D, F), (F, D), (D, cfg.vocab_size)):
+        _gemv_f32_matches_plain(_b1(4, "float", 64, K, N, rs), (1, 4, 8), rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,block", [(4, "float", 64), (3, "int", 64), (8, "int", 64),
+                                              (5, "dynamic", 6), (6, "int", 20)])
+def test_gemv_f32_row_does_not_depend_on_the_rows_beside_it(bits, dtype, block):
+    """Row r of an 8-row call equals the same row called alone, bit for bit:
+    the block's K split and the order of its sums depend on N and K only."""
+    _need_cuda()
+    rs = np.random.RandomState(bits + block)
+    for K, N in ((3584, 512), (2048, 2048), (200, 70)):
+        op = _b1(bits, dtype, block, K, N, rs)
+        x = torch.tensor(rs.randn(8, op.k_dim), dtype=torch.float32, device="cuda")
+        kw = dict(bits=bits, block_size=block)
+        y8 = tqm.qmatmul_gemv_simt(x, op.packed, op.scales, op.codebook, **kw)
+        for r in (0, 3, 7):
+            y1 = tqm.qmatmul_gemv_simt(x[r:r + 1].contiguous(), op.packed, op.scales,
+                                       op.codebook, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(y8[r:r + 1], y1), (K, N, r)
 
 
 @pytest.mark.cuda
