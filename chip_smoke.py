@@ -90,11 +90,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
-               card (paper.common.TRAIN_RECIPE), encodes every checkpoint
+               card (paper.common.TRAIN_RECIPE) into a fresh checkpoint
+               cache under build/, encodes every checkpoint
                through the encode kernels and reads perplexity through the
                fused GEMM (fig2: k in {3,4,5,6,8,16}; fig3 data types and
                block sizes); gates training progress and 8-bit perplexity,
                and records the flat encodes' inputs for the times phase.
+  6b. paper_rest — the paper's remaining experiments on the same ladder,
+               through paper/*.run: fig4 (proxy quantization), appb
+               (centering), table1 (GPTQ against zero-shot float).  Restores
+               the ladder from phase 6's cache (every parameter and the loss
+               history bit for bit) and gates: every perplexity finite;
+               each configuration's bits_report equal to
+               core/bits.quantized_bits_per_param over its matrices (proxy
+               p * (16 - k) more with p = n_out / d a matrix, centering
+               16 / B more); the routes by launch counts (proxy and
+               centered evaluations no fused GEMM or GEMV, centered encodes
+               one flat encode an item and no quantize_pack, proxy encodes
+               one quantize_pack an item, each plain baseline holding a
+               row-structured matrix at least one GEMM launch); one GPTQ
+               matrix of tiny-650k on the card within 1e-12 of the same on
+               the CPU.  Prints fig4's fractions, appb's mean delta,
+               table1's table, each suite's seconds and the cache's times.
   6a. bench  — paper/kernel_bench.py through its entry point (gate off, as
                the suite runner calls it, with its kernel smoke): f32 x, M,
                K, N = 8, 2048, 2048 at int3, int4, float4 and int8, block
@@ -127,6 +144,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -245,10 +263,11 @@ def main() -> int:
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
     paper = paper_path(torch, dev)
+    rest = paper_rest(torch, dev, paper)
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   bench["launches"])
+                   bench["launches"], rest["launches"])
     del run
 
     kernels = []
@@ -267,7 +286,7 @@ def main() -> int:
             # the main paths' launches: serving Qwen2-7B through the Engine
             # (its quantization included), through the Server on the slot
             # pool and on pages, tiny-10m's routed read (Engine and Server),
-            # kernel_bench and the paper's sweep
+            # kernel_bench, the paper's sweep and its remaining experiments
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1907,9 +1926,12 @@ def paper_path(torch, dev) -> dict:
     def log(*args):
         print(*args, file=sys.stderr, flush=True)
 
+    # a fresh cache: this phase trains, never reads a ladder an earlier run left
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
     _reset_counts()
     t0 = time.perf_counter()
-    family = common.trained_family(log=log, device=dev)
+    family = common.trained_family(log=log, device=dev, cache_dir=cache_dir)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with flat_encodes() as flat:
@@ -1946,7 +1968,220 @@ def paper_path(torch, dev) -> dict:
           "fig3bs_mean_degradation": block_effect, "launches": counts,
           "train_s": t1 - t0, "sweep_s": t2 - t1, "seconds": t2 - t0,
           "gates": {"min_loss_drop_nats": MIN_LOSS_DROP, "ppl_k8_rel": PPL_K8_REL_TOL}})
-    return {"launches": counts, "sweep_s": t2 - t1, "flat_items": flat}
+    return {"launches": counts, "sweep_s": t2 - t1, "flat_items": flat, "family": family,
+            "cache_dir": cache_dir, "train_s": t1 - t0}
+
+
+# GPTQ in float64 on the card against the same on the CPU: the inverse and
+# the Cholesky factor come from other libraries, ~1e-16 apart; a weight
+# would have to lie that close to a rounding midpoint to flip its code
+GPTQ_CARD_REL_TOL = 1e-12
+# bits_report against the accounting recomputed from the matrices' shapes
+BITS_REL_TOL = 1e-12
+
+
+def _expected_bits(params, qcfg) -> float:
+    """Average bits per parameter of ``params`` under ``qcfg`` by the paper's
+    accounting, from the tree's shapes alone: every stacked matrix {"w":
+    [..., In, Out]} pays quantized_bits_per_param with its own outlier
+    share p = max(1, round(In * pct)) / In, everything else 16 bits."""
+    from repro_torch.core.bits import quantized_bits_per_param
+
+    q_bits = n = 0.0
+
+    def walk(tree, key=None):
+        nonlocal q_bits, n
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+        else:
+            numel = tree.numel()
+            n += numel
+            if key == "w" and tree.ndim >= 2:
+                d = tree.shape[-2]
+                n_out = max(1, round(d * qcfg.outlier_pct)) if qcfg.outlier_pct > 0 else 0
+                q_bits += numel * quantized_bits_per_param(
+                    qcfg.bits, qcfg.block_size, centering=qcfg.centering,
+                    outlier_pct=n_out / d).ideal_bits_per_param
+            else:
+                q_bits += numel * 16.0
+
+    walk(params)
+    return q_bits / n
+
+
+class _RouteLog:
+    """While open, wraps ``paper.common``'s quantize_params and perplexity
+    (what its evaluate_quant calls) to record, per evaluation, the
+    configuration, the encode's and the evaluation's launch counts, the
+    quantized tree's bits_report and the accounting of ``_expected_bits``."""
+
+    def __enter__(self):
+        from repro_torch.core.qtensor import QuantizedTensor
+        from repro_torch.models.quantize import bits_report
+        from repro_torch.paper import common
+        from repro_torch.tree import leaves
+
+        self.common, self.events, pending = common, [], {}
+        self.real_q, self.real_p = common.quantize_params, common.perplexity
+
+        def quantize(params, qcfg, cfg, **kw):
+            c0 = _counts()
+            qp = self.real_q(params, qcfg, cfg, **kw)
+            c1 = _counts()
+            qts = [x for x in leaves(qp) if isinstance(x, QuantizedTensor)]
+            pending.update(
+                qcfg=qcfg, model=cfg.name, encode={k: c1[k] - c0[k] for k in c1},
+                items=sum(math.prod(q.batch_shape) for q in qts),
+                structured=any(q.structured for q in qts),
+                bits=bits_report(qp)["avg_bits_per_param"],
+                expected_bits=_expected_bits(params, qcfg))
+            return qp
+
+        def perplexity(params, cfg, toks, **kw):
+            c0 = _counts()
+            ppl = self.real_p(params, cfg, toks, **kw)
+            c1 = _counts()
+            ev = dict(pending) if pending else {"qcfg": None, "model": cfg.name}
+            pending.clear()
+            ev.update(ppl=ppl, eval={k: c1[k] - c0[k] for k in c1})
+            self.events.append(ev)
+            return ppl
+
+        common.quantize_params, common.perplexity = quantize, perplexity
+        return self.events
+
+    def __exit__(self, *exc):
+        self.common.quantize_params, self.common.perplexity = self.real_q, self.real_p
+        return False
+
+
+def _check_routes(events) -> dict:
+    """Gate each recorded evaluation's route and bits; returns counts of the
+    evaluations by kind."""
+    kinds = {"proxy": 0, "centered": 0, "plain": 0, "dense": 0}
+    for ev in events:
+        q = ev["qcfg"]
+        what = f"{ev['model']} {q.describe() if q else 'dense'}"
+        require(math.isfinite(ev["ppl"]), f"{what}: non-finite perplexity {ev['ppl']}")
+        fused = ev["eval"]["gemv"] + ev["eval"]["gemm"]
+        if q is None:
+            kinds["dense"] += 1
+            require(fused == 0, f"{what}: a dense evaluation launched {fused} fused matmuls")
+            continue
+        require(abs(ev["bits"] / ev["expected_bits"] - 1) <= BITS_REL_TOL,
+                f"{what}: bits_report {ev['bits']} != accounting {ev['expected_bits']}")
+        enc = ev["encode"]
+        if q.outlier_pct > 0 or q.centering:
+            require(fused == 0, f"{what}: {fused} fused GEMM/GEMV launches on means or "
+                                f"outliers (dequant_einsum expected)")
+        if q.centering:
+            kinds["centered"] += 1
+            require(enc["b3"] >= ev["items"] and enc["pack"] == 0,
+                    f"{what}: centered encode {enc} for {ev['items']} items")
+        elif q.outlier_pct > 0:
+            kinds["proxy"] += 1
+            require(enc["pack"] == ev["items"] and enc["b3"] == 0,
+                    f"{what}: proxy encode {enc} for {ev['items']} items")
+        else:
+            kinds["plain"] += 1
+            require((ev["eval"]["gemm"] > 0) == ev["structured"],
+                    f"{what}: {ev['eval']['gemm']} GEMM launches, row-structured "
+                    f"matrices: {ev['structured']}")
+    return kinds
+
+
+def paper_rest(torch, dev, paper) -> dict:
+    """Phase 6b: fig4, appb and table1 on phase 6's ladder, restored from its
+    checkpoint cache, through the port's entry points."""
+    import shutil
+
+    from repro_torch.core import gptq
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.models.layers import norm
+    from repro_torch.paper import appb_centering, common, fig4_proxy, table1_gptq
+    from repro_torch.tree import leaves
+
+    def log(*args):
+        print(*args, file=sys.stderr, flush=True)
+
+    trained = paper["family"]
+    # the cache round trip: every model restored, bit for bit, with its losses
+    lines = []
+    t0 = time.perf_counter()
+    family = common.trained_family(log=lines.append, device=dev, cache_dir=paper["cache_dir"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(paper["cache_dir"], ignore_errors=True)
+    require(all(line.startswith("[cache]") for line in lines) and len(lines) == len(trained),
+            f"the ladder was not restored from the cache: {lines}")
+    for name, t in trained.items():
+        a, b = leaves(t.params), leaves(family[name].params)
+        require(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(
+            x.view(torch.int32) if x.dtype == torch.float32 else x,
+            y.view(torch.int32) if y.dtype == torch.float32 else y) for x, y in zip(a, b)),
+            f"{name}: restored parameters differ from the trained ones")
+        require(family[name].history == t.history, f"{name}: restored loss history differs")
+
+    _reset_counts()
+    seconds = {}
+    with _RouteLog() as events:
+        t0 = time.perf_counter()
+        _, fig4 = fig4_proxy.run(family, log=log)
+        torch.cuda.synchronize()
+        seconds["fig4"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, appb = appb_centering.run(family, log=log)
+        torch.cuda.synchronize()
+        seconds["appb"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, table1 = table1_gptq.run(family, log=log)
+        torch.cuda.synchronize()
+        seconds["table1"] = time.perf_counter() - t0
+    counts = _counts()
+    kinds = _check_routes(events)
+    require(kinds["proxy"] == 2 * len(family) and kinds["centered"] == 2 * len(family),
+            f"evaluations by kind: {kinds}")
+    for name, entry in table1.items():
+        vals = [v for bs in table1_gptq.BLOCKS for v in entry[bs].values()]
+        require(all(math.isfinite(v) for v in vals + [entry["gptq3_noblock"]]),
+                f"table1 {name}: non-finite perplexity {entry}")
+
+    # one GPTQ matrix of tiny-650k on the card and on the CPU, the same inputs
+    t = family["tiny-650k"]
+    calib = common.eval_tokens(t.cfg, n_seqs=8, seed=777, device=dev)[:, :128]
+    layer0 = {k: v[0] for k, v in t.params["stack"][0]["mixer_norm"].items()}
+    h = norm(layer0, t.params["embed"].to(torch.bfloat16)[calib], t.cfg.norm_type)
+    w = t.params["stack"][0]["mixer"]["wq"]["w"][0]
+    H = gptq.hessian_from_inputs(h.to(torch.float32).reshape(-1, w.shape[0]))
+    cb = make_codebook("int", 2, device=dev)
+    t0 = time.perf_counter()
+    q_card = gptq.gptq_quantize(w, H, cb, block_size=64)
+    torch.cuda.synchronize()
+    gptq_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_cpu = gptq.gptq_quantize(w.cpu(), H.cpu(), cb.cpu(), block_size=64)
+    gptq_cpu_s = time.perf_counter() - t0
+    gptq_rel = float((q_card.cpu() - q_cpu).abs().max() / q_cpu.abs().max())
+    require(gptq_rel <= GPTQ_CARD_REL_TOL,
+            f"GPTQ on the card is {gptq_rel:.3e} off the CPU's (> {GPTQ_CARD_REL_TOL})")
+
+    emit({"phase": "paper_rest", "models": sorted(family),
+          "fig4_proxy_helps_3bit_frac": fig4["proxy_helps_3bit_frac"],
+          "fig4_proxy3bit_beats_4bit_frac": fig4["proxy3bit_beats_4bit_frac"],
+          "fig4_ppl": fig4["ppl"], "fig4_bits": fig4["bits"],
+          "appb_mean_logppl_delta": appb["mean_delta"], "appb": appb["models"],
+          "table1": table1, "seconds": seconds, "evaluations": kinds, "launches": counts,
+          "cache": {"train_s": paper["train_s"], "restore_s": restore_s},
+          "gptq_card_vs_cpu_rel": gptq_rel,
+          "gptq_matrix": {"model": "tiny-650k", "unit": "stack/0/mixer/wq", "layer": 0,
+                          "shape": list(w.shape), "bits": 2, "block": 64,
+                          "card_s": gptq_card_s, "cpu_s": gptq_cpu_s},
+          "gates": {"gptq_card_rel": GPTQ_CARD_REL_TOL, "bits_rel": BITS_REL_TOL}})
+    return {"launches": counts}
 
 
 def bench_path(torch, dev) -> dict:

@@ -8,6 +8,12 @@ in the reference, a block is normalized by its **f32** absmax and only then
 is the scale stored as bf16, so codes and scale bits match the reference
 exactly.
 
+With centering (App. B) each block's mean is subtracted first and stored as
+bf16 beside the scale.  ``mean_xla`` sums in the order XLA's CPU backend
+does, so the means, and the codes of the centered blocks, match the
+reference bit for bit on the CPU and on the card alike (``torch.mean``'s own
+order differs from XLA's in the last bit of most blocks).
+
 The absmax and the search run in ``kernels/quantize.quantize_blocks``: the
 CUDA encode kernel for a CUDA tensor, its plain version for a CPU tensor,
 as the reference runs its Pallas kernel on the accelerator and this module
@@ -39,6 +45,43 @@ def pad_to_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
     return flat.reshape(n_blocks, block_size)
 
 
+#: XLA's CPU tree-reduction window: a reduced dim longer than this is summed
+#: in windows of this many values, then the window sums in turn
+XLA_REDUCE_WINDOW = 32
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, one value after another from +0."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def sum_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 sum over ``dim`` in the order of ``jnp.sum`` on XLA's CPU backend:
+    while the dim is longer than XLA_REDUCE_WINDOW it is padded with zeros
+    to a multiple of it (the lower half of the padding in front), cut into
+    windows and each window summed in order; the last <= 32 values are then
+    summed in order.  Read from XLA's optimized HLO (``reduce-window``) and
+    LLVM IR (a sequential ``fadd`` chain per window)."""
+    x = torch.movedim(x.to(torch.float32), dim, -1)
+    w = XLA_REDUCE_WINDOW
+    while x.shape[-1] > w:
+        pad = -x.shape[-1] % w
+        if pad:
+            x = F.pad(x, (pad // 2, pad - pad // 2))
+        x = _sum_in_order(x.reshape(x.shape[:-1] + (-1, w)))
+    return _sum_in_order(x)
+
+
+def mean_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.mean`` over ``dim`` bit for bit: ``sum_xla`` times the f32
+    reciprocal of the count (XLA rewrites the division so)."""
+    n = x.shape[dim]
+    return sum_xla(x, dim) * torch.tensor(1.0 / n, dtype=torch.float32, device=x.device)
+
+
 def encode(x: torch.Tensor, codebook: torch.Tensor, block_size: int, *,
            centering: bool = False, scale_dtype=torch.bfloat16) -> BlockQuantized:
     """Quantize tensor ``x`` blockwise against a sorted codebook."""
@@ -47,7 +90,7 @@ def encode(x: torch.Tensor, codebook: torch.Tensor, block_size: int, *,
     blocks = pad_to_blocks(x.reshape(-1).to(torch.float32), block_size)
     means = None
     if centering:
-        means = blocks.mean(dim=1, keepdim=True)
+        means = mean_xla(blocks, 1)[:, None]
         blocks = blocks - means
     codes, scales = quantize.quantize_blocks(blocks, codebook)
     return BlockQuantized(
@@ -68,3 +111,23 @@ def decode(q: BlockQuantized, codebook: torch.Tensor, shape, *,
     for d in shape:
         n *= d
     return vals.reshape(-1)[:n].reshape(tuple(shape)).to(out_dtype)
+
+
+def quantize_dequantize(x: torch.Tensor, codebook: torch.Tensor, block_size: int, *,
+                        centering: bool = False) -> torch.Tensor:
+    """Round-trip helper: the quantization 'noise lens' used in evals."""
+    q = encode(x, codebook, block_size, centering=centering)
+    return decode(q, codebook, x.shape, out_dtype=x.dtype)
+
+
+def encode_chunked(x: torch.Tensor, codebook: torch.Tensor, block_size: int, *,
+                   chunk_blocks: int = 8192, **kw) -> BlockQuantized:
+    """``encode`` over chunks of ``chunk_blocks`` blocks, one after another:
+    bounds the peak memory of a very large tensor's encode.  Each block is
+    encoded on its own, so the result is ``encode``'s."""
+    blocks = pad_to_blocks(x.reshape(-1).to(torch.float32), block_size)
+    parts = [encode(blocks[i: i + chunk_blocks], codebook, block_size, **kw)
+             for i in range(0, blocks.shape[0], chunk_blocks)]
+    means = None if parts[0].means is None else torch.cat([p.means for p in parts])
+    return BlockQuantized(codes=torch.cat([p.codes for p in parts]),
+                          scales=torch.cat([p.scales for p in parts]), means=means)

@@ -5,18 +5,18 @@ A QuantizedTensor holds a logical tensor of shape ``batch_shape +
 quant_shape``; each item along the batch dims (the layer axis of a stacked
 weight) is block-quantized on its own:
 
-  packed   int32  [*B, n_words]       packed codes (uint32 bits, core/packing.py)
-  scales   bf16   [*B, n_blocks]      per-block absmax constants
-  codebook f32    [*B, 2^k]           sorted data-type codebook, one per item
+  packed       int32 [*B, n_words]    packed codes (uint32 bits, core/packing.py)
+  scales       bf16  [*B, n_blocks]   per-block absmax constants
+  means        bf16  [*B, n_blocks]?  per-block means (centering, App. B)
+  codebook     f32   [*B, 2^k]        sorted data-type codebook, one per item
+  outlier_vals bf16  [*B, n_out, o]?  proxy-quantized 16-bit slices (Eq. 2)
+  outlier_idx  int32 [*B, n_out]?     their indices along ``outlier_axis``
 
 ``to_structured`` turns 2-D items into row storage (packed [*B, rows,
-words_per_row], scales [*B, rows, cols // block]), which is exactly the
-fused dequant-GEMM operand layout.  Field names follow the reference, so a
-tree flattens to the same keys (``interop.flatten``).
-
-Not in this slice: centering means and proxy outliers.  The fields exist
-(always None here) and the functions that would need them raise
-NotImplementedError.
+words_per_row], scales and means [*B, rows, cols // block]), which is
+exactly the fused dequant-GEMM operand layout (the GEMM takes neither means
+nor outliers: ``kernels/ops.qt_fused_eligible``).  Field names follow the
+reference, so a tree flattens to the same keys (``interop.flatten``).
 """
 
 from __future__ import annotations
@@ -87,12 +87,6 @@ class QuantizedTensor:
             for f in DATA_FIELDS})
 
 
-def _not_in_slice(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (repro_torch's first slice serves plain "
-        "blockwise weights; see ROADMAP.md queue A)")
-
-
 def _as_stored(item: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """A 2-D item as ``kernels/quantize.quantize_pack`` reads it: itself if
     contiguous, its transpose (flagged) if that is, else a contiguous copy;
@@ -120,44 +114,67 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
     stored (a transposed view is read through its transpose) by
     ``kernels/quantize.quantize_pack``: one kernel launch an item on the
     card.  Other items keep the flat layout, through the encode kernel and
-    ``packing.pack``; ``to_structured`` has nothing left to do for either."""
+    ``packing.pack``; ``to_structured`` has nothing left to do for either.
+
+    ``centering`` (App. B) sends every item through ``blockwise.encode``,
+    which subtracts each block's mean in torch before the encode kernel;
+    2-D items of whole-block rows are then restructured, as the reference
+    encodes flat and restructures.  ``outlier_idx`` (proxy quantization):
+    per-item indices into quant axis ``outlier_axis`` (0 = rows, -1 = the
+    last axis, the reduction dim of a transposed-stored weight); those
+    slices are kept in bf16 and zeroed, on a copy, before the encode so they
+    cannot pollute the absmax scales."""
     from repro_torch.kernels import quantize  # kernels.ops imports this module
 
-    if centering:
-        raise _not_in_slice("centering (paper App. B)")
-    if outlier_idx is not None:
-        raise _not_in_slice("proxy quantization outliers (paper §3)")
     batch_shape = tuple(x.shape[:batch_dims])
     quant_shape = tuple(x.shape[batch_dims:])
     rows_of_blocks = (len(quant_shape) == 2 and scale_dtype == torch.bfloat16
                       and quant_shape[1] % block_size == 0)
     xb = x.reshape((-1,) + quant_shape)
+    ax = outlier_axis % len(quant_shape)
+    oidx = None
+    if outlier_idx is not None:
+        oidx = torch.as_tensor(outlier_idx, device=x.device).to(torch.int32)
+        oidx = oidx.reshape(xb.shape[0], -1)
     if dtype != "quantile":
         cb0 = make_codebook(dtype, bits, exponent_bits=exponent_bits, device=x.device)
-    packed, scales, cbs = [], [], []
-    for item in xb:
+    packed, scales, means, cbs, ovals = [], [], [], [], []
+    for i, item in enumerate(xb):
+        if oidx is not None:
+            j = oidx[i].long()
+            ovals.append(item.index_select(ax, j).to(torch.bfloat16))
+            item = item.index_fill(ax, j, 0.0)
         cb = quantile_codebook(item, bits) if dtype == "quantile" else cb0.clone()
-        if rows_of_blocks:
+        if rows_of_blocks and not centering:
             stored, flipped = _as_stored(item)
             p, s = quantize.quantize_pack(stored, cb, bits=bits, block_size=block_size,
                                           transposed=flipped)
-            packed.append(p)
-            scales.append(s)
         else:
-            q = blockwise.encode(item, cb, block_size, scale_dtype=scale_dtype)
-            packed.append(packing.pack(q.codes.reshape(-1), bits))
-            scales.append(q.scales)
+            q = blockwise.encode(item, cb, block_size, centering=centering,
+                                 scale_dtype=scale_dtype)
+            # the centered path restructures rows of whole blocks: each row
+            # packed from a word, scales and means one row of blocks a row
+            lead = quant_shape[:1] if rows_of_blocks else ()
+            p = packing.pack(q.codes.reshape(lead + (-1,)), bits)
+            s = q.scales.reshape(lead + (-1,))
+            if centering:
+                means.append(q.means.reshape(lead + (-1,)))
+        packed.append(p)
+        scales.append(s)
         cbs.append(cb)
 
     def unbatch(parts):
+        if not parts:
+            return None
         a = torch.stack(parts)
         return a.reshape(batch_shape + a.shape[1:])
 
     return QuantizedTensor(
-        packed=unbatch(packed), scales=unbatch(scales), means=None,
-        codebook=unbatch(cbs), outlier_vals=None, outlier_idx=None,
+        packed=unbatch(packed), scales=unbatch(scales), means=unbatch(means),
+        codebook=unbatch(cbs), outlier_vals=unbatch(ovals),
+        outlier_idx=None if oidx is None else oidx.reshape(batch_shape + oidx.shape[1:]),
         quant_shape=quant_shape, bits=bits, block_size=block_size,
-        dtype_name=dtype, centering=False, outlier_axis=outlier_axis,
+        dtype_name=dtype, centering=centering, outlier_axis=outlier_axis,
         transposed=transposed, structured=rows_of_blocks, orig_dtype=dtype_name(x.dtype),
     )
 
@@ -183,12 +200,15 @@ def to_structured(qt: QuantizedTensor) -> QuantizedTensor:
     return dataclasses.replace(
         qt, packed=packed,
         scales=qt.scales.reshape(b + (rows, cols // qt.block_size)),
+        means=None if qt.means is None
+        else qt.means.reshape(b + (rows, cols // qt.block_size)),
         structured=True,
     )
 
 
-def _dequantize_item(qt: QuantizedTensor, packed, scales, cb) -> torch.Tensor:
-    """One batch item back to f32 ``quant_shape``."""
+def _dequantize_item(qt: QuantizedTensor, packed, scales, means, cb, ovals,
+                     oidx) -> torch.Tensor:
+    """One batch item back to f32 ``quant_shape``, outliers scattered back."""
     cb = cb.to(torch.float32)
     if qt.structured:
         rows, cols = qt.quant_shape
@@ -196,25 +216,39 @@ def _dequantize_item(qt: QuantizedTensor, packed, scales, cb) -> torch.Tensor:
         codes = packing.unpack(packed, qt.bits, cols)              # [rows, cols]
         vals = cb[codes.long()]
         w = vals.reshape(rows, cols // bs, bs) * scales.to(torch.float32)[:, :, None]
-        return w.reshape(rows, cols)
-    n_blocks = scales.shape[-1]
-    codes = packing.unpack(packed, qt.bits, n_blocks * qt.block_size)
-    q = blockwise.BlockQuantized(codes=codes.reshape(n_blocks, qt.block_size),
-                                 scales=scales, means=None)
-    n = math.prod(qt.quant_shape)
-    return blockwise.decode(q, cb, (n,), out_dtype=torch.float32).reshape(qt.quant_shape)
+        if means is not None:
+            w = w + means.to(torch.float32)[:, :, None]
+        w = w.reshape(rows, cols)
+    else:
+        n_blocks = scales.shape[-1]
+        codes = packing.unpack(packed, qt.bits, n_blocks * qt.block_size)
+        q = blockwise.BlockQuantized(codes=codes.reshape(n_blocks, qt.block_size),
+                                     scales=scales, means=means)
+        n = math.prod(qt.quant_shape)
+        w = blockwise.decode(q, cb, (n,), out_dtype=torch.float32).reshape(qt.quant_shape)
+    if oidx is not None:
+        ax = qt.outlier_axis % len(qt.quant_shape)
+        w = w.index_copy(ax, oidx.long(), ovals.to(torch.float32))
+    return w
 
 
 def dequantize_tensor(qt: QuantizedTensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full dequantization back to the logical shape."""
-    if qt.means is not None or qt.outlier_idx is not None:
-        raise _not_in_slice("dequantizing means or outliers")
+    """Full dequantization back to the logical shape (outliers included)."""
     batch_shape = qt.batch_shape
+    fields = ("packed", "scales", "means", "codebook", "outlier_vals", "outlier_idx")
     if not batch_shape:
-        return _dequantize_item(qt, qt.packed, qt.scales, qt.codebook).to(out_dtype)
+        return _dequantize_item(qt, *(getattr(qt, f) for f in fields)).to(out_dtype)
     nb = len(batch_shape)
-    flat = [getattr(qt, f).reshape((-1,) + getattr(qt, f).shape[nb:])
-            for f in ("packed", "scales", "codebook")]
-    out = torch.stack([_dequantize_item(qt, p, s, c).to(out_dtype)
-                       for p, s, c in zip(*flat)])
+    n_items = math.prod(batch_shape)
+    flat = [[None] * n_items if getattr(qt, f) is None
+            else getattr(qt, f).reshape((-1,) + getattr(qt, f).shape[nb:]) for f in fields]
+    out = torch.stack([_dequantize_item(qt, *a).to(out_dtype) for a in zip(*flat)])
     return out.reshape(batch_shape + tuple(qt.quant_shape))
+
+
+def quantization_error(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """RMS relative quantization error — used by tests and benchmarks."""
+    w = dequantize_tensor(qt, out_dtype=torch.float32)
+    x = x.to(torch.float32)
+    rms = lambda a: torch.sqrt(torch.mean(a ** 2))  # noqa: E731
+    return rms(w - x) / (rms(x) + 1e-12)

@@ -11,8 +11,10 @@ stays free of jax:
   importing ``repro``) becomes the port's ``QuantizedTensor``.
 
 ``flatten`` names a port tree's leaves the way ``jax.tree_util.keystr``
-names the reference tree's (``['stack'][0]['mixer']['wq']['w'].packed``), as
-``repro/checkpoint/manager.py`` writes them, so trees compare leaf by leaf.
+names the reference tree's (``['stack'][0]['mixer']['wq']['w'].packed``, a
+NamedTuple's fields as ``.params``), as ``repro/checkpoint/manager.py``
+writes them, so trees compare leaf by leaf and the port's checkpoints
+(``checkpoint/manager.py``) use the reference's keys.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ _META_FIELDS = ("quant_shape", "bits", "block_size", "dtype_name", "centering",
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """One reference array (numpy, or anything ``np.asarray`` takes) as a
     torch tensor with the same bits."""
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)   # a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     elif a.dtype == np.uint32:
@@ -75,6 +78,9 @@ def flatten(tree, prefix: str = "") -> dict:
     if isinstance(tree, dict):
         for k in sorted(tree):
             out.update(flatten(tree[k], f"{prefix}[{k!r}]"))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):   # a NamedTuple
+        for f in tree._fields:
+            out.update(flatten(getattr(tree, f), f"{prefix}.{f}"))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(flatten(v, f"{prefix}[{i}]"))

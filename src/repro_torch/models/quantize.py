@@ -1,6 +1,6 @@
 """Post-training quantization of a parameter tree (the paper's zero-shot
-setting) — port of ``repro/models/quantize.py`` without plans and proxy
-outliers.
+setting) — port of ``repro/models/quantize.py`` without mixed-precision
+plans.
 
 Every parameter matrix becomes a k-bit QuantizedTensor: attention
 projections, the MLP and lm_head.  Vectors (norms, biases) stay 16-bit, and
@@ -9,13 +9,20 @@ TRANSPOSED ([..., Out, In], ``quantize.py:52-66``) so blocks run along the
 reduction dim, the fused dequant-GEMM's operand layout; lm_head [V, D] is
 already (out, in).  Each matrix is encoded from the weight as stored, with
 no transposed copy, by ``kernels/quantize.quantize_pack`` (one launch an
-item on the card).
+item on the card); centered matrices (App. B) go through
+``core/blockwise.encode`` and the flat encode kernel instead.
+
+Proxy quantization (§3, Eq. 2): producer-weight std picks the outlier input
+dims kept in 16-bit.  Within-block producers are exact (w_down <- w_up, wo
+<- wv with GQA group tiling); residual-stream consumers share one
+model-wide outlier set from the mean producer std across layers, as in the
+reference.
 
 ``bits_report`` is the paper's x-axis, total model bits.
 
-Not in this slice: ``PrecisionPlan`` mixed precision, proxy quantization
-(outlier_pct > 0) and ``quantizable_units`` (the planner's unit walk,
-which comes with the planner).
+Not in this slice: ``PrecisionPlan`` mixed precision (``plan=``) and
+``quantizable_units``, the planner's unit walk (ROADMAP queue A8); MoE
+expert stacks, which the port's models do not have.
 """
 
 from __future__ import annotations
@@ -23,59 +30,160 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core.blockwise import mean_xla
+from repro_torch.core.proxy import outlier_indices_topk, std_xla
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor, quantize_tensor
 from repro_torch.device import resolve_device
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
+
+#: module names whose {"w": ...} consumes the residual stream [D -> *]
+_RESIDUAL_CONSUMERS = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "frame_proj"}
 
 
-def _quantize_matrix(w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
+def _n_outliers(dim: int, pct: float) -> int:
+    return max(1, int(round(dim * pct))) if pct > 0 else 0
+
+
+def _quantize_matrix(w: torch.Tensor, qcfg: QuantConfig, outlier_idx=None) -> QuantizedTensor:
     """w [..., In, Out] -> QT storing [..., Out, In], blocks along In; each
     item is encoded from w as stored, without a transposed copy."""
     wt = torch.swapaxes(w, -1, -2)
     return quantize_tensor(
         wt, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
-        batch_dims=wt.ndim - 2, exponent_bits=qcfg.exponent_bits, transposed=True,
+        batch_dims=wt.ndim - 2, centering=qcfg.centering, exponent_bits=qcfg.exponent_bits,
+        outlier_idx=outlier_idx, outlier_axis=-1, transposed=True,
     )
 
 
-def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig) -> QuantizedTensor:
+def _producer_std(w: torch.Tensor) -> torch.Tensor:
+    """std over the input dim for each output unit; w [..., In, Out] -> [..., Out]."""
+    return std_xla(w, -2)
+
+
+def _bc(idx, batch_shape):
+    if idx is None:
+        return None
+    return idx.expand(tuple(batch_shape) + idx.shape[-1:])
+
+
+def _paths(tree, keys=()):
+    """(keys, leaf) over a tree in jax's leaf order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], keys + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, keys + (i,))
+    elif tree is not None:
+        yield keys, tree
+
+
+def residual_outliers(params: dict, cfg, pct: float):
+    """Model-wide outlier dims of the residual stream -> [n_out] or None."""
+    if pct <= 0:
+        return None
+    stds = []
+    for keys, leaf in _paths(params):
+        if "w" in keys and any(k in ("w_down", "wo", "out_proj") for k in keys):
+            if isinstance(leaf, torch.Tensor) and leaf.ndim >= 2 \
+                    and leaf.shape[-1] == cfg.d_model:
+                stds.append(mean_xla(_producer_std(leaf).reshape(-1, cfg.d_model), 0))
+    if not stds:
+        return None
+    mean_std = mean_xla(torch.stack(stds), 0)
+    return outlier_indices_topk(mean_std, _n_outliers(cfg.d_model, pct))
+
+
+def _module_outliers(name: str, w: torch.Tensor, container: dict, cfg, qcfg, j_res):
+    """Outlier input-dim indices for a dense module's weight (or None)."""
+    batch_shape = w.shape[:-2]
+    if name in _RESIDUAL_CONSUMERS and w.shape[-2] == cfg.d_model:
+        return _bc(j_res, batch_shape)
+    if name == "w_down" and "w_up" in container:
+        std = _producer_std(container["w_up"]["w"])  # [..., F]
+        return outlier_indices_topk(std, _n_outliers(w.shape[-2], qcfg.outlier_pct))
+    if name == "wo" and "wv" in container:
+        std = _producer_std(container["wv"]["w"])  # [..., K*Dh]
+        if cfg.n_heads and cfg.n_kv_heads and cfg.n_heads != cfg.n_kv_heads:
+            g = cfg.n_heads // cfg.n_kv_heads
+            std = torch.repeat_interleave(
+                std.reshape(batch_shape + (cfg.n_kv_heads, cfg.head_dim)), g, dim=-2
+            ).reshape(batch_shape + (cfg.n_heads * cfg.head_dim,))
+        # map producer unit j to consumer input dim j (identity layout)
+        return outlier_indices_topk(std, _n_outliers(w.shape[-2], qcfg.outlier_pct))
+    if name == "lm_head" and w.shape[-2] == cfg.d_model:
+        return _bc(j_res, batch_shape)
+    return None
+
+
+def _unit_outliers(kind, name, w, container, cfg, qcfg, j_res):
+    """Proxy-quantization outlier indices for one unit (or None)."""
+    if qcfg.outlier_pct <= 0:
+        return None
+    if kind == "matrix":
+        return _module_outliers(name.rsplit("/", 1)[-1], w, container, cfg, qcfg, j_res)
+    if kind == "lm_head":
+        return j_res[None] if j_res is not None else None
+    return None  # embed: input dim is the vocab, no residual outliers
+
+
+def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig,
+                  outlier_idx=None) -> QuantizedTensor:
     """kind "matrix": [..., In, Out] -> transposed QT; "lm_head"/"embed":
     [V, D] is already (out, in)."""
     if kind == "matrix":
-        return _quantize_matrix(w, qcfg)
+        return _quantize_matrix(w, qcfg, outlier_idx=outlier_idx)
     return quantize_tensor(
         w, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
-        exponent_bits=qcfg.exponent_bits,
+        centering=qcfg.centering, exponent_bits=qcfg.exponent_bits,
+        outlier_idx=outlier_idx, outlier_axis=-1,
     )
+
+
+def _walk_units(params, base: QuantConfig, visit):
+    """Recurse ``params``, calling ``visit(name, kind, w, container)`` on
+    every quantizable unit, which returns the replacement weight; other
+    leaves stay as they are.  ``name`` is the stable slash-joined tree
+    path ("stack/0/mixer/wq"), ``kind`` one of "matrix", "lm_head",
+    "embed"; ``base`` gates the lm_head and embedding switches."""
+
+    def walk(tree, path):
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, path + (str(i),)) for i, v in enumerate(tree))
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for name, val in tree.items():
+            unit = "/".join(path + (name,))
+            # dense module {"w": matrix, ("b": bias)}
+            if isinstance(val, dict) and isinstance(val.get("w"), torch.Tensor) \
+                    and val["w"].ndim >= 2:
+                out[name] = {k: (visit(unit, "matrix", v, tree) if k == "w"
+                                 else walk(v, path + (name, k))) for k, v in val.items()}
+            elif name == "lm_head" and base.quantize_lm_head and isinstance(val, torch.Tensor):
+                out[name] = visit(unit, "lm_head", val, tree)
+            elif name == "embed" and base.quantize_embedding and isinstance(val, torch.Tensor):
+                out[name] = visit(unit, "embed", val, tree)
+            else:
+                out[name] = walk(val, path + (name,))
+        return out
+
+    return walk(params, ())
 
 
 def quantize_tree(params, cfg, *, qcfg: QuantConfig, device=None):
     """Params tree -> the same tree with weight matrices quantized on
-    ``device`` (CUDA by default)."""
-    if qcfg.centering or qcfg.outlier_pct > 0:
-        raise NotImplementedError("centering and proxy outliers are not ported yet")
+    ``device`` (CUDA by default).  Residual-stream outlier sets (proxy
+    quantization) are computed once and shared by all units."""
     dev = resolve_device(device)
+    params = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t, params)
+    j_res = residual_outliers(params, cfg, qcfg.outlier_pct)
 
-    def walk(tree):
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v) for v in tree)
-        if not isinstance(tree, dict):
-            return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
-        out = {}
-        for name, val in tree.items():
-            if isinstance(val, dict) and isinstance(val.get("w"), torch.Tensor) \
-                    and val["w"].ndim >= 2:
-                out[name] = {k: (quantize_unit("matrix", v.to(dev), qcfg) if k == "w"
-                                 else walk(v)) for k, v in val.items()}
-            elif name == "lm_head" and qcfg.quantize_lm_head and isinstance(val, torch.Tensor):
-                out[name] = quantize_unit("lm_head", val.to(dev), qcfg)
-            elif name == "embed" and qcfg.quantize_embedding and isinstance(val, torch.Tensor):
-                out[name] = quantize_unit("embed", val.to(dev), qcfg)
-            else:
-                out[name] = walk(val)
-        return out
+    def visit(name, kind, w, container):
+        oidx = _unit_outliers(kind, name, w, container, cfg, qcfg, j_res)
+        return quantize_unit(kind, w, qcfg, outlier_idx=oidx)
 
-    return walk(params)
+    return _walk_units(params, qcfg, visit)
 
 
 def quantize_params(params, qcfg: QuantConfig, cfg, *, device=None):

@@ -2,9 +2,12 @@
 ``benchmarks/common.py``: train the tiny model ladder, quantize and
 evaluate it, time a call, stamp and write JSON results and CSV rows.
 
-The ladder is trained on the device at every call (``trained_family``);
-the reference's checkpoint cache comes with the checkpoint manager (ROADMAP
-queue A9).  Results go to ``artifacts/bench_torch/`` (ignored by git).
+``trained_family`` trains the ladder once and caches it through the
+checkpoint manager under ``artifacts/ckpt_torch/`` (as the reference caches
+under ``artifacts/ckpt/``); a cache directory is keyed by the model, the
+recipe and the device type, so a shortened run or a run on another device
+never reads a ladder trained otherwise.  Results go to
+``artifacts/bench_torch/``; both are ignored by git.
 """
 
 from __future__ import annotations
@@ -17,13 +20,16 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.tiny import TINY_FAMILY
 from repro_torch.data.synthetic import ZipfMarkov, generator
+from repro_torch.device import resolve_device
 from repro_torch.models.quantize import bits_report, quantize_params
 from repro_torch.serving import perplexity
 from repro_torch.serving.telemetry import LATENCY_BUCKETS, Histogram
 from repro_torch.train import loop
+from repro_torch.train import step as step_mod
 from repro_torch.tree import leaves
 
 ART = Path(__file__).resolve().parents[3] / "artifacts"
@@ -42,9 +48,25 @@ class Trained(NamedTuple):
     history: list    # per-step training loss
 
 
-def trained_family(sizes=None, log=print, device=None, steps: int | None = None) -> dict:
-    """Train the tiny model ladder on ``device`` (CUDA by default) with
-    TRAIN_RECIPE, or ``steps`` steps each; returns {name: Trained}."""
+def cache_key(name: str, recipe: dict, device) -> str:
+    """The cache directory's name: the model, its recipe and the device type
+    (``tiny-650k-s260-b32-l128-cuda``).  The reference keys by model alone
+    and takes any checkpoint at or past the recipe's steps, which would hand
+    a 260-step model to a 30-step call."""
+    return (f"{name}-s{recipe['steps']}-b{recipe['batch']}-l{recipe['seq_len']}"
+            f"-{torch.device(device).type}")
+
+
+def trained_family(sizes=None, log=print, device=None, steps: int | None = None,
+                   cache_dir=None) -> dict:
+    """Train (or load cached) the tiny model ladder on ``device`` (CUDA by
+    default) with TRAIN_RECIPE, or ``steps`` steps each; returns {name:
+    Trained}.  ``cache_dir`` (default ``ART / "ckpt_torch"``) holds one
+    checkpoint directory a model and recipe (``cache_key``); a cached model
+    is restored bit for bit with its loss history, else trained and saved
+    there."""
+    dev = resolve_device(device)
+    cache_dir = Path(cache_dir) if cache_dir is not None else ART / "ckpt_torch"
     out = {}
     for name, cfg in TINY_FAMILY.items():
         if sizes and name not in sizes:
@@ -52,9 +74,21 @@ def trained_family(sizes=None, log=print, device=None, steps: int | None = None)
         recipe = dict(TRAIN_RECIPE[name])
         if steps is not None:
             recipe["steps"] = steps
+        ckpt_dir = cache_dir / cache_key(name, recipe, dev)
         t0 = time.time()
-        state, hist = loop.train(cfg, log=lambda *_: None, device=device, **recipe)
-        log(f"[train] {name}: loss {hist[0]:.3f}->{hist[-1]:.3f} ({time.time()-t0:.0f}s)")
+        mgr = CheckpointManager(ckpt_dir)
+        cached = mgr.latest_step()
+        if cached == recipe["steps"]:
+            _, state, extra = mgr.restore(step_mod.init_state(cfg, device=dev))
+            hist = extra["losses"]
+            log(f"[cache] {name} ({time.time()-t0:.1f}s)")
+        else:
+            state, hist = loop.train(cfg, log=lambda *_: None, device=dev,
+                                     ckpt_dir=str(ckpt_dir), ckpt_every=10_000, **recipe)
+            if cached:   # resumed a preemption save: its losses come first
+                hist = mgr.restore(state)[2]["losses"]
+            log(f"[train] {name}: loss {hist[0]:.3f}->{hist[-1]:.3f} "
+                f"({time.time()-t0:.0f}s)")
         out[name] = Trained(cfg, state.params, hist)
     return out
 

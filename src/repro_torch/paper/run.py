@@ -1,13 +1,16 @@
 """The paper's experiments on the port — port of ``benchmarks/run.py`` for the
-suites of this slice.
+suites of the port.
 
-    PYTHONPATH=src python -m repro_torch.paper.run [--only fig2,fig3dt,fig3bs,kernel]
+    PYTHONPATH=src python -m repro_torch.paper.run
+        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel]
         [--device cpu] [--sizes tiny-160k,tiny-650k] [--steps N]
 
-Trains the tiny ladder once on the device (CUDA unless ``--device cpu``;
-``--sizes`` picks models, ``--steps`` shortens every model's recipe) when a
-chosen suite needs it (fig2, fig3dt, fig3bs), then runs each suite; the
-kernel microbench (``kernel_bench``) trains nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
+Trains the tiny ladder on the device (CUDA unless ``--device cpu``;
+``--sizes`` picks models, ``--steps`` shortens every model's recipe), or
+restores it from the checkpoint cache under ``artifacts/ckpt_torch/``
+(``common.trained_family``), when a chosen suite needs it (all but
+``kernel``), then runs each suite; the kernel microbench (``kernel_bench``)
+trains nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
 human-readable logs on stderr) and writes machine-readable results under
 artifacts/bench_torch/.
 """
@@ -18,17 +21,20 @@ import argparse
 import sys
 import time
 
-from repro_torch.paper import (common, fig2_bitlevel, fig3_blocksize, fig3_datatypes,
-                               kernel_bench)
+from repro_torch.paper import (appb_centering, common, fig2_bitlevel, fig3_blocksize,
+                               fig3_datatypes, fig4_proxy, kernel_bench, table1_gptq)
 
 SUITES = {
     "fig2": fig2_bitlevel.run,
     "fig3dt": fig3_datatypes.run,
     "fig3bs": fig3_blocksize.run,
+    "fig4": fig4_proxy.run,
+    "table1": table1_gptq.run,
+    "appb": appb_centering.run,
     "kernel": kernel_bench.run,
 }
 #: the suites that run on the trained ladder
-ON_FAMILY = ("fig2", "fig3dt", "fig3bs")
+ON_FAMILY = ("fig2", "fig3dt", "fig3bs", "fig4", "table1", "appb")
 
 
 def log(*args):

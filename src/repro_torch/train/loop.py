@@ -1,40 +1,79 @@
-"""Training loop on the synthetic corpus — port of ``repro/train/loop.py``
-for one device, without checkpointing.
+"""Training loop with fault tolerance — port of ``repro/train/loop.py`` for
+one device: resume-from-latest, async checkpoints with the data state, a
+SIGTERM preemption save and a straggler log (per-step wall-clock EWMA; a
+step over ``straggler_factor`` x the EWMA is logged — on a cluster the
+signal to evict a slow host, here only detected and surfaced).
 
-Not in this slice: resume-from-latest, async checkpoints with data state,
-the preemption save (``checkpoint/manager.py``, ROADMAP queue A9) and the
-straggler watchdog, which watches hosts of a cluster.
+Not in this slice: the sharder and gradient compression (ROADMAP queue A11).
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 
+from repro_torch.checkpoint.manager import CheckpointManager, install_preemption_hook
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.train import step as step_mod
 
 
-def train(cfg, *, steps: int, batch: int, seq_len: int, seed: int = 0,
-          peak_lr: float = 3e-3, log_every: int = 20, log=print, device=None,
-          ckpt_dir: str | None = None):
+def train(cfg, *, steps: int, batch: int, seq_len: int, ckpt_dir: str | None = None,
+          ckpt_every: int = 100, seed: int = 0, peak_lr: float = 3e-3, log_every: int = 20,
+          straggler_factor: float = 3.0, log=print, device=None):
     """Train a (tiny) model on the synthetic corpus on ``device`` (CUDA by
-    default); returns (final state, per-step losses)."""
-    if ckpt_dir is not None:
-        raise NotImplementedError("checkpointing (checkpoint/manager.py) is not ported yet: "
-                                  "ROADMAP queue A9")
+    default); returns (final state, this call's per-step losses).
+
+    With ``ckpt_dir`` the run resumes from the latest checkpoint there (its
+    data stream from the saved step), saves every ``ckpt_every`` steps and
+    at the end (blocking), and saves on SIGTERM; the SIGTERM handler it
+    replaced is put back when it returns.  Each checkpoint's ``extra`` holds
+    ``data_step`` and ``losses``, every step's loss from step 0."""
     dev = resolve_device(device)
     state = step_mod.init_state(cfg, seed=seed, device=dev)
     train_step = step_mod.make_train_step(cfg, peak_lr=peak_lr, total_steps=steps,
                                           loss_chunk=min(512, seq_len))
-    data = synthetic.batches(cfg.vocab_size, batch, seq_len, seed=seed, device=dev)
-    history = []
-    for i, b in zip(range(steps), data):
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, b)
-        loss = float(metrics["loss"])
-        dt = time.perf_counter() - t0
-        if i % log_every == 0 or i == steps - 1:
-            log(f"step {i:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
-        history.append(loss)
+    start_step, losses, mgr, done = 0, [], None, 0
+    hooked, previous_handler = False, None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        restored = mgr.restore(state)
+        if restored is not None:
+            start_step, state, extra = restored
+            losses = list(extra.get("losses", []))
+            log(f"[resume] step {start_step} from {ckpt_dir}")
+        done = start_step
+        if threading.current_thread() is threading.main_thread():   # signals need it
+            hooked, previous_handler = True, signal.getsignal(signal.SIGTERM)
+            # the state and step of the last finished step, read when it fires
+            install_preemption_hook(lambda: mgr.save(
+                done, state, extra={"data_step": done, "losses": list(losses)}, block=True))
+    try:
+        data = synthetic.batches(cfg.vocab_size, batch, seq_len, seed=seed,
+                                 start_step=start_step, device=dev)
+        ewma = None
+        history = []
+        for i, b in zip(range(start_step, steps), data):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, b)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+            if dt > straggler_factor * ewma and i > start_step + 3:
+                log(f"[straggler] step {i} took {dt:.2f}s (ewma {ewma:.2f}s)")
+            if i % log_every == 0 or i == steps - 1:
+                log(f"step {i:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            history.append(loss)
+            losses.append(loss)
+            done = i + 1
+            if mgr and done % ckpt_every == 0:
+                mgr.save(done, state, extra={"data_step": done, "losses": list(losses)})
+        if mgr:
+            mgr.save(steps, state, extra={"data_step": steps, "losses": list(losses)},
+                     block=True)
+    finally:
+        if hooked:
+            signal.signal(signal.SIGTERM, previous_handler if previous_handler is not None
+                          else signal.SIG_DFL)
     return state, history

@@ -168,8 +168,14 @@ def test_flat_fallback_and_carry_across(bits):
 
 
 def test_centering_and_outliers_not_in_this_slice():
-    x = torch.zeros(4, 64)
-    with pytest.raises(NotImplementedError):
-        tq.quantize_tensor(x, bits=4, centering=True)
-    with pytest.raises(NotImplementedError):
-        tq.quantize_tensor(x, bits=4, outlier_idx=torch.zeros(1, 1, dtype=torch.int32))
+    """Named when centering and outliers were refused; since they are
+    ported, both encode and round-trip (test_torch_quant_methods.py holds
+    them against the reference bit for bit)."""
+    x = torch.linspace(-1.0, 1.0, 4 * 64).reshape(4, 64)
+    qt = tq.quantize_tensor(x, bits=4, centering=True)
+    assert qt.centering and qt.structured and qt.means.shape == (4, 1)
+    assert float(tq.quantization_error(x, qt)) < 0.1
+    qt = tq.quantize_tensor(x, bits=4, outlier_idx=torch.tensor([[1, 3]], dtype=torch.int32))
+    assert qt.outlier_vals.shape == (2, 64) and qt.outlier_vals.dtype == torch.bfloat16
+    back = tq.dequantize_tensor(qt, torch.float32)
+    assert torch.equal(back[[1, 3]], x[[1, 3]].to(torch.bfloat16).float())

@@ -41,7 +41,12 @@ where the card is (a machine without JAX):
   the KV dequant kernel bit-exact (one leaf, K and V in one launch, pages
   through a map); the flat encode bit-exact at blocks of 1 to 2048 on
   midpoints, ±0 and subnormals; tiny-10m at kv4 and kv8 through the
-  Engine (graph tokens = eager ones) and the Server (pages = slots).
+  Engine (graph tokens = eager ones) and the Server (pages = slots);
+* the paper's remaining experiments: the centered flat encode (means
+  bit-equal to the CPU's, codes bit-exact to the plain encode of the same
+  centered blocks), the proxy encode through quantize_pack on zeroed
+  transposed items (bit-identical to the CPU's, one launch an item), GPTQ on
+  the card within 1e-12 of the CPU's.
 """
 
 import numpy as np
@@ -822,3 +827,86 @@ def test_tiny_10m_decodes_from_a_packed_cache(kv):
     assert [len(t) for t in slot] == [12] * len(reqs)
     assert serve(paged=True, page_size=16) == slot
     assert tka.decode_attention_packed_cuda.launches == attn0
+
+
+# ---------------------------------------------------------------------------
+# the paper's remaining experiments: centered and proxy-quantized encodes
+# (fig4, appb) and GPTQ on the card (table1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128, 1024])
+def test_centered_flat_encode_bit_exact(block):
+    """The centered encode on the card: the block means bit-equal to the
+    CPU's (``mean_xla`` adds in a fixed order on either device), the codes
+    and scales of the flat encode kernel bit-exact to the plain encode of
+    the same centered blocks, one launch."""
+    _need_cuda()
+    from repro_torch.core import blockwise
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import quantize as tquant
+
+    rs = np.random.RandomState(block)
+    x = (rs.randn(300, block) * 0.02 + rs.randn(300, 1) * 0.01).astype(np.float32)
+    cb = make_codebook("int", 4, device="cuda")
+    before = tquant.quantize_blocks_cuda.launches
+    card = blockwise.encode(torch.from_numpy(x).cuda(), cb, block, centering=True)
+    assert tquant.quantize_blocks_cuda.launches == before + 1
+    mean_card = blockwise.mean_xla(torch.from_numpy(x).cuda(), 1)
+    mean_cpu = blockwise.mean_xla(torch.from_numpy(x), 1)
+    assert torch.equal(mean_card.cpu().view(torch.int32), mean_cpu.view(torch.int32))
+    centered = torch.from_numpy(x).cuda() - mean_card[:, None]
+    pc, ps = tquant.quantize_blocks_plain(centered.cpu(), cb.cpu())
+    assert torch.equal(card.codes.cpu().to(torch.int32), pc)
+    assert torch.equal(card.scales.cpu().view(torch.int16),
+                       ps.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(card.means.cpu().view(torch.int16),
+                       mean_cpu.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4])
+def test_proxy_quantize_pack_on_zeroed_transposed_items(bits):
+    """A transposed-stored weight [L, In, Out] with 2 % of its input dims
+    as outliers: one quantize_pack launch an item, reading the zeroed copy
+    through its transpose, every field bit-identical to the CPU encode."""
+    _need_cuda()
+    from repro_torch.core import proxy
+    from repro_torch.kernels import quantize as tquant
+    from repro_torch.models.quantize import _quantize_matrix
+
+    rs = np.random.RandomState(bits)
+    w = torch.tensor(rs.randn(3, 448, 1344) * 0.02, dtype=torch.float32)
+    idx = proxy.outlier_indices_topk(proxy.std_xla(w, -1), 9)        # [3, 9] input dims
+    qcfg = QuantConfig(bits=bits, dtype="float", block_size=64, outlier_pct=0.02)
+    before = tquant.quantize_pack_cuda.launches
+    card = _quantize_matrix(w.cuda(), qcfg, outlier_idx=idx.cuda())
+    assert tquant.quantize_pack_cuda.launches == before + 3
+    cpu = _quantize_matrix(w, qcfg, outlier_idx=idx)
+    for f in ("packed", "scales", "outlier_vals", "outlier_idx"):
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(2, 64), (3, None)])
+def test_gptq_on_the_card_matches_the_cpu(bits, block):
+    """core/gptq.py in float64 on the card against the same on the CPU:
+    within 1e-12 relative."""
+    _need_cuda()
+    from repro_torch.core import gptq
+    from repro_torch.core.codebooks import make_codebook
+
+    rs = np.random.RandomState(bits)
+    w = torch.tensor(rs.randn(128, 128) * 0.05, dtype=torch.float32)
+    x = torch.tensor(rs.randn(512, 128), dtype=torch.float32)
+    x[:, 7] = 0.0
+    cb = make_codebook("int", bits, device="cpu")
+    cpu = gptq.gptq_quantize(w, gptq.hessian_from_inputs(x), cb, block_size=block)
+    card = gptq.gptq_quantize(w.cuda(), gptq.hessian_from_inputs(x.cuda()), cb.cuda(),
+                              block_size=block)
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    rel = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    assert rel <= 1e-12, rel

@@ -239,15 +239,23 @@ def test_train_steps_match_reference():
     assert _rel(losses2, losses) <= 1e-4
 
 
-def test_train_loop_runs_and_refuses_checkpoints():
+def test_train_loop_runs_and_refuses_checkpoints(tmp_path):
+    """Named when the loop refused ``ckpt_dir``; since checkpointing is
+    ported, it saves there and a second call resumes from it (the resume's
+    bit-exactness: test_torch_checkpoint.py)."""
     cfg = get_arch("tiny-160k")
     logs = []
     state, hist = tloop.train(cfg, steps=3, batch=2, seq_len=16, device="cpu",
                               log=logs.append, log_every=1)
     assert len(hist) == 3 and len(logs) == 3 and int(state.opt.step) == 3
     assert all(np.isfinite(hist))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tloop.train(cfg, steps=1, batch=2, seq_len=16, device="cpu", ckpt_dir="x")
+    tloop.train(cfg, steps=2, batch=2, seq_len=16, device="cpu", ckpt_dir=str(tmp_path),
+                log=lambda *_: None)
+    logs = []
+    state, tail = tloop.train(cfg, steps=3, batch=2, seq_len=16, device="cpu",
+                              ckpt_dir=str(tmp_path), log=logs.append)
+    assert logs[0].startswith("[resume] step 2") and len(tail) == 1
+    assert int(state.opt.step) == 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -314,3 +322,32 @@ def test_paper_run_fig2_on_cpu(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(o["log_ppl"]) for o in saved["observations"])
     with pytest.raises(SystemExit):
         trun.main(["--only", "fig9", "--device", "cpu"])
+
+
+def test_paper_run_rest_on_cpu(tmp_path, monkeypatch, capsys):
+    """fig4, appb and table1 through the entry point, shortened; a second
+    call reads the cached ladder instead of training it."""
+    monkeypatch.setattr(tcommon, "ART", tmp_path)
+    argv = ["--only", "fig4,appb,table1", "--device", "cpu", "--sizes", "tiny-160k",
+            "--steps", "5"]
+    trun.main(argv)
+    out = capsys.readouterr()
+    names = [line.split(",")[0] for line in out.out.splitlines()[1:]]
+    assert names == ([f"fig4/tiny-160k/{c}" for c in ("3bit", "3bit+proxy2%", "4bit",
+                                                      "4bit+proxy2%")]
+                     + ["fig4/proxy_helps_3bit_frac", "fig4/proxy3bit_beats_4bit_frac"]
+                     + ["appb/tiny-160k/k4", "appb/tiny-160k/k8", "appb/mean_logppl_delta"]
+                     + [f"table1/tiny-160k/b{b}" for b in (1024, 256, 64)]
+                     + ["table1/tiny-160k/gptq3_noblock"])
+    assert "[train] tiny-160k" in out.err
+    fig4 = json.loads((tmp_path / "bench_torch" / "fig4_proxy.json").read_text())
+    assert all(np.isfinite(v) for v in fig4["ppl"]["tiny-160k"].values())
+    bits = fig4["bits"]["tiny-160k"]
+    assert bits["3bit+proxy2%"] > bits["3bit"] and bits["4bit+proxy2%"] > bits["4bit"]
+    appb = json.loads((tmp_path / "bench_torch" / "appb_centering.json").read_text())
+    plain, centered = appb["models"]["tiny-160k"]["4"]["plain"], \
+        appb["models"]["tiny-160k"]["4"]["centered"]
+    assert centered[1] > plain[1] and np.isfinite(appb["mean_delta"])
+    trun.main(["--only", "appb"] + argv[2:])
+    out = capsys.readouterr()
+    assert "[cache] tiny-160k" in out.err and "[train]" not in out.err
