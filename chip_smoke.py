@@ -87,6 +87,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                routed reads' device times; the Server on 4 slots and on
                pages of 16 over 12 requests: pages give the slots' tokens,
                each request within 0.08 of the Engine's step at batch 1.
+  3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
+               width and depth): precision.build_plan on the card at the
+               uniform-4 budget with KL probes (a Zipf-Markov batch over the
+               first PROBE_VOCAB ids): the winner measures no worse than
+               uniform-4 and fits the budget, the plan survives its JSON; then
+               a fixed plan of every candidate width and a dense unit
+               (FIXED_PLAN_BITS) through Engine(plan=) at kv4 (quantized at
+               load, 169 quantize_pack launches; captured tokens identical to
+               eager ones, one replay 169 tensor-core GEMVs, 0 CUDA-core ones
+               and 28 fused attentions, no host sync, fused vs dequant_einsum
+               within 0.5) and Server(plan=): the 24 requests on the slot pool
+               (each within 0.08 of the per-request Engine, a differing greedy
+               token a near-tie), with Telemetry(kv_probe_every=4) (the same
+               tokens, kv_append_qerr_max finite and above 0, quant_unit_bits
+               for every unit) and on pages of 16 (the same tokens).
   4. modes   — teacher-forced logits, fused kernel vs dequant_einsum.
   5. kv_tol  — kv_oracle_logit_gap on tiny-650k, kernels in the loop.
   6. paper   — the paper's bit-level sweep: trains the tiny ladder on the
@@ -112,6 +127,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                matrix of tiny-650k on the card within 1e-12 of the same on
                the CPU.  Prints fig4's fractions, appb's mean delta,
                table1's table, each suite's seconds and the cache's times.
+  6c. plan_suites — ``paper.run --only figmix,plan`` on the ladder restored
+               from phase 6's cache: the mixed-vs-uniform frontier and the
+               gates (Qwen2-7B at reduced() shapes, tiny-2.6m: the mixed
+               plan's KL at or below uniform-4's at no more bits, ok=1), and
+               the plans under artifacts/plans/; then ``python -m
+               repro_torch.launch.serve --arch tiny-2.6m --plan <the plan
+               suite's JSON> --kv-bits 4 --kv-probe-every 2`` with both
+               telemetry sinks as a subprocess: exit 0, its trace validates,
+               quant_unit_bits for every unit of the plan.
   6a. bench  — paper/kernel_bench.py through its entry point (gate off, as
                the suite runner calls it, with its kernel smoke): f32 x, M,
                K, N = 8, 2048, 2048 at int3, int4, float4 and int8, block
@@ -217,6 +241,17 @@ ROUTED_PROMPT_LENS, ROUTED_NEW_TOKENS = (16, 200), (8, 32)
 LONG_ROUTED = 40960
 # 3xTF32: three TF32 products for each f32 one, on the tensor cores
 TF32X3_FLOP_PER_S = 495e12 / 3
+# the plan phase: a fixed mixed plan over Qwen2-7B's eight units that
+# covers every candidate width of the planner (precision/plan.py
+# CANDIDATE_BITS) and one dense unit, and the probe batch's vocabulary (a
+# Zipf-Markov process keeps a vocab x vocab matrix: its first PROBE_VOCAB
+# ids, all valid Qwen2-7B tokens, as the paged phase's shared prefixes)
+FIXED_PLAN_BITS = {"mixer/wq": 3, "mixer/wk": 16, "mixer/wv": 5, "mixer/wo": 6,
+                   "ffn/w_gate": 4, "ffn/w_up": 4, "ffn/w_down": 8, "lm_head": 4}
+PROBE_VOCAB = 4096
+PLAN_KV_PROBE_EVERY = 4
+# the launcher subprocess: tiny-2.6m served per the plan suite's JSON
+LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
 
 def emit(obj) -> None:
@@ -260,14 +295,16 @@ def main() -> int:
     server_path(torch, dev, run)
     paged_path(torch, dev, run)
     routed_path(torch, dev, run)
+    plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
     paper = paper_path(torch, dev)
     rest = paper_rest(torch, dev, paper)
+    suites = plan_suites(torch, dev, paper)
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   bench["launches"], rest["launches"])
+                   run["plan_counts"], bench["launches"], rest["launches"], suites["launches"])
     del run
 
     kernels = []
@@ -286,7 +323,9 @@ def main() -> int:
             # the main paths' launches: serving Qwen2-7B through the Engine
             # (its quantization included), through the Server on the slot
             # pool and on pages, tiny-10m's routed read (Engine and Server),
-            # kernel_bench, the paper's sweep and its remaining experiments
+            # the mixed-precision plans (the planner, Engine and Servers),
+            # kernel_bench, the paper's sweep, its remaining experiments and
+            # the figmix and plan suites
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1780,6 +1819,215 @@ def routed_path(torch, dev, run) -> dict:
     return total
 
 
+def _fixed_plan(cfg, base):
+    """FIXED_PLAN_BITS over the unit names of Qwen2-7B's tree."""
+    import dataclasses
+
+    from repro_torch.precision import PrecisionPlan
+
+    return PrecisionPlan(arch=cfg.name, default=dataclasses.asdict(base),
+                         assignments={(u if u == "lm_head" else f"stack/0/{u}"): {"bits": b}
+                                      for u, b in FIXED_PLAN_BITS.items()})
+
+
+def plan_path(torch, dev, run) -> dict:
+    """Phase 3e: mixed precision on Qwen2-7B at full width and depth, seeded
+    bf16 weights.  build_plan on the card (profile, KL probes, measured
+    selection), the plan through JSON and back; then FIXED_PLAN_BITS served
+    through Engine(plan=) (the main path: captured tokens equal to eager
+    ones, one replay's launches, fused vs dequant_einsum), Server(plan=) on
+    the slot pool (each request against the per-request Engine) and on
+    pages of PAGE_SIZE, and with Telemetry(kv_probe_every=...): every
+    token the slot pool's."""
+    import dataclasses
+
+    from repro_torch.configs import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.precision import PrecisionPlan, build_plan, probe_tokens, profile_units
+    from repro_torch.serving import Engine, Server, Telemetry
+
+    cfg, prompts = run["cfg"], run["prompts"]
+    base = QuantConfig(bits=4, dtype="float", block_size=64)
+    n_dense = sum(b >= 16 for u, b in FIXED_PLAN_BITS.items() if u != "lm_head")
+    b1_step = (7 - n_dense) * cfg.n_layers + 1   # the quantized matrices of a step
+    b2_step = cfg.n_layers
+    step_counts = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": b1_step, "gemv_tc": b1_step,
+                   "attn": b2_step}
+    reqs = _server_requests(cfg)
+    cache_len = SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]
+    t_phase = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    lines = []
+
+    # the planner at full width: the dense tree is its teacher
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    probe = probe_tokens(dataclasses.replace(cfg, vocab_size=PROBE_VOCAB), device=dev)
+    t0 = time.perf_counter()
+    profiles = profile_units(params, cfg, base=base, probe_toks=probe, log=lines.append)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plan = build_plan(params, cfg, base=base, equal_avg_bits=4, probe_toks=probe,
+                      profiles=profiles, log=lines.append)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    plan_counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    for line in lines:
+        print(line, file=sys.stderr, flush=True)
+    meta = plan.meta
+    require(meta["measured_kl"] and all(math.isfinite(v) for v in meta["measured_kl"].values()),
+            f"build_plan measured no candidate: {meta['measured_kl']}")
+    require(meta["cost_bits"] <= meta["budget_bits"] + 1e-6,
+            f"the plan costs {meta['cost_bits']} bits over the budget {meta['budget_bits']}")
+    require(meta["measured_kl"][meta["winner"]] <= meta["measured_kl"]["uniform4"] + 1e-12,
+            f"the winner {meta['winner']} measures worse than uniform4: {meta['measured_kl']}")
+    path = ROOT / "build" / "plans" / f"{cfg.name}.json"
+    plan.save(path)
+    again = PrecisionPlan.load(path)
+    require(again.assignments == plan.assignments and again.default == plan.default,
+            "the plan changed through its JSON")
+    out = {"winner": meta["winner"], "describe": plan.describe(),
+           "assignments": {u: a["bits"] for u, a in plan.assignments.items()},
+           "predicted": meta["predicted"], "measured_kl": meta["measured_kl"],
+           "avg_bits_per_param": meta["avg_bits_per_param"],
+           "probe_kl": {u: p.probe_kl for u, p in profiles.items()},
+           "qerr": {u: p.qerr for u, p in profiles.items()},
+           "profile_s": t1 - t0, "plan_s": t2 - t1,
+           "peak_bytes": peak, "peak_over_params_bytes": peak - before,
+           "launches": plan_counts, "json_round_trip": True}
+    del profiles, plan, again
+
+    fixed = _fixed_plan(cfg, base)
+    counts = {}
+    with torch.inference_mode():
+        # the main path: Engine(plan=) quantizes the raw tree at load, then
+        # a generate whose first decode step captures the step
+        _reset_counts()
+        t0 = time.perf_counter()
+        engine = Engine(params, cfg, max_seq_len=PROMPT + NEW_TOKENS, plan=fixed, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load = _counts()
+        require(load == {**dict.fromkeys(_COUNT_KEYS, 0), "pack": b1_step},
+                f"Engine(plan=) quantized with {load}, want {b1_step} quantize_pack launches")
+        qparams = engine.params
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            tokens = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        gen = _counts()
+        require(not syncs, f"the plan's captured step syncs with the host: {syncs[:5]}")
+        require(gen["gemv"] == gen["gemv_tc"] == 1 + NEW_TOKENS * b1_step
+                and gen["gemv_simt"] == 0 and gen["attn"] == NEW_TOKENS * b2_step
+                and gen["kv"] == 0 and gen["gemm"] == (b1_step - 1),
+                f"Engine(plan=) generate launched {gen}")
+        eager, eager_ms = _eager_generate(torch, qparams, cfg, prompts)
+        require(torch.equal(eager, tokens), "the plan's graph tokens differ from eager ones")
+        _reset_counts()
+        engine._graphs[BATCH].step.replay()
+        torch.cuda.synchronize()
+        replay = _counts()
+        require(replay == step_counts, f"one replay of the plan's step launched {replay}")
+        # the step's device time alone, replayed from a graph of its own
+        _, caches = lm.prefill(qparams, prompts, cfg, cache_len=PROMPT + NEW_TOKENS)
+        step_device_ms = _time_ms(
+            torch, lambda: lm.decode_step(qparams, tokens[:, 0], caches, PROMPT, cfg), 5)
+        del caches
+        modes = _mode_gap(torch, qparams, cfg, prompts)
+        del engine
+        counts["engine"] = {k: load[k] + gen[k] for k in _COUNT_KEYS}
+        out["engine"] = {"load_s": load_s, "launches_load": load, "launches": gen,
+                         "launches_per_replay": replay, "graph_tokens_equal_eager": True,
+                         "host_syncs_in_captured_step": len(syncs),
+                         "decode_ms_per_step_eager": eager_ms,
+                         "decode_step_device_ms": step_device_ms, "modes": modes}
+        del qparams
+        torch.cuda.empty_cache()
+
+        # Server(plan=) on the slot pool, logits kept: each request against
+        # the Engine's step at batch 1
+        Checked = _checked_server(torch)
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            srv = Checked(params, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len, plan=fixed,
+                          device=dev)
+            ids, plain, wall, _ = _drive_server(torch, srv, reqs)
+        counts["server"] = _counts()
+        require(not syncs, f"the plan Server's captured step syncs with the host: {syncs[:5]}")
+        require(counts["server"]["gemv"] == counts["server"]["gemv_tc"]
+                and counts["server"]["gemv_simt"] == 0 and counts["server"]["kv"] == 0,
+                f"the plan Server launched {counts['server']}")
+        _reset_counts()
+        srv._graph.replay()
+        torch.cuda.synchronize()
+        require(_counts() == step_counts, f"one replay of the plan Server launched {_counts()}")
+        worst, ties, first_ties = _teacher_forced(torch, srv.params, cfg, reqs, plain,
+                                                  [srv.kept[i] for i in ids], cache_len)
+        n_tokens = sum(len(t) for t in plain)
+        del srv
+        torch.cuda.empty_cache()
+
+        # the same traffic with the kv probe on: the same tokens
+        tel = Telemetry(kv_probe_every=PLAN_KV_PROBE_EVERY)
+        _reset_counts()
+        srv = Server(params, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len, plan=fixed,
+                     telemetry=tel, device=dev)
+        _, probed, _, _ = _drive_server(torch, srv, reqs)
+        counts["probe"] = _counts()
+        del srv
+        reg = tel.registry
+        require(probed == plain, "the kv probe changed tokens: "
+                f"{sum(a != b for a, b in zip(probed, plain))} requests differ")
+        qmax = reg.gauge("kv_append_qerr_max").value
+        qrms = reg.gauge("kv_append_qerr_rms").value
+        probe_rows = reg.counter("kv_probe_rows_total").value
+        require(math.isfinite(qmax) and qmax > 0 and 0 < qrms <= qmax,
+                f"kv probe gauges max {qmax}, rms {qrms}")
+        bits = {k.split("=", 1)[1]: v["value"]
+                for k, v in reg.as_dict()["quant_unit_bits"].items()}
+        require(set(bits) == set(fixed.assignments)
+                and all((bits[u] == 16.0) == (a["bits"] >= 16) for u, a in fixed.assignments.items()),
+                f"quant_unit_bits {bits}")
+
+        # pages of PAGE_SIZE: the slot pool's tokens
+        _reset_counts()
+        with _capture_guard(torch) as syncs_p:
+            srv = Server(params, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len, plan=fixed,
+                         paged=True, page_size=PAGE_SIZE, device=dev)
+            _, paged, paged_wall, _ = _drive_server(torch, srv, reqs)
+        counts["paged"] = _counts()
+        del srv
+        require(not syncs_p, f"the plan's paged step syncs with the host: {syncs_p[:5]}")
+        require(paged == plain, "paged tokens differ from the slot pool's under the plan: "
+                f"{sum(a != b for a, b in zip(paged, plain))} requests differ")
+    del params
+    torch.cuda.empty_cache()
+    out["server"] = {"requests": SERVER_REQUESTS, "tokens": n_tokens, "serve_s": wall,
+                     "tokens_per_s": n_tokens / wall, "paged_tokens_per_s": n_tokens / paged_wall,
+                     "paged_tokens_identical": True, "probe_tokens_identical": True,
+                     "engine_b1_max_logit_gap": worst, "engine_b1_logit_tol": SERVER_LOGIT_TOL,
+                     "engine_b1_greedy_near_ties": ties,
+                     "engine_b1_first_token_near_ties": first_ties,
+                     "host_syncs_in_captured_step": len(syncs) + len(syncs_p),
+                     "kv_probe_every": PLAN_KV_PROBE_EVERY, "kv_append_qerr_max": qmax,
+                     "kv_append_qerr_rms": qrms, "kv_probe_rows": probe_rows,
+                     "quant_unit_bits": bits, "launches": counts}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "plan", "arch": ARCH, "depth": cfg.n_layers, "width": cfg.d_model,
+          "kv_bits": cfg.kv_bits, "probe_tokens": list(probe.shape),
+          "probe_vocab": PROBE_VOCAB, "fixed_plan": FIXED_PLAN_BITS, **out})
+    total = dict(plan_counts)
+    for c in counts.values():
+        for k in _COUNT_KEYS:
+            total[k] += c[k]
+    run["plan_counts"] = total
+    return out
+
+
+
 def _time_graph(torch, graph, reps: int) -> float:
     """Median device time of reps replays of a captured graph (CUDA events)."""
     graph.replay()
@@ -2097,8 +2345,6 @@ def _check_routes(events) -> dict:
 def paper_rest(torch, dev, paper) -> dict:
     """Phase 6b: fig4, appb and table1 on phase 6's ladder, restored from its
     checkpoint cache, through the port's entry points."""
-    import shutil
-
     from repro_torch.core import gptq
     from repro_torch.core.codebooks import make_codebook
     from repro_torch.models.layers import norm
@@ -2115,7 +2361,6 @@ def paper_rest(torch, dev, paper) -> dict:
     family = common.trained_family(log=lines.append, device=dev, cache_dir=paper["cache_dir"])
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
-    shutil.rmtree(paper["cache_dir"], ignore_errors=True)
     require(all(line.startswith("[cache]") for line in lines) and len(lines) == len(trained),
             f"the ladder was not restored from the cache: {lines}")
     for name, t in trained.items():
@@ -2182,6 +2427,71 @@ def paper_rest(torch, dev, paper) -> dict:
                           "card_s": gptq_card_s, "cpu_s": gptq_cpu_s},
           "gates": {"gptq_card_rel": GPTQ_CARD_REL_TOL, "bits_rel": BITS_REL_TOL}})
     return {"launches": counts}
+
+
+def plan_suites(torch, dev, paper) -> dict:
+    """Phase 6c: ``paper.run --only figmix,plan`` on phase 6's ladder,
+    restored from its checkpoint cache (the frontier; the gates and the
+    plans at random init), every gate row ok=1; then the serving launcher
+    as a subprocess on the card, serving the plan suite's tiny-2.6m JSON with
+    the kv probe and both telemetry sinks: exit 0, a trace that validates,
+    quant_unit_bits for every unit of the plan."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from repro_torch.paper import run as paper_run
+    from repro_torch.precision import PrecisionPlan
+    from repro_torch.serving.trace import validate_jsonl
+
+    rows_out, logs = io.StringIO(), io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(rows_out), contextlib.redirect_stderr(logs):
+        paper_run.main(["--only", "figmix,plan", "--cache-dir", str(paper["cache_dir"])])
+    torch.cuda.synchronize()
+    suites_s = time.perf_counter() - t0
+    counts = _counts()
+    shutil.rmtree(paper["cache_dir"], ignore_errors=True)
+    print(logs.getvalue(), file=sys.stderr, flush=True)
+    cached = [ln for ln in logs.getvalue().splitlines() if ln.startswith("[cache]")]
+    require(len(cached) == len(paper["family"]),
+            f"figmix did not restore the ladder from the cache: {cached}")
+    rows = {name: derived for name, _, derived in
+            (ln.split(",", 2) for ln in rows_out.getvalue().splitlines()[1:])}
+    gates = {n: d for n, d in rows.items() if n.startswith("figmix/gate/")}
+    require(len(gates) == 2 and all(d.endswith("ok=1") for d in gates.values()),
+            f"figmix gate rows {gates}")
+    plan_file = ROOT / "artifacts" / "plans" / f"{LAUNCH_ARCH}.json"
+    plan = PrecisionPlan.load(plan_file)
+
+    out_dir = ROOT / "build" / "launch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    metrics, trace = out_dir / "metrics.prom", out_dir / "trace.jsonl"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LAUNCH_ARCH,
+           "--plan", str(plan_file), "--kv-bits", "4", "--num-requests", str(LAUNCH_REQUESTS),
+           "--max-new", str(LAUNCH_MAX_NEW), "--metrics-out", str(metrics),
+           "--trace-out", str(trace), "--kv-probe-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    launch_s = time.perf_counter() - t0
+    print(res.stdout, res.stderr[-4000:], sep="\n", file=sys.stderr, flush=True)
+    require(res.returncode == 0, f"launch/serve.py exited {res.returncode}: {res.stderr[-2000:]}")
+    stats = validate_jsonl(trace)
+    require(stats["requests"] == LAUNCH_REQUESTS, f"the launcher's trace: {stats}")
+    prom = metrics.read_text()
+    missing = [u for u in plan.assignments if f'quant_unit_bits{{unit="{u}"}}' not in prom]
+    require(not missing, f"the launcher's metrics lack quant_unit_bits for {missing}")
+    require("kv_append_qerr_max" in prom, "the launcher's metrics lack the kv probe")
+    served = [ln for ln in res.stdout.splitlines() if ln.startswith(("quantized", "served"))]
+    emit({"phase": "plan_suites", "suites_s": suites_s, "rows": rows, "launches": counts,
+          "launch": {"cmd": cmd[1:], "exit": res.returncode, "seconds": launch_s,
+                     "trace": stats, "stdout": served,
+                     "plan": {u: a["bits"] for u, a in plan.assignments.items()}}})
+    return {"launches": counts, "seconds": suites_s + launch_s}
+
 
 
 def bench_path(torch, dev) -> dict:

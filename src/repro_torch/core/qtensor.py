@@ -246,9 +246,23 @@ def dequantize_tensor(qt: QuantizedTensor, out_dtype=torch.bfloat16) -> torch.Te
     return out.reshape(batch_shape + tuple(qt.quant_shape))
 
 
-def quantization_error(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """RMS relative quantization error — used by tests and benchmarks."""
-    w = dequantize_tensor(qt, out_dtype=torch.float32)
+def _sq_sums(x: torch.Tensor, qt: QuantizedTensor):
+    """(sum of (dequant - x)^2, sum of x^2) in f64, one item of a stacked
+    tensor at a time, so no f32 copy of a whole stack is made (a Qwen2-7B
+    ``w_up`` is 1.9 G values)."""
+    if qt.batch_shape:
+        parts = [_sq_sums(x[i], qt.select(i)) for i in range(qt.batch_shape[0])]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
     x = x.to(torch.float32)
-    rms = lambda a: torch.sqrt(torch.mean(a ** 2))  # noqa: E731
-    return rms(w - x) / (rms(x) + 1e-12)
+    d = dequantize_tensor(qt, out_dtype=torch.float32) - x
+    return (d * d).sum(dtype=torch.float64), (x * x).sum(dtype=torch.float64)
+
+
+def quantization_error(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """RMS relative quantization error — used by tests, benchmarks, the
+    precision planner and the load-time health snapshot.  The squares are
+    summed in f64 item by item (the reference means all of them in f32),
+    and the ratio is returned in f32."""
+    err, ref = _sq_sums(x, qt)
+    n = x.numel()
+    return (torch.sqrt(err / n) / (torch.sqrt(ref / n) + 1e-12)).to(torch.float32)

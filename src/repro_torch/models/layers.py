@@ -31,9 +31,39 @@ def resolve_matmul_mode(mode: str, w) -> str:
     return "fused" if ops.qt_fused_eligible(w) else "dequant_einsum"
 
 
+#: rows of a dense product on the card in one cuBLAS call: calls of at most
+#: ROW_PIECES[0] rows take one piece of that many, longer ones pieces of
+#: ROW_PIECES[1] (see matmul_rounded)
+ROW_PIECES = (16, 128)
+
+
+def _row_pieces(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] f32 @ w[N, K]^T through cuBLAS calls of one fixed shape:
+    x's rows copied into zero-padded pieces of P rows, one call a piece."""
+    M, K = x.shape
+    P = ROW_PIECES[0] if M <= ROW_PIECES[0] else ROW_PIECES[1]
+    n = -(-M // P)
+    buf = torch.zeros((n * P, K), dtype=torch.float32, device=x.device)
+    buf[:M].copy_(x)
+    wt = w.T
+    return torch.cat([buf[i * P:(i + 1) * P] @ wt for i in range(n)])[:M]
+
+
 def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype."""
-    return (x.to(torch.float32) @ wt.to(x.dtype).to(torch.float32).T).to(x.dtype)
+    """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype.
+
+    On CUDA outside autograd the rows go through cuBLAS in pieces of one
+    fixed shape (``_row_pieces``): cuBLAS picks its algorithm, and so its
+    summation order, by the shape of the call, so a row's result would
+    otherwise depend on how many rows share it.  In pieces a decode row at
+    batch 8 (the Server's pool) equals it at batch 1 (the Engine), and a
+    bucket-padded prefill row its exact-length one, where a weight is dense
+    (a plan's 16-bit unit) or dequantized (``dequant_einsum``)."""
+    w = wt.to(x.dtype).to(torch.float32)
+    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        y = _row_pieces(x.reshape(-1, x.shape[-1]).to(torch.float32), w)
+        return y.reshape(x.shape[:-1] + (w.shape[0],)).to(x.dtype)
+    return (x.to(torch.float32) @ w.T).to(x.dtype)
 
 
 def linear(x: torch.Tensor, w, bias=None, *, mode: str = "dequant_einsum") -> torch.Tensor:

@@ -18,11 +18,14 @@ dims kept in 16-bit.  Within-block producers are exact (w_down <- w_up, wo
 model-wide outlier set from the mean producer std across layers, as in the
 reference.
 
+Mixed precision: ``quantize_tree(..., plan=)`` takes a
+``precision.PrecisionPlan`` that overrides bits/dtype/block_size/centering
+a unit by name, ``bits >= 16`` keeping that matrix dense; ``quantizable_units``
+is the planner's universe, the same walk without quantizing.
+
 ``bits_report`` is the paper's x-axis, total model bits.
 
-Not in this slice: ``PrecisionPlan`` mixed precision (``plan=``) and
-``quantizable_units``, the planner's unit walk (ROADMAP queue A8); MoE
-expert stacks, which the port's models do not have.
+Not in the port: MoE expert stacks, which its models do not have.
 """
 
 from __future__ import annotations
@@ -171,24 +174,77 @@ def _walk_units(params, base: QuantConfig, visit):
     return walk(params, ())
 
 
-def quantize_tree(params, cfg, *, qcfg: QuantConfig, device=None):
+def quantize_tree(params, cfg, *, qcfg: QuantConfig | None = None, plan=None, device=None):
     """Params tree -> the same tree with weight matrices quantized on
-    ``device`` (CUDA by default).  Residual-stream outlier sets (proxy
-    quantization) are computed once and shared by all units."""
+    ``device`` (CUDA by default).
+
+    ``qcfg`` quantizes every unit uniformly; a ``plan``
+    (precision/plan.py) overrides bits/dtype/block_size/centering per unit
+    name, with bits >= 16 leaving that matrix dense.  Residual-stream
+    outlier sets (proxy quantization) are computed once from the BASE
+    config's outlier_pct and shared by all units, as in the uniform path."""
+    if plan is None and qcfg is None:
+        raise ValueError("quantize_tree needs qcfg and/or plan")
+    base = qcfg if qcfg is not None else plan.default_config()
+    if plan is not None and plan.arch and plan.arch != cfg.name:
+        raise ValueError(
+            f"plan was built for arch {plan.arch!r}, not {cfg.name!r} "
+            "(rebuild with precision.build_plan, or clear plan.arch)"
+        )
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t, params)
-    j_res = residual_outliers(params, cfg, qcfg.outlier_pct)
+    j_res = residual_outliers(params, cfg, base.outlier_pct)
+    visited: set = set()
 
     def visit(name, kind, w, container):
-        oidx = _unit_outliers(kind, name, w, container, cfg, qcfg, j_res)
-        return quantize_unit(kind, w, qcfg, outlier_idx=oidx)
+        visited.add(name)
+        ucfg = base if plan is None else plan.config_for(name, base)
+        if ucfg.bits >= 16:
+            return w  # plan keeps this matrix dense 16-bit
+        oidx = _unit_outliers(kind, name, w, container, cfg, ucfg, j_res)
+        return quantize_unit(kind, w, ucfg, outlier_idx=oidx)
 
-    return _walk_units(params, qcfg, visit)
+    out = _walk_units(params, base, visit)
+    if plan is not None:
+        unknown = sorted(set(plan.assignments) - visited)
+        if unknown:
+            raise ValueError(
+                f"plan assigns units not present in this tree: {unknown} "
+                f"(known units: {sorted(visited)}); a typo'd or stale plan "
+                "would otherwise silently fall back to the default bits"
+            )
+    return out
 
 
 def quantize_params(params, qcfg: QuantConfig, cfg, *, device=None):
     """Uniform quantization of a params tree (the paper's setting)."""
     return quantize_tree(params, cfg, qcfg=qcfg, device=device)
+
+
+def quantizable_units(params, cfg, qcfg: QuantConfig | None = None) -> dict:
+    """Enumerate the tree's quantizable units WITHOUT quantizing:
+    {name: {"kind", "w", "n_params", "shape", "outlier_idx"}} — the
+    planning universe of precision/profile.py, which agrees with
+    quantize_tree because both run the same walk.  "outlier_idx" is the
+    proxy-quantization index set the quantizer would use under ``qcfg``
+    (None when outlier_pct == 0), so sensitivity profiling measures the
+    exact storage layout that serves.  Weights stay where they are."""
+    base = qcfg if qcfg is not None else QuantConfig()
+    j_res = residual_outliers(params, cfg, base.outlier_pct)
+    units: dict = {}
+
+    def visit(name, kind, w, container):
+        units[name] = {
+            "kind": kind,
+            "w": w,
+            "n_params": int(w.numel()),
+            "shape": tuple(w.shape),
+            "outlier_idx": _unit_outliers(kind, name, w, container, cfg, base, j_res),
+        }
+        return w
+
+    _walk_units(params, base, visit)
+    return units
 
 
 def dequantize_params(qparams):

@@ -2,15 +2,18 @@
 suites of the port.
 
     PYTHONPATH=src python -m repro_torch.paper.run
-        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel]
+        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel,figmix,plan]
         [--device cpu] [--sizes tiny-160k,tiny-650k] [--steps N]
+        [--cache-dir DIR]
 
 Trains the tiny ladder on the device (CUDA unless ``--device cpu``;
 ``--sizes`` picks models, ``--steps`` shortens every model's recipe), or
 restores it from the checkpoint cache under ``artifacts/ckpt_torch/``
-(``common.trained_family``), when a chosen suite needs it (all but
-``kernel``), then runs each suite; the kernel microbench (``kernel_bench``)
-trains nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
+(``--cache-dir`` names another; ``common.trained_family``), when a chosen
+suite needs it (all but ``kernel`` and ``plan``), then runs each suite; the
+kernel microbench (``kernel_bench``) and the plan suite
+(``fig_mixed_frontier.run_plan``: plans for random-init archs under
+``artifacts/plans/``) train nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
 human-readable logs on stderr) and writes machine-readable results under
 artifacts/bench_torch/.
 """
@@ -22,7 +25,8 @@ import sys
 import time
 
 from repro_torch.paper import (appb_centering, common, fig2_bitlevel, fig3_blocksize,
-                               fig3_datatypes, fig4_proxy, kernel_bench, table1_gptq)
+                               fig3_datatypes, fig4_proxy, fig_mixed_frontier, kernel_bench,
+                               table1_gptq)
 
 SUITES = {
     "fig2": fig2_bitlevel.run,
@@ -32,9 +36,11 @@ SUITES = {
     "table1": table1_gptq.run,
     "appb": appb_centering.run,
     "kernel": kernel_bench.run,
+    "figmix": fig_mixed_frontier.run,
+    "plan": fig_mixed_frontier.run_plan,
 }
 #: the suites that run on the trained ladder
-ON_FAMILY = ("fig2", "fig3dt", "fig3bs", "fig4", "table1", "appb")
+ON_FAMILY = ("fig2", "fig3dt", "fig3bs", "fig4", "table1", "appb", "figmix")
 
 
 def log(*args):
@@ -49,6 +55,8 @@ def main(argv=None) -> None:
                     "(default: all four)")
     ap.add_argument("--steps", type=int, default=None,
                     help="training steps for every model (default: TRAIN_RECIPE)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="the ladder's checkpoint cache (default: artifacts/ckpt_torch)")
     args = ap.parse_args(argv)
     wanted = [n for n in args.only.split(",") if n] if args.only else list(SUITES)
     unknown = sorted(set(wanted) - set(SUITES))
@@ -57,7 +65,8 @@ def main(argv=None) -> None:
     if not wanted:
         ap.error("--only names no suites")
     sizes = args.sizes.split(",") if args.sizes else None
-    family = (common.trained_family(sizes, log=log, device=args.device, steps=args.steps)
+    family = (common.trained_family(sizes, log=log, device=args.device, steps=args.steps,
+                                    cache_dir=args.cache_dir)
               if any(n in ON_FAMILY for n in wanted) else None)
     print("name,us_per_call,derived")
     for name in wanted:
@@ -65,7 +74,7 @@ def main(argv=None) -> None:
         log(f"\n==== {name} ====")
         if name in ON_FAMILY:
             rows, _ = SUITES[name](family, log=log)
-        else:   # as the reference's suite runner calls it: no gate
+        else:   # as the reference's suite runner calls it (kernel: no gate)
             rows, _ = SUITES[name](log=log, device=args.device, cli_args=vars(args))
         for r in rows:
             print(f"{r[0]},{r[1]:.1f},{r[2]}", flush=True)

@@ -23,8 +23,15 @@ a host check between replays, as in the reference.  If the capture fails,
 ``generate`` raises: there is no eager fallback on the card.  On the CPU
 (the plain path, ``device='cpu'``) prefill and decode are eager calls.
 
-Not in this slice: the sharder, telemetry, the step profiler and
-construction from a PrecisionPlan.
+Passing ``plan=`` (a precision/plan.py PrecisionPlan) quantizes a RAW tree
+at construction, on the Engine's device — the mixed-precision serving
+entry point.  ``telemetry=`` (serving/telemetry.py, the no-op by default)
+records the load-time quantization health, and the prefill's and each
+decode step's times, spans and counters, timed at the host with a fence
+after each dispatch (a replay on the card); the captured step is the same
+with it on or off.
+
+Not in the port yet: the sharder (ROADMAP A11) and the step profiler (A7).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import launches
 from repro_torch.models import lm
+from repro_torch.models.quantize import quantize_tree
+from repro_torch.serving.telemetry import NOOP, record_quant_health, record_tree_bits
 
 #: stated per-token logit tolerance of a k-bit KV cache vs the bf16-cache
 #: oracle (tiny family, float codebook, block 64), as in the reference.
@@ -66,6 +75,20 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     if per_row:
         sampled = torch.where(temperature > 0, sampled, greedy)
     return sampled.to(torch.int32)
+
+
+def fence(t: torch.Tensor) -> None:
+    """Wait for the work that produces ``t`` (host-side timing only)."""
+    if t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def check_no_profiler(telemetry) -> None:
+    """The step profiler (serving/profiler.py: XLA cost analysis at TPU
+    peaks) has no counterpart in the port yet."""
+    if getattr(telemetry, "profiler", None) is not None:
+        raise NotImplementedError("the step profiler (serving/profiler.py) is not ported "
+                                  "yet: ROADMAP A7")
 
 
 class CapturedStep:
@@ -186,10 +209,19 @@ def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None):
 
 class Engine:
     def __init__(self, params, cfg, *, max_seq_len: int, eos_id: int | None = None,
-                 matmul_mode: str | None = None, device=None):
+                 plan=None, matmul_mode: str | None = None, telemetry=NOOP, device=None):
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
+        check_no_profiler(telemetry)
         self.device = resolve_device(device)
+        self.telemetry = telemetry
+        if plan is not None:
+            # load-time quantization health: per-matrix bits + blockwise
+            # qerr, measured on the raw tree before it is consumed
+            record_quant_health(telemetry, params, cfg, plan=plan)
+            params = quantize_tree(params, cfg, plan=plan, device=self.device)
+        else:
+            record_tree_bits(telemetry, params)
         self.params = params
         self.cfg = cfg
         self.max_seq_len = max_seq_len
@@ -205,6 +237,18 @@ class Engine:
             self._graphs[batch] = _DecodeGraph(self, batch)
         return self._graphs[batch]
 
+    def _record_step(self, t: int, t0: float, t_prev: float, batch: int) -> float:
+        """Decode step ``t`` into the telemetry: it ran from ``t0`` to now,
+        the previous token came at ``t_prev``.  Returns now."""
+        tel = self.telemetry
+        t1 = tel.now()
+        tel.observe("serve_decode_step_seconds", t1 - t0)
+        tel.observe("serve_itl_seconds", t1 - t_prev)
+        tel.inc("serve_decode_steps_total")
+        tel.inc("serve_tokens_total", batch)
+        tel.span("decode_step", t0, t1, step=t, n_active=batch, batch_fill=1.0)
+        return t1
+
     @torch.inference_mode()
     def generate(self, prompts, max_new_tokens: int, *, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:
@@ -215,9 +259,20 @@ class Engine:
         if S + max_new_tokens > self.max_seq_len:
             raise ValueError(f"{S} + {max_new_tokens} tokens exceed the cache budget "
                              f"{self.max_seq_len}")
+        tel = self.telemetry
+        if tel.enabled:
+            t_start = tel.now()
         logits, caches = lm.prefill(self.params, prompts, self.cfg,
                                     cache_len=self.max_seq_len)
         tok = sample_token(logits, generator, temperature)
+        if tel.enabled:
+            fence(tok)
+            t_tok = tel.now()
+            tel.observe("serve_prefill_seconds", t_tok - t_start)
+            tel.observe("serve_ttft_seconds", t_tok - t_start)
+            tel.inc("serve_prefills_total")
+            tel.inc("serve_tokens_total", B)
+            tel.span("prefill", t_start, t_tok, step=0, slot=-1, prompt_len=S, padded_len=S)
         done = (tok == self.eos_id) if self.eos_id is not None \
             else torch.zeros((B,), dtype=torch.bool, device=self.device)
         if self.device.type == "cuda" and max_new_tokens > 1:
@@ -232,7 +287,12 @@ class Engine:
                 self._gen.set_state(source.get_state())
             n = 1
             while n < max_new_tokens:
+                if tel.enabled:
+                    t0 = tel.now()
                 g.step.replay()
+                if tel.enabled:
+                    fence(g.tok)
+                    t_tok = self._record_step(n, t0, t_tok, B)
                 n += 1
                 if self.eos_id is not None and bool(g.done.all()):
                     break
@@ -241,11 +301,16 @@ class Engine:
             return g.out[:, :n].clone()
         out = [tok]
         for t in range(1, max_new_tokens):   # the plain path (CPU), eager
+            if tel.enabled:
+                t0 = tel.now()
             logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg)
             tok = sample_token(logits, generator, temperature)
             if self.eos_id is not None:
                 tok = torch.where(done, torch.full_like(tok, self.eos_id), tok)
                 done = done | (tok == self.eos_id)
+            if tel.enabled:
+                fence(tok)
+                t_tok = self._record_step(t, t0, t_tok, B)
             out.append(tok)
             if self.eos_id is not None and bool(done.all()):
                 break

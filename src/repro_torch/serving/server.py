@@ -49,10 +49,18 @@ is refused at ``submit``.
 ``telemetry=`` (``serving/telemetry.py``, the no-op by default) turns the
 request lifecycle into spans and metrics, timed at the host with a fence
 after each dispatch; the steps themselves are the same with it on or off.
+With ``Telemetry(kv_probe_every=N)`` and a packed cache, every Nth
+admission's prompt also runs a separate kv16 prefill whose K/V rows are
+round-tripped through the cache's encode and the plain dequant
+(``kv_append_qerr_rms``/``_max``, ``kv_probe_rows_total``); the served
+caches, steps and tokens are untouched.
 
-Not in this slice: the mesh (``sharder=``, ROADMAP A11), construction from
-a precision plan (A8), the telemetry quant-health probes
-(``kv_probe_every``, A7) and the roofline profiler (A7).
+``plan=`` (a precision/plan.py PrecisionPlan) quantizes a RAW tree at
+construction, on the Server's device, before the pool is allocated and its
+step captured, recording the load-time quantization health first.
+
+Not in the port yet: the mesh (``sharder=``, ROADMAP A11) and the roofline
+profiler (A7).
 """
 
 from __future__ import annotations
@@ -63,11 +71,17 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention, blocks, lm
-from repro_torch.serving.engine import capture_graph, sample_token
+from repro_torch.models.quantize import quantize_tree
+from repro_torch.serving.engine import capture_graph, check_no_profiler, fence, sample_token
 from repro_torch.serving.kvcache import SlotKVCache, scatter_row, workspace_to_row
 from repro_torch.serving.pages import PagedKVPool, paged_decode_attn_fn, scatter_pages
 from repro_torch.serving.scheduler import Request, Scheduler
-from repro_torch.serving.telemetry import NOOP
+from repro_torch.serving.telemetry import (
+    NOOP,
+    kv_roundtrip_error,
+    record_quant_health,
+    record_tree_bits,
+)
 
 
 def bucket_len(n: int, *, minimum: int = 8, cap: int | None = None) -> int:
@@ -101,12 +115,6 @@ def _bucketing_safe(cfg) -> bool:
     return not cfg.sliding_window and all(m == "attn" for m, _ in cfg.layer_schedule())
 
 
-def _fence(t: torch.Tensor) -> None:
-    """Wait for the work that produces ``t`` (host-side timing only)."""
-    if t.device.type == "cuda":
-        torch.cuda.current_stream(t.device).synchronize()
-
-
 class Server:
     """Continuous-batching front end: ``submit()`` requests, ``step()`` the
     engine (or ``run_until_drained()``), receive each request's tokens
@@ -114,7 +122,7 @@ class Server:
 
     def __init__(self, params, cfg, *, num_slots: int, max_seq_len: int,
                  eos_id: int | None = None, seed: int = 0, dtype=torch.bfloat16,
-                 matmul_mode: str | None = None, sharder=None, telemetry=NOOP,
+                 plan=None, matmul_mode: str | None = None, sharder=None, telemetry=NOOP,
                  prefill_chunk: int | None = None, aging_steps: int | None = 64,
                  max_preemptions: int = 0, paged: bool = False, page_size: int = 16,
                  n_pages: int | None = None, device=None):
@@ -133,9 +141,7 @@ class Server:
         if sharder is not None:
             raise NotImplementedError("the Server on a mesh (sharder=) is not ported yet: "
                                       "ROADMAP A11")
-        if telemetry.enabled and telemetry.kv_probe_every > 0:
-            raise NotImplementedError("the telemetry quant-health probes (kv_probe_every) "
-                                      "are not ported yet: ROADMAP A7")
+        check_no_profiler(telemetry)
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError("prefill_chunk must be >= 1")
@@ -149,10 +155,23 @@ class Server:
             raise ValueError(f"on CUDA prefill_chunk must be a multiple of {self._chunk_align}"
                              f" (attention.Q_PIECE), got {prefill_chunk}")
         self.telemetry = telemetry
+        if plan is not None:
+            # load-time quantization health: per-matrix bits + blockwise
+            # qerr, measured on the raw tree before it is consumed
+            record_quant_health(telemetry, params, cfg, plan=plan)
+            params = quantize_tree(params, cfg, plan=plan, device=self.device)
+        else:
+            record_tree_bits(telemetry, params)
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
         self.kvq = kv_spec(cfg)   # None = bf16 cache; else packed k-bit
+        # append-quantize health probe (telemetry.kv_probe_every > 0 and a
+        # packed cache): a separate kv16 prefill of the admitted prompt
+        self._probe = telemetry.enabled and telemetry.kv_probe_every > 0 \
+            and self.kvq is not None
+        self._n_admitted = 0
+        self._kv_err_sum, self._kv_err_n = 0.0, 0
         self._paged = paged
         if paged:
             self.pool = PagedKVPool(cfg, num_slots, max_seq_len, dtype, page_size=page_size,
@@ -217,6 +236,35 @@ class Server:
         tok = sample_token(logits, self._gen, float(temperature))
         scatter_row(self.pool.caches, caches, slot, length)
         return tok
+
+    def _probe_kv_error(self, padded: np.ndarray, length: int) -> None:
+        """Measure the append-quantize roundtrip error on this prompt's
+        actual K/V rows (a kv16 prefill -> encode_rows -> plain dequant)
+        and fold it into the cumulative gauges."""
+        prompt = torch.as_tensor(padded, device=self.device)
+        _, caches = lm.backbone_seq(self.params, prompt, self._cfg16, write_cache=True)
+        tel = self.telemetry
+        for cache in caches:
+            for key in sorted(cache):
+                if key not in ("k", "v"):
+                    continue
+                leaf = cache[key]
+                rows = leaf[:, 0, : min(length, leaf.shape[2])]
+                rows = rows.reshape(-1, rows.shape[-2] * rows.shape[-1])
+                err = kv_roundtrip_error(rows, self.kvq)
+                self._kv_err_sum += err
+                self._kv_err_n += 1
+                tel.inc("kv_probe_rows_total", rows.shape[0])
+                g = tel.registry.gauge("kv_append_qerr_max")
+                if err > g.value:
+                    g.set(err)
+        tel.set_gauge("kv_append_qerr_rms", self._kv_err_sum / max(self._kv_err_n, 1))
+
+    def _admitted(self, padded: np.ndarray, length: int) -> None:
+        """Count a finished admission; probe every kv_probe_every-th."""
+        self._n_admitted += 1
+        if self._probe and (self._n_admitted - 1) % self.telemetry.kv_probe_every == 0:
+            self._probe_kv_error(padded, length)
 
     # -- API -----------------------------------------------------------------
     def submit(self, prompt, max_new: int, *, temperature: float = 0.0,
@@ -380,13 +428,14 @@ class Server:
                 tok = self._prefill_into_slot(padded, L, slot, req.temperature)
                 self.pool.install_prefill(slot, L)
             if tel.enabled:
-                _fence(tok)
+                fence(tok)
                 t1 = tel.now()
                 tel.observe("serve_prefill_seconds", t1 - t0)
                 tel.observe("serve_prefill_pad_frac", (Sb - L) / Sb)
                 tel.inc("serve_prefills_total")
                 tel.span("prefill", t0, t1, request_id=req.id, step=self.steps, slot=slot,
                          prompt_len=L, padded_len=Sb)
+                self._admitted(padded, L)
             self._after_first(req, slot, int(tok[0]))
             produced += 1
         return produced
@@ -435,7 +484,7 @@ class Server:
         self._cur_tok[slot] = spill["cur_tok"]
         self._temps[slot] = req.temperature
         if tel.enabled:
-            _fence(self.pool.caches[0]["pos"])
+            fence(self.pool.caches[0]["pos"])
             t1 = tel.now()
             if self._paged:
                 tel.event("page_alloc", t0, request_id=req.id, step=self.steps, slot=slot,
@@ -478,7 +527,7 @@ class Server:
                 t0 = tel.now()
             h = lm.backbone_chunk(self.params, tokens, st.workspace, c0, self.cfg)
             if tel.enabled:
-                _fence(h)
+                fence(h)
                 t1 = tel.now()
                 tel.observe("serve_prefill_chunk_seconds", t1 - t0)
                 tel.inc("serve_prefill_chunks_total")
@@ -502,13 +551,14 @@ class Server:
         scatter_row(self.pool.caches, cc, slot, st.L)
         self.pool.install_prefill(slot, st.L)
         if tel.enabled:
-            _fence(tok)
+            fence(tok)
             t1 = tel.now()
             tel.observe("serve_prefill_seconds", t1 - st.t_start)
             tel.observe("serve_prefill_pad_frac", (st.Sb - st.L) / st.Sb)
             tel.inc("serve_prefills_total")
             tel.span("prefill", st.t_start, t1, request_id=req.id, step=self.steps, slot=slot,
                      prompt_len=st.L, padded_len=st.Sb, chunks=len(st.starts))
+            self._admitted(st.padded, st.L)
         self._after_first(req, slot, int(tok[0]))
         return 1
 

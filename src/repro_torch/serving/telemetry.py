@@ -32,9 +32,11 @@ auto-registers the metric with its documented type/buckets.  Exposition:
 and ``registry.as_dict()`` (consumed by benchmarks/serve_bench.py for
 its p50/p99 TTFT and inter-token-latency columns).
 
-Not in the port yet: the quantization-health probes
-(``record_quant_health``, ``record_tree_bits``, ``kv_roundtrip_error``),
-ROADMAP A7; the port's Server raises on ``kv_probe_every > 0``.
+Quantization health lives here too: ``record_quant_health`` snapshots
+per-matrix plan bits and blockwise quantization error at load, and
+``kv_roundtrip_error`` measures the append-quantize roundtrip error of
+actual K/V rows (the Server's ``kv_probe_every`` hook).  Both run on the
+device the tensors are on, outside any captured step.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from bisect import bisect_left, insort
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "Telemetry", "NoopTelemetry", "NOOP", "METRIC_FAMILIES",
+    "record_quant_health", "record_tree_bits", "kv_roundtrip_error",
 ]
 
 
@@ -517,3 +520,104 @@ class NoopTelemetry:
 
 #: the shared default recorder — ``telemetry=`` kwargs point here
 NOOP = NoopTelemetry()
+
+
+# ---------------------------------------------------------------------------
+# quantization health (torch imported lazily: the registry itself must stay
+# importable in dependency-free contexts, e.g. a log post-processor)
+# ---------------------------------------------------------------------------
+
+def record_quant_health(telemetry, params, cfg, *, plan=None, qcfg=None,
+                        max_units: int | None = None) -> dict:
+    """Snapshot per-matrix plan bits and blockwise quantization error of
+    a RAW param tree at load time (before quantize_tree consumes it).
+
+    Records two labelled gauge families — ``quant_unit_bits{unit=...}``
+    and ``quant_unit_qerr_rms{unit=...}`` — one series per quantizable
+    unit, measured on exactly the storage layout that serves
+    (models/quantize.quantize_unit), on the device the weights are on.
+    Returns {unit: (bits, qerr)} so callers can log it.  No-op (empty
+    dict) on the NOOP recorder."""
+    if not telemetry.enabled:
+        return {}
+    import torch
+
+    from repro_torch.core.qtensor import quantization_error
+    from repro_torch.models.quantize import quantizable_units, quantize_unit
+
+    if plan is not None:
+        base = plan.default_config()
+    elif qcfg is not None:
+        base = qcfg
+    else:
+        raise ValueError("record_quant_health needs plan= or qcfg=")
+
+    out = {}
+    units = quantizable_units(params, cfg, qcfg=base)
+    with torch.inference_mode():
+        for i, (name, info) in enumerate(sorted(units.items())):
+            if max_units is not None and i >= max_units:
+                break
+            ucfg = plan.config_for(name, base) if plan is not None else base
+            if ucfg.bits >= 16:
+                bits, qerr = 16.0, 0.0
+            else:
+                qt = quantize_unit(info["kind"], info["w"], ucfg,
+                                   outlier_idx=info["outlier_idx"])
+                x = info["w"]
+                if info["kind"] == "matrix":
+                    x = torch.swapaxes(x, -1, -2)
+                bits = float(qt.bits_breakdown().ideal_bits_per_param)
+                qerr = float(quantization_error(x, qt))
+                del qt
+            telemetry.set_gauge("quant_unit_bits", bits, unit=name)
+            telemetry.set_gauge("quant_unit_qerr_rms", qerr, unit=name)
+            out[name] = (bits, qerr)
+    return out
+
+
+def record_tree_bits(telemetry, params) -> dict:
+    """Snapshot per-matrix stored bits of an ALREADY-quantized tree
+    (QuantizedTensor leaves) into ``quant_unit_bits{unit=...}`` gauges.
+
+    The load-time qerr snapshot (record_quant_health) needs the raw
+    weights and so only runs when the Engine/Server does the quantizing
+    (``plan=``); a pre-quantized tree still exposes its bit allocation.
+    Unit names match models/quantize.py tree paths (trailing '/w'
+    stripped).  Returns {unit: bits}; empty on the NOOP recorder."""
+    if not telemetry.enabled:
+        return {}
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.models.quantize import _paths
+
+    out = {}
+    for keys, leaf in _paths(params):
+        if not isinstance(leaf, QuantizedTensor):
+            continue
+        keys = [str(k) for k in keys]
+        if keys and keys[-1] == "w":
+            keys = keys[:-1]
+        name = "/".join(keys)
+        bits = float(leaf.bits_breakdown().ideal_bits_per_param)
+        telemetry.set_gauge("quant_unit_bits", bits, unit=name)
+        out[name] = bits
+    return out
+
+
+def kv_roundtrip_error(rows, spec) -> float:
+    """RMS relative error of encode->dequant over K/V token rows
+    [..., feat] under a KVQuantSpec — the append-quantize math of the
+    decode and prefill steps (kernels/kv_dequant.encode_rows) and the
+    plain dequant, run eagerly on probe rows the Server harvests, outside
+    any captured step."""
+    import torch
+
+    from repro_torch.kernels import kv_dequant
+
+    x = rows.to(torch.float32)
+    packed, scales = kv_dequant.encode_rows(x, spec)
+    xhat = kv_dequant.dequant_rows_ref(packed, scales, spec, x.shape[-1],
+                                       out_dtype=torch.float32)
+    num = torch.sqrt(torch.mean((xhat - x) ** 2))
+    den = torch.sqrt(torch.mean(x ** 2)) + 1e-12
+    return float(num / den)

@@ -1,0 +1,267 @@
+"""The port's serving launcher (``repro_torch.launch.serve``) against the
+JAX package's, on the CPU.
+
+Mirrors ``tests/test_launch_serve.py:80-172`` case for case:
+
+* ``validate_flags`` rejects every conflicting pairing with the reference's
+  message, and both packages accept and reject the same argv lists;
+* the legal flag matrix serves end to end (``--device cpu``), the plan
+  riding along;
+* the reference's ``--mesh`` cases (ROADMAP A11) and ``--profile`` cases
+  (A7) become checks that the port refuses them, naming the item.
+
+Added: the plan path the launcher's docstring gives — the ``plan`` suite
+writes ``plans/tiny-2.6m.json`` and the launcher serves it — and a plan
+saved by the reference package served by the port's launcher.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+
+pytest.importorskip("jax")
+
+from repro.launch import serve as r_serve  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+
+CONFLICTS = [
+    # --plan owns the weight-quant config
+    (("--plan", "p.json", "--bits", "4"), "--plan"),
+    (("--plan", "p.json", "--dtype", "float"), "--plan"),
+    (("--plan", "p.json", "--block-size", "32"), "--plan"),
+    (("--plan", "p.json", "--outlier-pct", "0.5"), "--plan"),
+    # --dtype fp16 skips weight quantization
+    (("--dtype", "fp16", "--bits", "4"), "fp16"),
+    (("--dtype", "fp16", "--block-size", "32"), "fp16"),
+    # kv knobs need a quantized cache
+    (("--kv-bits", "16", "--kv-block-size", "32"), "--kv-bits"),
+    (("--kv-dtype", "int"), "--kv-bits"),
+    # mode-mismatched workload flags
+    (("--mode", "static", "--num-slots", "4"), "static"),
+    (("--mode", "static", "--rate", "1.0"), "static"),
+    (("--mode", "static", "--stream"), "static"),
+    (("--mode", "continuous", "--batch", "4"), "static-mode"),
+    (("--mode", "continuous", "--prompt-len", "16"), "static-mode"),
+    # kv probe needs a quantized cache, a telemetry sink, continuous mode
+    (("--kv-probe-every", "2", "--metrics-out", "m.prom"), "bf16 cache"),
+    (("--kv-bits", "4", "--kv-probe-every", "2"), "telemetry sink"),
+    (("--kv-bits", "4", "--kv-probe-every", "0", "--metrics-out", "m.prom"), "positive"),
+    (("--mode", "static", "--kv-bits", "4", "--kv-probe-every", "2",
+      "--metrics-out", "m.prom"), "continuous-mode"),
+    # SLA scheduler flags are continuous-only with validated values
+    (("--mode", "static", "--prefill-chunk", "8"), "static"),
+    (("--mode", "static", "--priorities", "2"), "static"),
+    (("--mode", "static", "--max-preemptions", "1"), "static"),
+    (("--prefill-chunk", "0"), "positive chunk length"),
+    (("--priorities", "0"), "at least one class"),
+    (("--max-preemptions", "-1"), ">= 0"),
+    # preemption needs >= 2 classes to ever find a victim
+    (("--max-preemptions", "2"), "--priorities"),
+    (("--max-preemptions", "2", "--priorities", "1"), "--priorities"),
+    # the profiler's gauges need a telemetry sink to land in
+    (("--profile",), "--profile"),
+    # paged-cache flags: continuous-only, exclusive with chunking/mesh
+    (("--mode", "static", "--paged"), "static"),
+    (("--page-size", "8"), "--paged"),
+    (("--pages", "16"), "--paged"),
+    (("--paged", "--prefill-chunk", "8"), "mutually exclusive"),
+    (("--paged", "--mesh", "2x4"), "single-host"),
+    (("--paged", "--page-size", "0"), "positive"),
+    (("--paged", "--pages", "1"), "trash page"),
+    # sampling / checkpoint flags validate their values up front
+    (("--temperature", "-0.5"), "--temperature"),
+    (("--ckpt-dir", "/nonexistent/ckpt-dir-for-test"), "--ckpt-dir"),
+]
+
+LEGAL = [
+    (),
+    ("--kv-bits", "4", "--kv-block-size", "32", "--kv-dtype", "int"),
+    ("--plan", "p.json", "--kv-bits", "4", "--matmul-mode", "fused"),
+    ("--dtype", "fp16",),
+    ("--mode", "static", "--batch", "2", "--prompt-len", "8"),
+    ("--mode", "continuous", "--num-slots", "2", "--rate", "1.0"),
+    ("--kv-bits", "4", "--kv-probe-every", "2", "--metrics-out", "m.prom",
+     "--trace-out", "t.jsonl"),
+    ("--mode", "static", "--metrics-out", "m.prom"),
+    ("--prefill-chunk", "8"),
+    ("--priorities", "2", "--max-preemptions", "2"),
+    ("--prefill-chunk", "16", "--priorities", "3", "--max-preemptions", "1",
+     "--kv-bits", "4"),
+    ("--max-preemptions", "0"),
+    ("--paged",),
+    ("--paged", "--page-size", "8", "--pages", "32", "--kv-bits", "4"),
+    ("--paged", "--priorities", "2", "--max-preemptions", "1"),
+]
+
+#: the reference's legal --profile combinations: the port refuses them (A7)
+PROFILED = [
+    ("--profile", "--metrics-out", "m.prom"),
+    ("--profile", "--trace-out", "t.jsonl"),
+    ("--mode", "static", "--profile", "--metrics-out", "m.prom"),
+]
+
+
+def _args(mod, *argv):
+    return mod.build_argparser().parse_args(["--arch", "tiny-160k", *argv])
+
+
+@pytest.mark.parametrize("argv,needle", CONFLICTS)
+def test_conflicting_flags_rejected(argv, needle):
+    """The port rejects each pairing with the reference's message."""
+    with pytest.raises(SystemExit, match=needle) as mine:
+        serve_mod.validate_flags(_args(serve_mod, *argv))
+    with pytest.raises(SystemExit) as ref:
+        r_serve.validate_flags(_args(r_serve, *argv))
+    assert str(mine.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("argv", LEGAL)
+def test_legal_flag_combinations_validate(argv):
+    serve_mod.validate_flags(_args(serve_mod, *argv))
+    r_serve.validate_flags(_args(r_serve, *argv))
+
+
+@pytest.mark.parametrize("argv", PROFILED)
+def test_profile_refused_naming_a7(argv):
+    r_serve.validate_flags(_args(r_serve, *argv))
+    with pytest.raises(SystemExit, match="A7"):
+        serve_mod.validate_flags(_args(serve_mod, *argv))
+
+
+@pytest.mark.parametrize("device,ok", [("cpu", True), ("cuda", True), ("cuda:1", True),
+                                       ("mps", False), ("banana", False)])
+def test_device_flag_validated(device, ok):
+    """--device, the port's one addition: cuda, cuda:N or cpu."""
+    args = _args(serve_mod, "--device", device)
+    if ok:
+        serve_mod.validate_flags(args)
+    else:
+        with pytest.raises(SystemExit, match="--device"):
+            serve_mod.validate_flags(args)
+
+
+@pytest.mark.parametrize("spec", ["2x4", "1x1", "banana"])
+def test_mesh_refused_naming_a11(spec):
+    """The reference parses DATAxMODEL against the device count; the port
+    serves on one device and refuses any mesh, by flag and by parse_mesh."""
+    assert serve_mod.parse_mesh(None) is None
+    with pytest.raises(SystemExit, match="A11"):
+        serve_mod.parse_mesh(spec)
+    with pytest.raises(SystemExit, match="A11"):
+        serve_mod.validate_flags(_args(serve_mod, "--mesh", spec))
+
+
+def test_mesh_serve_refused_naming_a11():
+    """The reference's mesh serve smoke (--mesh 2x4 --kv-bits 4): the port's
+    launcher stops before any model work."""
+    with pytest.raises(SystemExit, match="A11"):
+        serve_mod.main(["--arch", "tiny-650k", "--mesh", "2x4", "--kv-bits", "4",
+                        "--mode", "continuous", "--num-requests", "3", "--num-slots", "2",
+                        "--max-new", "4", "--device", "cpu"])
+
+
+def test_profile_serve_refused_naming_a7(tmp_path):
+    with pytest.raises(SystemExit, match="A7"):
+        serve_mod.main(["--arch", "tiny-160k", "--kv-bits", "4", "--num-requests", "3",
+                        "--num-slots", "2", "--max-new", "4", "--profile",
+                        "--metrics-out", str(tmp_path / "m.prom"), "--device", "cpu"])
+
+
+# -------------------------------------------------------------------------
+# the legal matrix serves end to end on the CPU
+# -------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_plan(tmp_path_factory):
+    """A minimal plan for tiny-160k, saved as --plan JSON."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.precision import PrecisionPlan
+
+    plan = PrecisionPlan(arch="tiny-160k",
+                         default=dataclasses.asdict(QuantConfig(bits=4, dtype="float",
+                                                                block_size=64)),
+                         assignments={})
+    path = tmp_path_factory.mktemp("plans") / "tiny.json"
+    plan.save(path)
+    return str(path)
+
+
+@pytest.mark.parametrize("argv", [
+    ("--mode", "static", "--max-new", "4"),
+    ("--mode", "static", "--kv-bits", "4", "--matmul-mode", "fused", "--max-new", "4"),
+    ("--mode", "continuous", "--kv-bits", "4", "--max-new", "4"),
+    ("--mode", "continuous", "--kv-bits", "8", "--kv-block-size", "32",
+     "--matmul-mode", "dequant_einsum", "--max-new", "4"),
+    ("--mode", "continuous", "--matmul-mode", "fused", "--max-new", "4"),
+    ("PLAN", "--mode", "continuous", "--kv-bits", "4", "--max-new", "4"),
+    ("PLAN", "--mode", "static", "--matmul-mode", "fused", "--max-new", "4"),
+    ("--mode", "continuous", "--kv-bits", "4", "--prefill-chunk", "8",
+     "--priorities", "2", "--max-preemptions", "1", "--max-new", "4"),
+    ("--mode", "continuous", "--kv-bits", "4", "--paged", "--page-size", "8",
+     "--max-new", "4"),
+])
+def test_flag_matrix_serves(argv, tiny_plan, capsys):
+    argv = list(argv)
+    if argv and argv[0] == "PLAN":
+        argv = ["--plan", tiny_plan] + argv[1:]
+    full = ["--arch", "tiny-160k", "--device", "cpu"] + argv
+    if argv[argv.index("--mode") + 1] == "continuous":
+        full += ["--num-requests", "3", "--num-slots", "2"]
+    else:
+        full += ["--batch", "2", "--prompt-len", "8"]
+    serve_mod.main(full)
+    out = capsys.readouterr().out
+    assert ("tok/s" in out) or ("generated" in out), out
+
+
+# -------------------------------------------------------------------------
+# the plan path: the plan suite's JSON, and a plan the reference saved
+# -------------------------------------------------------------------------
+
+def test_plan_suite_json_serves(tmp_path, monkeypatch, capsys):
+    """`paper.run --only plan` writes plans/tiny-2.6m.json; the launcher
+    serves it, its metrics holding quant_unit_bits for every unit."""
+    from repro_torch.paper import common, run
+
+    monkeypatch.setattr(common, "ART", tmp_path)
+    run.main(["--only", "plan", "--device", "cpu"])
+    rows = capsys.readouterr().out.splitlines()
+    assert rows[0] == "name,us_per_call,derived"
+    assert [r.split(",")[0] for r in rows[1:]] == ["plan/qwen2-7b", "plan/tiny-2.6m"]
+    path = tmp_path / "plans" / "tiny-2.6m.json"
+    m = tmp_path / "m.prom"
+    serve_mod.main(["--arch", "tiny-2.6m", "--plan", str(path), "--kv-bits", "4",
+                    "--num-requests", "3", "--num-slots", "2", "--max-new", "4",
+                    "--metrics-out", str(m), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"quantized per plan {path}" in out and "tok/s" in out
+    from repro_torch.precision import PrecisionPlan
+
+    units = PrecisionPlan.load(path).assignments
+    text = m.read_text()
+    assert all(f'quant_unit_bits{{unit="{u}"}}' in text for u in units)
+
+
+def test_reference_plan_serves_in_the_port(tmp_path, capsys):
+    """A mixed plan saved by the JAX package (its default config carries
+    use_kernel) serves through the port's launcher."""
+    import jax
+
+    from repro.configs import QuantConfig as RQuantConfig
+    from repro.configs.registry import get_arch as r_get_arch
+    from repro.models import lm as rlm
+    from repro.models.quantize import quantizable_units as r_units
+    from repro.precision import PrecisionPlan as RPrecisionPlan
+
+    cfg = r_get_arch("tiny-160k")
+    units = sorted(r_units(rlm.init_params(jax.random.PRNGKey(0), cfg), cfg))
+    path = RPrecisionPlan(arch=cfg.name, default=dataclasses.asdict(RQuantConfig()),
+                          assignments={u: {"bits": (3, 5, 6, 8, 16)[i % 5]}
+                                       for i, u in enumerate(units)}).save(tmp_path / "r.json")
+    serve_mod.main(["--arch", "tiny-160k", "--plan", str(path), "--num-requests", "3",
+                    "--num-slots", "2", "--max-new", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    # a partial plan (no covers_all_units) counts the default 4 bits in its mix
+    assert "mixed[3,4,5,6,8,16]" in out and "tok/s" in out

@@ -46,7 +46,13 @@ where the card is (a machine without JAX):
   bit-equal to the CPU's, codes bit-exact to the plain encode of the same
   centered blocks), the proxy encode through quantize_pack on zeroed
   transposed items (bit-identical to the CPU's, one launch an item), GPTQ on
-  the card within 1e-12 of the CPU's.
+  the card within 1e-12 of the CPU's;
+* mixed-precision plans: a plan-quantized tree's words and scales on the
+  card equal the CPU's bit for bit (a 16-bit unit left as it was);
+  ``Engine(plan=)``'s captured steps equal eager steps; the Server under a
+  plan of 3-, 5- and 6-bit units equals the batch-1 Engine token for token;
+  the kv probe (``Telemetry(kv_probe_every=1)``) leaves the tokens
+  unchanged and records a finite error above 0.
 """
 
 import numpy as np
@@ -910,3 +916,85 @@ def test_gptq_on_the_card_matches_the_cpu(bits, block):
     assert card.device.type == "cuda" and card.dtype == torch.float64
     rel = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
     assert rel <= 1e-12, rel
+
+
+# ---------------------------------------------------------------------------
+# mixed-precision plans
+# ---------------------------------------------------------------------------
+
+def _cycle_plan(cfg, cycle):
+    """A plan giving the tree's units the widths of ``cycle`` in turn."""
+    import dataclasses
+
+    from repro_torch.models.quantize import quantizable_units
+    from repro_torch.precision import PrecisionPlan
+
+    units = sorted(quantizable_units(lm.init_params(cfg, device="meta"), cfg))
+    return PrecisionPlan(arch=cfg.name, default=dataclasses.asdict(QuantConfig(bits=4)),
+                         assignments={u: {"bits": cycle[i % len(cycle)]}
+                                      for i, u in enumerate(units)})
+
+
+@pytest.mark.cuda
+def test_plan_quantized_tree_on_the_card_equals_the_cpu():
+    """quantize_tree(plan=) over every candidate width and a dense unit: the
+    same packed words and bf16 scales on the card as on the CPU."""
+    _need_cuda()
+    from repro_torch.interop import flatten
+    from repro_torch.models.quantize import quantize_tree
+
+    cfg = get_arch("tiny-650k")
+    plan = _cycle_plan(cfg, (3, 4, 5, 6, 8, 16))
+    raw = lm.init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    cpu = flatten(quantize_tree(raw, cfg, plan=plan, device="cpu"))
+    card = flatten(quantize_tree(raw, cfg, plan=plan, device="cuda"))
+    assert cpu.keys() == card.keys()
+    for k, v in cpu.items():
+        w = card[k].cpu()
+        assert v.dtype == w.dtype and v.shape == w.shape, k
+        if v.dtype == torch.bfloat16:
+            v, w = v.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(v, w), k
+
+
+@pytest.mark.cuda
+def test_engine_plan_replay_equals_eager():
+    """Engine(plan=) quantizes at load on the card; its captured steps give
+    the eager steps' tokens."""
+    _need_cuda()
+    cfg = get_arch("tiny-650k").with_kv_quant(4)
+    plan = _cycle_plan(cfg, (3, 5, 6, 8, 16, 4))
+    raw = lm.init_params(cfg, seed=1, device="cuda", dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 16), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+    eng = Engine(raw, cfg, max_seq_len=40, plan=plan, device="cuda")
+    graph = eng.generate(prompts, 24)
+    assert torch.equal(graph, _eager(eng.params, cfg, prompts, 24, 0.0, None, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", [False, True])
+def test_server_plan_3_5_6_equals_batch1_engine(probe):
+    """The Server under a plan of 3-, 5- and 6-bit units streams each
+    request's batch-1 Engine tokens; with the kv probe on it streams the
+    same tokens and records a finite roundtrip error above 0."""
+    _need_cuda()
+    cfg = get_arch("tiny-650k").with_kv_quant(4)
+    plan = _cycle_plan(cfg, (3, 5, 6))
+    raw = lm.init_params(cfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    rs = np.random.RandomState(7)
+    reqs = [rs.randint(0, cfg.vocab_size, L) for L in (12, 30, 7, 21, 16)]
+    eng = Engine(raw, cfg, max_seq_len=64, plan=plan, device="cuda")
+    ref = [eng.generate(torch.as_tensor(p, device="cuda")[None], 10)[0].tolist() for p in reqs]
+    tel = Telemetry(kv_probe_every=1) if probe else Telemetry()
+    srv = Server(raw, cfg, num_slots=3, max_seq_len=64, plan=plan, telemetry=tel, device="cuda")
+    ids = [srv.submit(p, 10, arrival_time=0.5 * i) for i, p in enumerate(reqs)]
+    res = srv.run_until_drained()
+    assert [res[i] for i in ids] == ref
+    d = tel.registry.as_dict()
+    if probe:
+        qmax = d["kv_append_qerr_max"][""]["value"]
+        assert np.isfinite(qmax) and qmax > 0
+        assert d["kv_probe_rows_total"][""] >= sum(len(p) for p in reqs)
+    else:
+        assert "kv_append_qerr_max" not in d

@@ -571,8 +571,9 @@ def test_paged_flag_validation():
         Server(params, tcfg, paged=True, prefill_chunk=8, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         Server(params, tcfg, paged=True, sharder=object(), **kw)
+    # the kv probe is ported; the step profiler is still A7's
     with pytest.raises(NotImplementedError, match="A7"):
-        Server(params, tcfg, paged=True, telemetry=Telemetry(kv_probe_every=1), **kw)
+        Server(params, tcfg, paged=True, telemetry=Telemetry(profiler=object()), **kw)
     with pytest.raises(ValueError):
         PagedKVPool(tcfg, 2, 32, page_size=6, device="cpu")
     with pytest.raises(ValueError):

@@ -296,8 +296,9 @@ def test_server_rejects_unported_options():
         Server(params, cfg, prefill_chunk=0, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         Server(params, cfg, sharder=object(), **kw)
+    # the kv probe is ported; the step profiler is still A7's
     with pytest.raises(NotImplementedError, match="A7"):
-        Server(params, cfg, telemetry=Telemetry(kv_probe_every=1), **kw)
+        Server(params, cfg, telemetry=Telemetry(profiler=object()), **kw)
     srv = Server(params, cfg, **kw)
     with pytest.raises(ValueError):
         srv.submit(np.arange(12), 8)
