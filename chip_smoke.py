@@ -34,7 +34,13 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                (the shapes kv_attention.fused_takes refuses: head dims 56
                and 120, a 40,960-slot cache at Qwen2-7B's heads) within the
                same 2^-6, idle rows 0, paged bit-identical to rows, one KV
-               dequant launch each and the fused wrapper raising first.
+               dequant launch each and the fused wrapper raising first;
+               the routed read over a wrapped 4096-slot ring and window
+               (kv4 and kv8, h2o-danube-3-4b's Dh 120 and gemma2-27b's Dh
+               128 with its soft-cap, a shared position and a position a
+               row, an idle row exactly 0) and the fused attention at
+               gemma2's global layers' shape; B1 and the encode to the
+               stored form at the windows phase's matrices and row counts.
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card (4-bit float, block 64; one
                quantize_pack launch per quantized matrix), Engine with a
@@ -49,6 +55,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                (every GEMV on the tensor cores, qgemv_sm90; one fused
                attention a layer and no standalone KV dequant).  A replay
                adds its kernels' launches to the wrappers' counters.
+  3f. windows — (run right after the kernels phase, on an empty card)
+               h2o-danube-3-4b at full width and depth (24 layers, a 4096
+               window on every one, head dim 120) and gemma2-27b (46 layers
+               alternating local and global, sandwich norms, soft-caps 50
+               and 30, a tied 256,000-token head), seeded bf16 weights
+               quantized on the card (4-bit float, block 64; one
+               quantize_pack an item): the Engine on 2 prompts of 4160
+               tokens (the prefill wraps every ring) in caches of 4224,
+               graph tokens = eager ones, rings of 4096 slots, one replay's
+               launches (danube kv4: 169 GEMVs, 24 KV dequants, 0 fused;
+               gemma2: 322 GEMVs, 23 fused attentions, 23 KV dequants), the
+               step on the card and by the host clock, prefill s,
+               quantize_s and peak memory; danube's ring gate (kv16,
+               dequant_einsum, decode steps past the window against
+               lm.backbone_seq's logits: over the rings at most 0.08 further
+               off than over the same K/V in linear caches); danube's Server (kv4, 4
+               slots of 4352, 12 requests of 64-4200 tokens at exact
+               length, two classes, a wrapped ring preempted and restored
+               bit for bit, each request within 0.08 of the per-request
+               Engine, paged and prefill_chunk refused before a launch);
+               gemma2's fused vs dequant_einsum gap and its tied head's
+               share of the step.
   3a. bits   — the serve phase's Engine at 3, 5 and 6 bits (the same seeded
                weights quantized at each width in turn, each freed before the
                next): captured-step tokens identical to eager ones, one replay
@@ -250,6 +278,29 @@ FIXED_PLAN_BITS = {"mixer/wq": 3, "mixer/wk": 16, "mixer/wv": 5, "mixer/wo": 6,
                    "ffn/w_gate": 4, "ffn/w_up": 4, "ffn/w_down": 8, "lm_head": 4}
 PROBE_VOCAB = 4096
 PLAN_KV_PROBE_EVERY = 4
+# the windows phase: h2o-danube-3-4b and gemma2-27b at full width, 2 prompts
+# of 4160 tokens (the prefill wraps each 4096-slot ring) in caches of 4224
+# positions; the Server on 4 slots of 4352 over 12 requests: 4 longer than
+# the ring, 4 that cross the window while decoding, 4 short; gemma2's
+# fused-vs-dequant_einsum gap on the prompt's last 256 rows
+WIN_BATCH, WIN_PROMPT, WIN_NEW, WIN_CACHE = 2, 4160, 64, 4224
+WIN_SLOTS, WIN_SLOT_LEN = 4, 4352
+WIN_LONG_PROMPTS = [4200, 4110, 4150, 4180]
+WIN_CROSSING_PROMPTS = [4083, 4087, 4090, 4094]
+WIN_SHORT_PROMPTS = [64, 700, 2000, 3300]
+GEMMA_DEPTH, GEMMA_NEW, GEMMA_MODE_ROWS = 46, 32, 256
+WIN_TIMED_STEPS = 10
+# decode past the window against the full forward: the reference's own
+# bar (tests/test_decode_consistency.py, test_sliding_window_ring_cache_
+# evicts_correctly), held at reduced() shapes by tests/test_torch_windows.py.
+# At full width and depth any decode differs from the full forward by more:
+# the same steps over linear caches (no ring) and from a 2048-token prompt
+# (the window never reached) were 0.18 off on the card, because the
+# summation order (decode rows in pieces of 16, the forward's of 128; one
+# softmax pass against 1024-key chunks) flips bf16 roundings that 24 layers
+# of random weights amplify.  So the ring's share is gated: the ring's gap
+# at most this much over the linear caches'
+RING_LOGIT_TOL = 0.08
 # the launcher subprocess: tiny-2.6m served per the plan suite's JSON
 LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
@@ -290,6 +341,7 @@ def main() -> int:
                     for k, v in report.items()}})
 
     errs = check_kernels(torch, dev)
+    windows = windows_path(torch, dev)
     run = serve_main_path(torch, dev)
     low_bits = serve_low_bits(torch, dev, run)
     server_path(torch, dev, run)
@@ -304,7 +356,8 @@ def main() -> int:
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   run["plan_counts"], bench["launches"], rest["launches"], suites["launches"])
+                   run["plan_counts"], windows, bench["launches"], rest["launches"],
+                   suites["launches"])
     del run
 
     kernels = []
@@ -324,6 +377,7 @@ def main() -> int:
             # (its quantization included), through the Server on the slot
             # pool and on pages, tiny-10m's routed read (Engine and Server),
             # the mixed-precision plans (the planner, Engine and Servers),
+            # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # kernel_bench, the paper's sweep, its remaining experiments and
             # the figmix and plan suites
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
@@ -513,6 +567,13 @@ def check_kernels(torch, dev) -> dict:
             check_b1((1, BATCH, BATCH * PROMPT), K, N, bits, "float", 64, torch.bfloat16, True)
     require(qk.qmatmul_gemv_simt.launches - before_simt == len(shapes) * len(F32_GEMV_MS),
             "Qwen2-7B's shapes with f32 x did not launch qmatmul_gemv_simt once per case")
+    # the windows phase's matrices: its decode steps (the Engine's rows, the
+    # Server's pool and admission head) and prefills (the Server's longest
+    # prompt, the Engine's two)
+    for items in _window_items().values():
+        for rows, cols, _ in items:
+            check_b1((1, WIN_BATCH, WIN_SLOTS, WIN_LONG_PROMPTS[0], WIN_BATCH * WIN_PROMPT),
+                     cols, rows, 4, "float", 64, torch.bfloat16, True)
     # a row's result does not depend on the rows sharing the call: row 0 of
     # an 8-row call equals the 1-row call bit for bit, on every f32 route
     for (K, N), bits, dtype, block in ([(kn, 4, "float", 64) for kn in shapes]
@@ -630,6 +691,7 @@ def check_kernels(torch, dev) -> dict:
     n_checks += check_pack(torch, dev, g, cfg, worst)
     n_checks += check_attention(torch, dev, g, cfg, worst)
     n_checks += check_routed(torch, dev, g, cfg, worst)
+    n_checks += check_ring(torch, dev, g, worst)
     emit({"phase": "kernels", "checks": n_checks, "max_abs_err_main_shapes": worst,
           "tolerance": {"f32_rel": F32_REL_TOL, "bf16_rel_to_max": BF16_REL_TOL,
                         "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact",
@@ -705,7 +767,32 @@ def check_pack(torch, dev, g, cfg, worst) -> int:
         one(stored, cb, 4, 64, transposed, f"Qwen2-7B item {rows}x{cols}")
         del stored
         torch.cuda.empty_cache()
+    # the windows phase's items (out, in), each as its layer stores it
+    for name, items in _window_items().items():
+        for rows, cols, transposed in items:
+            shape = (cols, rows) if transposed else (rows, cols)
+            stored = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            one(stored, cb, 4, 64, transposed, f"{name} item {rows}x{cols}")
+            del stored
+            torch.cuda.empty_cache()
     return n
+
+
+def _window_items() -> dict:
+    """{arch: [(out, in, stored transposed)]} over the distinct matrices of
+    the windows phase's models: wq, wk/wv, wo, w_gate/w_up, w_down and an
+    untied lm_head."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for name in ("h2o-danube-3-4b", "gemma2-27b"):
+        c = get_arch(name)
+        D, F = c.d_model, c.d_ff
+        QD, KD = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+        out[name] = [(QD, D, True), (KD, D, True), (D, QD, True), (F, D, True), (D, F, True)]
+        if not c.tie_embeddings:
+            out[name].append((c.vocab_size, D, False))
+    return out
 
 
 def _random_cache(torch, dev, g, spec, B, S, feat, n_holes=0):
@@ -930,6 +1017,92 @@ def check_routed(torch, dev, g, cfg, worst) -> int:
         worst["routed"] = max(worst["routed"], float(gap.max()))
         n += 2
         del cache, paged
+    return n
+
+
+def _ring_cache(torch, dev, g, spec, B, S, feat, ends):
+    """A packed ring of S slots a row whose row b holds positions up to
+    ends[b] at slot p % S (the oldest S of them; a row that has not wrapped
+    keeps its unwritten slots at -1), rows at ends[b] < 0 idle and empty."""
+    cache = _random_cache(torch, dev, g, spec, B, S, feat)
+    slot = torch.arange(S, device=dev)[None, :]
+    end = ends[:, None].to(torch.int64)
+    # the position in each slot: the latest p <= end with p % S == slot
+    pos = end - ((end - slot) % S)
+    cache["pos"] = torch.where((pos >= 0) & (end >= 0), pos, -1).to(torch.int32)
+    return cache
+
+
+def check_ring(torch, dev, g, worst) -> int:
+    """The routed read over ring caches (a sliding window: the fused
+    attention refuses it) against its plain version, within ATT_REL_TOL of
+    each row's max: kv4 and kv8 at h2o-danube-3-4b's heads (Dh 120, K 8,
+    G 4) and gemma2-27b's (Dh 128, K 16, G 2, soft-cap 50), a 4096-slot ring
+    and window, a shared position past the ring (wrapped: slot order is not
+    position order) and a position a row (wrapped, not yet wrapped, idle
+    rows exactly 0); one KV dequant launch a call, no fused attention, its
+    wrapper raising first.  Then the fused attention at gemma2's global
+    layers' shape (4224 slots, soft-cap 50), as the windows phase calls it."""
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels import kv_dequant as kvd
+
+    n, S = 0, 4096
+    W = S   # a ring as long as the window, as the windowed layers keep it
+    for bits, K, G, Dh, cap in ((4, 8, 4, 120, 0.0), (8, 8, 4, 120, 0.0), (4, 16, 2, 128, 50.0),
+                                (8, 16, 2, 128, 50.0)):
+        spec = kvd.KVQuantSpec(bits=bits, block_size=64, dtype_name="float")
+        feat = K * Dh
+        for B, ends in ((WIN_BATCH, [S + 700] * WIN_BATCH),
+                        (WIN_SLOTS, [S + 37, -1, S // 2, 2 * S + 5])):
+            ends = torch.tensor(ends, dtype=torch.int32, device=dev)
+            cache = _ring_cache(torch, dev, g, spec, B, S, feat, ends)
+            shared = len(set(ends.tolist())) == 1
+            if shared:
+                cache["pos"] = cache["pos"][0].contiguous()
+                pos = ends[0].clone()
+            else:
+                pos = ends.clone()
+            q = torch.randn((B, K * G, Dh), generator=g, device=dev).to(torch.bfloat16)
+            require(not kat.fused_takes(B, K * G, Dh, S, spec, feat, W),
+                    "the fused attention takes a window")
+            before = _counts()
+            out = kat.decode_attention_packed(q, cache, pos, spec, cap=cap, window=W)
+            after = _counts()
+            ref = kat.decode_attention_packed_plain(q, cache, pos, spec, cap=cap,
+                                                    window=W).float()
+            torch.cuda.synchronize()
+            where = (f"ring read kv{bits} Dh={Dh} K={K} G={G} S={S} "
+                     f"{'shared' if shared else 'per-row'} positions {ends.tolist()}")
+            require(after["kv"] - before["kv"] == 1 and after["attn"] == before["attn"],
+                    f"{where}: {after} launches after {before}")
+            gap = (out.float() - ref).abs().amax(-1)
+            require(bool(torch.isfinite(out).all())
+                    and bool((gap <= ATT_REL_TOL * ref.abs().amax(-1)).all()),
+                    f"{where}: max gap {float(gap.max())} over the row's 2^-6 * max")
+            idle = (ends < 0).nonzero().flatten().tolist()
+            require(not bool(out[idle].abs().any()), f"{where}: idle rows not exactly 0")
+            try:
+                kat.decode_attention_packed_cuda(q, cache, pos, spec, cap=cap, window=W)
+                raised = False
+            except ValueError:
+                raised = True
+            require(raised and _counts() == after,
+                    f"{where}: the fused attention's wrapper did not raise before a launch")
+            worst["routed"] = max(worst["routed"], float(gap.max()))
+            n += 1
+        if K == 16:   # gemma2's global layers: the fused kernel, full cache, soft-cap
+            cache = _random_cache(torch, dev, g, spec, WIN_BATCH, WIN_CACHE, feat, n_holes=64)
+            q = torch.randn((WIN_BATCH, K * G, Dh), generator=g, device=dev).to(torch.bfloat16)
+            pos = WIN_CACHE - 1
+            out = kat.decode_attention_packed_cuda(q, cache, pos, spec, cap=cap).float()
+            ref = kat.decode_attention_packed_plain(q, cache, pos, spec, cap=cap).float()
+            torch.cuda.synchronize()
+            gap = (out - ref).abs().amax(-1)
+            require(bool(torch.isfinite(out).all())
+                    and bool((gap <= ATT_REL_TOL * ref.abs().amax(-1)).all()),
+                    f"kv_decode_attention gemma2 global kv{bits}: max gap {float(gap.max())}")
+            worst["attn"] = max(worst["attn"], float(gap.max()))
+            n += 1
     return n
 
 
@@ -1816,6 +1989,376 @@ def routed_path(torch, dev, run) -> dict:
     run["routed_counts"] = total
     del qparams
     torch.cuda.empty_cache()
+    return total
+
+
+def _window_requests(cfg):
+    """WIN_REQUESTS requests for the windows phase's Server, prompts of seeded
+    random tokens: the first WIN_SLOTS longer than the 4096-slot ring (the
+    prefill wraps it; class 1, at step 0, filling the pool), then four that
+    cross the window while decoding and four short ones (class 0, one every
+    two steps from step 2, while the pool is busy), 16-64 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    lens = WIN_LONG_PROMPTS + WIN_CROSSING_PROMPTS + WIN_SHORT_PROMPTS
+    reqs = []
+    for i, L in enumerate(lens):
+        background = i < WIN_SLOTS
+        reqs.append({"prompt": rng.integers(0, cfg.vocab_size, L),
+                     "max_new": int(rng.integers(SERVER_NEW_TOKENS[0], SERVER_NEW_TOKENS[1] + 1)),
+                     "arrival_time": 0.0 if background else float(2 * (i - WIN_SLOTS + 1)),
+                     "priority": 1 if background else 0})
+    return reqs
+
+
+def _unrolled(torch, caches, length: int):
+    """Ring caches (shared positions) as linear ones of ``length`` slots:
+    each stored position p at slot p, the slots no position holds empty
+    (pos -1), so a decode step writes position t at slot t and masks by the
+    window alone."""
+    out = []
+    for group in caches:
+        pos = group["pos"]   # [n_periods, S_c]
+        lin = {}
+        for key, leaf in group.items():
+            if key == "pos":
+                lin[key] = torch.full(pos.shape[:1] + (length,), -1, dtype=pos.dtype,
+                                      device=pos.device)
+            else:
+                lin[key] = torch.zeros(leaf.shape[:2] + (length,) + leaf.shape[3:],
+                                       dtype=leaf.dtype, device=leaf.device)
+            for i in range(pos.shape[0]):
+                held = pos[i] >= 0
+                slots = pos[i][held].long()
+                if key == "pos":
+                    lin[key][i, slots] = pos[i][held]
+                else:
+                    lin[key][i][:, slots] = leaf[i][:, held]
+        out.append(lin)
+    return tuple(out)
+
+
+def _window_engine(torch, dev, qparams, cfg, prompts, new_tokens, total):
+    """One Engine run over ring caches: generate (its counts set to 0 just
+    before and read just after, no host sync in the captured step), its
+    tokens against eager steps' (whose prefill is timed), the rings'
+    lengths, one replay's launches, the captured step's time on the card
+    and by the host clock (replays of the Engine's own graph), and the
+    step's attention reads alone (every layer's cache read through
+    ``attention.decode_attention``, captured).  Returns (tokens, report)."""
+    from repro_torch.kernels.kv_dequant import kv_spec
+    from repro_torch.models import attention, blocks, lm
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import sample_token
+
+    engine = Engine(qparams, cfg, max_seq_len=WIN_CACHE, device=dev)
+    B, S = prompts.shape
+    _reset_counts()
+    with _capture_guard(torch) as syncs:
+        tokens = engine.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    counts = _counts()
+    for key in total:
+        total[key] += counts[key]
+    require(not syncs, f"{cfg.name} kv{cfg.kv_bits}: the captured step syncs with the host: "
+            f"{syncs[:5]}")
+    require(tuple(tokens.shape) == (B, new_tokens)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"{cfg.name}: tokens {tuple(tokens.shape)} or out of range")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=WIN_CACHE)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [sample_token(logits, None, 0.0)]
+        t0 = time.perf_counter()
+        for t in range(1, new_tokens):
+            logits, caches = lm.decode_step(qparams, out[-1], caches, S + t - 1, cfg)
+            out.append(sample_token(logits, None, 0.0))
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / (new_tokens - 1) * 1e3
+    require(torch.equal(torch.stack(out, 1), tokens),
+            f"{cfg.name} kv{cfg.kv_bits}: graph tokens differ from eager ones")
+    del caches, logits
+    g = engine._graphs[B]
+    sched = blocks.stack_schedule(cfg)
+    rings = {}
+    for (mixer, _), group in zip(sched, g.caches):
+        rings[mixer] = group["pos"].shape[-1]
+        w = blocks.mixer_window(mixer, cfg)
+        require(rings[mixer] == (min(WIN_CACHE, w) if w else WIN_CACHE),
+                f"{cfg.name}: the {mixer} cache holds {rings[mixer]} slots")
+    with torch.inference_mode():   # the graph's buffers are inference tensors
+        g.pos.fill_(S)   # the replays below write inside the cache budget
+        g.col.fill_(1)
+        _reset_counts()
+        g.step.replay()
+        torch.cuda.synchronize()
+        replay = _counts()
+        t0 = time.perf_counter()
+        for _ in range(WIN_TIMED_STEPS):
+            g.step.graph.replay()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / WIN_TIMED_STEPS * 1e3
+        device_ms = _time_graph(torch, g.step.graph, WIN_TIMED_STEPS)
+        # the step's attention reads alone, over the graph's filled caches
+        q = torch.randn((B, cfg.n_heads, cfg.head_dim), generator=_gen(torch, dev, S),
+                        device=dev).to(torch.bfloat16)
+        pos = torch.full((), S, dtype=torch.int32, device=dev)
+        layers = [(blocks.take(group, i), blocks.mixer_window(mixer, cfg))
+                  for (mixer, _), group in zip(sched, g.caches)
+                  for i in range(cfg.n_layers // len(sched))]
+        kvq = kv_spec(cfg)
+        reads_ms = _time_ms(torch, lambda: [attention.decode_attention(
+            q, c, pos, cap=cfg.attn_logit_softcap, window=w, kvq=kvq) for c, w in layers], 10)
+    del engine, g, layers
+    torch.cuda.empty_cache()
+    return tokens, {"launches": counts, "launches_per_replay": replay,
+                    "graph_tokens_equal_eager": True, "ring_slots": rings,
+                    "host_syncs_in_captured_step": len(syncs), "prefill_s": prefill_s,
+                    "decode_ms_per_step": host_ms, "decode_ms_per_step_eager": eager_ms,
+                    "decode_step_device_ms": device_ms, "attention_reads_ms": reads_ms}
+
+
+def _load_quantized(torch, dev, cfg, total):
+    """Seeded bf16 weights of ``cfg`` quantized on the card (4-bit float,
+    block 64), one quantize_pack launch an item: (qparams, report)."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.models import lm
+    from repro_torch.models.quantize import quantize_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    params_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t1 = time.perf_counter()
+    qparams = quantize_params(params, QuantConfig(bits=4, dtype="float", block_size=64), cfg,
+                              device=dev)
+    del params
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counts()
+    for key in total:
+        total[key] += counts[key]
+    n_items = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    require(counts == {**dict.fromkeys(_COUNT_KEYS, 0), "pack": n_items},
+            f"{cfg.name}: quantize_params launched {counts}, want {n_items} quantize_pack")
+    return qparams, {"init_s": t1 - t0, "quantize_s": t2 - t1, "quantize_launches": counts,
+                     "init_peak_bytes": init_peak, "bf16_params_bytes": params_bytes,
+                     "quantize_peak_bytes": torch.cuda.max_memory_allocated(),
+                     "quantized_params_bytes": torch.cuda.memory_allocated()}
+
+
+def windows_path(torch, dev) -> dict:
+    """Phase 3f: the sliding-window and local/global decoders at full width.
+    h2o-danube-3-4b (24 layers, a 4096 window on each, Dh 120): the Engine
+    at kv4 and kv16 from prompts that wrap every ring in the prefill, one
+    replay 169 GEMVs and a KV dequant a layer (the routed read; kv16
+    none), graph tokens equal to eager ones; the ring gate (kv16,
+    dequant_einsum: decode steps past the window against lm.backbone_seq's
+    logits, over the rings at most RING_LOGIT_TOL further off than over the
+    same K/V in linear caches); the Server on WIN_SLOTS slots serving
+    WIN_REQUESTS requests at exact length, two classes with a wrapped ring
+    preempted and restored bit for bit, each request within
+    SERVER_LOGIT_TOL of the Engine's step at batch 1, paged and chunked
+    refused before any launch.  gemma2-27b (46 layers alternating local and
+    global, sandwich norms, soft-caps, a tied 256,000-token head): the
+    Engine at kv4, one replay 322 GEMVs, 23 fused attentions (global) and
+    23 KV dequants (local), fused vs dequant_einsum within MODE_GAP_TOL,
+    the step's device time and the tied head's share of it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serving import Server, Telemetry
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    out = {"phase": "windows"}
+
+    # -- h2o-danube-3-4b ------------------------------------------------
+    base = get_arch("h2o-danube-3-4b")
+    qparams, load = _load_quantized(torch, dev, base, total)
+    prompts = torch.randint(0, base.vocab_size, (WIN_BATCH, WIN_PROMPT),
+                            generator=_gen(torch, dev, SEED + 12), device=dev)
+    danube = {"depth": base.n_layers, "width": base.d_model, "head_dim": base.head_dim,
+              "window": base.sliding_window, **load}
+    n_l = base.n_layers
+    for kv in (4, 16):
+        cfg = base.with_kv_quant(kv)
+        tokens, rep = _window_engine(torch, dev, qparams, cfg, prompts, WIN_NEW, total)
+        want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": 7 * n_l + 1, "gemv_tc": 7 * n_l + 1,
+                "kv": n_l if kv < 16 else 0}
+        require(rep["launches_per_replay"] == want,
+                f"danube kv{kv}: one replay launched {rep['launches_per_replay']}, want {want}")
+        danube[f"engine_kv{kv}"] = rep
+        if kv == 16:
+            tokens16 = tokens
+    # the ring gate: teacher-forced decode steps past the window (kv16,
+    # dequant_einsum) against the full forward's logits, over the rings and
+    # over the same K/V unrolled into linear caches (no slot reused, the
+    # window masking alone): the ring may add at most RING_LOGIT_TOL to the
+    # decode path's own gap to the full forward
+    cfg_e = base.with_kv_quant(16).with_matmul_mode("dequant_einsum")
+    seq = torch.cat([prompts, tokens16], dim=1)[:, :WIN_CACHE]
+    with torch.inference_mode():
+        h, _ = lm.backbone_seq(qparams, seq, cfg_e)
+        full = lm.logits_from_hidden(qparams, h[:, WIN_PROMPT - 1:WIN_CACHE - 1], cfg_e).float()
+        del h
+        logits, rings = lm.prefill(qparams, seq[:, :WIN_PROMPT], cfg_e, cache_len=WIN_CACHE)
+        steps = {"ring": [logits.float()], "linear": [logits.float()]}
+        caches = {"ring": rings, "linear": _unrolled(torch, rings, WIN_CACHE)}
+        for t in range(WIN_PROMPT, WIN_CACHE - 1):
+            for kind in steps:
+                step_logits, _ = lm.decode_step(qparams, seq[:, t], caches[kind], t, cfg_e)
+                steps[kind].append(step_logits.float())
+        steps = {k: torch.stack(v, 1) for k, v in steps.items()}
+        require(all(c["pos"].shape[-1] == base.sliding_window for c in rings),
+                f"danube's prefill rings: {[c['pos'].shape for c in rings]}")
+        ring_gap = float((steps["ring"] - full).abs().max())
+        linear_gap = float((steps["linear"] - full).abs().max())
+        ring_vs_linear = float((steps["ring"] - steps["linear"]).abs().max())
+        max_logit = float(full.abs().max())
+        del caches, rings, full, steps, logits, step_logits
+    require(ring_gap <= linear_gap + RING_LOGIT_TOL,
+            f"danube ring gate: decode over the rings {ring_gap} off the full forward, over "
+            f"linear caches {linear_gap}: the ring adds more than {RING_LOGIT_TOL}")
+    danube["ring_gate"] = {"ring_vs_full": ring_gap, "linear_vs_full": linear_gap,
+                           "ring_vs_linear": ring_vs_linear, "ring_extra_tol": RING_LOGIT_TOL,
+                           "max_abs_logit": max_logit,
+                           "positions": [WIN_PROMPT - 1, WIN_CACHE - 2]}
+
+    # the Server at kv4: exact-length prefills, preemption of a wrapped ring
+    cfg = base.with_kv_quant(4)
+    reqs = _window_requests(cfg)
+    Checked = _checked_server(torch)
+    with torch.inference_mode():
+        tel = Telemetry()
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            srv = Checked(qparams, cfg, num_slots=WIN_SLOTS, max_seq_len=WIN_SLOT_LEN,
+                          telemetry=tel, device=dev)
+            ids, plain, wall, _ = _drive_server(torch, srv, reqs)
+        counts = _counts()
+        for key in total:
+            total[key] += counts[key]
+        require(not syncs, f"danube Server: the captured step syncs with the host: {syncs[:5]}")
+        reg = tel.registry
+        admissions = int(reg.counter("serve_prefills_total").value)
+        steps = int(reg.counter("serve_decode_steps_total").value)
+        require(admissions == len(reqs) and counts["attn"] == 0
+                and counts["kv"] == (1 + steps) * n_l
+                and counts["gemv"] == counts["gemv_tc"] == (1 + steps) * (7 * n_l + 1) + admissions,
+                f"danube Server launched {counts} for {admissions} admissions, {steps} steps")
+        spans = [e["attrs"] for e in tel.tracer.events if e["name"] == "prefill"]
+        require(len(spans) == admissions
+                and all(a["padded_len"] == a["prompt_len"] for a in spans),
+                f"danube Server: a prefill was padded: {spans}")
+        kept = [srv.kept[i] for i in ids]
+        ttft, step_s = reg.histogram("serve_ttft_seconds"), reg.histogram(
+            "serve_decode_step_seconds")
+        n_tokens = sum(len(t) for t in plain)
+        del srv
+        srv_p = Checked(qparams, cfg, num_slots=WIN_SLOTS, max_seq_len=WIN_SLOT_LEN,
+                        max_preemptions=1, device=dev)
+        spilled = []   # the next position of each preempted row
+        real_preempt = srv_p._preempt
+        srv_p._preempt = lambda slot, by: (spilled.append(int(srv_p.pool.next_pos[slot]))
+                                           or real_preempt(slot, by))
+        _reset_counts()
+        _, preempted, _, _ = _drive_server(torch, srv_p, reqs, classes=True)
+        for key, n in _counts().items():
+            total[key] += n
+        n_pre = srv_p.scheduler.n_preemptions
+        wrapped = sum(p > base.sliding_window for p in spilled)
+        require(n_pre >= 1 and srv_p.restores == n_pre and wrapped >= 1,
+                f"danube Server: {n_pre} preemptions, {srv_p.restores} restores, {wrapped} "
+                "wrapped rings spilled")
+        require(preempted == plain, "danube Server: preemption changed tokens")
+        del srv_p
+        refused = {}
+        for name, kw in (("paged", {"paged": True}), ("prefill_chunk", {"prefill_chunk": 128})):
+            before = _counts()
+            try:
+                Server(qparams, cfg, num_slots=WIN_SLOTS, max_seq_len=WIN_SLOT_LEN, device=dev,
+                       **kw)
+                refused[name] = None
+            except ValueError as e:
+                refused[name] = str(e)
+            require(refused[name] is not None and _counts() == before,
+                    f"danube Server({name}) did not refuse before a launch: {refused[name]}")
+        _reset_counts()
+        worst, ties, first_ties = _teacher_forced(torch, qparams, cfg, reqs, plain, kept,
+                                                  WIN_SLOT_LEN)
+        for key, n in _counts().items():
+            total[key] += n
+    danube["server"] = {
+        "kv_bits": 4, "num_slots": WIN_SLOTS, "max_seq_len": WIN_SLOT_LEN,
+        "requests": len(reqs), "prompt_lens": [len(r["prompt"]) for r in reqs],
+        "tokens": n_tokens, "serve_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_steps": steps, "ttft_s_median": ttft.percentile(50),
+        "ttft_s_p90": ttft.percentile(90),
+        "decode_ms_per_step_median": step_s.percentile(50) * 1e3,
+        "exact_length_prefills": admissions, "preemptions": n_pre,
+        "wrapped_rings_spilled": wrapped, "spill_restore_bit_exact": True,
+        "preempted_tokens_identical": True, "engine_b1_max_logit_gap": worst,
+        "engine_b1_logit_tol": SERVER_LOGIT_TOL, "engine_b1_greedy_near_ties": ties,
+        "engine_b1_first_token_near_ties": first_ties, "refused": refused,
+        "host_syncs_in_captured_step": len(syncs), "launches": counts}
+    del qparams
+    torch.cuda.empty_cache()
+    out["h2o-danube-3-4b"] = danube
+
+    # -- gemma2-27b -------------------------------------------------------
+    base = dataclasses.replace(get_arch("gemma2-27b"), n_layers=GEMMA_DEPTH)
+    qparams, load = _load_quantized(torch, dev, base, total)
+    n_l, n_global = base.n_layers, base.n_layers // 2
+    gemma = {"depth": n_l, "width": base.d_model, "window": base.sliding_window,
+             "vocab": base.vocab_size, **load}
+    cfg = base.with_kv_quant(4)
+    tokens, rep = _window_engine(torch, dev, qparams, cfg, prompts, GEMMA_NEW, total)
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": 7 * n_l, "gemv_tc": 7 * n_l,
+            "kv": n_l - n_global, "attn": n_global}
+    require(rep["launches_per_replay"] == want,
+            f"gemma2 kv4: one replay launched {rep['launches_per_replay']}, want {want}")
+    gemma["engine_kv4"] = rep
+    # fused vs dequant_einsum on the whole prompt, logits of its last rows
+    # (all 4160 x 256,000 would be 8.5 GB a mode)
+    logit_rows = {}
+    with torch.inference_mode():
+        for mode in ("fused", "dequant_einsum"):
+            c = cfg.with_matmul_mode(mode)
+            h, _ = lm.backbone_seq(qparams, prompts, c)
+            logit_rows[mode] = lm.logits_from_hidden(qparams, h[:, -GEMMA_MODE_ROWS:], c).float()
+            del h
+        mode_gap = float((logit_rows["fused"] - logit_rows["dequant_einsum"]).abs().max())
+        finite = bool(torch.isfinite(logit_rows["fused"]).all())
+        del logit_rows
+        x = torch.randn((WIN_BATCH, base.d_model), generator=_gen(torch, dev, SEED + 13),
+                        device=dev).to(torch.bfloat16)
+        head_ms = _time_ms(torch, lambda: lm.logits_from_hidden(qparams, x, cfg), 10)
+    require(finite and mode_gap <= MODE_GAP_TOL,
+            f"gemma2: fused vs dequant_einsum logit gap {mode_gap} > {MODE_GAP_TOL}")
+    gemma["mode_gap"] = {"max_abs_logit_gap": mode_gap, "gate": MODE_GAP_TOL,
+                         "rows": GEMMA_MODE_ROWS}
+    gemma["tied_head_ms"] = head_ms
+    gemma["tied_head_share"] = head_ms / rep["decode_step_device_ms"]
+    gemma["peak_bytes"] = max(load["init_peak_bytes"], torch.cuda.max_memory_allocated())
+    del qparams
+    torch.cuda.empty_cache()
+    out["gemma2-27b"] = gemma
+    out["batch"], out["prompt_len"], out["max_seq_len"] = WIN_BATCH, WIN_PROMPT, WIN_CACHE
+    out["weights"] = "4-bit float b64"
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    emit(out)
     return total
 
 

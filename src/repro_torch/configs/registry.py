@@ -1,20 +1,37 @@
 """Architecture registry — port of ``repro/configs/registry.py``, holding the
-architectures the port serves: Qwen2-7B and the tiny ladder.  The
-reference's other registry archs (``NOT_PORTED``) raise, naming ROADMAP A10."""
+architectures the port serves: the dense decoders (Qwen2-7B, deepseek-coder,
+chameleon's backbone, h2o-danube-3's sliding window, gemma2's local/global
+stack with sandwich norms) and the tiny ladder.  The reference's other
+registry archs (``NOT_PORTED``) raise, naming ROADMAP A10."""
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen2_7b, tiny
+from repro_torch.configs import (
+    chameleon_34b,
+    deepseek_coder_33b,
+    gemma2_27b,
+    h2o_danube_3_4b,
+    qwen2_7b,
+    tiny,
+)
 from repro_torch.configs.base import ArchConfig
 
-ARCHS: dict[str, ArchConfig] = {qwen2_7b.CONFIG.name: qwen2_7b.CONFIG}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c
+    for c in [
+        h2o_danube_3_4b.CONFIG,
+        deepseek_coder_33b.CONFIG,
+        qwen2_7b.CONFIG,
+        gemma2_27b.CONFIG,
+        chameleon_34b.CONFIG,
+    ]
+}
 ARCHS.update(tiny.TINY_FAMILY)
 
 
-#: the reference's registry archs that the port does not serve yet: MoE, SSM,
-#: hybrid, sliding-window, sandwich-norm and seq2seq stacks (ROADMAP A10)
-NOT_PORTED = ("h2o-danube-3-4b", "deepseek-coder-33b", "gemma2-27b", "moonshot-v1-16b-a3b",
-              "phi3.5-moe-42b-a6.6b", "mamba2-130m", "jamba-v0.1-52b", "chameleon-34b",
+#: the reference's registry archs that the port does not serve yet: MoE
+#: (A10.2), SSM and hybrid (A10.3) and seq2seq (A10.4) stacks (ROADMAP A10)
+NOT_PORTED = ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "mamba2-130m", "jamba-v0.1-52b",
               "seamless-m4t-large-v2")
 
 

@@ -18,14 +18,15 @@ from repro_torch.core.blockwise import mean_xla, sum_xla
 def std_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Population std over ``dim`` (``jnp.std``'s ddof 0) in f32, summed in
     XLA's CPU order (``blockwise.sum_xla``) with the variance divided, not
-    multiplied by a reciprocal, as ``jnp.var`` divides.  Its bits are
-    ``jnp.std``'s on most units; on a few the last bit differs (inside XLA's
-    fused kernels, not pinned down), so what the tests hold equal is the
-    outlier index sets that the stds pick."""
+    multiplied by a reciprocal, as ``jnp.var`` divides: the variance is
+    ``jnp.var``'s bit for bit.  Its root is taken in f64 and rounded once to
+    f32, which is the correctly rounded f32 root, as XLA's is; ``torch.sqrt``
+    in f32 on the CPU is not, and was a last bit off on a few units."""
     x = x.to(torch.float32)
     centered = x - mean_xla(x, dim).unsqueeze(dim)
     ss = sum_xla(centered * centered, dim)
-    return torch.sqrt(ss / torch.full_like(ss, float(x.shape[dim])))
+    var = ss / torch.full_like(ss, float(x.shape[dim]))
+    return torch.sqrt(var.to(torch.float64)).to(torch.float32)
 
 
 def hidden_unit_std(w_producer: torch.Tensor) -> torch.Tensor:

@@ -47,9 +47,10 @@ many slots as its shared memory holds (39,808 at kv4 with Qwen2-7B's 7
 query heads a KV head); ``fused_takes`` mirrors those refusals and reads no
 device value, so the route is decided the same way inside a CUDA-graph
 capture.  All three take a logit soft-cap; a sliding window goes to the
-routed read on the card (the port builds no windowed model yet), and the
-kernel's wrapper raises on one.  None takes a bf16 cache or bits other
-than 4 and 8.
+routed read on the card (h2o-danube-3's layers, gemma2's local ones: a
+ring cache, whose slots are not in position order, masked by its stored
+positions), and the kernel's wrapper raises on one.  None takes a bf16
+cache or bits other than 4 and 8.
 """
 
 from __future__ import annotations

@@ -27,6 +27,13 @@ dequant a layer and the partials below; on the CPU the dequant and the
 partials below.  Decode writes update the cache
 tensors **in place** (the reference returns new arrays).
 
+A sliding-window layer keeps a ring cache: S_c = min(cache length,
+window) slots, position p in slot p % S_c (``cache_slot``) once the window
+fits the cache.  The ``pos`` array says which position each slot holds, so
+masking is the same for a ring as for a full cache, and the slot is computed
+from the device position (no host int), so a captured step writes the ring.
+A prefill longer than the ring keeps its last S_c positions, ring-aligned.
+
 ``prefill_chunk_attention`` is one chunk of a chunked prefill, bitwise
 equal to ``flash_attention``'s rows for a prompt within one KV chunk.
 
@@ -36,7 +43,7 @@ The paged pool (``serving/pages.py``) keeps every leaf page-major,
 ``paged_decode_attention`` reads through it (a packed cache in the fused
 kernel or the KV dequant, which follow the map themselves).
 
-Not in this slice: sliding-window ring caches and the sharded combine.
+Not in the port yet: the sharded combine (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -254,9 +261,26 @@ def as_position(pos, device) -> torch.Tensor:
     return torch.full((), int(pos), dtype=torch.int32, device=device)
 
 
-def write_cache_decode(cache: dict, k_new, v_new, pos, *, kvq=None) -> dict:
+def cache_slot(pos, cache_len: int, window: int):
+    """The slot of position ``pos`` (an int or a device tensor): pos %
+    cache_len in a ring (a window that fits the cache), pos otherwise."""
+    if window and window <= cache_len:
+        return pos % cache_len
+    return pos
+
+
+def _cache_values(cache: dict, k, v, kvq):
+    """(key, rows) pairs to store for token rows k, v [..., K, Dh]: the
+    append-quantized leaves of a k-bit cache, else k and v in its dtype."""
+    if kvq is not None and _is_quantized_cache(cache):
+        return _encoded(k, v, kvq)
+    return (("k", k.to(cache["k"].dtype)), ("v", v.to(cache["v"].dtype)))
+
+
+def write_cache_decode(cache: dict, k_new, v_new, pos, *, window: int = 0, kvq=None) -> dict:
     """Write one token's K/V [B, K, Dh] at absolute position ``pos``, in
-    place; a k-bit cache gets the append-quantized rows.
+    place, at its ring slot when ``window`` makes the cache a ring; a k-bit
+    cache gets the append-quantized rows.
 
     ``pos`` is a 0-d int32 tensor (every row at one position, over a shared
     [S_c] position array) or a [B] one over a per-slot [B, S_c] array.  A row
@@ -265,13 +289,12 @@ def write_cache_decode(cache: dict, k_new, v_new, pos, *, kvq=None) -> dict:
     no ``int()`` and no host copy, so the write can be captured in a graph."""
     pos = as_position(pos, k_new.device)
     S_c = cache["pos"].shape[-1]
-    quantized = kvq is not None and _is_quantized_cache(cache)
-    vals = (_encoded(k_new, v_new, kvq) if quantized else
-            (("k", k_new.to(cache["k"].dtype)), ("v", v_new.to(cache["v"].dtype))))
+    vals = _cache_values(cache, k_new, v_new, kvq)
+    slot = cache_slot(pos, S_c, window)
     if pos.ndim == 0:
         if cache["pos"].ndim != 1:
             raise ValueError("a shared position needs a shared [S_c] position array")
-        idx = pos.reshape(1).to(torch.int64)
+        idx = slot.reshape(1).to(torch.int64)
         for key, val in vals:
             cache[key].index_copy_(1, idx, val[:, None])
         cache["pos"].index_copy_(0, idx, pos.reshape(1))
@@ -280,23 +303,31 @@ def write_cache_decode(cache: dict, k_new, v_new, pos, *, kvq=None) -> dict:
         raise ValueError(f"positions {tuple(pos.shape)} need a per-slot position array, got "
                          f"{tuple(cache['pos'].shape)}")
     rows = torch.arange(pos.shape[0], device=pos.device)
-    slot = torch.clamp(pos, 0, S_c - 1).to(torch.int64)
+    slot = torch.clamp(slot, 0, S_c - 1).to(torch.int64)
     for key, val in vals:
         cache[key].index_put_((rows, slot), val)
     cache["pos"].index_put_((rows, slot), pos)
     return cache
 
 
-def write_cache_prefill(cache: dict, k_seq, v_seq, *, kvq=None) -> dict:
-    """Write a prefilled sequence [B,S,K,Dh] into slots [0..S), in place."""
+def write_cache_prefill(cache: dict, k_seq, v_seq, *, window: int = 0, kvq=None) -> dict:
+    """Write a prefilled sequence [B,S,K,Dh] into slots [0..S), in place.
+    A prompt longer than a ring cache keeps its last S_c positions, each at
+    its ring slot (the reference's argsort scatter lands the same leaves:
+    blocks and words never span tokens, so a row encodes alike anywhere)."""
     S = k_seq.shape[1]
-    if kvq is not None and _is_quantized_cache(cache):
-        for key, val in _encoded(k_seq, v_seq, kvq):
-            cache[key][:, :S] = val
-    else:
-        cache["k"][:, :S] = k_seq.to(cache["k"].dtype)
-        cache["v"][:, :S] = v_seq.to(cache["v"].dtype)
-    cache["pos"][:S] = torch.arange(S, dtype=torch.int32, device=cache["pos"].device)
+    S_c = cache["pos"].shape[-1]
+    dev = cache["pos"].device
+    if window and window <= S_c and S > S_c:
+        positions = torch.arange(S - S_c, S, dtype=torch.int32, device=dev)
+        slots = cache_slot(positions, S_c, window).to(torch.int64)
+        for key, val in _cache_values(cache, k_seq[:, -S_c:], v_seq[:, -S_c:], kvq):
+            cache[key].index_copy_(1, slots, val)
+        cache["pos"].index_copy_(0, slots, positions)
+        return cache
+    for key, val in _cache_values(cache, k_seq, v_seq, kvq):
+        cache[key][:, :S] = val
+    cache["pos"][:S] = torch.arange(S, dtype=torch.int32, device=dev)
     return cache
 
 
@@ -306,7 +337,26 @@ def decode_attention_partial(q, k_cache, v_cache, pos_arr, pos, *, cap=0.0, wind
     position ``pos`` (int or 0-d), or pos_arr [B,S] with ``pos`` [B]: each
     row masks against its own position, and a row with pos < 0 sees no
     valid slot (l = 0, a zero output).  Returns (m, l, pv): [B,K,G],
-    [B,K,G], [B,K,G,Dh]."""
+    [B,K,G], [B,K,G,Dh].
+
+    On the card the rows go one at a time: cuBLAS's batched products and
+    PyTorch's reductions pick their summation order by the shape of the
+    call, so a row's partials would otherwise depend on how many rows share
+    it, and the Server's pool (B = 4, 8) would drift from the batch-1
+    Engine by flipped bf16 roundings (0.17 in logits on h2o-danube-3-4b)."""
+    B = q.shape[0]
+    if q.is_cuda and B > 1:
+        per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
+        parts = [_partials(q[b:b + 1], k_cache[b:b + 1], v_cache[b:b + 1],
+                           pos_arr[b:b + 1] if pos_arr.ndim == 2 else pos_arr,
+                           pos[b:b + 1] if per_row else pos, cap=cap, window=window)
+                 for b in range(B)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+    return _partials(q, k_cache, v_cache, pos_arr, pos, cap=cap, window=window)
+
+
+def _partials(q, k_cache, v_cache, pos_arr, pos, *, cap, window):
+    """``decode_attention_partial``'s math over all of q's rows at once."""
     B, H, Dh = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -374,10 +424,7 @@ def write_cache_paged(cache: dict, k_new, v_new, pos, page_map, *, page_size: in
     zero = torch.zeros_like(safe)
     page = torch.where(live, mapped, zero)
     off = torch.where(live, safe % page_size, zero)
-    quantized = kvq is not None and _is_quantized_cache(cache)
-    vals = (_encoded(k_new, v_new, kvq) if quantized else
-            (("k", k_new.to(cache["k"].dtype)), ("v", v_new.to(cache["v"].dtype))))
-    for key, val in vals:
+    for key, val in _cache_values(cache, k_new, v_new, kvq):
         cache[key].index_put_((page, off), val)
     cache["pos"].index_put_((page, off), torch.where(live, pos, torch.full_like(pos, -1)))
     return cache

@@ -1,22 +1,30 @@
 """Layer composition: (attention, MLP) blocks over the stacked layer axis —
-port of the dense path of ``repro/models/blocks.py``.
+port of the dense-decoder path of ``repro/models/blocks.py``.
 
-Parameters keep the reference layout: ``stack`` is a list, one entry per
-position in the repeating period (1 for a dense model), whose leaves carry
-a leading n_periods axis.  The reference's ``lax.scan`` over that axis is a
-Python loop here: each step takes item i of every leaf (``take``).  Decode
-caches have the same stacked layout and are updated **in place** through
-those per-layer views.
+Layers are grouped into the architecture's smallest repeating period
+(``ArchConfig.scan_period``): 1 for a llama-style stack, 2 for gemma2's
+local and global layers.  Parameters keep the reference layout: ``stack``
+is a list, one entry per position in the period, whose leaves carry a
+leading n_periods axis.  The reference's ``lax.scan`` over periods is a
+Python loop here, period by period and position by position (layer
+``p * period + j`` is item p of ``stack[j]``, ``take``).  Decode caches
+have the same layout, a tuple of one dict a position: a windowed position
+("attn_local", or "attn" under ``cfg.sliding_window``) holds a ring of
+min(cache length, window) slots beside the full-length caches of the
+others, and each is updated **in place** through its per-layer view.
+gemma2's sandwich norms (``cfg.post_block_norm``) norm the mixer's and the
+FFN's outputs before each residual add.
 
 ``apply_stack_prefill_chunk`` runs one chunk of a chunked prefill over a
-dense bf16 workspace.  A decode position is an int32 tensor (0-d or [B],
+dense bf16 workspace, for full attention only, as the reference asserts.
+A decode position is an int32 tensor (0-d or [B],
 ``attention.write_cache_decode``), never turned into a host int.  A decode
 layer writes its token and attends through ``decode_attn``, the
 reference's hook: ``local_decode_attn`` over a slot cache by default, the
 paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
-Not in this slice: MoE and SSM layers, sliding windows and sharding
-constraints.
+Not in the port yet: MoE and SSM layers and frame inputs (ROADMAP A10.2-4)
+and sharding constraints (A11).
 """
 
 from __future__ import annotations
@@ -46,21 +54,37 @@ def mlp(params, x, cfg):
 
 
 def init_layer(init, cfg) -> dict:
-    return {
+    p = {
         "mixer_norm": init.norm(cfg.d_model, cfg.norm_type),
         "mixer": attn_mod.init_attention(init, cfg),
         "ffn_norm": init.norm(cfg.d_model, cfg.norm_type),
         "ffn": init_mlp(init, cfg),
     }
+    if cfg.post_block_norm:
+        p["post_mixer_norm"] = init.norm(cfg.d_model, cfg.norm_type)
+        p["post_ffn_norm"] = init.norm(cfg.d_model, cfg.norm_type)
+    return p
 
 
 def check_dense(cfg) -> None:
-    """Raise for the parts of the config this slice does not serve."""
-    if cfg.scan_period() != 1 or cfg.n_experts or cfg.attn_period != 1:
-        raise NotImplementedError(f"{cfg.name}: only dense attention+MLP stacks are ported")
-    if cfg.sliding_window or cfg.post_block_norm or cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: sliding windows, sandwich norms and "
-                                  "frame inputs are not ported yet")
+    """Raise for the parts of the config the port does not serve yet."""
+    if cfg.n_experts or cfg.attn_period != 1 or cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: experts, SSM mixers and frame inputs are not "
+                                  "ported yet (ROADMAP A10)")
+
+
+def mixer_window(mixer: str, cfg) -> int:
+    """The sliding window of a layer position: "attn_local" always, "attn"
+    under ``cfg.sliding_window``, "attn_global" never (0 = full attention)."""
+    if mixer == "attn_local" or (mixer == "attn" and cfg.sliding_window):
+        return cfg.sliding_window
+    return 0
+
+
+def stack_schedule(cfg) -> list:
+    """The mixers of one period, (mixer, "mlp") a position."""
+    check_dense(cfg)
+    return cfg.layer_schedule()[:cfg.scan_period()]
 
 
 def take(tree, i: int):
@@ -72,22 +96,39 @@ def take(tree, i: int):
     return tree[i]
 
 
-def apply_layer_seq(p, x, *, cfg, positions, cache_len=None, write_cache=False):
-    """Sequence mode (prefill).  Returns (x, cache or None)."""
+def _layers(stack, cfg):
+    """(layer params, position in the period, period index, window) in depth
+    order."""
+    sched = stack_schedule(cfg)
+    for p in range(cfg.n_layers // len(sched)):
+        for j, (mixer, _) in enumerate(sched):
+            yield take(stack[j], p), j, p, mixer_window(mixer, cfg)
+
+
+def _post(p, key, o, cfg):
+    """A sandwich norm of a block's output, where the config has them."""
+    return norm(p[key], o, cfg.norm_type) if cfg.post_block_norm else o
+
+
+def apply_layer_seq(p, x, *, cfg, positions, window=0, cache_len=None, write_cache=False):
+    """Sequence mode (prefill).  Returns (x, cache or None); a windowed
+    layer's cache is its ring, min(cache length, window) slots."""
     cache = None
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
-    o = attn_mod.flash_attention(q, k, v, causal=True, cap=cfg.attn_logit_softcap)
+    o = attn_mod.flash_attention(q, k, v, causal=True, window=window,
+                                 cap=cfg.attn_logit_softcap)
     o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], x.shape[1], -1), mode=cfg.matmul_mode)
     if write_cache:
         B, S = x.shape[:2]
         kvq = kv_spec(cfg)
-        cache = attn_mod.init_kv_cache(cfg, B, max(cache_len or S, S), k.dtype, kvq=kvq,
-                                       device=x.device)
-        attn_mod.write_cache_prefill(cache, k, v, kvq=kvq)
-    x = x + o
+        total = max(cache_len or S, S)
+        cache = attn_mod.init_kv_cache(cfg, B, min(total, window) if window else total,
+                                       k.dtype, kvq=kvq, device=x.device)
+        attn_mod.write_cache_prefill(cache, k, v, window=window, kvq=kvq)
+    x = x + _post(p, "post_mixer_norm", o, cfg)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + mlp(p["ffn"], h, cfg), cache
+    return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg), cache
 
 
 def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
@@ -96,7 +137,8 @@ def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
     ``cache`` is this layer's dense bf16 workspace {"k","v": [B,Sb,K,Dh],
     "pos": [Sb]}, already holding every earlier chunk.  Writes the chunk's
     K/V in place, attends over the workspace and runs the same row-wise
-    math as ``apply_layer_seq``.  Returns x."""
+    math as ``apply_layer_seq``.  Returns x.  Full attention only: a
+    window breaks the workspace's row-is-position layout."""
     C = x.shape[1]
     positions = chunk_start + torch.arange(C, dtype=torch.int32, device=x.device)
     h = norm(p["mixer_norm"], x, cfg.norm_type)
@@ -107,20 +149,21 @@ def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
     o = attn_mod.prefill_chunk_attention(q, cache["k"], cache["v"], chunk_start,
                                          cap=cfg.attn_logit_softcap)
     o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], C, -1), mode=cfg.matmul_mode)
-    x = x + o
+    x = x + _post(p, "post_mixer_norm", o, cfg)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + mlp(p["ffn"], h, cfg)
+    return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg)
 
 
-def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, kvq=None):
-    """Write one token's K/V into a slot cache, in place, and attend over
-    it: q [B,H,Dh], k_new/v_new [B,K,Dh].  Returns the attention output
-    [B,H,Dh]."""
-    attn_mod.write_cache_decode(cache, k_new, v_new, pos, kvq=kvq)
-    return attn_mod.decode_attention(q, cache, pos, cap=cap, kvq=kvq)
+def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
+    """Write one token's K/V into a slot cache (its ring slot in a windowed
+    layer), in place, and attend over it: q [B,H,Dh], k_new/v_new [B,K,Dh].
+    Returns the attention output [B,H,Dh]."""
+    attn_mod.write_cache_decode(cache, k_new, v_new, pos, window=window, kvq=kvq)
+    return attn_mod.decode_attention(q, cache, pos, cap=cap, window=window, kvq=kvq)
 
 
-def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, decode_attn=local_decode_attn):
+def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, window=0,
+                       decode_attn=local_decode_attn):
     """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
     row, -1 = idle) int32 tensor.  ``decode_attn`` writes this token into
     ``cache`` in place and attends.  Returns x."""
@@ -130,41 +173,43 @@ def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, decode_attn=local
     positions = pos[:, None] if pos.ndim else pos[None]
     q, k, v = attn_mod.project_qkv(p["mixer"], h[:, None, :], cfg, positions)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    o = decode_attn(q, k, v, cache, pos, cap=cfg.attn_logit_softcap, kvq=kv_spec(cfg))
-    x = x + dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
+    o = decode_attn(q, k, v, cache, pos, cap=cfg.attn_logit_softcap, window=window,
+                    kvq=kv_spec(cfg))
+    o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
+    x = x + _post(p, "post_mixer_norm", o, cfg)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + mlp(p["ffn"], h, cfg)
+    return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg)
 
 
 def init_stack(init, cfg) -> list:
-    """Stacked params: one period position whose leaves carry a leading
-    n_layers axis."""
-    check_dense(cfg)
-    return [init_layer(init.stacked(cfg.n_layers), cfg)]
+    """Stacked params: one entry a period position whose leaves carry a
+    leading n_periods axis."""
+    sched = stack_schedule(cfg)
+    return [init_layer(init.stacked(cfg.n_layers // len(sched)), cfg) for _ in sched]
 
 
 def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False):
-    """All layers in sequence mode.  Returns (x, caches): caches is a
-    one-entry tuple of dicts stacked over layers, as the reference's."""
-    check_dense(cfg)
-    caches = []
-    for i in range(cfg.n_layers):
-        x, cache = apply_layer_seq(take(stack[0], i), x, cfg=cfg, positions=positions,
+    """All layers in sequence mode.  Returns (x, caches): caches is a tuple
+    of dicts, one a period position, stacked over periods, as the
+    reference's."""
+    caches = [[] for _ in stack]
+    for p, j, _, window in _layers(stack, cfg):
+        x, cache = apply_layer_seq(p, x, cfg=cfg, positions=positions, window=window,
                                    cache_len=cache_len, write_cache=write_cache)
-        caches.append(cache)
+        caches[j].append(cache)
     if not write_cache:
         return x, None
-    return x, ({k: torch.stack([c[k] for c in caches]) for k in caches[0]},)
+    return x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in caches)
 
 
 def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
     """All layers over one prefill chunk; ``caches`` is a dense bf16
     workspace in init_stack_cache's layout, updated in place.  Returns
     (x, caches)."""
-    check_dense(cfg)
-    for i in range(cfg.n_layers):
-        x = apply_layer_prefill_chunk(take(stack[0], i), x, take(caches[0], i), chunk_start,
-                                      cfg=cfg)
+    for p, j, i, window in _layers(stack, cfg):
+        if window:
+            raise ValueError(f"{cfg.name}: chunked prefill supports full attention only")
+        x = apply_layer_prefill_chunk(p, x, take(caches[j], i), chunk_start, cfg=cfg)
     return x, caches
 
 
@@ -173,19 +218,25 @@ def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg, *,
     """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
     ``caches`` (init_stack_cache's layout) are updated in place through
     ``decode_attn``.  Returns (x, caches)."""
-    check_dense(cfg)
-    for i in range(cfg.n_layers):
-        x = apply_layer_decode(take(stack[0], i), x, take(caches[0], i), pos, cfg=cfg,
+    for p, j, i, window in _layers(stack, cfg):
+        x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, window=window,
                                decode_attn=decode_attn)
     return x, caches
 
 
 def init_stack_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = False,
                      device=None):
-    """Empty caches in apply_stack_decode's layout (``per_slot``: a position
-    array a row)."""
-    check_dense(cfg)
-    one = attn_mod.init_kv_cache(cfg, batch, cache_len, dtype or torch.bfloat16,
-                                 kvq=kv_spec(cfg), per_slot=per_slot, device=device)
-    return ({k: v.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * v.ndim)
-             for k, v in one.items()},)
+    """Empty caches in apply_stack_decode's layout, one dict a period
+    position (``per_slot``: a position array a row); a windowed position's
+    ring holds min(cache_len, window) slots."""
+    sched = stack_schedule(cfg)
+    n_periods = cfg.n_layers // len(sched)
+    caches = []
+    for mixer, _ in sched:
+        w = mixer_window(mixer, cfg)
+        one = attn_mod.init_kv_cache(cfg, batch, min(cache_len, w) if w else cache_len,
+                                     dtype or torch.bfloat16, kvq=kv_spec(cfg),
+                                     per_slot=per_slot, device=device)
+        caches.append({k: v.unsqueeze(0).repeat((n_periods,) + (1,) * v.ndim)
+                       for k, v in one.items()})
+    return tuple(caches)

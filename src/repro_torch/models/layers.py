@@ -35,35 +35,55 @@ def resolve_matmul_mode(mode: str, w) -> str:
 #: ROW_PIECES[0] rows take one piece of that many, longer ones pieces of
 #: ROW_PIECES[1] (see matmul_rounded)
 ROW_PIECES = (16, 128)
+#: weight rows (output columns) a dense product on the card converts to f32
+#: and multiplies at a time, where the weight has more (a vocabulary head)
+COL_PIECE = 16384
 
 
-def _row_pieces(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [M, K] f32 @ w[N, K]^T through cuBLAS calls of one fixed shape:
-    x's rows copied into zero-padded pieces of P rows, one call a piece."""
+def _row_pieces(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """x [M, K] f32 copied into zero-padded pieces of P rows: (the pieces'
+    buffer [n * P, K], P)."""
     M, K = x.shape
     P = ROW_PIECES[0] if M <= ROW_PIECES[0] else ROW_PIECES[1]
-    n = -(-M // P)
-    buf = torch.zeros((n * P, K), dtype=torch.float32, device=x.device)
+    buf = torch.zeros((-(-M // P) * P, K), dtype=torch.float32, device=x.device)
     buf[:M].copy_(x)
+    return buf, P
+
+
+def _pieces_matmul(buf: torch.Tensor, P: int, w: torch.Tensor) -> torch.Tensor:
+    """buf [n * P, K] @ w[N, K]^T, one cuBLAS call a piece of P rows."""
     wt = w.T
-    return torch.cat([buf[i * P:(i + 1) * P] @ wt for i in range(n)])[:M]
+    return torch.cat([buf[i:i + P] @ wt for i in range(0, buf.shape[0], P)])
 
 
 def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype.
 
-    On CUDA outside autograd the rows go through cuBLAS in pieces of one
-    fixed shape (``_row_pieces``): cuBLAS picks its algorithm, and so its
-    summation order, by the shape of the call, so a row's result would
+    On CUDA outside autograd every cuBLAS call has one fixed shape: the rows
+    go in zero-padded pieces (``_row_pieces``), and a weight of more than
+    ``COL_PIECE`` rows is converted to f32 and multiplied in pieces of that
+    many rows, the last one zero-padded.  cuBLAS picks its algorithm, and so
+    its summation order, by the shape of the call, so a row's result would
     otherwise depend on how many rows share it.  In pieces a decode row at
     batch 8 (the Server's pool) equals it at batch 1 (the Engine), and a
     bucket-padded prefill row its exact-length one, where a weight is dense
-    (a plan's 16-bit unit) or dequantized (``dequant_einsum``)."""
-    w = wt.to(x.dtype).to(torch.float32)
-    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        y = _row_pieces(x.reshape(-1, x.shape[-1]).to(torch.float32), w)
-        return y.reshape(x.shape[:-1] + (w.shape[0],)).to(x.dtype)
-    return (x.to(torch.float32) @ w.T).to(x.dtype)
+    (a plan's 16-bit unit, a tied head) or dequantized (``dequant_einsum``);
+    and a 256,000-row head never has a whole f32 copy (4.7 GB at gemma2's)."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or wt.requires_grad)
+    if not x.is_cuda or grad:
+        return (x.to(torch.float32) @ wt.to(x.dtype).to(torch.float32).T).to(x.dtype)
+    buf, P = _row_pieces(x.reshape(-1, x.shape[-1]).to(torch.float32))
+    N, K = wt.shape
+    piece = torch.zeros((min(N, COL_PIECE), K), dtype=torch.float32, device=x.device)
+    outs = []
+    for c0 in range(0, N, COL_PIECE):
+        w = wt[c0:c0 + COL_PIECE]
+        piece[:w.shape[0]].copy_(w.to(x.dtype))
+        piece[w.shape[0]:].zero_()
+        outs.append(_pieces_matmul(buf, P, piece)[:, :w.shape[0]])
+    y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    M = x.numel() // K
+    return y[:M].reshape(x.shape[:-1] + (N,)).to(x.dtype)
 
 
 def linear(x: torch.Tensor, w, bias=None, *, mode: str = "dequant_einsum") -> torch.Tensor:
@@ -183,7 +203,9 @@ class Init:
         if self.gen is None:
             return torch.empty(shape, dtype=self.dtype, device=self.device)
         w = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-        return (w * std).to(self.dtype)
+        # scaled in place: one f32 transient, not two (a stacked 4608 x 36864
+        # gemma2 leaf is 15.6 GB in f32)
+        return w.mul_(std).to(self.dtype)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=torch.float32, device=self.device)

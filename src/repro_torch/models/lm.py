@@ -1,5 +1,6 @@
 """Decoder-only LM assembled from blocks.py: init, loss, prefill, decode —
-port of the dense path of ``repro/models/lm.py``.
+port of the dense-decoder path of ``repro/models/lm.py`` (llama-style
+stacks, sliding windows, gemma2's local/global period and soft-caps).
 
 The parameter tree has the reference's keys (``embed``, ``stack``,
 ``final_norm``, ``lm_head`` when untied), so a reference tree carries
@@ -36,7 +37,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32) -> dict
 
 
 def count_params(cfg, active_only: bool = False) -> int:
-    """Exact parameter count of the implemented (dense) model."""
+    """Exact parameter count of the implemented (dense) model, from shapes
+    on the meta device (no memory: gemma2-27b's 27.2 B)."""
     shapes = init_params(cfg, device="meta")
 
     def count(tree):

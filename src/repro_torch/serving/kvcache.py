@@ -21,7 +21,8 @@ Lifecycle of a slot:
 padded to its bucket): entries at positions >= the prompt's length read as
 empty (-1).  A k-bit cache moves its packed codes and scales as stored:
 ``spill_slot`` copies a row to host memory without dequantizing and
-``restore_slot`` writes it back bit for bit.
+``restore_slot`` writes it back bit for bit, a ring as it stands (its
+positions with it).
 
 The device-side position vector (``pos_vector``) is one tensor for the
 pool's lifetime, refreshed from the host's positions each step, so a
@@ -46,10 +47,13 @@ KV_KEYS = ("k", "v", "k_packed", "k_scales", "v_packed", "v_scales")
 
 def scatter_row(pool, cc, slot: int, length: int) -> None:
     """Write a batch-1 prefill cache ``cc`` into row ``slot`` of the pool,
-    in place.  Both were built with the same cache length: pool leaves
-    [n_layers, B, S_c, ...] against cc's [n_layers, 1, S_c, ...]; pool pos
-    [n_layers, B, S_c] against cc's shared [n_layers, S_c].  Positions
-    outside [0, length) become -1."""
+    in place, a layer group (period position) at a time.  Both were built
+    with the same cache length, so each group's S_c agrees (a ring's
+    min(cache length, window) beside a full cache's): pool leaves
+    [n_periods, B, S_c, ...] against cc's [n_periods, 1, S_c, ...]; pool
+    pos [n_periods, B, S_c] against cc's shared [n_periods, S_c].  Positions
+    outside [0, length) become -1; the test is on the stored positions, so
+    it holds for a ring, whose slots are not in position order."""
     for pl, cl in zip(pool, cc):
         for key, dst in pl.items():
             src = cl[key]

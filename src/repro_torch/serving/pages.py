@@ -269,7 +269,9 @@ def paged_decode_attn_fn(page_map: torch.Tensor, page_size: int):
     refreshed in place between steps, so one captured step serves every
     table."""
 
-    def decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, kvq=None):
+    def decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
+        if window:
+            raise ValueError("paged caches hold full attention only, not a sliding window")
         attn_mod.write_cache_paged(cache, k_new, v_new, pos, page_map, page_size=page_size,
                                    kvq=kvq)
         return attn_mod.paged_decode_attention(q, cache, pos, page_map, cap=cap, kvq=kvq)

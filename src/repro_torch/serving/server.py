@@ -30,9 +30,12 @@ flash_attention's KV chunks (``attention.KV_CHUNK``) and, on the card,
 while every chunk starts at a multiple of ``attention.Q_PIECE``: there C
 must be a multiple of it, and a bucket that is not (one capped at a cache
 length off that multiple) prefills plainly, as does a bucket past
-``KV_CHUNK``.  Prompt-length bucketing is safe because every ported
-model is causal full attention: padded positions are masked out of the
-cache (``kvcache.scatter_row``).
+``KV_CHUNK``.  Prompt-length bucketing is safe where every layer is
+causal full attention: padded positions are masked out of the cache
+(``kvcache.scatter_row``).  An arch with a sliding window (h2o-danube-3,
+gemma2's local layers) keeps ring caches, which padding would overwrite, so
+it prefills every prompt at its exact length, and ``paged=True`` and
+``prefill_chunk`` refuse it (``_bucketing_safe``, the reference's rule).
 
 ``paged=True`` swaps the slot pool for the page-table pool
 (``serving/pages.py``): KV storage is one pool of ``n_pages`` pages of
@@ -110,9 +113,10 @@ class _ChunkState:
 
 def _bucketing_safe(cfg) -> bool:
     """Padded prefill is inert only when every mixer is causal full
-    attention (SSM states and sliding-window rings would absorb the
-    padding)."""
-    return not cfg.sliding_window and all(m == "attn" for m, _ in cfg.layer_schedule())
+    attention: SSM states and sliding-window rings would absorb the
+    padding (the reference's rule, checked mixer by mixer)."""
+    return all(m.startswith("attn") and blocks.mixer_window(m, cfg) == 0
+               for m, _ in cfg.layer_schedule())
 
 
 class Server:

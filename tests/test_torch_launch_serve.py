@@ -229,7 +229,7 @@ def test_plan_suite_json_serves(tmp_path, monkeypatch, capsys):
     run.main(["--only", "plan", "--device", "cpu"])
     rows = capsys.readouterr().out.splitlines()
     assert rows[0] == "name,us_per_call,derived"
-    assert [r.split(",")[0] for r in rows[1:]] == ["plan/qwen2-7b", "plan/tiny-2.6m"]
+    assert [r.split(",")[0] for r in rows[1:]] == ["plan/h2o-danube-3-4b", "plan/tiny-2.6m"]
     path = tmp_path / "plans" / "tiny-2.6m.json"
     m = tmp_path / "m.prom"
     serve_mod.main(["--arch", "tiny-2.6m", "--plan", str(path), "--kv-bits", "4",

@@ -52,7 +52,13 @@ where the card is (a machine without JAX):
   ``Engine(plan=)``'s captured steps equal eager steps; the Server under a
   plan of 3-, 5- and 6-bit units equals the batch-1 Engine token for token;
   the kv probe (``Telemetry(kv_probe_every=1)``) leaves the tokens
-  unchanged and records a finite error above 0.
+  unchanged and records a finite error above 0;
+* sliding windows: the routed read over a wrapped 4096-slot ring (kv4 and
+  kv8, Dh 120 and 128, a soft-cap, per-row positions with an idle row)
+  within 2^-6 of each row's max of its plain version, the fused wrapper
+  raising on the window; reduced() danube and gemma2 through the Engine
+  (captured ring steps = eager ones at kv16, kv8, kv4, their launches) and
+  danube's Server (= the per-request Engine; paged and chunked refused).
 """
 
 import numpy as np
@@ -998,3 +1004,149 @@ def test_server_plan_3_5_6_equals_batch1_engine(probe):
         assert d["kv_probe_rows_total"][""] >= sum(len(p) for p in reqs)
     else:
         assert "kv_append_qerr_max" not in d
+
+
+# ---------------------------------------------------------------------------
+# sliding windows: the routed read over a wrapped ring, captured ring steps
+# ---------------------------------------------------------------------------
+
+def _ring_case(bits, K, G, Dh, S, ends, seed):
+    """A packed ring of S slots a row on the card: row b holds positions up to
+    ends[b], each at slot p % S (the latest S of them; unwritten slots -1),
+    rows at ends[b] < 0 idle; q and the [B] positions."""
+    rs = np.random.RandomState(seed)
+    B = len(ends)
+    spec = tkv.KVQuantSpec(bits=bits, block_size=64, dtype_name="float")
+    cache = {}
+    for name in ("k", "v"):
+        x = torch.tensor(rs.randn(B, S, K * Dh), dtype=torch.bfloat16, device="cuda")
+        cache[f"{name}_packed"], cache[f"{name}_scales"] = tkv.encode_rows(x, spec)
+    end = np.asarray(ends)[:, None]
+    slot = np.arange(S)[None, :]
+    pos_arr = end - ((end - slot) % S)
+    pos_arr = np.where((pos_arr >= 0) & (end >= 0), pos_arr, -1).astype(np.int32)
+    cache["pos"] = torch.from_numpy(pos_arr).cuda()
+    q = torch.tensor(rs.randn(B, K * G, Dh) * 2, dtype=torch.bfloat16, device="cuda")
+    return q, cache, torch.tensor(ends, dtype=torch.int32, device="cuda"), spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K,G,Dh,cap", [(8, 4, 120, 0.0), (16, 2, 128, 50.0)])
+def test_routed_read_over_a_wrapped_ring(bits, K, G, Dh, cap):
+    """h2o-danube-3-4b's heads (Dh 120) and gemma2-27b's local layers' (Dh
+    128, soft-cap 50) over a 4096-slot ring and window: per-row positions
+    past the ring (slot order is not position order), one not yet wrapped
+    and an idle row.  The routed read (one KV dequant launch, no fused
+    attention, whose wrapper raises on a window) within 2^-6 of each row's
+    max of the plain version, the idle row exactly 0."""
+    _need_cuda()
+    S = 4096
+    q, cache, pos, spec = _ring_case(bits, K, G, Dh, S, [S + 37, -1, S // 2, 2 * S + 5],
+                                     seed=bits + Dh)
+    assert not tka.fused_takes(4, K * G, Dh, S, spec, K * Dh, window=S)
+    attn0, kv0 = tka.decode_attention_packed_cuda.launches, tkv.dequant_kv_cuda.launches
+    out = tka.decode_attention_packed(q, cache, pos, spec, cap=cap, window=S)
+    plain = tka.decode_attention_packed_plain(q, cache, pos, spec, cap=cap, window=S).float()
+    torch.cuda.synchronize()
+    assert tka.decode_attention_packed_cuda.launches == attn0
+    assert tkv.dequant_kv_cuda.launches == kv0 + 1
+    gap = (out.float() - plain).abs().amax(-1)
+    assert bool(torch.isfinite(out).all())
+    assert bool((gap <= ATT_TOL * plain.abs().amax(-1)).all()), float(gap.max())
+    assert not bool(out[1].abs().any()) and not bool(plain[1].abs().any())
+    with pytest.raises(ValueError, match="sliding window"):
+        tka.decode_attention_packed_cuda(q, cache, pos, spec, cap=cap, window=S)
+    assert tka.decode_attention_packed_cuda.launches == attn0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [16, 8, 4])
+@pytest.mark.parametrize("name", ["h2o-danube-3-4b", "gemma2-27b"])
+def test_ring_engine_graph_tokens_equal_eager(name, kv):
+    """reduced() danube and gemma2 (rings of 16 beside gemma2's global
+    caches): a prompt longer than the ring, then decode steps that wrap it
+    again; the captured steps' tokens equal eager steps', one KV dequant a
+    windowed layer and step at kv4/kv8 (and a global layer, whose head dim
+    of 16 the fused attention does not take)."""
+    _need_cuda()
+    cfg = get_arch(name).reduced().with_kv_quant(kv)
+    params = _q4_params(cfg)
+    S, n = 20, 24
+    prompts = torch.randint(0, cfg.vocab_size, (2, S), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(kv))
+    attn0, kv0 = tka.decode_attention_packed_cuda.launches, tkv.dequant_kv_cuda.launches
+    graph = Engine(params, cfg, max_seq_len=S + n, device="cuda").generate(prompts, n)
+    torch.cuda.synchronize()
+    n_local = cfg.n_layers if name.startswith("h2o") else cfg.n_layers // 2
+    n_global = cfg.n_layers - n_local
+    fused = kv < 16 and tka.fused_takes(2, cfg.n_heads, cfg.head_dim, S + n, tkv.kv_spec(cfg),
+                                        cfg.n_kv_heads * cfg.head_dim)
+    # every windowed layer reads through the KV dequant; a global one through
+    # the fused kernel where it takes the shapes (not reduced()'s Dh 16)
+    routed = 0 if kv == 16 else n_local + (0 if fused else n_global)
+    assert tkv.dequant_kv_cuda.launches - kv0 == n * routed
+    assert tka.decode_attention_packed_cuda.launches - attn0 == (n * n_global if fused else 0)
+    assert torch.equal(graph, _eager(params, cfg, prompts, n, 0.0, None, S + n))
+
+
+@pytest.mark.cuda
+def test_ring_server_equals_engine_and_refuses_pages():
+    """reduced() danube at kv4 on a pool of rings: the Server's tokens equal
+    the per-request Engine's (exact-length prefills, prompts over the ring),
+    and paged serving and chunked prefill are refused."""
+    _need_cuda()
+    cfg = get_arch("h2o-danube-3-4b").reduced().with_kv_quant(4)
+    params = _q4_params(cfg)
+    rs = np.random.RandomState(3)
+    reqs = [rs.randint(0, cfg.vocab_size, L) for L in (27, 9, 18, 5)]
+    srv = Server(params, cfg, num_slots=2, max_seq_len=48, device="cuda")
+    ids = [srv.submit(p, 14, arrival_time=float(i)) for i, p in enumerate(reqs)]
+    res = srv.run_until_drained()
+    for i, p in zip(ids, reqs):
+        eng = Engine(params, cfg, max_seq_len=48, device="cuda").generate(
+            torch.as_tensor(p, device="cuda")[None], 14)
+        assert res[i] == eng[0].tolist(), i
+    for kw in ({"paged": True}, {"prefill_chunk": 128}):
+        with pytest.raises(ValueError):
+            Server(params, cfg, num_slots=2, max_seq_len=48, device="cuda", **kw)
+
+
+@pytest.mark.cuda
+def test_wide_dense_head_in_column_pieces():
+    """A dense weight of more rows than ``layers.COL_PIECE`` (gemma2's tied
+    head) multiplies in column pieces of one shape: a row's logits equal
+    alone and among 8 rows bit for bit, and an f32 product of the whole
+    weight within f32 summation order."""
+    _need_cuda()
+    from repro_torch.models import layers
+
+    N, K = 2 * layers.COL_PIECE + 77, 256
+    g = torch.Generator("cuda").manual_seed(5)
+    w = torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn((8, K), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        y8 = layers.matmul_rounded(x, w)
+        y1 = layers.matmul_rounded(x[:1], w)
+    ref = (x.float() @ w.float().T)
+    torch.cuda.synchronize()
+    assert y8.shape == (8, N) and y8.dtype == torch.bfloat16
+    assert torch.equal(y8[:1].view(torch.int16), y1.view(torch.int16))
+    assert float((y8.float() - ref).abs().max()) <= BF16_REL_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_routed_read_row_does_not_depend_on_the_batch():
+    """The routed read's partials go a row at a time on the card, so a row
+    of a 4-row pool read equals the same row read alone bit for bit (the
+    Server against the batch-1 Engine on windowed archs)."""
+    _need_cuda()
+    S = 4096
+    q, cache, pos, spec = _ring_case(4, 8, 4, 120, S, [S + 37, -1, S // 2, 2 * S + 5], seed=9)
+    out = tka.decode_attention_packed(q, cache, pos, spec, window=S)
+    for b in range(4):
+        one = {k: v[b:b + 1].contiguous() for k, v in cache.items()}
+        alone = tka.decode_attention_packed(q[b:b + 1].contiguous(), one, pos[b:b + 1], spec,
+                                            window=S)
+        torch.cuda.synchronize()
+        assert torch.equal(alone.view(torch.int16), out[b:b + 1].view(torch.int16)), b

@@ -2,11 +2,11 @@
 path (``quantize_tree(plan=)``, ``quantizable_units``, ``Engine``/``Server``
 ``plan=``) against the JAX package's, on the CPU.
 
-Mirrors ``tests/test_precision.py`` case for case on Qwen2-7B at
-``reduced()`` shapes and on tiny-650k (the reference's danube is a
-sliding-window arch the port does not serve, ROADMAP A10), with the
-reference's ``init_params(PRNGKey(0))`` weights carried across through
-``interop``.  The bars:
+Mirrors ``tests/test_precision.py`` case for case on the reference's own
+h2o-danube-3-4b (a sliding window on every layer) and on Qwen2-7B at
+``reduced()`` shapes, and on tiny-650k, with the reference's
+``init_params(PRNGKey(0))`` weights carried across through ``interop``.
+The bars:
 
 * unit names, shapes, ``n_params`` and proxy outlier index sets equal to
   the reference's;
@@ -32,8 +32,8 @@ reference's ``init_params(PRNGKey(0))`` weights carried across through
 * the Engine's and the Server's greedy tokens under a plan equal to the
   reference's at kv16 and kv4.
 
-The reference's MoE, SSM and sliding-window archs (A10) and its sharded
-decode (A11) become checks that the port refuses them, naming the item.
+The reference's MoE and SSM archs (A10) and its sharded decode (A11)
+become checks that the port refuses them, naming the item.
 Probe tokens are the reference's, passed across as numpy: the two
 ``probe_tokens`` draw different streams.
 """
@@ -80,7 +80,7 @@ torch.set_num_threads(2)
 
 BASE = QuantConfig(bits=4, dtype="float", block_size=64)
 R_BASE = RQuantConfig(bits=4, dtype="float", block_size=64)
-NAMES = ["qwen2-7b", "tiny-650k"]
+NAMES = ["h2o-danube-3-4b", "qwen2-7b", "tiny-650k"]
 QERR_REL, MASS_ABS, KL_REL = 1e-6, 1e-5, 1e-4
 NO_EXCESS = {"xla_allow_excess_precision": False}
 
@@ -208,10 +208,10 @@ def test_units_match_reference(name, pct):
     assert (pct > 0) == any(u["outlier_idx"] is not None for u in mine.values())
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-130m", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-130m"])
 def test_moe_ssm_and_window_archs_refused_naming_a10(arch):
-    """The reference enumerates MoE and SSM units and gates danube; the port
-    serves none of these archs yet."""
+    """The reference enumerates MoE and SSM units; the port serves neither
+    family yet (its danube runs the cases above)."""
     with pytest.raises(KeyError, match="A10"):
         get_arch(arch)
 

@@ -1,7 +1,8 @@
 """Print the port's measured gaps to the JAX package on the inputs of
 ``test_torch_quant_methods.py`` and ``test_torch_gptq.py``: what their
-tolerances were set from, and how far ``torch.mean`` is from ``jnp.mean``
-(fault C2).  On the CPU, with jax installed:
+tolerances were set from, how far ``torch.mean`` is from ``jnp.mean`` and
+an f32 ``torch.sqrt`` from ``jnp.std``'s root (fault C2, closed).  On the
+CPU, with jax installed:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_parity_gaps.py
 """
@@ -39,6 +40,15 @@ def main():
         print(f"C2 B={block}: torch.mean off jnp.mean on {off} of {n} blocks "
               f"({off / n:.1%}), mean_xla on {xla}; with torch.mean {bf16} bf16 means "
               f"and {flips} of {n * block} codes differ")
+    for rows, cols in tm.STD_SHAPES:
+        w = (np.random.RandomState(rows * 7 + cols).randn(rows, cols) * 0.02).astype(np.float32)
+        ref = np.asarray(jnp.std(jnp.asarray(w), axis=0)).view(np.int32)
+        var = torch.from_numpy(np.asarray(jnp.var(jnp.asarray(w), axis=0)))
+        f32 = int((torch.sqrt(var).numpy().view(np.int32) != ref).sum())
+        port = int((tm.tproxy.hidden_unit_std(torch.from_numpy(w)).numpy().view(np.int32)
+                    != ref).sum())
+        print(f"C2 std {rows}x{cols}: an f32 torch.sqrt of jnp.var off jnp.std on {f32} of "
+              f"{cols} units, std_xla (f64 root) on {port}")
     for case in tm.CASES:
         shape, bd, axis, bits, centering = case
         rs = np.random.RandomState(sum(shape) + bits)
