@@ -77,6 +77,34 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                Engine, paged and prefill_chunk refused before a launch);
                gemma2's fused vs dequant_einsum gap and its tied head's
                share of the step.
+  3g. moe    — (right after the windows phase, on an empty card)
+               moonshot-v1-16b-a3b at full width and depth (48 layers, d
+               2048, 64 experts of width 1408, top-6, vocab 163,840), seeded
+               bf16 weights quantized on the card an expert matrix at a time
+               (9,409 quantize_pack launches; init and quantize peaks, the
+               expert stacks' 35 GB f32 draws made a layer at a time): the
+               Engine at kv4 on 4 prompts of 256 (16 dispatch groups a
+               prefill, a prefill GEMM an expert that holds a token), 32 new:
+               graph tokens = eager ones, no host sync, one replay 144
+               expert-batched GEMVs + 193 GEMVs + 48 fused attentions, the
+               experts that hold a token a layer, the step on the card and by
+               the host clock, one step's expert GEMVs beside their bound, the
+               plain version and torch.bmm over the active experts' bf16
+               weights; fused vs dequant_einsum logits within 0.5 with the
+               router flips counted (held on same-route logits where flips
+               alone break it); the Server at kv4 on 8 slots of 576 over 16
+               requests (bucketed prefills with the router pad mask, one
+               prompt of 320 that runs 16 dispatch groups at its exact
+               length), and on pages of 16 (the same tokens): each request's
+               decode logits equal to the per-request Engine's (gap 0.0)
+               where its exact-length prefill runs one dispatch group, the
+               grouped request's gap reported.  phi3.5-moe at full width,
+               depth 8 of 32: the Engine at kv4 on 2 x 256, 16 new, graph =
+               eager, and fused vs dequant_einsum.  The kernels phase holds
+               the expert-batched GEMV at both archs' expert shapes (4 and 3
+               bits, experts of 0, 1 and 8 rows) bit-identical to per-expert
+               launches of the tensor-core GEMV and within a bf16 ulp of its
+               plain version.
   3a. bits   — the serve phase's Engine at 3, 5 and 6 bits (the same seeded
                weights quantized at each width in turn, each freed before the
                next): captured-step tokens identical to eager ones, one replay
@@ -191,6 +219,7 @@ Needs no network, imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -301,6 +330,23 @@ WIN_TIMED_STEPS = 10
 # of random weights amplify.  So the ring's share is gated: the ring's gap
 # at most this much over the linear caches'
 RING_LOGIT_TOL = 0.08
+# the moe phase: moonshot-v1-16b-a3b at full width and depth (48 layers, d
+# 2048, 64 experts of width 1408, top-6), kv4.  The Engine on 4 prompts of
+# 256 (16 dispatch groups a prefill) and 32 new tokens; the Server on 8
+# slots of 576 over 16 requests of 16-512 prompt tokens (one of 320: >= 256
+# and a multiple of 16, so its exact-length prefill runs 16 dispatch groups)
+# and 16-64 new ones, on slots and on pages of 16; phi3.5-moe at full width
+# (32 heads over 8 KV heads, 16 experts of width 6400, top-2) at depth 8 of
+# 32, on 2 prompts of 256 and 16 new tokens
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_NEW = "moonshot-v1-16b-a3b", 4, 256, 32
+MOE_SLOTS, MOE_SLOT_LEN, MOE_REQUESTS, MOE_GROUPED_PROMPT = 8, 576, 16, 320
+MOE_TIMED_STEPS = 10
+PHI_ARCH, PHI_DEPTH, PHI_BATCH, PHI_PROMPT, PHI_NEW = "phi3.5-moe-42b-a6.6b", 8, 2, 256, 16
+# the expert-batched GEMV's checks: (N, K) of moonshot's and phi3.5's expert
+# matrices (gate/up, down), and the rows its 8 experts hold (empty ones, 1,
+# 8 = its row limit)
+MOE_GEMV_SHAPES = ((1408, 2048), (2048, 1408), (6400, 4096), (4096, 6400))
+MOE_GEMV_COUNTS = (0, 1, 8, 3, 0, 5, 8, 2)
 # the launcher subprocess: tiny-2.6m served per the plan suite's JSON
 LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
@@ -342,10 +388,14 @@ def main() -> int:
 
     errs = check_kernels(torch, dev)
     windows = windows_path(torch, dev)
+    experts = moe_path(torch, dev)
+    _memory_note(torch, "moe")
     run = serve_main_path(torch, dev)
     low_bits = serve_low_bits(torch, dev, run)
+    _memory_note(torch, "bits")
     server_path(torch, dev, run)
     paged_path(torch, dev, run)
+    _memory_note(torch, "paged")
     routed_path(torch, dev, run)
     plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
@@ -356,8 +406,8 @@ def main() -> int:
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   run["plan_counts"], windows, bench["launches"], rest["launches"],
-                   suites["launches"])
+                   run["plan_counts"], windows, experts["launches"], bench["launches"],
+                   rest["launches"], suites["launches"])
     del run
 
     kernels = []
@@ -378,6 +428,7 @@ def main() -> int:
             # pool and on pages, tiny-10m's routed read (Engine and Server),
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
+            # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
             # kernel_bench, the paper's sweep, its remaining experiments and
             # the figmix and plan suites
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
@@ -385,6 +436,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    t = experts["gemv_experts"]
+    kernels.append({
+        "name": "qmatmul_gemv_experts", "route": "cuda",
+        "source": "src/repro_torch/csrc/qgemv_sm90.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:97",
+        # the moe phase: moonshot-v1's and phi3.5-moe's Engines and
+        # moonshot-v1's Servers, 3 a layer and decode step
+        "launches": sum(c["gemv_moe"] for c in main_counts), "max_abs_err": errs["gemv_moe"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     for bits in LOW_BITS:
         t = low_bits[bits]
         kernels.append({
@@ -405,6 +467,12 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _memory_note(torch, after: str) -> None:
+    """The card's allocated and reserved bytes after a phase, on stderr."""
+    print(f"chip_smoke: after {after}: {torch.cuda.memory_allocated()} bytes allocated, "
+          f"{torch.cuda.memory_reserved()} reserved", file=sys.stderr, flush=True)
 
 
 def _gen(torch, dev, seed):
@@ -455,7 +523,7 @@ def check_kernels(torch, dev) -> dict:
 
     g = _gen(torch, dev, SEED + 1)
     worst = {"gemv": 0.0, "gemv_simt": 0.0, "gemm": 0.0, "gemm_simt": 0.0, "kv": 0.0,
-             "attn": 0.0, "routed": 0.0, "b3": 0.0, "pack": 0.0,
+             "attn": 0.0, "routed": 0.0, "b3": 0.0, "pack": 0.0, "gemv_moe": 0.0,
              **{f"gemv{b}": 0.0 for b in LOW_BITS}}
     n_checks = 0
 
@@ -692,13 +760,66 @@ def check_kernels(torch, dev) -> dict:
     n_checks += check_attention(torch, dev, g, cfg, worst)
     n_checks += check_routed(torch, dev, g, cfg, worst)
     n_checks += check_ring(torch, dev, g, worst)
+    n_checks += check_moe_gemv(torch, dev, g, worst)
     emit({"phase": "kernels", "checks": n_checks, "max_abs_err_main_shapes": worst,
           "tolerance": {"f32_rel": F32_REL_TOL, "bf16_rel_to_max": BF16_REL_TOL,
                         "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact",
                         "quantize_pack": "bit-exact",
                         "kv_decode_attention_rel_to_row_max": ATT_REL_TOL,
-                        "routed_read_rel_to_row_max": ATT_REL_TOL}})
+                        "routed_read_rel_to_row_max": ATT_REL_TOL,
+                        "gemv_experts": "bit-identical to per-expert launches; "
+                                        "bf16_rel_to_max of the plain version"}})
     return worst
+
+
+def check_moe_gemv(torch, dev, g, worst) -> int:
+    """The expert-batched GEMV at the MoE archs' expert shapes, 4 bits and 3
+    (rows as stored, ceil(K / 10) words), block 64: 8 experts holding
+    MOE_GEMV_COUNTS rows of a buffer of 9 rows an expert (the MoE path's
+    capacity buffers, an overflow row each), one launch; each expert's rows
+    bit-identical to a qmatmul_gemv_tc launch on that expert alone, and
+    within one bf16 ulp at max|y| of the plain version.  Returns the
+    checks."""
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import qmatmul as qk
+
+    n_checks = 0
+    E = len(MOE_GEMV_COUNTS)
+    counts = torch.tensor(MOE_GEMV_COUNTS, dtype=torch.int32, device=dev)
+    for N, K in MOE_GEMV_SHAPES:
+        for bits in (4, 3):
+            block, cpw = 64, 32 // bits
+            kw = dict(bits=bits, block_size=block)
+            packed = torch.randint(-2**31, 2**31 - 1, (E, N, -(-K // cpw)), generator=g,
+                                   device=dev, dtype=torch.int32)
+            scales = (torch.rand((E, N, K // block), generator=g, device=dev) * 0.04
+                      + 0.01).to(torch.bfloat16)
+            cb = make_codebook("float", bits, device=dev).expand(E, -1).contiguous()
+            buf = torch.randn((E, qk.GEMV_MAX_M + 1, K), generator=g, device=dev).to(torch.bfloat16)
+            x = buf[:, :qk.GEMV_MAX_M]
+            before = qk.qmatmul_gemv_experts.launches
+            y = qk.qmatmul_gemv_experts(x, packed, scales, cb, counts, **kw)
+            plain = qk.qmatmul_experts_plain(x, packed, scales, cb, counts, **kw)
+            torch.cuda.synchronize()
+            require(qk.qmatmul_gemv_experts.launches == before + 1,
+                    f"expert GEMV {N}x{K} {bits}-bit: not one launch")
+            for e, c in enumerate(MOE_GEMV_COUNTS):
+                if not c:
+                    continue
+                one = qk.qmatmul_gemv_tc(x[e, :c].contiguous(), packed[e], scales[e], cb[e], **kw)
+                torch.cuda.synchronize()
+                require(torch.equal(y[e, :c].view(torch.int16), one.view(torch.int16)),
+                        f"expert GEMV {N}x{K} {bits}-bit: expert {e}'s {c} rows differ from "
+                        "its own launch")
+                ref = plain[e, :c].float()
+                err = float((y[e, :c].float() - ref).abs().max())
+                require(err <= BF16_REL_TOL * float(ref.abs().max()),
+                        f"expert GEMV {N}x{K} {bits}-bit expert {e}: {err} from the plain version")
+                if bits == 4:
+                    worst["gemv_moe"] = max(worst["gemv_moe"], err)
+                n_checks += 2
+            del packed, scales, buf, x, y, plain
+    return n_checks
 
 
 def _pack_rows(torch, dev, g, cb, rows, cols, block):
@@ -1118,7 +1239,8 @@ def _qwen_items(cfg) -> dict:
 
 #: chip_smoke's names for the kernels' launch counters, in the order of
 #: kernels/launches.snapshot()
-_COUNT_KEYS = ("gemv", "gemv_tc", "gemv_simt", "gemm", "gemm_simt", "kv", "attn", "b3", "pack")
+_COUNT_KEYS = ("gemv", "gemv_tc", "gemv_simt", "gemm", "gemm_simt", "kv", "attn", "b3", "pack",
+               "gemv_moe")
 
 
 def _counts():
@@ -1160,8 +1282,7 @@ def serve_main_path(torch, dev) -> dict:
     per_layer = 7   # wq, wk, wv, wo, w_gate, w_up, w_down
     quant_counts = _counts()
     n_items = per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)   # + lm_head
-    require(quant_counts == {"gemv": 0, "gemv_tc": 0, "gemv_simt": 0, "gemm": 0,
-                             "gemm_simt": 0, "kv": 0, "attn": 0, "b3": 0, "pack": n_items},
+    require(quant_counts == {**dict.fromkeys(_COUNT_KEYS, 0), "pack": n_items},
             f"quantize_params launched {quant_counts}, want {n_items} quantize_pack launches")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=_gen(torch, dev, SEED + 2),
                             device=dev)
@@ -1237,8 +1358,8 @@ def serve_main_path(torch, dev) -> dict:
     step_counts = _counts()
     require(bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all()),
             "non-finite logits")
-    require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
-                            "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
+    require(step_counts == {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": b1_step,
+                            "gemv_tc": b1_step, "attn": b2_step},
             f"one decode step launched {step_counts}")
     _reset_counts()
     engine._graphs[BATCH].step.replay()   # the static state is reloaded by each generate
@@ -1581,8 +1702,8 @@ def server_path(torch, dev, run) -> dict:
         srv._decode_body()
         torch.cuda.synchronize()
         step_counts = _counts()
-        require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
-                                "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
+        require(step_counts == {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": b1_step,
+                                "gemv_tc": b1_step, "attn": b2_step},
                 f"one decode step over the pool launched {step_counts}")
         _reset_counts()
         srv._graph.replay()
@@ -1694,8 +1815,8 @@ def paged_path(torch, dev, run) -> dict:
         srv._decode_body()
         torch.cuda.synchronize()
         step_counts = _counts()
-        require(step_counts == {"gemv": b1_step, "gemv_tc": b1_step, "gemv_simt": 0, "gemm": 0,
-                                "gemm_simt": 0, "kv": 0, "attn": b2_step, "b3": 0, "pack": 0},
+        require(step_counts == {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": b1_step,
+                                "gemv_tc": b1_step, "attn": b2_step},
                 f"one paged decode step launched {step_counts}")
         _reset_counts()
         srv._graph.replay()
@@ -2122,9 +2243,19 @@ def _window_engine(torch, dev, qparams, cfg, prompts, new_tokens, total):
                     "decode_step_device_ms": device_ms, "attention_reads_ms": reads_ms}
 
 
+def _encode_items(cfg) -> int:
+    """quantize_pack launches of a whole-model 4-bit quantization: a layer's
+    four attention projections and its MLP's three matrices, or its three
+    expert stacks an expert at a time, and an untied lm_head."""
+    ffn = {"mlp": 3, "moe": 3 * cfg.n_experts}
+    return (sum(4 + ffn[f] for _, f in cfg.layer_schedule())
+            + (0 if cfg.tie_embeddings else 1))
+
+
 def _load_quantized(torch, dev, cfg, total):
     """Seeded bf16 weights of ``cfg`` quantized on the card (4-bit float,
-    block 64), one quantize_pack launch an item: (qparams, report)."""
+    block 64), one quantize_pack launch an item (``_encode_items``; an
+    expert stack's item is one expert's matrix): (qparams, report)."""
     from repro_torch.configs import QuantConfig
     from repro_torch.models import lm
     from repro_torch.models.quantize import quantize_params
@@ -2147,7 +2278,7 @@ def _load_quantized(torch, dev, cfg, total):
     counts = _counts()
     for key in total:
         total[key] += counts[key]
-    n_items = 7 * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    n_items = _encode_items(cfg)
     require(counts == {**dict.fromkeys(_COUNT_KEYS, 0), "pack": n_items},
             f"{cfg.name}: quantize_params launched {counts}, want {n_items} quantize_pack")
     return qparams, {"init_s": t1 - t0, "quantize_s": t2 - t1, "quantize_launches": counts,
@@ -2360,6 +2491,514 @@ def windows_path(torch, dev) -> dict:
     out["launches"] = total
     emit(out)
     return total
+
+
+class _expert_calls:
+    """Within the block, records each expert-batched product (the
+    arguments of kernels/qmatmul.qmatmul_experts), each router's decision
+    (models/moe.route: its expert ids and renormalised gates) and, with
+    ``inputs``, each MoE layer's arguments (models/moe.moe_ffn), in call
+    order.  ``force``: an earlier run's decisions, which the block's routers
+    take instead of their own: the ids, with their gates renormalised from
+    their own probabilities, or with ``gates`` the gates too, so two runs
+    route alike."""
+
+    def __init__(self, torch, force=None, *, gates=False, inputs=False):
+        self.torch = torch
+        self.force = force
+        self.force_gates = gates
+        self.keep_inputs = inputs
+        self.products = []
+        self.routes = []
+        self.inputs = []
+
+    def __enter__(self):
+        from repro_torch.kernels import qmatmul as qk
+        from repro_torch.models import moe
+
+        self.saved = (qk.qmatmul_experts, moe.route, moe.moe_ffn)
+        real_product, real_route, real_ffn = self.saved
+        calls = self
+
+        def product(*args, **kwargs):
+            calls.products.append((args, kwargs))
+            return real_product(*args, **kwargs)
+
+        def route(params, xt, cfg):
+            probs, gates, idx = real_route(params, xt, cfg)
+            if calls.force is not None:
+                idx, forced_gates = calls.force[len(calls.routes)]
+                picked = calls.torch.gather(probs, -1, idx)
+                gates = forced_gates if calls.force_gates else picked / picked.sum(-1, keepdim=True)
+            calls.routes.append((idx, gates))
+            return probs, gates, idx
+
+        def ffn(*args, **kwargs):
+            if calls.keep_inputs:
+                calls.inputs.append((args, kwargs))
+            return real_ffn(*args, **kwargs)
+
+        qk.qmatmul_experts, moe.route, moe.moe_ffn = product, route, ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import qmatmul as qk
+        from repro_torch.models import moe
+
+        qk.qmatmul_experts, moe.route, moe.moe_ffn = self.saved
+        return False
+
+
+def _moe_requests(cfg):
+    """MOE_REQUESTS requests from a seed: prompts of uniform random tokens
+    (16-512; request 1's MOE_GROUPED_PROMPT), budgets of 16-64 new tokens;
+    the first MOE_SLOTS at step 0, then one every two steps."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 15)
+    reqs = []
+    for i in range(MOE_REQUESTS):
+        L = int(rng.integers(SERVER_PROMPT_LENS[0], SERVER_PROMPT_LENS[1] + 1))
+        L = MOE_GROUPED_PROMPT if i == 1 else L
+        reqs.append({"prompt": rng.integers(0, cfg.vocab_size, L),
+                     "max_new": int(rng.integers(SERVER_NEW_TOKENS[0], SERVER_NEW_TOKENS[1] + 1)),
+                     "arrival_time": 0.0 if i < MOE_SLOTS else float(2 * (i - MOE_SLOTS + 1)),
+                     "priority": 0})
+    return reqs
+
+
+def _dequant_experts(torch, packed, scales, codebook, bits: int, block: int, K: int):
+    """[A, N, n_words] words, [A, N, K / B] scales and [A, 2^bits] codebooks
+    -> the experts' bf16 weights [A, N, K] (the plain version's weight)."""
+    from repro_torch.core import packing
+
+    codes = packing.unpack(packed, bits, K).long()
+    A, N = codes.shape[:2]
+    vals = torch.gather(codebook.to(torch.float32), 1, codes.reshape(A, -1)).reshape(A, N, K)
+    w = vals.reshape(A, N, K // block, block) * scales.to(torch.float32)[..., None]
+    return w.reshape(A, N, K).to(torch.bfloat16)
+
+
+def _time_expert_products(torch, products) -> dict:
+    """One decode step's expert-batched products (``_expert_calls``'s
+    records of it): their device time through the kernel (captured and
+    replayed), the bound of the bytes the active experts need (each active
+    expert's words, scales and codebook, its rows of x and y) and of their
+    operations, the plain version's time (eager, CUDA events around the
+    whole run) and the library's: one torch.bmm a product over the active
+    experts' dequantized bf16 weights."""
+    from repro_torch.kernels import qmatmul as qk
+
+    kernel_ms = _time_ms(torch, lambda: [qk.qmatmul_gemv_experts(*a, **k)
+                                         for a, k in products], 10)
+    nbytes = flops = 0
+    active = []
+    for (x, packed, scales, cb, counts), kw in products:
+        rows = torch.clamp(counts, max=x.shape[1])
+        on = rows > 0
+        a, r = int(on.sum()), int(rows.sum())
+        N, n_words = packed.shape[1:]
+        K = x.shape[2]
+        nbytes += a * (N * (4 * n_words + 2 * scales.shape[2]) + 4 * cb.shape[1]) \
+            + 2 * r * (K + N) + 4 * counts.numel()
+        flops += 2 * r * N * K
+        active.append(a)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for a, k in products:
+        qk.qmatmul_experts_plain(*a, **k)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    lib = []
+    for (x, packed, scales, cb, counts), kw in products:
+        ids = torch.nonzero(counts).flatten()
+        w = _dequant_experts(torch, packed[ids], scales[ids], cb[ids], kw["bits"],
+                             kw["block_size"], x.shape[2])
+        lib.append((x[ids].contiguous(), w.transpose(1, 2)))
+    library_ms = _time_ms(torch, lambda: [torch.bmm(xa, wa) for xa, wa in lib], 10)
+    del lib
+    torch.cuda.empty_cache()
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "products": len(products),
+            "active_experts_mean": sum(active) / len(active), "bytes": nbytes}
+
+
+def _moe_engine(torch, dev, qparams, cfg, prompts, new_tokens, total, *, timed=True):
+    """One MoE Engine run: generate (its counts set to 0 just before and
+    read just after, no host sync in the captured step), its tokens against
+    eager steps' (whose prefill is timed), one replay's launches, the mean
+    experts that hold a token a layer and step, and with ``timed`` the
+    captured step's time on the card and by the host clock and one step's
+    expert products timed alone (``_time_expert_products``).  Returns
+    (tokens, report)."""
+    from repro_torch.models import lm
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import sample_token
+
+    B, S = prompts.shape
+    engine = Engine(qparams, cfg, max_seq_len=S + new_tokens, device=dev)
+    _reset_counts()
+    with _capture_guard(torch) as syncs:
+        tokens = engine.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    counts = _counts()
+    for key in total:
+        total[key] += counts[key]
+    require(not syncs, f"{cfg.name}: the captured step syncs with the host: {syncs[:5]}")
+    require(tuple(tokens.shape) == (B, new_tokens)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"{cfg.name}: tokens {tuple(tokens.shape)} or out of range")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(qparams, prompts, cfg, cache_len=S + new_tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [sample_token(logits, None, 0.0)]
+        with _expert_calls(torch) as calls:
+            t0 = time.perf_counter()
+            for t in range(1, new_tokens):
+                logits, caches = lm.decode_step(qparams, out[-1], caches, S + t - 1, cfg)
+                out.append(sample_token(logits, None, 0.0))
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) / (new_tokens - 1) * 1e3
+    require(torch.equal(torch.stack(out, 1), tokens),
+            f"{cfg.name} kv{cfg.kv_bits}: graph tokens differ from eager ones")
+    per_step = 3 * cfg.n_layers
+    require(len(calls.products) == per_step * (new_tokens - 1),
+            f"{cfg.name}: {len(calls.products)} expert products in {new_tokens - 1} eager steps")
+    # a layer's three products share their counts: the gate's say how many
+    # experts hold a token
+    active = torch.stack([(a[4] > 0).sum() for a, _ in calls.products[::3]]).float()
+    rep = {"launches": counts, "graph_tokens_equal_eager": True,
+           "host_syncs_in_captured_step": len(syncs), "prefill_s": prefill_s,
+           "decode_ms_per_step_eager": eager_ms,
+           "active_experts_per_layer_mean": float(active.mean()),
+           "active_experts_per_layer_min_max": [int(active.min()), int(active.max())]}
+    del caches, logits
+    g = engine._graphs[B]
+    with torch.inference_mode():   # the graph's buffers are inference tensors
+        g.pos.fill_(S)   # the replays below write inside the cache budget
+        g.col.fill_(1)
+        _reset_counts()
+        g.step.replay()
+        torch.cuda.synchronize()
+        rep["launches_per_replay"] = _counts()
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(MOE_TIMED_STEPS):
+                g.step.graph.replay()
+            torch.cuda.synchronize()
+            rep["decode_ms_per_step"] = (time.perf_counter() - t0) / MOE_TIMED_STEPS * 1e3
+            rep["decode_step_device_ms"] = _time_graph(torch, g.step.graph, MOE_TIMED_STEPS)
+            rep["expert_products"] = _time_expert_products(torch, calls.products[-per_step:])
+    del engine, g, calls
+    torch.cuda.empty_cache()
+    return tokens, rep
+
+
+def _moe_mode_gap(torch, qparams, cfg, prompts) -> dict:
+    """Fused vs dequant_einsum logits over the prompts (every row).  Free
+    running, the routers' top-k sets differ between the modes at some
+    (layer, token) pairs (router flips, near-ties that the modes' last-bit
+    differences tip), and a flip moves the token's and, through capacity,
+    its group's outputs.  With the fused run's expert ids forced on the
+    dequant_einsum run the gates still differ: the router's logits are
+    rounded to bf16, and a last-bit change of its input moves a logit by a
+    bf16 step (~0.8 % of a gate).  Gated: each MoE layer's output on the
+    fused run's input, through dequant_einsum with the fused run's routing,
+    within two bf16 ulps of its row's max (ATT_REL_TOL; the expert products
+    alone), and the logits of a dequant_einsum run given the fused run's
+    router decisions (ids and gates) within MODE_GAP_TOL; the free-running
+    and same-experts gaps and the flips are reported beside them."""
+    from repro_torch.models import lm, moe
+
+    logits = {}
+
+    def run(mode, **kw):
+        c = cfg.with_matmul_mode(mode)
+        with _expert_calls(torch, **kw) as calls:
+            h, _ = lm.backbone_seq(qparams, prompts, c)
+            logits[mode if "force" not in kw else
+                   ("same_router" if kw.get("gates") else "same_experts")] = \
+                lm.logits_from_hidden(qparams, h, c).float()
+        return calls
+
+    with torch.inference_mode():
+        fused = run("fused", inputs=True)
+        free = run("dequant_einsum")
+        flips_a_layer = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                         for (a, _), (b, _) in zip(fused.routes, free.routes)]
+        run("dequant_einsum", force=fused.routes)
+        run("dequant_einsum", force=fused.routes, gates=True)
+        # each MoE layer alone on the fused run's input, both modes routed alike
+        layer_gap = 0.0
+        c = cfg.with_matmul_mode("dequant_einsum")
+        for i, (args, kw) in enumerate(fused.inputs):
+            with _expert_calls(torch, force=[fused.routes[i]], gates=True):
+                y, _ = moe.moe_ffn(args[0], args[1], c, *args[3:], **kw)
+            with _expert_calls(torch, force=[fused.routes[i]], gates=True):
+                yf, _ = moe.moe_ffn(*args, **kw)
+            gap = (yf.float() - y.float()).abs().amax(-1) / y.float().abs().amax(-1).clamp(
+                min=1e-30)
+            layer_gap = max(layer_gap, float(gap.max()))
+        del fused, free
+        gaps = {k: float((logits["fused"] - v).abs().max()) for k, v in logits.items()
+                if k != "fused"}
+        finite = bool(torch.isfinite(logits["fused"]).all())
+        rep = {"max_abs_logit_gap": gaps["same_router"], "gate": MODE_GAP_TOL,
+               "free_running_max_abs_logit_gap": gaps["dequant_einsum"],
+               "same_experts_max_abs_logit_gap": gaps["same_experts"],
+               "router_flips": sum(flips_a_layer),
+               "tokens_routed": len(flips_a_layer) * prompts.numel(),
+               "first_flip_layer": next((i for i, f in enumerate(flips_a_layer) if f), None),
+               "flips_first_layers": flips_a_layer[:4],
+               "moe_layer_max_rel_gap": layer_gap, "moe_layer_gate": ATT_REL_TOL,
+               "max_abs_logit": float(logits["fused"].abs().max())}
+        del logits
+    require(finite, f"{cfg.name}: non-finite fused logits")
+    require(layer_gap <= ATT_REL_TOL,
+            f"{cfg.name}: an MoE layer's fused output {layer_gap} of its row's max off "
+            f"dequant_einsum's on the same input ({rep})")
+    require(gaps["same_router"] <= MODE_GAP_TOL,
+            f"{cfg.name}: fused vs dequant_einsum logit gap {gaps['same_router']} > "
+            f"{MODE_GAP_TOL} with the same router decisions ({rep})")
+    return rep
+
+
+def _engine_gaps(torch, qparams, cfg, reqs, tokens, kept, cache_len):
+    """Each request alone (batch 1) through the Engine's path: a prefill at
+    its exact length, then the decode step (lm.decode_step over a cache of
+    the pool's length, captured once and replayed) fed the Server's tokens.
+    Returns, a request each, (the largest logit gap over its decode steps to
+    the Server's kept logits (0.0 where it had none), the margin of the
+    Engine's argmax over the Server's first token (None where they agree),
+    the margins of the decode tokens that differ from the Engine's
+    argmax)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import capture_graph
+
+    dev = qparams["embed"].device
+    caches = lm.init_caches(cfg, 1, cache_len, device=dev)
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    box = {}
+
+    def body():
+        logits, _ = lm.decode_step(qparams, tok, caches, pos, cfg)
+        if "out" not in box:
+            box["out"] = torch.empty_like(logits)   # allocated by the warm-up call
+        box["out"].copy_(logits)
+        pos.add_(1)
+
+    graph = capture_graph(body, dev)
+    out = []
+    for r, toks, rows in zip(reqs, tokens, kept):
+        prompt = torch.as_tensor(r["prompt"], device=dev)[None]
+        logits, cc = lm.prefill(qparams, prompt, cfg, cache_len=cache_len)
+        first = logits[0].float()
+        top = int(first.argmax())
+        first_margin = None if top == toks[0] else float(first[top] - first[toks[0]])
+        for mine, theirs in zip(caches, cc):
+            for key in mine:
+                mine[key].copy_(theirs[key])
+        pos.fill_(prompt.shape[1])
+        require(len(rows) == len(toks) - 1, f"{len(rows)} kept steps for {len(toks)} tokens")
+        eng = []
+        for t in toks[:-1]:
+            tok.fill_(t)
+            graph.replay()
+            eng.append(box["out"][0].float())
+        if not eng:
+            out.append((0.0, first_margin, []))
+            continue
+        eng = torch.stack(eng)
+        srv = torch.stack(rows).float()
+        nxt = torch.tensor(toks[1:], device=dev)
+        arg = eng.argmax(-1)
+        diff = arg != nxt
+        idx = torch.arange(len(nxt), device=dev)
+        margins = (eng[idx, arg] - eng[idx, nxt])[diff].tolist()
+        out.append((float((eng - srv).abs().max()), first_margin, margins))
+    del graph
+    return out
+
+
+def _moe_server(torch, dev, qparams, cfg, reqs, Checked, total, **kw):
+    """The Server over ``reqs`` (bucketed prefills with the router pad mask,
+    no host sync in its captured step), its launches checked against its
+    admissions and steps.  Returns (server, ids, tokens, report)."""
+    from repro_torch.models import moe
+    from repro_torch.serving import Telemetry
+
+    n_l = cfg.n_layers
+    tel = Telemetry()
+    _reset_counts()
+    with torch.inference_mode():
+        with _capture_guard(torch) as syncs:
+            srv = Checked(qparams, cfg, num_slots=MOE_SLOTS, max_seq_len=MOE_SLOT_LEN,
+                          telemetry=tel, device=dev, **kw)
+            ids, toks, wall, peak = _drive_server(torch, srv, reqs)
+    counts = _counts()
+    for key in total:
+        total[key] += counts[key]
+    require(not syncs, f"{cfg.name} Server: the captured step syncs with the host: {syncs[:5]}")
+    reg = tel.registry
+    admissions = int(reg.counter("serve_prefills_total").value)
+    steps = int(reg.counter("serve_decode_steps_total").value)
+    b1 = 4 * n_l + 1
+    require(admissions == len(reqs) and counts["gemv_moe"] == (1 + steps) * 3 * n_l
+            and counts["gemv"] == counts["gemv_tc"] == (1 + steps) * b1 + admissions
+            and counts["attn"] == (1 + steps) * n_l and counts["kv"] == 0,
+            f"{cfg.name} Server launched {counts} for {admissions} admissions, {steps} steps")
+    spans = [e["attrs"] for e in tel.tracer.events if e["name"] == "prefill"]
+    padded = [(a["prompt_len"], a["padded_len"]) for a in spans]
+    require(len(padded) == admissions and any(p != L for L, p in padded),
+            f"{cfg.name} Server: no bucket-padded prefill: {padded}")
+    n_tokens = sum(len(t) for t in toks)
+    ttft, step_s = reg.histogram("serve_ttft_seconds"), reg.histogram("serve_decode_step_seconds")
+    return srv, ids, toks, {
+        "tokens": n_tokens, "serve_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_steps": steps, "admissions": admissions, "peak_residents": peak["residents"],
+        "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
+        "decode_ms_per_step_median": step_s.percentile(50) * 1e3,
+        "bucketed_prefills": sum(p != L for L, p in padded),
+        "single_group_prompts": sum(moe._n_groups(L) == 1 for L, _ in padded),
+        "host_syncs_in_captured_step": len(syncs), "launches": counts}
+
+
+def moe_path(torch, dev) -> dict:
+    """Phase 3g: the mixture-of-experts decoders at full width.
+    moonshot-v1-16b-a3b (48 layers, 64 experts of width 1408, top-6) at
+    kv4: seeded bf16 weights quantized on the card (an expert at a time),
+    the Engine on 4 prompts of 256 (16 dispatch groups a prefill): graph
+    tokens = eager ones, no host sync, one replay 144 expert-batched GEMVs
+    (3 a layer), 193 GEMVs of the attention and the head and 48 fused
+    attentions, the experts that hold a token, the step and its expert
+    products beside their bound; fused vs dequant_einsum within MODE_GAP_TOL
+    with the router flips; the Server on 8 slots and on pages of 16 over 16
+    requests (bucketed with the router pad mask), pages = slots, and the
+    per-request Engine's logits exactly (gap 0.0) for each request whose
+    exact-length prefill runs one dispatch group (the grouped request's gap
+    reported).  phi3.5-moe at full width, depth PHI_DEPTH: the Engine at
+    kv4 (graph = eager, 3 expert GEMVs a layer a replay) and fused vs
+    dequant_einsum."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels.kv_dequant import kv_spec
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    out = {"phase": "moe"}
+    # what the phases before left in reference cycles (a Server whose
+    # _preempt is a lambda over itself) goes before the loads' peaks
+    gc.collect()
+
+    # -- moonshot-v1-16b-a3b ---------------------------------------------
+    base = get_arch(MOE_ARCH)
+    qparams, load = _load_quantized(torch, dev, base, total)
+    cfg = base.with_kv_quant(4)
+    n_l = cfg.n_layers
+    shot = {"depth": n_l, "width": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "expert_width": cfg.moe_d_ff, "vocab": cfg.vocab_size, "kv_bits": 4,
+            "encode_items": "one quantize_pack an expert matrix", **load}
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=_gen(torch, dev, SEED + 14), device=dev)
+    G = moe._n_groups(MOE_BATCH * MOE_PROMPT)
+    fused = kat.fused_takes(MOE_BATCH, cfg.n_heads, cfg.head_dim, MOE_PROMPT + MOE_NEW,
+                            kv_spec(cfg), cfg.n_kv_heads * cfg.head_dim)
+    shot["fused_attention_takes_every_layer"] = fused
+    if not fused:
+        shot["fused_attention_refusal"] = kat.fused_refusal(
+            MOE_BATCH, cfg.n_heads, cfg.head_dim, MOE_PROMPT + MOE_NEW, kv_spec(cfg),
+            cfg.n_kv_heads * cfg.head_dim)
+    _, rep = _moe_engine(torch, dev, qparams, cfg, prompts, MOE_NEW, total)
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": 4 * n_l + 1, "gemv_tc": 4 * n_l + 1,
+            "gemv_moe": 3 * n_l, ("attn" if fused else "kv"): n_l}
+    require(rep["launches_per_replay"] == want,
+            f"moonshot kv4: one replay launched {rep['launches_per_replay']}, want {want}")
+    shot["engine_kv4"] = {"batch": MOE_BATCH, "prompt_len": MOE_PROMPT,
+                          "dispatch_groups_a_prefill": G,
+                          "capacity_a_group": moe.capacity(MOE_BATCH * MOE_PROMPT // G, cfg),
+                          "new_tokens": MOE_NEW, **rep}
+    shot["mode_gap"] = _moe_mode_gap(torch, qparams, cfg, prompts)
+
+    # the Server: slots, then pages of 16 (as many pages as the slot pool)
+    reqs = _moe_requests(cfg)
+    Checked = _checked_server(torch)
+    srv, ids, plain, slots = _moe_server(torch, dev, qparams, cfg, reqs, Checked, total)
+    kept = [srv.kept[i] for i in ids]
+    del srv
+    srv_p, _, paged, pages = _moe_server(torch, dev, qparams, cfg, reqs, Checked, total,
+                                         paged=True, page_size=PAGE_SIZE)
+    del srv_p
+    require(paged == plain, f"{cfg.name}: the paged Server's tokens differ from the slot pool's")
+    _reset_counts()
+    with torch.inference_mode():
+        gaps = _engine_gaps(torch, qparams, cfg, reqs, plain, kept, MOE_SLOT_LEN)
+    for key, n in _counts().items():
+        total[key] += n
+    one_group = [moe._n_groups(len(r["prompt"])) == 1 for r in reqs]
+    exact = [g for g, one in zip(gaps, one_group) if one]
+    require(all(g == 0.0 and first is None and not m for g, first, m in exact),
+            f"{cfg.name} Server vs the per-request Engine on one-group prompts: "
+            f"{[g for g in exact if g[0] or g[1] is not None or g[2]]}")
+    grouped = [(len(r["prompt"]), g) for r, g, one in zip(reqs, gaps, one_group) if not one]
+    require(any(L >= 256 and L % 16 == 0 for L, _ in grouped),
+            f"{cfg.name} Server: no prompt runs 16 dispatch groups: {grouped}")
+    shot["server"] = {
+        "kv_bits": 4, "num_slots": MOE_SLOTS, "max_seq_len": MOE_SLOT_LEN,
+        "requests": len(reqs), "prompt_lens": [len(r["prompt"]) for r in reqs],
+        "slots": slots, "pages": {"page_size": PAGE_SIZE, **pages},
+        "paged_tokens_equal_slots": True,
+        "engine_b1_gap_one_group": max(g for g, _, _ in exact),
+        "engine_b1_one_group_requests": len(exact),
+        "engine_b1_grouped": [{"prompt_len": L, "max_abs_logit_gap": g,
+                               "first_token_margin": first, "decode_token_margins": m}
+                              for L, (g, first, m) in grouped]}
+    shot["peak_bytes"] = max(load["init_peak_bytes"], torch.cuda.max_memory_allocated())
+    out[MOE_ARCH] = shot
+    del qparams
+    torch.cuda.empty_cache()
+
+    # -- phi3.5-moe at full width, cut depth -------------------------------
+    base = dataclasses.replace(get_arch(PHI_ARCH), n_layers=PHI_DEPTH)
+    qparams, load = _load_quantized(torch, dev, base, total)
+    cfg = base.with_kv_quant(4)
+    prompts = torch.randint(0, cfg.vocab_size, (PHI_BATCH, PHI_PROMPT),
+                            generator=_gen(torch, dev, SEED + 16), device=dev)
+    _, rep = _moe_engine(torch, dev, qparams, cfg, prompts, PHI_NEW, total, timed=False)
+    fused = kat.fused_takes(PHI_BATCH, cfg.n_heads, cfg.head_dim, PHI_PROMPT + PHI_NEW,
+                            kv_spec(cfg), cfg.n_kv_heads * cfg.head_dim)
+    n_l = cfg.n_layers
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": 4 * n_l + 1, "gemv_tc": 4 * n_l + 1,
+            "gemv_moe": 3 * n_l, ("attn" if fused else "kv"): n_l}
+    require(rep["launches_per_replay"] == want,
+            f"phi3.5 kv4: one replay launched {rep['launches_per_replay']}, want {want}")
+    out[PHI_ARCH] = {"depth": n_l, "full_depth": get_arch(PHI_ARCH).n_layers,
+                     "width": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.top_k,
+                     "expert_width": cfg.moe_d_ff, **load,
+                     "engine_kv4": {"batch": PHI_BATCH, "prompt_len": PHI_PROMPT,
+                                    "new_tokens": PHI_NEW, **rep},
+                     "mode_gap": _moe_mode_gap(torch, qparams, cfg, prompts)}
+    del qparams
+    # the phase's objects gone and the cache handed back before the phases
+    # after it capture their steps
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["memory_allocated_after_bytes"] = torch.cuda.memory_allocated()
+    out["weights"] = "4-bit float b64"
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    emit(out)
+    return {"launches": total,
+            "gemv_experts": out[MOE_ARCH]["engine_kv4"]["expert_products"]}
 
 
 def _fixed_plan(cfg, base):

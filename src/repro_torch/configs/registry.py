@@ -1,7 +1,8 @@
 """Architecture registry — port of ``repro/configs/registry.py``, holding the
 architectures the port serves: the dense decoders (Qwen2-7B, deepseek-coder,
 chameleon's backbone, h2o-danube-3's sliding window, gemma2's local/global
-stack with sandwich norms) and the tiny ladder.  The reference's other
+stack with sandwich norms), the mixture-of-experts decoders (moonshot-v1's
+64 experts, phi3.5-moe's 16) and the tiny ladder.  The reference's other
 registry archs (``NOT_PORTED``) raise, naming ROADMAP A10."""
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from repro_torch.configs import (
     deepseek_coder_33b,
     gemma2_27b,
     h2o_danube_3_4b,
+    moonshot_v1_16b_a3b,
+    phi35_moe_42b_a66b,
     qwen2_7b,
     tiny,
 )
@@ -24,15 +27,16 @@ ARCHS: dict[str, ArchConfig] = {
         qwen2_7b.CONFIG,
         gemma2_27b.CONFIG,
         chameleon_34b.CONFIG,
+        moonshot_v1_16b_a3b.CONFIG,
+        phi35_moe_42b_a66b.CONFIG,
     ]
 }
 ARCHS.update(tiny.TINY_FAMILY)
 
 
-#: the reference's registry archs that the port does not serve yet: MoE
-#: (A10.2), SSM and hybrid (A10.3) and seq2seq (A10.4) stacks (ROADMAP A10)
-NOT_PORTED = ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "mamba2-130m", "jamba-v0.1-52b",
-              "seamless-m4t-large-v2")
+#: the reference's registry archs that the port does not serve yet: SSM and
+#: hybrid (A10.3) and seq2seq (A10.4) stacks (ROADMAP A10)
+NOT_PORTED = ("mamba2-130m", "jamba-v0.1-52b", "seamless-m4t-large-v2")
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -79,7 +79,8 @@ class QuantizedTensor:
 
     def select(self, i: int) -> "QuantizedTensor":
         """Item ``i`` of the leading batch dim (one layer of a stacked
-        weight) — the port's stand-in for the reference's scan slicing."""
+        weight; on a layer's expert stack, one expert), as views — the
+        port's stand-in for the reference's scan slicing."""
         if not self.batch_shape:
             raise ValueError("QuantizedTensor has no batch dim to index")
         return dataclasses.replace(self, **{
@@ -138,13 +139,23 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
         oidx = oidx.reshape(xb.shape[0], -1)
     if dtype != "quantile":
         cb0 = make_codebook(dtype, bits, exponent_bits=exponent_bits, device=x.device)
-    packed, scales, means, cbs, ovals = [], [], [], [], []
+    n_items = xb.shape[0]
+    out: dict = {}
+
+    def put(field: str, i: int, t: torch.Tensor) -> None:
+        # each item's result straight into the batch's storage, allocated at
+        # the first item: no list of parts and no stacked copy of them (an
+        # expert stack's words are 4.4 GB at moonshot-v1)
+        if field not in out:
+            out[field] = torch.empty((n_items,) + t.shape, dtype=t.dtype, device=t.device)
+        out[field][i].copy_(t)
+
     for i, item in enumerate(xb):
         if oidx is not None:
             j = oidx[i].long()
-            ovals.append(item.index_select(ax, j).to(torch.bfloat16))
+            put("outlier_vals", i, item.index_select(ax, j).to(torch.bfloat16))
             item = item.index_fill(ax, j, 0.0)
-        cb = quantile_codebook(item, bits) if dtype == "quantile" else cb0.clone()
+        cb = quantile_codebook(item, bits) if dtype == "quantile" else cb0
         if rows_of_blocks and not centering:
             stored, flipped = _as_stored(item)
             p, s = quantize.quantize_pack(stored, cb, bits=bits, block_size=block_size,
@@ -158,20 +169,18 @@ def quantize_tensor(x: torch.Tensor, *, bits: int, dtype: str = "float",
             p = packing.pack(q.codes.reshape(lead + (-1,)), bits)
             s = q.scales.reshape(lead + (-1,))
             if centering:
-                means.append(q.means.reshape(lead + (-1,)))
-        packed.append(p)
-        scales.append(s)
-        cbs.append(cb)
+                put("means", i, q.means.reshape(lead + (-1,)))
+        put("packed", i, p)
+        put("scales", i, s)
+        put("codebook", i, cb)
 
-    def unbatch(parts):
-        if not parts:
-            return None
-        a = torch.stack(parts)
-        return a.reshape(batch_shape + a.shape[1:])
+    def unbatch(field):
+        a = out.get(field)
+        return None if a is None else a.reshape(batch_shape + a.shape[1:])
 
     return QuantizedTensor(
-        packed=unbatch(packed), scales=unbatch(scales), means=unbatch(means),
-        codebook=unbatch(cbs), outlier_vals=unbatch(ovals),
+        packed=unbatch("packed"), scales=unbatch("scales"), means=unbatch("means"),
+        codebook=unbatch("codebook"), outlier_vals=unbatch("outlier_vals"),
         outlier_idx=None if oidx is None else oidx.reshape(batch_shape + oidx.shape[1:]),
         quant_shape=quant_shape, bits=bits, block_size=block_size,
         dtype_name=dtype, centering=centering, outlier_axis=outlier_axis,

@@ -90,6 +90,18 @@
 // in shared memory (both slower: more registers, or more shared-memory
 // traffic beside the table reads), two m16 tiles a warp, 8 words a lane,
 // two accumulator tiles a warp.
+// The expert-batched launch (qmatmul_gemv_tc_experts, a mixture-of-experts
+// decode): a second grid dimension over E experts, each with its own x rows
+// [M, K] (experts at a fixed stride), words [N, n_words], scales and
+// codebook (fixed strides) and a row count in device memory, and y [E, M,
+// N].  A block whose expert holds no row returns before it reads anything,
+// so only the experts that hold tokens are read (at moonshot-v1's decode
+// about 21 of 64 at batch 4); the rest is the kernel above, with the warps
+// picked from N as for one expert, so each expert's rows are bit-identical
+// to a launch on that expert alone (rows past its count are not written).
+// One launch a matrix kind and layer replaces one a matrix kind, layer and
+// expert, and active experts x N / 16 blocks fill the SMs where N / 16 (88
+// for N = 1408) does not.
 // K comes from kernels/ops.py padded to whole scale blocks (K % B == 0).  At
 // 4, 7 and 8 bits K == n_words * cpw follows; at 3, 5 and 6 bits the rows
 // are read as stored, ceil(K / cpw) words (Qwen2-7B's rows of 3584 codes
@@ -306,14 +318,44 @@ __device__ __forceinline__ void store_tile(float (&part)[WARPS][32][4], const fl
   }
 }
 
-template <int BITS, bool VEC, int WARPS>
+// the expert-batched launch: expert blockIdx.y's operands, at fixed strides
+// from expert 0's, and its row count (at most M); false where it holds no
+// row, and the block then returns before it reads anything
+template <int BITS>
+__device__ __forceinline__ bool expert_operands(const bf16* __restrict__& x,
+                                                const uint32_t* __restrict__& packed,
+                                                const unsigned short* __restrict__& scales,
+                                                const float* __restrict__& codebook,
+                                                bf16* __restrict__& y, int& M,
+                                                const int* __restrict__ counts,
+                                                long long x_stride, int N, int n_words,
+                                                int n_blocks) {
+  const int e = blockIdx.y;
+  const int rows = min(__ldg(counts + e), M);
+  if (rows <= 0) return false;
+  x += e * x_stride;
+  packed += static_cast<size_t>(e) * N * n_words;
+  scales += static_cast<size_t>(e) * N * n_blocks;
+  codebook += static_cast<size_t>(e) << BITS;
+  y += static_cast<size_t>(e) * M * N;
+  M = rows;
+  return true;
+}
+
+template <int BITS, bool VEC, int WARPS, bool EXPERTS>
 __global__ void __launch_bounds__(WARPS * 32, OCCUPANCY > WARPS ? OCCUPANCY / WARPS : 1)
 qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
                 const unsigned short* __restrict__ scales, const float* __restrict__ codebook,
-                bf16* __restrict__ y, int M, int N, int n_words, int wpb, int lg_wpb) {
+                bf16* __restrict__ y, int M, int N, int n_words, int wpb, int lg_wpb,
+                const int* __restrict__ counts, long long x_stride) {
   constexpr int CPW = 32 / BITS;
   constexpr int STEPS = CPW / 4;  // k16 steps a word feeds
   static_assert(CPW % 4 == 0, "whole k16 steps in a word");
+  if constexpr (EXPERTS) {
+    if (!expert_operands<BITS>(x, packed, scales, codebook, y, M, counts, x_stride, N, n_words,
+                               n_words / wpb))
+      return;
+  }
   __shared__ float lut[1 << BITS];
   __shared__ float part[WARPS][32][4];
   for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) lut[i] = codebook[i];
@@ -383,15 +425,20 @@ qgemv_tc_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
 // from the lane's 4 words of a row at offsets fixed by (BITS, group).  TWO:
 // no run meets more than two scale blocks, so a row's two scales are loaded
 // once a chunk (else a group loads its own).
-template <int BITS, bool VEC, int WARPS, bool TWO>
+template <int BITS, bool VEC, int WARPS, bool TWO, bool EXPERTS>
 __global__ void __launch_bounds__(WARPS * 32, run_min_blocks(WARPS, TWO))
 qgemv_tc_run_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ packed,
                     const unsigned short* __restrict__ scales, const float* __restrict__ codebook,
                     bf16* __restrict__ y, int M, int N, int K, int n_words, int block,
-                    int lg_block) {
+                    int lg_block, const int* __restrict__ counts, long long x_stride) {
   constexpr int CPW = 32 / BITS;
   constexpr int GROUPS = WPL * CPW / 4;  // k16 steps a chunk: CPW
   static_assert(CPW % 4 != 0, "words that do not hold whole k16 steps");
+  if constexpr (EXPERTS) {
+    if (!expert_operands<BITS>(x, packed, scales, codebook, y, M, counts, x_stride, N, n_words,
+                               K / block))
+      return;
+  }
   __shared__ float lut[1 << BITS];
   __shared__ float part[WARPS][32][4];
   for (int i = threadIdx.x; i < (1 << BITS); i += blockDim.x) lut[i] = codebook[i];
@@ -487,31 +534,41 @@ struct Args {
   bf16* y;
   int M, N, n_words, wpb, lg_wpb;  // words a scale block and its log2 (or -1): 4, 7, 8 bits
   int K, block, lg_block;          // codes a row and a scale block, its log2 (or -1): 3, 5, 6 bits
+  const int* counts;               // the expert-batched launch: rows an expert (else null)
+  int E;                           // experts (1 for a plain launch)
+  long long x_stride;              // elements from one expert's x to the next
 };
 
-template <int BITS, bool VEC, int WARPS>
-int launch_kernel(const Args& a, unsigned grid, cudaStream_t stream) {
+template <int BITS, bool VEC, int WARPS, bool EXPERTS>
+void launch_kernel(const Args& a, dim3 grid, cudaStream_t stream) {
   if constexpr ((32 / BITS) % 4 == 0) {
-    qgemv_tc_kernel<BITS, VEC, WARPS><<<grid, WARPS * 32, 0, stream>>>(
-        a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.n_words, a.wpb, a.lg_wpb);
+    qgemv_tc_kernel<BITS, VEC, WARPS, EXPERTS><<<grid, WARPS * 32, 0, stream>>>(
+        a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.n_words, a.wpb, a.lg_wpb,
+        a.counts, a.x_stride);
   } else {
     // no run of 4 * cpw codes, starting 4-aligned, meets more than two blocks
     if (a.block >= 4 * (32 / BITS) - 4)
-      qgemv_tc_run_kernel<BITS, VEC, WARPS, true><<<grid, WARPS * 32, 0, stream>>>(
+      qgemv_tc_run_kernel<BITS, VEC, WARPS, true, EXPERTS><<<grid, WARPS * 32, 0, stream>>>(
           a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.K, a.n_words, a.block,
-          a.lg_block);
+          a.lg_block, a.counts, a.x_stride);
     else
-      qgemv_tc_run_kernel<BITS, VEC, WARPS, false><<<grid, WARPS * 32, 0, stream>>>(
+      qgemv_tc_run_kernel<BITS, VEC, WARPS, false, EXPERTS><<<grid, WARPS * 32, 0, stream>>>(
           a.x, a.packed, a.scales, a.codebook, a.y, a.M, a.N, a.K, a.n_words, a.block,
-          a.lg_block);
+          a.lg_block, a.counts, a.x_stride);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS, int WARPS>
 int launch_warps(const Args& a, bool vec, unsigned grid, cudaStream_t stream) {
-  return vec ? launch_kernel<BITS, true, WARPS>(a, grid, stream)
-             : launch_kernel<BITS, false, WARPS>(a, grid, stream);
+  const dim3 g(grid, a.E);
+  if (a.counts != nullptr) {
+    if (vec) launch_kernel<BITS, true, WARPS, true>(a, g, stream);
+    else launch_kernel<BITS, false, WARPS, true>(a, g, stream);
+  } else {
+    if (vec) launch_kernel<BITS, true, WARPS, false>(a, g, stream);
+    else launch_kernel<BITS, false, WARPS, false>(a, g, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // streaming multiprocessors of the current device, read once per device
@@ -525,6 +582,8 @@ int sm_count() {
   return counts[dev];
 }
 
+// the warps a block take from N alone (an expert-batched launch picks what a
+// launch on one expert would, which keeps its rows bit-identical to one)
 template <int BITS>
 int launch(const Args& a, bool vec, cudaStream_t stream) {
   static_assert(MIN_WARPS >= 4 && MAX_WARPS <= 16, "4, 8 or 16 warps a block");
@@ -545,30 +604,25 @@ int log2_or_minus1(int v) {
   return lg;
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape, bit width or block size it does not
-// take: 1 <= M <= 8, bits 3 to 8, K % B == 0, x on a 16-byte boundary
-// (the wrapper checks); at 4, 7 and 8 bits B % cpw == 0 and K == n_words *
-// cpw; at 3, 5 and 6 bits B % 4 == 0 and rows as they are stored, n_words
-// == ceil(K / cpw) (the last word's spare codes multiply zero x), so the
-// caller need not copy the weight to pad K to whole words.
-extern "C" int qmatmul_gemv_tc(const void* x, const void* packed, const void* scales,
-                               const void* codebook, void* y, int M, int N, int K, int n_words,
-                               int bits, int block_size, void* stream) {
+// the checks and the launch of both entry points (counts null: one expert)
+int launch_checked(const void* x, const void* packed, const void* scales, const void* codebook,
+                   void* y, const int* counts, int E, long long x_stride, int M, int N, int K,
+                   int n_words, int bits, int block_size, void* stream) {
   if (bits < 3 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
   const int cpw = 32 / bits;
   const int unit = cpw % 4 == 0 ? cpw : 4;  // codes that must share a scale
   const bool words_ok = cpw % 4 == 0 ? K == n_words * cpw : n_words == (K + cpw - 1) / cpw;
   if (M < 1 || M > 8 || N < 1 || n_words < 1 || block_size < unit || block_size % unit != 0 ||
-      !words_ok || K % block_size != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      !words_ok || K % block_size != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 || E < 1 ||
+      E > 65535 ||
+      (counts != nullptr && (x_stride < static_cast<long long>(M) * K || x_stride % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = block_size / cpw;
   const Args a{static_cast<const bf16*>(x), static_cast<const uint32_t*>(packed),
                static_cast<const unsigned short*>(scales), static_cast<const float*>(codebook),
                static_cast<bf16*>(y), M, N, n_words, wpb, log2_or_minus1(wpb), K, block_size,
-               log2_or_minus1(block_size)};
+               log2_or_minus1(block_size), counts, E, x_stride};
+  // n_words % 4 == 0 also puts every expert's words on 16 bytes
   const bool vec = n_words % 4 == 0 && K == n_words * cpw &&
                    reinterpret_cast<uintptr_t>(packed) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -581,4 +635,38 @@ extern "C" int qmatmul_gemv_tc(const void* x, const void* packed, const void* sc
     case 8: return launch<8>(a, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape, bit width or block size it does not
+// take: 1 <= M <= 8, bits 3 to 8, K % B == 0, x on a 16-byte boundary
+// (the wrapper checks); at 4, 7 and 8 bits B % cpw == 0 and K == n_words *
+// cpw; at 3, 5 and 6 bits B % 4 == 0 and rows as they are stored, n_words
+// == ceil(K / cpw) (the last word's spare codes multiply zero x), so the
+// caller need not copy the weight to pad K to whole words.
+extern "C" int qmatmul_gemv_tc(const void* x, const void* packed, const void* scales,
+                               const void* codebook, void* y, int M, int N, int K, int n_words,
+                               int bits, int block_size, void* stream) {
+  return launch_checked(x, packed, scales, codebook, y, nullptr, 1,
+                        static_cast<long long>(M) * K, M, N, K, n_words, bits, block_size,
+                        stream);
+}
+
+// The expert-batched launch: x [E, M, K] with expert e's rows at x + e *
+// x_stride (rows contiguous; x_stride >= M * K, a multiple of 8 so that
+// every expert's x starts on 16 bytes), packed [E, N, n_words], scales [E,
+// N, K / B], codebook [E, 2^bits] and y [E, M, N], all contiguous, and
+// counts [E] int32 in device memory: expert e's rows 0 .. min(counts[e], M)
+// - 1 are multiplied and written, bit-identical to qmatmul_gemv_tc on that
+// expert's operands; its other rows of y are not written.  The same checks
+// as qmatmul_gemv_tc, and 1 <= E <= 65535.
+extern "C" int qmatmul_gemv_tc_experts(const void* x, const void* packed, const void* scales,
+                                       const void* codebook, void* y, const void* counts, int E,
+                                       long long x_stride, int M, int N, int K, int n_words,
+                                       int bits, int block_size, void* stream) {
+  if (counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_checked(x, packed, scales, codebook, y, static_cast<const int*>(counts), E,
+                        x_stride, M, N, K, n_words, bits, block_size, stream);
 }

@@ -1,7 +1,9 @@
 """The kernels' launch counters, read and moved together.
 
 Each kernel wrapper counts its launches in a plain int on itself
-(``<wrapper>.launches``, and ``qmatmul_gemm.simt_launches``).  A CUDA graph
+(``<wrapper>.launches``, and ``qmatmul_gemm.simt_launches``);
+``qmatmul_gemv_experts``, the expert-batched GEMV, counts apart from
+``qmatmul_gemv``.  A CUDA graph
 launches the kernels it recorded without calling the wrappers, so
 ``serving.engine.capture_graph`` takes the counts that its recording pass
 added (``snapshot`` before and after), takes them back, since recording
@@ -20,7 +22,8 @@ def _counters() -> tuple:
             (qmatmul.qmatmul_gemm, "simt_launches"), (kv_dequant.dequant_kv_cuda, "launches"),
             (kv_attention.decode_attention_packed_cuda, "launches"),
             (quantize.quantize_blocks_cuda, "launches"),
-            (quantize.quantize_pack_cuda, "launches"))
+            (quantize.quantize_pack_cuda, "launches"),
+            (qmatmul.qmatmul_gemv_experts, "launches"))
 
 
 def snapshot() -> tuple[int, ...]:

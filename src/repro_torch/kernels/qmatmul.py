@@ -40,6 +40,14 @@ activations go to a tiled CUDA-core kernel in ``csrc/qmatmul.cu`` (128 x
 64 tiles, a cp.async double buffer, split over K by ``simt_split`` where a
 1024-row call would not fill the SMs, and a fixed-order second pass).
 
+A mixture-of-experts decode multiplies each expert's capacity buffer (at
+most GEMV_MAX_M rows) by that expert's matrix: ``qmatmul_experts`` sends a
+layer's stacked experts to one expert-batched launch of the tensor-core
+GEMV (``qmatmul_gemv_experts``, a grid dimension over experts, a device row
+count an expert, experts without rows not read), each expert's rows
+bit-identical to ``qmatmul_gemv_tc`` on it alone; its plain version is
+``qmatmul_plain`` an expert (``qmatmul_experts_plain``).
+
 ``qmatmul`` takes the plain PyTorch version, ``qmatmul_plain``, only for
 CPU tensors; for CUDA tensors it launches a kernel or raises.  Each launch
 function counts its launches in a plain int, ``<function>.launches``.
@@ -208,6 +216,17 @@ def _lib_gemv_tc():
     return lib
 
 
+def _lib_gemv_experts():
+    lib = _lib_gemv_tc()
+    if not getattr(lib, "_experts_argtypes_set", False):
+        lib.qmatmul_gemv_tc_experts.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                                                + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                                                + [ctypes.c_void_p])
+        lib.qmatmul_gemv_tc_experts.restype = ctypes.c_int
+        lib._experts_argtypes_set = True
+    return lib
+
+
 def _lib_sm90():
     lib = _build.load("qgemm_sm90")
     if not getattr(lib, "_argtypes_set", False):
@@ -308,6 +327,80 @@ def qmatmul_gemv(x, packed, scales, codebook, *, bits, block_size):
 
 
 qmatmul_gemv.launches = 0
+
+
+def qmatmul_experts_plain(x, packed, scales, codebook, counts, *, bits: int,
+                          block_size: int) -> torch.Tensor:
+    """The plain version of the expert-batched GEMV: ``qmatmul_plain`` on
+    each expert's rows.  x [E, M, K], packed [E, N, n_words], scales [E, N,
+    K // B], codebook [E, 2**bits] -> y [E, M, N]; every row is computed (the
+    kernel writes only rows below ``counts``; the others are no result of
+    either)."""
+    del counts
+    return torch.stack([qmatmul_plain(x[e], packed[e], scales[e], codebook[e], bits=bits,
+                                      block_size=block_size) for e in range(x.shape[0])])
+
+
+def qmatmul_gemv_experts(x, packed, scales, codebook, counts, *, bits, block_size):
+    """Launch the expert-batched tensor-core GEMV on CUDA tensors: x [E, M,
+    K] bf16 (M <= GEMV_MAX_M rows an expert, each expert's rows contiguous,
+    experts at any stride of whole 16 bytes), packed [E, N, n_words],
+    scales [E, N, K // B], codebook [E, 2**bits] and counts [E] int32, the
+    rows an expert holds, read on the card (a captured step's routing
+    writes them).  Returns y [E, M, N]: expert e's rows below counts[e] are
+    its product, bit-identical to ``qmatmul_gemv_tc`` on its operands alone;
+    its other rows are not written.  One launch, whatever E."""
+    E, M, K = x.shape
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (E,) \
+            or counts.device != x.device or not counts.is_contiguous():
+        raise ValueError(f"qmatmul_gemv_experts: counts must be int32 [{E}] on {x.device}, "
+                         f"got {counts.dtype} {tuple(counts.shape)} on {counts.device}")
+    if packed.ndim != 3 or packed.shape[0] != E or scales.ndim != 3 or scales.shape[0] != E \
+            or codebook.shape != (E, 2**bits):
+        raise ValueError(f"qmatmul_gemv_experts: operands of {E} experts: packed "
+                         f"{tuple(packed.shape)}, scales {tuple(scales.shape)}, codebook "
+                         f"{tuple(codebook.shape)}")
+    if x.stride(2) != 1 or x.stride(1) != K or x.stride(0) % 8:
+        raise ValueError(f"qmatmul_gemv_experts: x's rows must be contiguous and its experts "
+                         f"16 bytes apart, got strides {x.stride()}")
+    # the checks of one expert's launch on expert 0 (the kernel takes the
+    # others at its strides)
+    _check_operands(x[0], packed[0], scales[0], codebook[0], bits, block_size)
+    for name, t in (("packed", packed), ("scales", scales), ("codebook", codebook)):
+        if not t.is_contiguous():
+            raise ValueError(f"qmatmul_gemv_experts: {name} must be contiguous")
+    if gemv_route(x.dtype, bits, block_size) != "tc" or not 1 <= M <= GEMV_MAX_M:
+        raise ValueError(f"qmatmul_gemv_experts takes bf16 x of 1 to {GEMV_MAX_M} rows an "
+                         f"expert at {TC_GEMV_BITS} bits with whole groups of 4 codes (at 4 "
+                         f"bits words) per scale block, got {x.dtype}, M {M}, {bits} bits, "
+                         f"B {block_size}")
+    N, n_words = packed.shape[1:]
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        status = _lib_gemv_experts().qmatmul_gemv_tc_experts(
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(), codebook.data_ptr(),
+            y.data_ptr(), counts.data_ptr(), E, x.stride(0), M, N, K, n_words, bits,
+            block_size, _stream(x))
+    _build.check(status, "qmatmul_gemv_tc_experts")
+    qmatmul_gemv_experts.launches += 1
+    return y
+
+
+qmatmul_gemv_experts.launches = 0
+
+
+def qmatmul_experts(x, packed, scales, codebook, counts, *, bits: int,
+                    block_size: int) -> torch.Tensor:
+    """A layer's experts on their rows (``qmatmul_gemv_experts``'s
+    operands): the expert-batched GEMV for CUDA tensors, the plain version
+    for CPU tensors."""
+    if x.device.type == "cuda":
+        return qmatmul_gemv_experts(x, packed, scales, codebook, counts, bits=bits,
+                                    block_size=block_size)
+    if x.device.type == "cpu":
+        return qmatmul_experts_plain(x, packed, scales, codebook, counts, bits=bits,
+                                     block_size=block_size)
+    raise ValueError(f"qmatmul_experts runs on cuda or cpu tensors, not {x.device}")
 
 
 def qmatmul_gemm(x, packed, scales, codebook, *, bits, block_size):

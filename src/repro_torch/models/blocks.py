@@ -1,5 +1,5 @@
-"""Layer composition: (attention, MLP) blocks over the stacked layer axis —
-port of the dense-decoder path of ``repro/models/blocks.py``.
+"""Layer composition: (attention, FFN) blocks over the stacked layer axis —
+port of the decoder path of ``repro/models/blocks.py``.
 
 Layers are grouped into the architecture's smallest repeating period
 (``ArchConfig.scan_period``): 1 for a llama-style stack, 2 for gemma2's
@@ -13,18 +13,23 @@ have the same layout, a tuple of one dict a position: a windowed position
 min(cache length, window) slots beside the full-length caches of the
 others, and each is updated **in place** through its per-layer view.
 gemma2's sandwich norms (``cfg.post_block_norm``) norm the mixer's and the
-FFN's outputs before each residual add.
+FFN's outputs before each residual add.  A position's FFN is the dense MLP
+("mlp") or the mixture of experts ("moe", ``models/moe.py``): sequence mode
+threads ``pad_mask`` to its router's capacity accounting and sums its aux
+losses; decode masks idle rows (a [B] position < 0) out of its capacity,
+and a shared (0-d) position leaves it unmasked, as the reference.
 
 ``apply_stack_prefill_chunk`` runs one chunk of a chunked prefill over a
-dense bf16 workspace, for full attention only, as the reference asserts.
+dense bf16 workspace, for full attention and dense MLPs only, as the
+reference asserts.
 A decode position is an int32 tensor (0-d or [B],
 ``attention.write_cache_decode``), never turned into a host int.  A decode
 layer writes its token and attends through ``decode_attn``, the
 reference's hook: ``local_decode_attn`` over a slot cache by default, the
 paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
-Not in the port yet: MoE and SSM layers and frame inputs (ROADMAP A10.2-4)
-and sharding constraints (A11).
+Not in the port yet: SSM layers and frame inputs (ROADMAP A10.3-4) and
+sharding constraints (A11).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import activation, dense, norm
 
 
@@ -53,12 +59,12 @@ def mlp(params, x, cfg):
     return dense(params["w_down"], h, mode=mm)
 
 
-def init_layer(init, cfg) -> dict:
+def init_layer(init, ffn: str, cfg) -> dict:
     p = {
         "mixer_norm": init.norm(cfg.d_model, cfg.norm_type),
         "mixer": attn_mod.init_attention(init, cfg),
         "ffn_norm": init.norm(cfg.d_model, cfg.norm_type),
-        "ffn": init_mlp(init, cfg),
+        "ffn": moe_mod.init_moe(init, cfg) if ffn == "moe" else init_mlp(init, cfg),
     }
     if cfg.post_block_norm:
         p["post_mixer_norm"] = init.norm(cfg.d_model, cfg.norm_type)
@@ -68,8 +74,8 @@ def init_layer(init, cfg) -> dict:
 
 def check_dense(cfg) -> None:
     """Raise for the parts of the config the port does not serve yet."""
-    if cfg.n_experts or cfg.attn_period != 1 or cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: experts, SSM mixers and frame inputs are not "
+    if cfg.attn_period != 1 or cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: SSM mixers and frame inputs are not "
                                   "ported yet (ROADMAP A10)")
 
 
@@ -82,7 +88,7 @@ def mixer_window(mixer: str, cfg) -> int:
 
 
 def stack_schedule(cfg) -> list:
-    """The mixers of one period, (mixer, "mlp") a position."""
+    """The layers of one period, (mixer, ffn) a position: ffn "mlp" or "moe"."""
     check_dense(cfg)
     return cfg.layer_schedule()[:cfg.scan_period()]
 
@@ -97,12 +103,12 @@ def take(tree, i: int):
 
 
 def _layers(stack, cfg):
-    """(layer params, position in the period, period index, window) in depth
-    order."""
+    """(layer params, position in the period, period index, window, ffn) in
+    depth order."""
     sched = stack_schedule(cfg)
     for p in range(cfg.n_layers // len(sched)):
-        for j, (mixer, _) in enumerate(sched):
-            yield take(stack[j], p), j, p, mixer_window(mixer, cfg)
+        for j, (mixer, ffn) in enumerate(sched):
+            yield take(stack[j], p), j, p, mixer_window(mixer, cfg), ffn
 
 
 def _post(p, key, o, cfg):
@@ -110,9 +116,20 @@ def _post(p, key, o, cfg):
     return norm(p[key], o, cfg.norm_type) if cfg.post_block_norm else o
 
 
-def apply_layer_seq(p, x, *, cfg, positions, window=0, cache_len=None, write_cache=False):
-    """Sequence mode (prefill).  Returns (x, cache or None); a windowed
-    layer's cache is its ring, min(cache length, window) slots."""
+def _ffn(p, h, cfg, ffn: str, pad_mask=None):
+    """The position's FFN on normed h [B, S, D]: (output, aux dict)."""
+    if ffn == "moe":
+        return moe_mod.moe_ffn(p["ffn"], h, cfg, pad_mask)
+    return mlp(p["ffn"], h, cfg), {}
+
+
+def apply_layer_seq(p, x, *, cfg, positions, window=0, cache_len=None, write_cache=False,
+                    ffn="mlp", pad_mask=None):
+    """Sequence mode (prefill).  Returns (x, cache or None, aux); a
+    windowed layer's cache is its ring, min(cache length, window) slots.
+    ``pad_mask`` [B, S] (True = real token) reaches only the MoE router's
+    capacity accounting: attention is causal, so pad rows never feed real
+    ones, and the serving scatter drops padded cache positions."""
     cache = None
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
@@ -128,7 +145,8 @@ def apply_layer_seq(p, x, *, cfg, positions, window=0, cache_len=None, write_cac
         attn_mod.write_cache_prefill(cache, k, v, window=window, kvq=kvq)
     x = x + _post(p, "post_mixer_norm", o, cfg)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg), cache
+    o, aux = _ffn(p, h, cfg, ffn, pad_mask)
+    return x + _post(p, "post_ffn_norm", o, cfg), cache, aux
 
 
 def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
@@ -162,11 +180,13 @@ def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=Non
     return attn_mod.decode_attention(q, cache, pos, cap=cap, window=window, kvq=kvq)
 
 
-def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, window=0,
+def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, window=0, ffn="mlp",
                        decode_attn=local_decode_attn):
     """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
     row, -1 = idle) int32 tensor.  ``decode_attn`` writes this token into
-    ``cache`` in place and attends.  Returns x."""
+    ``cache`` in place and attends.  An MoE position masks idle rows (their
+    hidden states are junk) out of its capacity, so they cannot crowd real
+    rows' expert slots; a shared position leaves every row in.  Returns x."""
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
     # rotates each row by its own position
@@ -178,37 +198,49 @@ def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, window=0,
     o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
     x = x + _post(p, "post_mixer_norm", o, cfg)
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg)
+    if ffn == "moe":
+        pm = (pos >= 0)[:, None] if pos.ndim else None
+        o, _ = moe_mod.moe_ffn(p["ffn"], h[:, None, :], cfg, pm, decode=True)
+        o = o[:, 0]
+    else:
+        o = mlp(p["ffn"], h, cfg)
+    return x + _post(p, "post_ffn_norm", o, cfg)
 
 
 def init_stack(init, cfg) -> list:
     """Stacked params: one entry a period position whose leaves carry a
     leading n_periods axis."""
     sched = stack_schedule(cfg)
-    return [init_layer(init.stacked(cfg.n_layers // len(sched)), cfg) for _ in sched]
+    return [init_layer(init.stacked(cfg.n_layers // len(sched)), ffn, cfg) for _, ffn in sched]
 
 
-def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False):
-    """All layers in sequence mode.  Returns (x, caches): caches is a tuple
-    of dicts, one a period position, stacked over periods, as the
-    reference's."""
+def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False,
+                    pad_mask=None):
+    """All layers in sequence mode.  Returns (x, caches, aux_sum): caches is
+    a tuple of dicts, one a period position, stacked over periods, as the
+    reference's; aux_sum the MoE layers' aux losses (0.0 without any)."""
     caches = [[] for _ in stack]
-    for p, j, _, window in _layers(stack, cfg):
-        x, cache = apply_layer_seq(p, x, cfg=cfg, positions=positions, window=window,
-                                   cache_len=cache_len, write_cache=write_cache)
+    aux_sum = 0.0
+    for p, j, _, window, ffn in _layers(stack, cfg):
+        x, cache, aux = apply_layer_seq(p, x, cfg=cfg, positions=positions, window=window,
+                                        cache_len=cache_len, write_cache=write_cache,
+                                        ffn=ffn, pad_mask=pad_mask)
         caches[j].append(cache)
+        aux_sum = aux_sum + aux.get("moe_aux", 0.0)
     if not write_cache:
-        return x, None
-    return x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in caches)
+        return x, None, aux_sum
+    return (x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in caches),
+            aux_sum)
 
 
 def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
     """All layers over one prefill chunk; ``caches`` is a dense bf16
     workspace in init_stack_cache's layout, updated in place.  Returns
     (x, caches)."""
-    for p, j, i, window in _layers(stack, cfg):
-        if window:
-            raise ValueError(f"{cfg.name}: chunked prefill supports full attention only")
+    for p, j, i, window, ffn in _layers(stack, cfg):
+        if window or ffn == "moe":
+            raise ValueError(f"{cfg.name}: chunked prefill supports full attention and "
+                             "dense MLPs only")
         x = apply_layer_prefill_chunk(p, x, take(caches[j], i), chunk_start, cfg=cfg)
     return x, caches
 
@@ -218,8 +250,8 @@ def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg, *,
     """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
     ``caches`` (init_stack_cache's layout) are updated in place through
     ``decode_attn``.  Returns (x, caches)."""
-    for p, j, i, window in _layers(stack, cfg):
-        x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, window=window,
+    for p, j, i, window, ffn in _layers(stack, cfg):
+        x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, window=window, ffn=ffn,
                                decode_attn=decode_attn)
     return x, caches
 

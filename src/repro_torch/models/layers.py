@@ -15,6 +15,7 @@ is on the CPU.
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 
@@ -177,6 +178,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rot.to(dt)
 
 
+#: bytes of f32 a draw may hold at once: a larger stacked leaf (moonshot-v1's
+#: [48, 64, 2048, 1408] expert stacks, 35 GB in f32) is drawn an item of its
+#: leading axis at a time, straight into its storage
+DRAW_PIECE_BYTES = 2**34
+
+
 class Init:
     """Seeded parameter draws on one device: a ``torch.Generator`` stands
     in for the reference's ``jax.random`` keys (the two give different
@@ -198,14 +205,22 @@ class Init:
         view.lead = (n,) + self.lead
         return view
 
-    def normal(self, shape, std: float) -> torch.Tensor:
+    def normal(self, shape, std: float, dtype=None) -> torch.Tensor:
+        """N(0, std^2) draws stored in ``dtype`` (the Init's by default)."""
         shape = self.lead + tuple(shape)
+        dtype = dtype or self.dtype
         if self.gen is None:
-            return torch.empty(shape, dtype=self.dtype, device=self.device)
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        if len(shape) > 1 and 4 * math.prod(shape) > DRAW_PIECE_BYTES:
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            for item in out:
+                item.copy_(torch.randn(shape[1:], generator=self.gen, dtype=torch.float32,
+                                       device=self.device).mul_(std))
+            return out
         w = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
         # scaled in place: one f32 transient, not two (a stacked 4608 x 36864
         # gemma2 leaf is 15.6 GB in f32)
-        return w.mul_(std).to(self.dtype)
+        return w.mul_(std).to(dtype)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=torch.float32, device=self.device)

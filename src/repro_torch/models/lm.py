@@ -1,6 +1,7 @@
 """Decoder-only LM assembled from blocks.py: init, loss, prefill, decode —
-port of the dense-decoder path of ``repro/models/lm.py`` (llama-style
-stacks, sliding windows, gemma2's local/global period and soft-caps).
+port of the decoder path of ``repro/models/lm.py`` (llama-style stacks,
+sliding windows, gemma2's local/global period and soft-caps, mixture-of-
+experts FFNs).
 
 The parameter tree has the reference's keys (``embed``, ``stack``,
 ``final_norm``, ``lm_head`` when untied), so a reference tree carries
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, blocks
+from repro_torch.models import attention, blocks, moe
 from repro_torch.models.layers import Init, linear, matmul_rounded, norm, softcap
 
 
@@ -37,16 +38,22 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32) -> dict
 
 
 def count_params(cfg, active_only: bool = False) -> int:
-    """Exact parameter count of the implemented (dense) model, from shapes
-    on the meta device (no memory: gemma2-27b's 27.2 B)."""
+    """Exact parameter count of the model, from shapes on the meta device
+    (no memory: gemma2-27b's 27.2 B).  ``active_only`` counts each expert
+    stack ([n_periods, E, in, out] under an FFN) at top_k / n_experts, the
+    parameters a token reads, as the reference."""
     shapes = init_params(cfg, device="meta")
 
-    def count(tree):
+    def count(tree, keys=()):
         if isinstance(tree, dict):
-            return sum(count(v) for v in tree.values())
+            return sum(count(v, keys + (k,)) for k, v in tree.items())
         if isinstance(tree, (list, tuple)):
-            return sum(count(v) for v in tree)
-        return math.prod(tree.shape)
+            return sum(count(v, keys) for v in tree)
+        n = math.prod(tree.shape)
+        if (active_only and cfg.n_experts and "ffn" in keys and keys[-1] in moe.MOE_WEIGHTS
+                and tree.ndim == 4):
+            n = n * cfg.top_k // cfg.n_experts
+        return n
 
     return count(shapes)
 
@@ -73,12 +80,26 @@ def embed_inputs(params, tokens, cfg):
     return emb.to(torch.bfloat16)[tokens]
 
 
-def backbone_seq(params, tokens, cfg, *, write_cache=False, cache_len=None):
+def backbone_seq_aux(params, tokens, cfg, *, write_cache=False, cache_len=None,
+                     pad_mask=None):
+    """The backbone in sequence mode: (normed hidden [B, S, D], caches or
+    None, the MoE layers' summed aux loss), the reference's
+    ``backbone_seq``.  ``pad_mask`` [B, S] (True = real token) reaches the
+    MoE routers' capacity accounting only: the Server passes it for
+    bucket-padded prefills, so MoE archs bucket safely."""
     x = embed_inputs(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, caches = blocks.apply_stack_seq(params["stack"], x, cfg, positions=positions,
-                                       cache_len=cache_len, write_cache=write_cache)
-    return norm(params["final_norm"], x, cfg.norm_type), caches
+    x, caches, aux = blocks.apply_stack_seq(params["stack"], x, cfg, positions=positions,
+                                            cache_len=cache_len, write_cache=write_cache,
+                                            pad_mask=pad_mask)
+    return norm(params["final_norm"], x, cfg.norm_type), caches, aux
+
+
+def backbone_seq(params, tokens, cfg, *, write_cache=False, cache_len=None, pad_mask=None):
+    """``backbone_seq_aux`` without the aux loss: (hidden, caches or None)."""
+    h, caches, _ = backbone_seq_aux(params, tokens, cfg, write_cache=write_cache,
+                                    cache_len=cache_len, pad_mask=pad_mask)
+    return h, caches
 
 
 def backbone_chunk(params, tokens, workspace, chunk_start: int, cfg):
@@ -98,8 +119,8 @@ def backbone_chunk(params, tokens, workspace, chunk_start: int, cfg):
 def loss_fn(params, tokens, labels, cfg, *, loss_chunk: int = 512):
     """Mean next-token cross entropy over labels >= 0, logits formed per
     sequence chunk (the tail past a whole number of chunks is dropped, as
-    in the reference)."""
-    h, _ = backbone_seq(params, tokens, cfg)
+    in the reference), plus the MoE aux loss (router_aux_weight a layer)."""
+    h, _, aux = backbone_seq_aux(params, tokens, cfg)
     B, S, D = h.shape
     loss_chunk = min(loss_chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -113,13 +134,18 @@ def loss_fn(params, tokens, labels, cfg, *, loss_chunk: int = 512):
         mask = (y >= 0).to(torch.float32)
         tot = tot + torch.sum((lse - ll) * mask)
         cnt = cnt + torch.sum(mask)
-    return tot / torch.clamp(cnt, min=1.0)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_weight * aux / max(1, cfg.n_layers)
+    return loss
 
 
-def prefill(params, tokens, cfg, *, cache_len=None):
+def prefill(params, tokens, cfg, *, cache_len=None, pad_mask=None):
     """Process a prompt; returns (last-token logits, caches).  ``cache_len``
-    reserves decode room (defaults to the prompt length)."""
-    h, caches = backbone_seq(params, tokens, cfg, write_cache=True, cache_len=cache_len)
+    reserves decode room (defaults to the prompt length); ``pad_mask`` as in
+    ``backbone_seq_aux`` (the logits are the last row's, padded or not)."""
+    h, caches = backbone_seq(params, tokens, cfg, write_cache=True, cache_len=cache_len,
+                             pad_mask=pad_mask)
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 

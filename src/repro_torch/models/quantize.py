@@ -3,20 +3,25 @@ setting) — port of ``repro/models/quantize.py`` without mixed-precision
 plans.
 
 Every parameter matrix becomes a k-bit QuantizedTensor: attention
-projections, the MLP and lm_head.  Vectors (norms, biases) stay 16-bit, and
-so does the embedding by default.  Weights [..., In, Out] are stored
+projections, the MLP, the MoE expert stacks and lm_head.  Vectors (norms,
+biases) and the MoE router stay 16-bit, and so does the embedding by
+default.  Weights [..., In, Out] are stored
 TRANSPOSED ([..., Out, In], ``quantize.py:52-66``) so blocks run along the
 reduction dim, the fused dequant-GEMM's operand layout; lm_head [V, D] is
 already (out, in).  Each matrix is encoded from the weight as stored, with
 no transposed copy, by ``kernels/quantize.quantize_pack`` (one launch an
 item on the card); centered matrices (App. B) go through
-``core/blockwise.encode`` and the flat encode kernel instead.
+``core/blockwise.encode`` and the flat encode kernel instead.  An expert
+stack [n_periods, E, In, Out] ("moe" units) becomes a transposed QT with two
+batch dims, encoded an expert at a time (one launch each), each into its
+place in the stack's storage: no f32 or transposed copy of a stack is made,
+and a layer's or an expert's QT is a view (``QuantizedTensor.select``).
 
 Proxy quantization (§3, Eq. 2): producer-weight std picks the outlier input
 dims kept in 16-bit.  Within-block producers are exact (w_down <- w_up, wo
-<- wv with GQA group tiling); residual-stream consumers share one
-model-wide outlier set from the mean producer std across layers, as in the
-reference.
+<- wv with GQA group tiling, an expert's w_down <- its w_up); residual-stream
+consumers share one model-wide outlier set from the mean producer std across
+layers, as in the reference.
 
 Mixed precision: ``quantize_tree(..., plan=)`` takes a
 ``precision.PrecisionPlan`` that overrides bits/dtype/block_size/centering
@@ -24,8 +29,6 @@ a unit by name, ``bits >= 16`` keeping that matrix dense; ``quantizable_units``
 is the planner's universe, the same walk without quantizing.
 
 ``bits_report`` is the paper's x-axis, total model bits.
-
-Not in the port: MoE expert stacks, which its models do not have.
 """
 
 from __future__ import annotations
@@ -123,8 +126,16 @@ def _unit_outliers(kind, name, w, container, cfg, qcfg, j_res):
     """Proxy-quantization outlier indices for one unit (or None)."""
     if qcfg.outlier_pct <= 0:
         return None
+    module = name.rsplit("/", 1)[-1]
     if kind == "matrix":
-        return _module_outliers(name.rsplit("/", 1)[-1], w, container, cfg, qcfg, j_res)
+        return _module_outliers(module, w, container, cfg, qcfg, j_res)
+    if kind == "moe":
+        if module == "w_down" and "w_up" in container:
+            std = _producer_std(container["w_up"])   # [n_p, E, F]
+            return outlier_indices_topk(std, _n_outliers(w.shape[-2], qcfg.outlier_pct))
+        if j_res is not None and w.shape[-2] == cfg.d_model:
+            return _bc(j_res, w.shape[:2])
+        return None
     if kind == "lm_head":
         return j_res[None] if j_res is not None else None
     return None  # embed: input dim is the vocab, no residual outliers
@@ -132,9 +143,9 @@ def _unit_outliers(kind, name, w, container, cfg, qcfg, j_res):
 
 def quantize_unit(kind: str, w: torch.Tensor, qcfg: QuantConfig,
                   outlier_idx=None) -> QuantizedTensor:
-    """kind "matrix": [..., In, Out] -> transposed QT; "lm_head"/"embed":
-    [V, D] is already (out, in)."""
-    if kind == "matrix":
+    """kind "matrix" and "moe": [..., In, Out] -> transposed QT;
+    "lm_head"/"embed": [V, D] is already (out, in)."""
+    if kind in ("matrix", "moe"):
         return _quantize_matrix(w, qcfg, outlier_idx=outlier_idx)
     return quantize_tensor(
         w, bits=qcfg.bits, dtype=qcfg.dtype, block_size=qcfg.block_size,
@@ -147,8 +158,9 @@ def _walk_units(params, base: QuantConfig, visit):
     """Recurse ``params``, calling ``visit(name, kind, w, container)`` on
     every quantizable unit, which returns the replacement weight; other
     leaves stay as they are.  ``name`` is the stable slash-joined tree
-    path ("stack/0/mixer/wq"), ``kind`` one of "matrix", "lm_head",
-    "embed"; ``base`` gates the lm_head and embedding switches."""
+    path ("stack/0/mixer/wq"), ``kind`` one of "matrix", "moe" (an expert
+    stack [n_periods, E, In, Out]), "lm_head", "embed"; ``base`` gates the
+    lm_head and embedding switches."""
 
     def walk(tree, path):
         if isinstance(tree, (list, tuple)):
@@ -163,6 +175,9 @@ def _walk_units(params, base: QuantConfig, visit):
                     and val["w"].ndim >= 2:
                 out[name] = {k: (visit(unit, "matrix", v, tree) if k == "w"
                                  else walk(v, path + (name, k))) for k, v in val.items()}
+            elif name in ("w_gate", "w_up", "w_down") and isinstance(val, torch.Tensor) \
+                    and val.ndim == 4:
+                out[name] = visit(unit, "moe", val, tree)
             elif name == "lm_head" and base.quantize_lm_head and isinstance(val, torch.Tensor):
                 out[name] = visit(unit, "lm_head", val, tree)
             elif name == "embed" and base.quantize_embedding and isinstance(val, torch.Tensor):

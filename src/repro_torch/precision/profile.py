@@ -58,7 +58,7 @@ class UnitProfile:
     """Sensitivity record for one quantizable unit."""
 
     name: str
-    kind: str            # matrix | lm_head | embed
+    kind: str            # matrix | moe | lm_head | embed
     n_params: int
     shape: tuple
     qerr: dict = field(default_factory=dict)       # k -> RMS rel. error
@@ -120,7 +120,7 @@ def _unit_qerr(kind: str, w, k: int, base: QuantConfig, outlier_idx) -> float:
     quantization outlier columns — the same layout quantize_tree stores."""
     ucfg = dataclasses.replace(base, bits=k)
     qt = quantize_unit(kind, w, ucfg, outlier_idx=outlier_idx)
-    x = torch.swapaxes(w, -1, -2) if kind == "matrix" else w
+    x = torch.swapaxes(w, -1, -2) if kind in ("matrix", "moe") else w
     return float(quantization_error(x, qt))
 
 

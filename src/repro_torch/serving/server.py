@@ -36,6 +36,11 @@ causal full attention: padded positions are masked out of the cache
 gemma2's local layers) keeps ring caches, which padding would overwrite, so
 it prefills every prompt at its exact length, and ``paged=True`` and
 ``prefill_chunk`` refuse it (``_bucketing_safe``, the reference's rule).
+Mixture-of-experts archs bucket too: their bucket-padded prefills pass the
+router pad mask (``lm.backbone_seq(pad_mask=)``, ``models/moe.py``), so
+padding claims no expert capacity and real tokens keep and drop what they
+would at the exact length when that runs one dispatch group (the
+reference's rule); ``prefill_chunk`` refuses them (chunk-local capacity).
 
 ``paged=True`` swaps the slot pool for the page-table pool
 (``serving/pages.py``): KV storage is one pool of ``n_pages`` pages of
@@ -114,7 +119,8 @@ class _ChunkState:
 def _bucketing_safe(cfg) -> bool:
     """Padded prefill is inert only when every mixer is causal full
     attention: SSM states and sliding-window rings would absorb the
-    padding (the reference's rule, checked mixer by mixer)."""
+    padding (the reference's rule, checked mixer by mixer).  MoE archs are
+    safe with the router pad mask the Server threads into their prefills."""
     return all(m.startswith("attn") and blocks.mixer_window(m, cfg) == 0
                for m, _ in cfg.layer_schedule())
 
@@ -190,6 +196,9 @@ class Server:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._bucketed = _bucketing_safe(cfg)
+        # MoE archs bucket safely only with the router pad mask; exact-length
+        # prefills keep none, so their grouped dispatch stays the Engine's
+        self._use_pad_mask = bool(cfg.n_experts) and self._bucketed
         self._prefill_chunk = prefill_chunk
         self._cfg16 = cfg.with_kv_quant(16)   # the chunk workspace's dense layout
         self._chunking: dict[int, _ChunkState] = {}   # slot -> progress
@@ -215,6 +224,12 @@ class Server:
                                    self.pool._pos_dev, self.cfg, decode_attn=self._decode_attn)
         self._nxt.copy_(sample_token(logits, self._gen, self._temps_dev))
 
+    def _pad_mask(self, prompt: torch.Tensor, length: int):
+        """The router pad mask of a [1, Sb] prefill (MoE archs), else None."""
+        if not self._use_pad_mask:
+            return None
+        return torch.arange(prompt.shape[1], device=self.device)[None, :] < length
+
     def _prefill_into_pages(self, padded: np.ndarray, length: int, pages: np.ndarray,
                             write_mask: np.ndarray, temperature: float) -> torch.Tensor:
         """The paged twin of ``_prefill_into_slot``: prefill [1, Sb] at its
@@ -222,7 +237,8 @@ class Server:
         request's own prompt pages (``write_mask``), leaving the COW-shared
         prefix and the bucket's padding unwritten."""
         prompt = torch.as_tensor(padded, device=self.device)
-        h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True)
+        h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True,
+                                    pad_mask=self._pad_mask(prompt, length))
         logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
         tok = sample_token(logits, self._gen, float(temperature))
         scatter_pages(self.pool.caches, caches, pages, write_mask, length, self.pool.page_size)
@@ -235,7 +251,8 @@ class Server:
         scatter the KV rows into ``slot``."""
         prompt = torch.as_tensor(padded, device=self.device)
         h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True,
-                                    cache_len=self.pool.cache_len)
+                                    cache_len=self.pool.cache_len,
+                                    pad_mask=self._pad_mask(prompt, length))
         logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
         tok = sample_token(logits, self._gen, float(temperature))
         scatter_row(self.pool.caches, caches, slot, length)

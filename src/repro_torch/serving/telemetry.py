@@ -565,7 +565,7 @@ def record_quant_health(telemetry, params, cfg, *, plan=None, qcfg=None,
                 qt = quantize_unit(info["kind"], info["w"], ucfg,
                                    outlier_idx=info["outlier_idx"])
                 x = info["w"]
-                if info["kind"] == "matrix":
+                if info["kind"] in ("matrix", "moe"):
                     x = torch.swapaxes(x, -1, -2)
                 bits = float(qt.bits_breakdown().ideal_bits_per_param)
                 qerr = float(quantization_error(x, qt))

@@ -58,7 +58,17 @@ where the card is (a machine without JAX):
   within 2^-6 of each row's max of its plain version, the fused wrapper
   raising on the window; reduced() danube and gemma2 through the Engine
   (captured ring steps = eager ones at kv16, kv8, kv4, their launches) and
-  danube's Server (= the per-request Engine; paged and chunked refused).
+  danube's Server (= the per-request Engine; paged and chunked refused);
+* mixture of experts: the expert-batched tensor-core GEMV
+  (``qmatmul_gemv_experts``) bit-identical to a ``qmatmul_gemv_tc`` launch
+  on each expert alone at every width and block the GEMV takes and at
+  moonshot-v1's and phi3.5-moe's shapes, experts with 0, 1 and 8 rows, one
+  launch; a row's output independent of its slot in the buffer and of the
+  rows beside it; within one bf16 ulp of the plain version; and an MoE
+  decoder (reduced() moonshot-v1 with experts of width 128) through the
+  Engine (captured steps = eager ones, 3 expert GEMVs a layer and step)
+  and the Server with bucketed, pad-masked prefills (= the per-request
+  Engine).
 """
 
 import numpy as np
@@ -1150,3 +1160,142 @@ def test_routed_read_row_does_not_depend_on_the_batch():
                                             window=S)
         torch.cuda.synchronize()
         assert torch.equal(alone.view(torch.int16), out[b:b + 1].view(torch.int16)), b
+
+
+def _experts_case(bits, block, N, K, counts, rs):
+    """E = len(counts) experts' words, scales and codebooks from
+    ``prepare_operand``, x [E, 8, K] in a buffer of 9 rows an expert (the
+    MoE path's capacity buffers hold an overflow row), 16 where 9 rows are
+    not whole 16 bytes."""
+    ops_ = [_b1(bits, "float", block, K, N, rs) for _ in counts]
+    packed = torch.stack([o.packed for o in ops_])
+    scales = torch.stack([o.scales for o in ops_])
+    cb = torch.stack([o.codebook for o in ops_])
+    E, M = len(counts), tqm.GEMV_MAX_M
+    K = ops_[0].k_dim
+    buf = torch.tensor(rs.randn(E, 9 if K % 8 == 0 else 16, K), device="cuda").to(torch.bfloat16)
+    x = buf[:, :M]
+    return x, packed, scales, cb, torch.tensor(counts, dtype=torch.int32, device="cuda")
+
+
+def _experts_bit_identical(x, packed, scales, cb, counts, bits, block):
+    kw = dict(bits=bits, block_size=block)
+    before = tqm.qmatmul_gemv_experts.launches
+    y = tqm.qmatmul_gemv_experts(x, packed, scales, cb, counts, **kw)
+    plain = tqm.qmatmul_experts_plain(x, packed, scales, cb, counts, **kw)
+    torch.cuda.synchronize()
+    assert tqm.qmatmul_gemv_experts.launches == before + 1
+    for e, c in enumerate(counts.tolist()):
+        if not c:
+            continue
+        one = tqm.qmatmul_gemv_tc(x[e, :c].contiguous(), packed[e], scales[e], cb[e], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y[e, :c].view(torch.int16), one.view(torch.int16)), (e, c)
+        err = float((y[e, :c].float() - plain[e, :c].float()).abs().max())
+        assert err <= BF16_REL_TOL * float(plain[e, :c].float().abs().max()), (e, c, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(3, 4), (3, 64), (4, 8), (4, 64), (5, 12), (5, 64),
+                                        (6, 20), (6, 64), (7, 4), (7, 64), (8, 4), (8, 32)])
+def test_expert_gemv_bit_identical_to_per_expert_launches(bits, block):
+    """Every width and a block of each kind gemv_route sends to "tc": 6
+    experts holding 0, 1, 8, 3, 0 and 5 rows, N off the 16-column blocks,
+    K of word counts on and off whole uint4s."""
+    _need_cuda()
+    rs = np.random.RandomState(bits * 10 + block)
+    cpw = 32 // bits
+    unit = cpw * block // np.gcd(cpw, block)
+    for N, K in ((70, 8 * unit), (33, 3 * unit)):
+        case = _experts_case(bits, block, N, K, [0, 1, 8, 3, 0, 5], rs)
+        _experts_bit_identical(*case, bits, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(1408, 2048), (2048, 1408), (6400, 4096), (4096, 6400)])
+def test_expert_gemv_at_moe_shapes(N, K):
+    """moonshot-v1's and phi3.5-moe's expert matrices at 4 bits, block 64,
+    8 experts (one empty, one of 8 rows, one of 1)."""
+    _need_cuda()
+    rs = np.random.RandomState(N + K)
+    case = _experts_case(4, 64, N, K, [2, 0, 8, 1, 4, 0, 6, 3], rs)
+    _experts_bit_identical(*case, 4, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4])
+def test_expert_gemv_row_independent_of_its_slot_and_neighbours(bits):
+    """One activation row at each slot 0 to 7 of an expert's buffer, beside
+    other random rows or none: its output is the same bits everywhere, and
+    all experts empty launches and leaves nothing to compare."""
+    _need_cuda()
+    rs = np.random.RandomState(bits)
+    x, packed, scales, cb, _ = _experts_case(bits, 64, 1408, 2048, [8, 8], rs)
+    kw = dict(bits=bits, block_size=64)
+    row = x[0, 0].clone()
+    alone_x = x.clone()
+    alone_x[0, 0] = row
+    ref = tqm.qmatmul_gemv_experts(alone_x, packed, scales, cb,
+                                   torch.tensor([1, 0], dtype=torch.int32, device="cuda"), **kw)
+    for slot in range(tqm.GEMV_MAX_M):
+        xs = torch.tensor(rs.randn(*x.shape), device="cuda").to(torch.bfloat16)
+        xs[0, slot] = row
+        y = tqm.qmatmul_gemv_experts(xs, packed, scales, cb,
+                                     torch.tensor([8, 8], dtype=torch.int32, device="cuda"), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y[0, slot].view(torch.int16), ref[0, 0].view(torch.int16)), slot
+    empty = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tqm.qmatmul_gemv_experts(x, packed, scales, cb, empty, **kw)
+    torch.cuda.synchronize()
+
+
+def _moe_cfg(kv):
+    """reduced() moonshot-v1 with experts of width 128 (rows of whole
+    64-blocks, so every expert stack takes the kernels)."""
+    return get_arch("moonshot-v1-16b-a3b").reduced(moe_d_ff=128).with_kv_quant(kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [16, 4])
+def test_moe_engine_graph_tokens_equal_eager(kv):
+    """The captured MoE decode step (routing, dispatch and combine on the
+    device, no host sync): tokens equal eager steps', one expert-batched
+    GEMV a matrix kind, layer and step, and prefill through a GEMM an
+    expert that holds a token."""
+    _need_cuda()
+    from repro_torch.models import moe
+
+    cfg = _moe_cfg(kv)
+    params = _q4_params(cfg)
+    assert all(moe.experts_fused_eligible(params["stack"][0]["ffn"][k].select(0))
+               for k in moe.MOE_WEIGHTS)
+    S, n = 20, 12
+    prompts = torch.randint(0, cfg.vocab_size, (3, S), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(kv))
+    e0 = tqm.qmatmul_gemv_experts.launches
+    graph = Engine(params, cfg, max_seq_len=S + n, device="cuda").generate(prompts, n)
+    torch.cuda.synchronize()
+    # the capture's warm-up step and n - 1 replays
+    assert tqm.qmatmul_gemv_experts.launches - e0 == 3 * cfg.n_layers * n
+    assert torch.equal(graph, _eager(params, cfg, prompts, n, 0.0, None, S + n))
+
+
+@pytest.mark.cuda
+def test_moe_server_equals_engine_with_pad_masked_buckets():
+    """reduced() moonshot-v1 at kv4 on 2 slots: prompts of 5 to 27 tokens
+    bucket with the router pad mask; each request's tokens equal the
+    per-request Engine's; chunked prefill is refused."""
+    _need_cuda()
+    cfg = _moe_cfg(4)
+    params = _q4_params(cfg)
+    rs = np.random.RandomState(4)
+    reqs = [rs.randint(0, cfg.vocab_size, L) for L in (27, 9, 18, 5)]
+    srv = Server(params, cfg, num_slots=2, max_seq_len=48, device="cuda")
+    ids = [srv.submit(p, 14, arrival_time=float(i)) for i, p in enumerate(reqs)]
+    res = srv.run_until_drained()
+    for i, p in zip(ids, reqs):
+        eng = Engine(params, cfg, max_seq_len=48, device="cuda").generate(
+            torch.as_tensor(p, device="cuda")[None], 14)
+        assert res[i] == eng[0].tolist(), i
+    with pytest.raises(ValueError):
+        Server(params, cfg, num_slots=2, max_seq_len=48, device="cuda", prefill_chunk=128)
