@@ -40,7 +40,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                128 with its soft-cap, a shared position and a position a
                row, an idle row exactly 0) and the fused attention at
                gemma2's global layers' shape; B1 and the encode to the
-               stored form at the windows phase's matrices and row counts.
+               stored form at the windows and ssm phases' matrices and row
+               counts (mamba2's in_proj of 3352 rows, off the GEMV's
+               16-column blocks; jamba's in_proj, out_proj, MLP and head);
+               the expert-batched GEMV at the MoE archs' expert shapes,
+               jamba's 16 experts of 14336 x 4096 and 4096 x 14336 among
+               them.
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card (4-bit float, block 64; one
                quantize_pack launch per quantized matrix), Engine with a
@@ -105,6 +110,32 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                bits, experts of 0, 1 and 8 rows) bit-identical to per-expert
                launches of the tensor-core GEMV and within a bf16 ulp of its
                plain version.
+  3h. ssm    — (right after the moe phase, on an empty card)
+               mamba2-130m at full width and depth (24 SSM layers, d 768,
+               d_inner 1536, 24 SSD heads of 64, state 128, SSD chunks of
+               256, a tied 50,280-row head), seeded bf16 weights quantized on
+               the card (48 quantize_pack launches): the Engine on 4 prompts
+               of 1024 (4 SSD chunks each), 32 new: graph tokens = eager
+               ones, no host sync, one replay 48 tensor-core GEMVs, 0 fused
+               attentions and 0 KV dequants (the tied head a dense product in
+               column pieces), the step on the card and by the host clock and
+               its GEMVs alone beside their bound, prefill s, quantize_s and
+               peaks; each SSM layer's decode steps against its sequence mode
+               on the same f32 input (within 3e-2, state and conv 2e-2, the
+               reference's bars); the model's decode-vs-forward gap
+               (reported) and fused vs dequant_einsum within 0.5; the Server
+               on 8 slots of 1344 over 16 requests at exact length (16-256
+               tokens and 512, 768, 1024: the SSD chunk rule), then two
+               classes with preemption (the same tokens, each spilled state
+               and conv restored bit for bit), paged and prefill_chunk
+               refused before a launch, each request's decode logits within
+               0.08 of the per-request Engine's (gap reported).
+               jamba-v0.1-52b at full width, depth 8 of 32 (one period:
+               attention with an MLP, seven SSM layers, MoE at 1, 3, 5 and
+               7), its init and quantize peaks; the Engine at kv4 on 2 x
+               1024, 16 new: graph = eager, one replay 31 GEMVs, 12
+               expert-batched GEMVs and 1 fused attention, the experts that
+               hold a token; fused vs dequant_einsum as the moe phase gates.
   3a. bits   — the serve phase's Engine at 3, 5 and 6 bits (the same seeded
                weights quantized at each width in turn, each freed before the
                next): captured-step tokens identical to eager ones, one replay
@@ -185,9 +216,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                table1's table, each suite's seconds and the cache's times.
   6c. plan_suites — ``paper.run --only figmix,plan`` on the ladder restored
                from phase 6's cache: the mixed-vs-uniform frontier and the
-               gates (Qwen2-7B at reduced() shapes, tiny-2.6m: the mixed
-               plan's KL at or below uniform-4's at no more bits, ok=1), and
-               the plans under artifacts/plans/; then ``python -m
+               gates (h2o-danube-3-4b and mamba2-130m at reduced() shapes,
+               the reference's: the mixed plan's KL at or below uniform-4's
+               at no more bits, ok=1), and the plans under artifacts/plans/
+               (the gate archs' and tiny-2.6m's); then ``python -m
                repro_torch.launch.serve --arch tiny-2.6m --plan <the plan
                suite's JSON> --kv-bits 4 --kv-probe-every 2`` with both
                telemetry sinks as a subprocess: exit 0, its trace validates,
@@ -347,6 +379,30 @@ PHI_ARCH, PHI_DEPTH, PHI_BATCH, PHI_PROMPT, PHI_NEW = "phi3.5-moe-42b-a6.6b", 8,
 # 8 = its row limit)
 MOE_GEMV_SHAPES = ((1408, 2048), (2048, 1408), (6400, 4096), (4096, 6400))
 MOE_GEMV_COUNTS = (0, 1, 8, 3, 0, 5, 8, 2)
+# the ssm phase: mamba2-130m at full width and depth (24 SSM layers, d 768,
+# d_inner 1536, 24 heads of 64, state 128, SSD chunks of 256, a tied
+# 50,280-row head; no attention, so kv16).  The Engine on 4 prompts of 1024
+# (4 SSD chunks a prompt) and 32 new tokens; the per-layer decode gate: T
+# decode steps of each SSM layer against its sequence mode on the same f32
+# input, within the reference's 3e-2 (outputs) and 2e-2 (final state and
+# conv) of tests/test_ssm_moe.py; the whole model's decode-vs-forward gap
+# over SSM_GAP_STEPS teacher-forced steps (reported only); the Server on 8
+# slots of 1344 over 16 requests whose prompts keep the SSD chunk rule
+# (16-256 tokens, and 512, 768 and 1024), 16-64 new ones.  jamba-v0.1-52b at
+# full width, depth 8 of 32 (one period: attention with an MLP, then seven
+# SSM layers, MoE at 1, 3, 5 and 7), kv4, on 2 prompts of 1024 and 16 new
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_NEW = "mamba2-130m", 4, 1024, 32
+SSM_SLOTS, SSM_SLOT_LEN, SSM_REQUESTS = 8, 1344, 16
+SSM_SHORT_PROMPTS, SSM_LONG_PROMPTS = (16, 256), (512, 768, 1024)
+SSM_GATE_BATCH, SSM_GATE_STEPS = 2, 16
+SSM_GATE_Y_TOL, SSM_GATE_STATE_TOL = 3e-2, 2e-2
+SSM_GAP_PREFILL, SSM_GAP_STEPS = 768, 255
+SSM_MODE_ROWS = 256
+JAMBA_ARCH, JAMBA_DEPTH, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW = "jamba-v0.1-52b", 8, 2, 1024, 16
+# the expert-batched GEMV's checks at jamba's expert matrices (gate/up,
+# down): 16 experts, empty ones, 1 row and 8
+JAMBA_GEMV_SHAPES = ((14336, 4096), (4096, 14336))
+JAMBA_GEMV_COUNTS = (0, 1, 8, 3, 0, 5, 8, 2, 1, 0, 8, 4, 6, 0, 7, 1)
 # the launcher subprocess: tiny-2.6m served per the plan suite's JSON
 LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
@@ -390,6 +446,8 @@ def main() -> int:
     windows = windows_path(torch, dev)
     experts = moe_path(torch, dev)
     _memory_note(torch, "moe")
+    ssm_counts = ssm_path(torch, dev)
+    _memory_note(torch, "ssm")
     run = serve_main_path(torch, dev)
     low_bits = serve_low_bits(torch, dev, run)
     _memory_note(torch, "bits")
@@ -406,8 +464,8 @@ def main() -> int:
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   run["plan_counts"], windows, experts["launches"], bench["launches"],
-                   rest["launches"], suites["launches"])
+                   run["plan_counts"], windows, experts["launches"], ssm_counts,
+                   bench["launches"], rest["launches"], suites["launches"])
     del run
 
     kernels = []
@@ -429,8 +487,9 @@ def main() -> int:
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
-            # kernel_bench, the paper's sweep, its remaining experiments and
-            # the figmix and plan suites
+            # mamba2-130m and jamba (their loads, Engines and mamba2's
+            # Servers), kernel_bench, the paper's sweep, its remaining
+            # experiments and the figmix and plan suites
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -441,8 +500,9 @@ def main() -> int:
         "name": "qmatmul_gemv_experts", "route": "cuda",
         "source": "src/repro_torch/csrc/qgemv_sm90.cu",
         "replaces": "src/repro/kernels/qmatmul.py:97",
-        # the moe phase: moonshot-v1's and phi3.5-moe's Engines and
-        # moonshot-v1's Servers, 3 a layer and decode step
+        # the moe phase (moonshot-v1's and phi3.5-moe's Engines and
+        # moonshot-v1's Servers) and the ssm phase (jamba's Engine), 3 an
+        # MoE layer and decode step
         "launches": sum(c["gemv_moe"] for c in main_counts), "max_abs_err": errs["gemv_moe"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -642,6 +702,15 @@ def check_kernels(torch, dev) -> dict:
         for rows, cols, _ in items:
             check_b1((1, WIN_BATCH, WIN_SLOTS, WIN_LONG_PROMPTS[0], WIN_BATCH * WIN_PROMPT),
                      cols, rows, 4, "float", 64, torch.bfloat16, True)
+    # the ssm phase's matrices (mamba2's in_proj has 3352 rows, off the
+    # GEMVs' 16-column blocks): its decode steps (the Engines' rows, the
+    # Server's pool) and prefills (the Server's shortest and longest exact
+    # lengths, the Engines' prompts)
+    for items in _ssm_items().values():
+        for rows, cols, _ in items:
+            check_b1((1, JAMBA_BATCH, SSM_BATCH, SSM_SLOTS, SSM_SHORT_PROMPTS[0],
+                      SSM_LONG_PROMPTS[-1], JAMBA_BATCH * JAMBA_PROMPT, SSM_BATCH * SSM_PROMPT),
+                     cols, rows, 4, "float", 64, torch.bfloat16, True)
     # a row's result does not depend on the rows sharing the call: row 0 of
     # an 8-row call equals the 1-row call bit for bit, on every f32 route
     for (K, N), bits, dtype, block in ([(kn, 4, "float", 64) for kn in shapes]
@@ -774,19 +843,22 @@ def check_kernels(torch, dev) -> dict:
 
 def check_moe_gemv(torch, dev, g, worst) -> int:
     """The expert-batched GEMV at the MoE archs' expert shapes, 4 bits and 3
-    (rows as stored, ceil(K / 10) words), block 64: 8 experts holding
-    MOE_GEMV_COUNTS rows of a buffer of 9 rows an expert (the MoE path's
-    capacity buffers, an overflow row each), one launch; each expert's rows
-    bit-identical to a qmatmul_gemv_tc launch on that expert alone, and
-    within one bf16 ulp at max|y| of the plain version.  Returns the
-    checks."""
+    (rows as stored, ceil(K / 10) words), block 64: moonshot-v1's and
+    phi3.5-moe's with 8 experts holding MOE_GEMV_COUNTS rows, jamba's with
+    16 holding JAMBA_GEMV_COUNTS, of a buffer of 9 rows an expert (the MoE
+    path's capacity buffers, an overflow row each), one launch; each
+    expert's rows bit-identical to a qmatmul_gemv_tc launch on that expert
+    alone, and within one bf16 ulp at max|y| of the plain version.  Returns
+    the checks."""
     from repro_torch.core.codebooks import make_codebook
     from repro_torch.kernels import qmatmul as qk
 
     n_checks = 0
-    E = len(MOE_GEMV_COUNTS)
-    counts = torch.tensor(MOE_GEMV_COUNTS, dtype=torch.int32, device=dev)
-    for N, K in MOE_GEMV_SHAPES:
+    cases = [(nk, MOE_GEMV_COUNTS) for nk in MOE_GEMV_SHAPES]
+    cases += [(nk, JAMBA_GEMV_COUNTS) for nk in JAMBA_GEMV_SHAPES]
+    for (N, K), expert_rows in cases:
+        E = len(expert_rows)
+        counts = torch.tensor(expert_rows, dtype=torch.int32, device=dev)
         for bits in (4, 3):
             block, cpw = 64, 32 // bits
             kw = dict(bits=bits, block_size=block)
@@ -803,7 +875,7 @@ def check_moe_gemv(torch, dev, g, worst) -> int:
             torch.cuda.synchronize()
             require(qk.qmatmul_gemv_experts.launches == before + 1,
                     f"expert GEMV {N}x{K} {bits}-bit: not one launch")
-            for e, c in enumerate(MOE_GEMV_COUNTS):
+            for e, c in enumerate(expert_rows):
                 if not c:
                     continue
                 one = qk.qmatmul_gemv_tc(x[e, :c].contiguous(), packed[e], scales[e], cb[e], **kw)
@@ -819,6 +891,7 @@ def check_moe_gemv(torch, dev, g, worst) -> int:
                     worst["gemv_moe"] = max(worst["gemv_moe"], err)
                 n_checks += 2
             del packed, scales, buf, x, y, plain
+            torch.cuda.empty_cache()
     return n_checks
 
 
@@ -888,8 +961,8 @@ def check_pack(torch, dev, g, cfg, worst) -> int:
         one(stored, cb, 4, 64, transposed, f"Qwen2-7B item {rows}x{cols}")
         del stored
         torch.cuda.empty_cache()
-    # the windows phase's items (out, in), each as its layer stores it
-    for name, items in _window_items().items():
+    # the windows and ssm phases' items (out, in), each as its layer stores it
+    for name, items in itertools.chain(_window_items().items(), _ssm_items().items()):
         for rows, cols, transposed in items:
             shape = (cols, rows) if transposed else (rows, cols)
             stored = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -897,6 +970,28 @@ def check_pack(torch, dev, g, cfg, worst) -> int:
             del stored
             torch.cuda.empty_cache()
     return n
+
+
+def _ssm_items() -> dict:
+    """{arch: [(out, in, stored transposed)]} over the distinct matrices of
+    the ssm phase's models: the SSM mixers' in_proj and out_proj, and
+    jamba's wq, wk/wv, wo, w_gate/w_up, w_down and untied lm_head (its
+    experts: check_moe_gemv)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+
+    out = {}
+    for name in (SSM_ARCH, JAMBA_ARCH):
+        c = get_arch(name)
+        D, F = c.d_model, c.d_ff
+        out[name] = [(ssm.in_proj_dim(c), D, True), (D, c.d_inner, True)]
+        if c.n_heads:
+            QD, KD = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+            out[name] += [(QD, D, True), (KD, D, True), (D, QD, True), (F, D, True),
+                          (D, F, True)]
+        if not c.tie_embeddings:
+            out[name].append((c.vocab_size, D, False))
+    return out
 
 
 def _window_items() -> dict:
@@ -2245,11 +2340,16 @@ def _window_engine(torch, dev, qparams, cfg, prompts, new_tokens, total):
 
 def _encode_items(cfg) -> int:
     """quantize_pack launches of a whole-model 4-bit quantization: a layer's
-    four attention projections and its MLP's three matrices, or its three
-    expert stacks an expert at a time, and an untied lm_head."""
-    ffn = {"mlp": 3, "moe": 3 * cfg.n_experts}
-    return (sum(4 + ffn[f] for _, f in cfg.layer_schedule())
-            + (0 if cfg.tie_embeddings else 1))
+    four attention projections or its SSM mixer's in_proj and out_proj, its
+    MLP's three matrices or its three expert stacks an expert at a time (no
+    FFN: none), and an untied lm_head."""
+    from repro_torch.models import blocks
+
+    mixer = {"attn": 4, "attn_local": 4, "attn_global": 4, "ssm": 2}
+    ffn = {"mlp": 3, "moe": 3 * cfg.n_experts, None: 0}
+    sched = blocks.stack_schedule(cfg)
+    per_period = sum(mixer[m] + ffn[f] for m, f in sched)
+    return per_period * (cfg.n_layers // len(sched)) + (0 if cfg.tie_embeddings else 1)
 
 
 def _load_quantized(torch, dev, cfg, total):
@@ -2626,13 +2726,14 @@ def _time_expert_products(torch, products) -> dict:
 
 
 def _moe_engine(torch, dev, qparams, cfg, prompts, new_tokens, total, *, timed=True):
-    """One MoE Engine run: generate (its counts set to 0 just before and
-    read just after, no host sync in the captured step), its tokens against
-    eager steps' (whose prefill is timed), one replay's launches, the mean
-    experts that hold a token a layer and step, and with ``timed`` the
-    captured step's time on the card and by the host clock and one step's
-    expert products timed alone (``_time_expert_products``).  Returns
-    (tokens, report)."""
+    """One Engine run: generate (its counts set to 0 just before and read
+    just after, no host sync in the captured step), its tokens against
+    eager steps' (whose prefill is timed), one replay's launches, and with
+    ``timed`` the captured step's time on the card and by the host clock
+    and the peak memory; where the arch has MoE layers, the mean experts
+    that hold a token a layer and step and, timed, one step's expert
+    products timed alone (``_time_expert_products``).  Returns (tokens,
+    report)."""
     from repro_torch.models import lm
     from repro_torch.serving import Engine
     from repro_torch.serving.engine import sample_token
@@ -2666,17 +2767,18 @@ def _moe_engine(torch, dev, qparams, cfg, prompts, new_tokens, total, *, timed=T
             eager_ms = (time.perf_counter() - t0) / (new_tokens - 1) * 1e3
     require(torch.equal(torch.stack(out, 1), tokens),
             f"{cfg.name} kv{cfg.kv_bits}: graph tokens differ from eager ones")
-    per_step = 3 * cfg.n_layers
+    per_step = 3 * sum(f == "moe" for _, f in cfg.layer_schedule())
     require(len(calls.products) == per_step * (new_tokens - 1),
             f"{cfg.name}: {len(calls.products)} expert products in {new_tokens - 1} eager steps")
-    # a layer's three products share their counts: the gate's say how many
-    # experts hold a token
-    active = torch.stack([(a[4] > 0).sum() for a, _ in calls.products[::3]]).float()
     rep = {"launches": counts, "graph_tokens_equal_eager": True,
            "host_syncs_in_captured_step": len(syncs), "prefill_s": prefill_s,
-           "decode_ms_per_step_eager": eager_ms,
-           "active_experts_per_layer_mean": float(active.mean()),
-           "active_experts_per_layer_min_max": [int(active.min()), int(active.max())]}
+           "decode_ms_per_step_eager": eager_ms}
+    if per_step:
+        # a layer's three products share their counts: the gate's say how
+        # many experts hold a token
+        active = torch.stack([(a[4] > 0).sum() for a, _ in calls.products[::3]]).float()
+        rep["active_experts_per_layer_mean"] = float(active.mean())
+        rep["active_experts_per_layer_min_max"] = [int(active.min()), int(active.max())]
     del caches, logits
     g = engine._graphs[B]
     with torch.inference_mode():   # the graph's buffers are inference tensors
@@ -2692,8 +2794,13 @@ def _moe_engine(torch, dev, qparams, cfg, prompts, new_tokens, total, *, timed=T
                 g.step.graph.replay()
             torch.cuda.synchronize()
             rep["decode_ms_per_step"] = (time.perf_counter() - t0) / MOE_TIMED_STEPS * 1e3
+            g.pos.fill_(S)   # back inside the cache budget for the timed replays
+            g.col.fill_(1)
             rep["decode_step_device_ms"] = _time_graph(torch, g.step.graph, MOE_TIMED_STEPS)
-            rep["expert_products"] = _time_expert_products(torch, calls.products[-per_step:])
+            rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+            if per_step:
+                rep["expert_products"] = _time_expert_products(torch,
+                                                               calls.products[-per_step:])
     del engine, g, calls
     torch.cuda.empty_cache()
     return tokens, rep
@@ -2999,6 +3106,303 @@ def moe_path(torch, dev) -> dict:
     emit(out)
     return {"launches": total,
             "gemv_experts": out[MOE_ARCH]["engine_kv4"]["expert_products"]}
+
+
+def _ssm_requests(cfg):
+    """SSM_REQUESTS requests from a seed whose prompts keep the SSD chunk rule
+    (``ssm.ssd_chunked``: at most one chunk, or whole chunks): uniform random
+    tokens, 16-256 of them, and requests 1, 4 and 9 of SSM_LONG_PROMPTS'
+    lengths; budgets of 16-64 new tokens.  The first SSM_SLOTS arrive at
+    step 0 and fill the pool (class 1, background); the rest arrive one
+    every two steps from step 4 (class 0, urgent), while the pool is busy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    long = dict(zip((1, 4, 9), SSM_LONG_PROMPTS))
+    reqs = []
+    for i in range(SSM_REQUESTS):
+        L = long.get(i, int(rng.integers(SSM_SHORT_PROMPTS[0], SSM_SHORT_PROMPTS[1] + 1)))
+        background = i < SSM_SLOTS
+        reqs.append({"prompt": rng.integers(0, cfg.vocab_size, L),
+                     "max_new": int(rng.integers(SERVER_NEW_TOKENS[0], SERVER_NEW_TOKENS[1] + 1)),
+                     "arrival_time": 0.0 if background else float(4 + 2 * (i - SSM_SLOTS)),
+                     "priority": 1 if background else 0})
+    return reqs
+
+
+def _time_ssm_gemvs(torch, dev, qparams, cfg, B) -> dict:
+    """The decode step's B1 GEMVs alone (every layer's in_proj and out_proj
+    on B rows, the step's operands), captured and replayed, beside the bound
+    of their bytes (each layer's words, scales and codebook, x and y):
+    the step's time less this is its plain-PyTorch SSM work."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import dense
+
+    g = _gen(torch, dev, SEED + 21)
+    mixers = [p["mixer"] for p, *_ in blocks._layers(qparams["stack"], cfg)]
+    xs = {K: torch.randn((B, K), generator=g, device=dev).to(torch.bfloat16)
+          for K in (cfg.d_model, cfg.d_inner)}
+    nbytes = flops = 0
+    for mp in mixers:
+        for key, K in (("in_proj", cfg.d_model), ("out_proj", cfg.d_inner)):
+            w = mp[key]["w"]
+            nbytes += (w.packed.numel() * 4 + w.scales.numel() * 2 + w.codebook.numel() * 4
+                       + 2 * B * (K + w.quant_shape[0]))
+            flops += 2 * B * K * w.quant_shape[0]
+
+    def gemvs():
+        for mp in mixers:
+            dense(mp["in_proj"], xs[cfg.d_model], mode=cfg.matmul_mode)
+            dense(mp["out_proj"], xs[cfg.d_inner], mode=cfg.matmul_mode)
+
+    with torch.inference_mode():
+        ms = _time_ms(torch, gemvs, 10)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {"gemvs": 2 * len(mixers), "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes}
+
+
+def _ssm_layer_gate(torch, dev, qparams, cfg) -> dict:
+    """Each SSM layer of the model on the card: SSM_GATE_STEPS decode steps
+    (``ssm.ssm_block_decode`` from an empty f32 cache) against its sequence
+    mode (``ssm.ssm_block``) on the same f32 input (0.5 N(0, 1), as
+    tests/test_ssm_moe.py), the layer's own 4-bit weights: the outputs within
+    SSM_GATE_Y_TOL, the final state and conv within SSM_GATE_STATE_TOL."""
+    from repro_torch.models import blocks, ssm
+
+    g = _gen(torch, dev, SEED + 18)
+    B, T = SSM_GATE_BATCH, SSM_GATE_STEPS
+    worst = {"y": 0.0, "state": 0.0, "conv": 0.0}
+    n = 0
+    with torch.inference_mode():
+        for p, _, _, mixer, _, _ in blocks._layers(qparams["stack"], cfg):
+            if mixer != "ssm":
+                continue
+            u = 0.5 * torch.randn((B, T, cfg.d_model), generator=g, device=dev)
+            y_seq, tail = ssm.ssm_block(p["mixer"], u, cfg)
+            cache = ssm.init_ssm_cache(cfg, B, dtype=torch.float32, device=dev)
+            y_dec = torch.stack([ssm.ssm_block_decode(p["mixer"], u[:, t], cache, cfg)
+                                 for t in range(T)], dim=1)
+            for key, a, b in (("y", y_seq, y_dec), ("state", tail["state"], cache["state"]),
+                              ("conv", tail["conv"], cache["conv"])):
+                worst[key] = max(worst[key], float((a.float() - b.float()).abs().max()))
+            n += 1
+    require(n and worst["y"] <= SSM_GATE_Y_TOL and worst["state"] <= SSM_GATE_STATE_TOL
+            and worst["conv"] <= SSM_GATE_STATE_TOL,
+            f"{cfg.name}: an SSM layer's decode steps are off its sequence mode: {worst}")
+    return {"layers": n, "batch": B, "steps": T, "input": "f32, 0.5 N(0, 1)",
+            "max_abs_gap": worst, "tol": {"y": SSM_GATE_Y_TOL, "state_conv": SSM_GATE_STATE_TOL}}
+
+
+def _ssm_model_gaps(torch, qparams, cfg, prompts) -> dict:
+    """The whole model on the card: (a) the decode path against the full
+    forward: a prefill of SSM_GAP_PREFILL tokens, then SSM_GAP_STEPS decode
+    steps fed the prompt's next tokens, against lm.backbone_seq's logits at
+    the same positions (reported: depth amplifies it in both packages, C3);
+    (b) fused vs dequant_einsum logits over the prompts' last SSM_MODE_ROWS
+    rows, gated at MODE_GAP_TOL."""
+    from repro_torch.models import lm
+
+    P, n = SSM_GAP_PREFILL, SSM_GAP_STEPS
+    seq = prompts[:, :P + n + 1]
+    out = {}
+    with torch.inference_mode():
+        h, _ = lm.backbone_seq(qparams, seq, cfg)
+        full = lm.logits_from_hidden(qparams, h[:, P - 1:P + n], cfg).float()
+        del h
+        logits, caches = lm.prefill(qparams, seq[:, :P], cfg, cache_len=P + n)
+        steps = [logits.float()]
+        for t in range(P, P + n):
+            logits, caches = lm.decode_step(qparams, seq[:, t], caches, t, cfg)
+            steps.append(logits.float())
+        dec = torch.stack(steps, 1)
+        out["decode_vs_forward"] = {"max_abs_logit_gap": float((dec - full).abs().max()),
+                                    "max_abs_logit": float(full.abs().max()),
+                                    "prefill": P, "decode_steps": n, "gated": False}
+        del full, dec, steps, caches
+        rows = {}
+        for mode in ("fused", "dequant_einsum"):
+            c = cfg.with_matmul_mode(mode)
+            h, _ = lm.backbone_seq(qparams, prompts, c)
+            rows[mode] = lm.logits_from_hidden(qparams, h[:, -SSM_MODE_ROWS:], c).float()
+            del h
+        gap = float((rows["fused"] - rows["dequant_einsum"]).abs().max())
+        finite = bool(torch.isfinite(rows["fused"]).all())
+        del rows
+    require(finite and gap <= MODE_GAP_TOL,
+            f"{cfg.name}: fused vs dequant_einsum logit gap {gap} > {MODE_GAP_TOL}")
+    out["mode_gap"] = {"max_abs_logit_gap": gap, "gate": MODE_GAP_TOL, "rows": SSM_MODE_ROWS}
+    return out
+
+
+def ssm_path(torch, dev) -> dict:
+    """Phase 3h: the state-space and hybrid decoders at full width.
+    mamba2-130m (24 SSM layers, no attention, a tied head) at full width and
+    depth, seeded bf16 weights quantized on the card: the Engine on 4 prompts
+    of 1024 (4 SSD chunks each), graph tokens = eager ones, no host sync, one
+    replay 48 tensor-core GEMVs (in_proj and out_proj a layer; the tied head a
+    dense product in column pieces), 0 fused attentions and 0 KV dequants,
+    the step, prefill s and peaks; the per-layer decode gate; the whole
+    model's decode-vs-forward gap (reported) and fused vs dequant_einsum
+    within MODE_GAP_TOL; the Server on SSM_SLOTS slots over SSM_REQUESTS
+    requests at exact length, then two classes with preemption (the same
+    tokens, each spilled state and conv restored bit for bit), paged and
+    prefill_chunk refused before a launch, each request's decode logits
+    against the per-request Engine's within SERVER_LOGIT_TOL.  jamba-v0.1-52b
+    at full width, depth JAMBA_DEPTH: its init and quantize peaks, the Engine
+    at kv4 on 2 prompts of 1024 (graph = eager; one replay 31 GEMVs, 12
+    expert-batched GEMVs and one attention), and fused vs dequant_einsum as
+    the moe phase gates MoE.  Returns the phase's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import kv_attention as kat
+    from repro_torch.kernels.kv_dequant import kv_spec
+    from repro_torch.models import ssm
+    from repro_torch.serving import Server, Telemetry
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    out = {"phase": "ssm"}
+    gc.collect()
+
+    # -- mamba2-130m -------------------------------------------------------
+    cfg = get_arch(SSM_ARCH)
+    qparams, load = _load_quantized(torch, dev, cfg, total)
+    n_l = cfg.n_layers
+    mamba = {"depth": n_l, "width": cfg.d_model, "d_inner": cfg.d_inner,
+             "ssm_heads": cfg.n_ssm_heads, "head_dim": cfg.ssm_head_dim,
+             "state": cfg.ssm_state, "ssd_chunk": cfg.ssm_chunk, "vocab": cfg.vocab_size,
+             "in_proj": [ssm.in_proj_dim(cfg), cfg.d_model], "kv_bits": cfg.kv_bits, **load}
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                            generator=_gen(torch, dev, SEED + 19), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, rep = _moe_engine(torch, dev, qparams, cfg, prompts, SSM_NEW, total)
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": 2 * n_l, "gemv_tc": 2 * n_l}
+    require(rep["launches_per_replay"] == want,
+            f"mamba2: one replay launched {rep['launches_per_replay']}, want {want}")
+    mamba["engine"] = {"batch": SSM_BATCH, "prompt_len": SSM_PROMPT, "new_tokens": SSM_NEW,
+                       "ssd_chunks_a_prompt": SSM_PROMPT // cfg.ssm_chunk, **rep,
+                       "step_gemvs": _time_ssm_gemvs(torch, dev, qparams, cfg, SSM_BATCH)}
+    mamba["layer_decode_gate"] = _ssm_layer_gate(torch, dev, qparams, cfg)
+    mamba.update(_ssm_model_gaps(torch, qparams, cfg, prompts))
+
+    # the Server: exact-length prefills, then two classes with preemption
+    reqs = _ssm_requests(cfg)
+    Checked = _checked_server(torch)
+    with torch.inference_mode():
+        tel = Telemetry()
+        _reset_counts()
+        with _capture_guard(torch) as syncs:
+            srv = Checked(qparams, cfg, num_slots=SSM_SLOTS, max_seq_len=SSM_SLOT_LEN,
+                          telemetry=tel, device=dev)
+            ids, plain, wall, peak = _drive_server(torch, srv, reqs)
+        counts = _counts()
+        for key in total:
+            total[key] += counts[key]
+        require(not syncs, f"mamba2 Server: the captured step syncs with the host: {syncs[:5]}")
+        reg = tel.registry
+        admissions = int(reg.counter("serve_prefills_total").value)
+        steps = int(reg.counter("serve_decode_steps_total").value)
+        require(admissions == len(reqs) and counts["attn"] == counts["kv"] == 0
+                and counts["gemv_moe"] == 0
+                and counts["gemv"] == counts["gemv_tc"] == (1 + steps) * 2 * n_l,
+                f"mamba2 Server launched {counts} for {admissions} admissions, {steps} steps")
+        spans = [e["attrs"] for e in tel.tracer.events if e["name"] == "prefill"]
+        require(len(spans) == admissions
+                and all(a["padded_len"] == a["prompt_len"] for a in spans),
+                f"mamba2 Server: a prefill was padded: {spans}")
+        kept = [srv.kept[i] for i in ids]
+        ttft, step_s = reg.histogram("serve_ttft_seconds"), reg.histogram(
+            "serve_decode_step_seconds")
+        n_tokens = sum(len(t) for t in plain)
+        del srv
+        srv_p = Checked(qparams, cfg, num_slots=SSM_SLOTS, max_seq_len=SSM_SLOT_LEN,
+                        max_preemptions=1, device=dev)
+        _reset_counts()
+        _, preempted, _, _ = _drive_server(torch, srv_p, reqs, classes=True)
+        for key, n in _counts().items():
+            total[key] += n
+        n_pre = srv_p.scheduler.n_preemptions
+        require(n_pre >= 1 and srv_p.restores == n_pre,
+                f"mamba2 Server: {n_pre} preemptions, {srv_p.restores} restores")
+        require(preempted == plain, "mamba2 Server: preemption changed tokens")
+        del srv_p
+        refused = {}
+        for name, kw in (("paged", {"paged": True}), ("prefill_chunk", {"prefill_chunk": 128})):
+            before = _counts()
+            try:
+                Server(qparams, cfg, num_slots=SSM_SLOTS, max_seq_len=SSM_SLOT_LEN, device=dev,
+                       **kw)
+                refused[name] = None
+            except ValueError as e:
+                refused[name] = str(e)
+            require(refused[name] is not None and _counts() == before,
+                    f"mamba2 Server({name}) did not refuse before a launch: {refused[name]}")
+        _reset_counts()
+        gaps = _engine_gaps(torch, qparams, cfg, reqs, plain, kept, SSM_SLOT_LEN)
+        for key, n in _counts().items():
+            total[key] += n
+    worst = max(g for g, _, _ in gaps)
+    require(worst <= SERVER_LOGIT_TOL,
+            f"mamba2 Server vs the per-request Engine: logit gap {worst} > {SERVER_LOGIT_TOL}")
+    mamba["server"] = {
+        "kv_bits": cfg.kv_bits, "num_slots": SSM_SLOTS, "max_seq_len": SSM_SLOT_LEN,
+        "requests": len(reqs), "prompt_lens": [len(r["prompt"]) for r in reqs],
+        "tokens": n_tokens, "serve_s": wall, "tokens_per_s": n_tokens / wall,
+        "decode_steps": steps, "peak_residents": peak["residents"],
+        "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
+        "decode_ms_per_step_median": step_s.percentile(50) * 1e3,
+        "exact_length_prefills": admissions, "preemptions": n_pre,
+        "spill_restore_bit_exact": True, "preempted_tokens_identical": True,
+        "engine_b1_max_logit_gap": worst, "engine_b1_logit_tol": SERVER_LOGIT_TOL,
+        "engine_b1_gaps": [g for g, _, _ in gaps],
+        "engine_b1_first_token_margins": [f for _, f, _ in gaps if f is not None],
+        "engine_b1_decode_token_margins": [m for _, _, ms in gaps for m in ms],
+        "refused": refused, "host_syncs_in_captured_step": len(syncs), "launches": counts}
+    mamba["peak_bytes"] = max(load["init_peak_bytes"], torch.cuda.max_memory_allocated())
+    out[SSM_ARCH] = mamba
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- jamba-v0.1-52b at full width, cut depth ----------------------------
+    base = dataclasses.replace(get_arch(JAMBA_ARCH), n_layers=JAMBA_DEPTH)
+    qparams, load = _load_quantized(torch, dev, base, total)
+    cfg = base.with_kv_quant(4)
+    prompts = torch.randint(0, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT),
+                            generator=_gen(torch, dev, SEED + 20), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, rep = _moe_engine(torch, dev, qparams, cfg, prompts, JAMBA_NEW, total)
+    fused = kat.fused_takes(JAMBA_BATCH, cfg.n_heads, cfg.head_dim, JAMBA_PROMPT + JAMBA_NEW,
+                            kv_spec(cfg), cfg.n_kv_heads * cfg.head_dim)
+    sched = cfg.layer_schedule()
+    n_attn = sum(m == "attn" for m, _ in sched)
+    n_ssm = sum(m == "ssm" for m, _ in sched)
+    n_mlp = sum(f == "mlp" for _, f in sched)
+    n_moe = sum(f == "moe" for _, f in sched)
+    n_gemv = 4 * n_attn + 2 * n_ssm + 3 * n_mlp + 1
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "gemv": n_gemv, "gemv_tc": n_gemv,
+            "gemv_moe": 3 * n_moe, ("attn" if fused else "kv"): n_attn}
+    require(rep["launches_per_replay"] == want,
+            f"jamba kv4: one replay launched {rep['launches_per_replay']}, want {want}")
+    out[JAMBA_ARCH] = {"depth": cfg.n_layers, "full_depth": get_arch(JAMBA_ARCH).n_layers,
+                       "width": cfg.d_model, "d_inner": cfg.d_inner, "state": cfg.ssm_state,
+                       "experts": cfg.n_experts, "top_k": cfg.top_k,
+                       "expert_width": cfg.moe_d_ff, "fused_attention_takes": fused, **load,
+                       "engine_kv4": {"batch": JAMBA_BATCH, "prompt_len": JAMBA_PROMPT,
+                                      "new_tokens": JAMBA_NEW, **rep},
+                       "mode_gap": _moe_mode_gap(torch, qparams, cfg, prompts)}
+    del qparams
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["memory_allocated_after_bytes"] = torch.cuda.memory_allocated()
+    out["weights"] = "4-bit float b64"
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    emit(out)
+    return total
 
 
 def _fixed_plan(cfg, base):

@@ -2,8 +2,10 @@
 architectures the port serves: the dense decoders (Qwen2-7B, deepseek-coder,
 chameleon's backbone, h2o-danube-3's sliding window, gemma2's local/global
 stack with sandwich norms), the mixture-of-experts decoders (moonshot-v1's
-64 experts, phi3.5-moe's 16) and the tiny ladder.  The reference's other
-registry archs (``NOT_PORTED``) raise, naming ROADMAP A10."""
+64 experts, phi3.5-moe's 16), the state-space and hybrid decoders
+(mamba2-130m, jamba-v0.1's attention and SSM period of 8 with MoE) and the
+tiny ladder.  The reference's other registry arch (``NOT_PORTED``) raises,
+naming ROADMAP A10."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from repro_torch.configs import (
     deepseek_coder_33b,
     gemma2_27b,
     h2o_danube_3_4b,
+    jamba_v01_52b,
+    mamba2_130m,
     moonshot_v1_16b_a3b,
     phi35_moe_42b_a66b,
     qwen2_7b,
@@ -29,14 +33,16 @@ ARCHS: dict[str, ArchConfig] = {
         chameleon_34b.CONFIG,
         moonshot_v1_16b_a3b.CONFIG,
         phi35_moe_42b_a66b.CONFIG,
+        mamba2_130m.CONFIG,
+        jamba_v01_52b.CONFIG,
     ]
 }
 ARCHS.update(tiny.TINY_FAMILY)
 
 
-#: the reference's registry archs that the port does not serve yet: SSM and
-#: hybrid (A10.3) and seq2seq (A10.4) stacks (ROADMAP A10)
-NOT_PORTED = ("mamba2-130m", "jamba-v0.1-52b", "seamless-m4t-large-v2")
+#: the reference's registry arch that the port does not serve yet: the
+#: seq2seq stack with frame inputs (ROADMAP A10.4)
+NOT_PORTED = ("seamless-m4t-large-v2",)
 
 
 def get_arch(name: str) -> ArchConfig:

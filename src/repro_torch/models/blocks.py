@@ -1,9 +1,10 @@
-"""Layer composition: (attention, FFN) blocks over the stacked layer axis —
+"""Layer composition: (mixer, FFN) blocks over the stacked layer axis —
 port of the decoder path of ``repro/models/blocks.py``.
 
 Layers are grouped into the architecture's smallest repeating period
-(``ArchConfig.scan_period``): 1 for a llama-style stack, 2 for gemma2's
-local and global layers.  Parameters keep the reference layout: ``stack``
+(``ArchConfig.scan_period``): 1 for a llama-style stack or mamba2, 2 for
+gemma2's local and global layers, 8 for jamba (one attention layer, seven
+SSM ones, MoE every second).  Parameters keep the reference layout: ``stack``
 is a list, one entry per position in the period, whose leaves carry a
 leading n_periods axis.  The reference's ``lax.scan`` over periods is a
 Python loop here, period by period and position by position (layer
@@ -11,10 +12,13 @@ Python loop here, period by period and position by position (layer
 have the same layout, a tuple of one dict a position: a windowed position
 ("attn_local", or "attn" under ``cfg.sliding_window``) holds a ring of
 min(cache length, window) slots beside the full-length caches of the
-others, and each is updated **in place** through its per-layer view.
+others, and an SSM position ("ssm", ``models/ssm.py``) its recurrent
+state and conv tail ({"state", "conv"}, no position axis); each is updated
+**in place** through its per-layer view.
 gemma2's sandwich norms (``cfg.post_block_norm``) norm the mixer's and the
 FFN's outputs before each residual add.  A position's FFN is the dense MLP
-("mlp") or the mixture of experts ("moe", ``models/moe.py``): sequence mode
+("mlp"), the mixture of experts ("moe", ``models/moe.py``) or none (an arch
+with neither d_ff nor experts, mamba2; the reference's None): sequence mode
 threads ``pad_mask`` to its router's capacity accounting and sums its aux
 losses; decode masks idle rows (a [B] position < 0) out of its capacity,
 and a shared (0-d) position leaves it unmasked, as the reference.
@@ -28,8 +32,8 @@ layer writes its token and attends through ``decode_attn``, the
 reference's hook: ``local_decode_attn`` over a slot cache by default, the
 paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
-Not in the port yet: SSM layers and frame inputs (ROADMAP A10.3-4) and
-sharding constraints (A11).
+Not in the port yet: frame inputs (ROADMAP A10.4) and sharding constraints
+(A11).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation, dense, norm
 
 
@@ -59,24 +64,27 @@ def mlp(params, x, cfg):
     return dense(params["w_down"], h, mode=mm)
 
 
-def init_layer(init, ffn: str, cfg) -> dict:
-    p = {
-        "mixer_norm": init.norm(cfg.d_model, cfg.norm_type),
-        "mixer": attn_mod.init_attention(init, cfg),
-        "ffn_norm": init.norm(cfg.d_model, cfg.norm_type),
-        "ffn": moe_mod.init_moe(init, cfg) if ffn == "moe" else init_mlp(init, cfg),
-    }
+def init_layer(init, mixer: str, ffn: str | None, cfg) -> dict:
+    """One position's params: an attention or SSM mixer, and an FFN unless
+    ``ffn`` is None (no ffn_norm then, as the reference)."""
+    p = {"mixer_norm": init.norm(cfg.d_model, cfg.norm_type)}
+    p["mixer"] = (attn_mod.init_attention(init, cfg) if mixer.startswith("attn")
+                  else ssm_mod.init_ssm(init, cfg))
+    if ffn is not None:
+        p["ffn_norm"] = init.norm(cfg.d_model, cfg.norm_type)
+        p["ffn"] = moe_mod.init_moe(init, cfg) if ffn == "moe" else init_mlp(init, cfg)
     if cfg.post_block_norm:
         p["post_mixer_norm"] = init.norm(cfg.d_model, cfg.norm_type)
-        p["post_ffn_norm"] = init.norm(cfg.d_model, cfg.norm_type)
+        if ffn is not None:
+            p["post_ffn_norm"] = init.norm(cfg.d_model, cfg.norm_type)
     return p
 
 
 def check_dense(cfg) -> None:
-    """Raise for the parts of the config the port does not serve yet."""
-    if cfg.attn_period != 1 or cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: SSM mixers and frame inputs are not "
-                                  "ported yet (ROADMAP A10)")
+    """Raise for the part of the config the port does not serve yet."""
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(f"{cfg.name}: frame inputs are not ported yet "
+                                  "(ROADMAP A10.4)")
 
 
 def mixer_window(mixer: str, cfg) -> int:
@@ -88,9 +96,12 @@ def mixer_window(mixer: str, cfg) -> int:
 
 
 def stack_schedule(cfg) -> list:
-    """The layers of one period, (mixer, ffn) a position: ffn "mlp" or "moe"."""
+    """The layers of one period, (mixer, ffn) a position: mixer "attn",
+    "attn_local", "attn_global" or "ssm"; ffn "mlp", "moe" or None (an arch
+    with neither d_ff nor experts)."""
     check_dense(cfg)
-    return cfg.layer_schedule()[:cfg.scan_period()]
+    has_ffn = bool(cfg.d_ff or cfg.n_experts)
+    return [(m, f if has_ffn else None) for m, f in cfg.layer_schedule()[:cfg.scan_period()]]
 
 
 def take(tree, i: int):
@@ -103,12 +114,12 @@ def take(tree, i: int):
 
 
 def _layers(stack, cfg):
-    """(layer params, position in the period, period index, window, ffn) in
-    depth order."""
+    """(layer params, position in the period, period index, mixer, window,
+    ffn) in depth order."""
     sched = stack_schedule(cfg)
     for p in range(cfg.n_layers // len(sched)):
         for j, (mixer, ffn) in enumerate(sched):
-            yield take(stack[j], p), j, p, mixer_window(mixer, cfg), ffn
+            yield take(stack[j], p), j, p, mixer, mixer_window(mixer, cfg), ffn
 
 
 def _post(p, key, o, cfg):
@@ -123,27 +134,35 @@ def _ffn(p, h, cfg, ffn: str, pad_mask=None):
     return mlp(p["ffn"], h, cfg), {}
 
 
-def apply_layer_seq(p, x, *, cfg, positions, window=0, cache_len=None, write_cache=False,
-                    ffn="mlp", pad_mask=None):
+def apply_layer_seq(p, x, *, cfg, positions, mixer="attn", window=0, cache_len=None,
+                    write_cache=False, ffn="mlp", pad_mask=None):
     """Sequence mode (prefill).  Returns (x, cache or None, aux); a
-    windowed layer's cache is its ring, min(cache length, window) slots.
+    windowed layer's cache is its ring, min(cache length, window) slots, an
+    SSM layer's the tail state and conv of ``ssm.ssm_block``.
     ``pad_mask`` [B, S] (True = real token) reaches only the MoE router's
     capacity accounting: attention is causal, so pad rows never feed real
     ones, and the serving scatter drops padded cache positions."""
     cache = None
     h = norm(p["mixer_norm"], x, cfg.norm_type)
-    q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
-    o = attn_mod.flash_attention(q, k, v, causal=True, window=window,
-                                 cap=cfg.attn_logit_softcap)
-    o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], x.shape[1], -1), mode=cfg.matmul_mode)
-    if write_cache:
-        B, S = x.shape[:2]
-        kvq = kv_spec(cfg)
-        total = max(cache_len or S, S)
-        cache = attn_mod.init_kv_cache(cfg, B, min(total, window) if window else total,
-                                       k.dtype, kvq=kvq, device=x.device)
-        attn_mod.write_cache_prefill(cache, k, v, window=window, kvq=kvq)
+    if mixer.startswith("attn"):
+        q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
+        o = attn_mod.flash_attention(q, k, v, causal=True, window=window,
+                                     cap=cfg.attn_logit_softcap)
+        o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], x.shape[1], -1),
+                  mode=cfg.matmul_mode)
+        if write_cache:
+            B, S = x.shape[:2]
+            kvq = kv_spec(cfg)
+            total = max(cache_len or S, S)
+            cache = attn_mod.init_kv_cache(cfg, B, min(total, window) if window else total,
+                                           k.dtype, kvq=kvq, device=x.device)
+            attn_mod.write_cache_prefill(cache, k, v, window=window, kvq=kvq)
+    else:
+        o, tail = ssm_mod.ssm_block(p["mixer"], h, cfg)
+        cache = tail if write_cache else None
     x = x + _post(p, "post_mixer_norm", o, cfg)
+    if ffn is None:
+        return x, cache, {}
     h = norm(p["ffn_norm"], x, cfg.norm_type)
     o, aux = _ffn(p, h, cfg, ffn, pad_mask)
     return x + _post(p, "post_ffn_norm", o, cfg), cache, aux
@@ -168,6 +187,8 @@ def apply_layer_prefill_chunk(p, x, cache, chunk_start: int, *, cfg):
                                          cap=cfg.attn_logit_softcap)
     o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], C, -1), mode=cfg.matmul_mode)
     x = x + _post(p, "post_mixer_norm", o, cfg)
+    if "ffn" not in p:
+        return x
     h = norm(p["ffn_norm"], x, cfg.norm_type)
     return x + _post(p, "post_ffn_norm", mlp(p["ffn"], h, cfg), cfg)
 
@@ -180,23 +201,31 @@ def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=Non
     return attn_mod.decode_attention(q, cache, pos, cap=cap, window=window, kvq=kvq)
 
 
-def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, window=0, ffn="mlp",
-                       decode_attn=local_decode_attn):
+def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, mixer="attn", window=0,
+                       ffn="mlp", decode_attn=local_decode_attn):
     """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
     row, -1 = idle) int32 tensor.  ``decode_attn`` writes this token into
-    ``cache`` in place and attends.  An MoE position masks idle rows (their
-    hidden states are junk) out of its capacity, so they cannot crowd real
-    rows' expert slots; a shared position leaves every row in.  Returns x."""
+    ``cache`` in place and attends; an SSM layer advances its state and conv
+    in place (every row, as the reference: an idle row's state is junk
+    until a prefill or a restore overwrites it).  An MoE position masks idle
+    rows (their hidden states are junk) out of its capacity, so they cannot
+    crowd real rows' expert slots; a shared position leaves every row in.
+    Returns x."""
     h = norm(p["mixer_norm"], x, cfg.norm_type)
-    # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
-    # rotates each row by its own position
-    positions = pos[:, None] if pos.ndim else pos[None]
-    q, k, v = attn_mod.project_qkv(p["mixer"], h[:, None, :], cfg, positions)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    o = decode_attn(q, k, v, cache, pos, cap=cfg.attn_logit_softcap, window=window,
-                    kvq=kv_spec(cfg))
-    o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
+    if mixer.startswith("attn"):
+        # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
+        # rotates each row by its own position
+        positions = pos[:, None] if pos.ndim else pos[None]
+        q, k, v = attn_mod.project_qkv(p["mixer"], h[:, None, :], cfg, positions)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        o = decode_attn(q, k, v, cache, pos, cap=cfg.attn_logit_softcap, window=window,
+                        kvq=kv_spec(cfg))
+        o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
+    else:
+        o = ssm_mod.ssm_block_decode(p["mixer"], h, cache, cfg)
     x = x + _post(p, "post_mixer_norm", o, cfg)
+    if ffn is None:
+        return x
     h = norm(p["ffn_norm"], x, cfg.norm_type)
     if ffn == "moe":
         pm = (pos >= 0)[:, None] if pos.ndim else None
@@ -211,7 +240,8 @@ def init_stack(init, cfg) -> list:
     """Stacked params: one entry a period position whose leaves carry a
     leading n_periods axis."""
     sched = stack_schedule(cfg)
-    return [init_layer(init.stacked(cfg.n_layers // len(sched)), ffn, cfg) for _, ffn in sched]
+    return [init_layer(init.stacked(cfg.n_layers // len(sched)), mixer, ffn, cfg)
+            for mixer, ffn in sched]
 
 
 def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False,
@@ -221,10 +251,10 @@ def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=Fal
     reference's; aux_sum the MoE layers' aux losses (0.0 without any)."""
     caches = [[] for _ in stack]
     aux_sum = 0.0
-    for p, j, _, window, ffn in _layers(stack, cfg):
-        x, cache, aux = apply_layer_seq(p, x, cfg=cfg, positions=positions, window=window,
-                                        cache_len=cache_len, write_cache=write_cache,
-                                        ffn=ffn, pad_mask=pad_mask)
+    for p, j, _, mixer, window, ffn in _layers(stack, cfg):
+        x, cache, aux = apply_layer_seq(p, x, cfg=cfg, positions=positions, mixer=mixer,
+                                        window=window, cache_len=cache_len,
+                                        write_cache=write_cache, ffn=ffn, pad_mask=pad_mask)
         caches[j].append(cache)
         aux_sum = aux_sum + aux.get("moe_aux", 0.0)
     if not write_cache:
@@ -237,8 +267,8 @@ def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
     """All layers over one prefill chunk; ``caches`` is a dense bf16
     workspace in init_stack_cache's layout, updated in place.  Returns
     (x, caches)."""
-    for p, j, i, window, ffn in _layers(stack, cfg):
-        if window or ffn == "moe":
+    for p, j, i, mixer, window, ffn in _layers(stack, cfg):
+        if mixer != "attn" or window or ffn == "moe":
             raise ValueError(f"{cfg.name}: chunked prefill supports full attention and "
                              "dense MLPs only")
         x = apply_layer_prefill_chunk(p, x, take(caches[j], i), chunk_start, cfg=cfg)
@@ -250,9 +280,9 @@ def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg, *,
     """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
     ``caches`` (init_stack_cache's layout) are updated in place through
     ``decode_attn``.  Returns (x, caches)."""
-    for p, j, i, window, ffn in _layers(stack, cfg):
-        x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, window=window, ffn=ffn,
-                               decode_attn=decode_attn)
+    for p, j, i, mixer, window, ffn in _layers(stack, cfg):
+        x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, mixer=mixer,
+                               window=window, ffn=ffn, decode_attn=decode_attn)
     return x, caches
 
 
@@ -260,15 +290,20 @@ def init_stack_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: b
                      device=None):
     """Empty caches in apply_stack_decode's layout, one dict a period
     position (``per_slot``: a position array a row); a windowed position's
-    ring holds min(cache_len, window) slots."""
+    ring holds min(cache_len, window) slots, an SSM position its state
+    (f32) and conv tail (``dtype``)."""
     sched = stack_schedule(cfg)
     n_periods = cfg.n_layers // len(sched)
+    dtype = dtype or torch.bfloat16
     caches = []
     for mixer, _ in sched:
-        w = mixer_window(mixer, cfg)
-        one = attn_mod.init_kv_cache(cfg, batch, min(cache_len, w) if w else cache_len,
-                                     dtype or torch.bfloat16, kvq=kv_spec(cfg),
-                                     per_slot=per_slot, device=device)
+        if mixer == "ssm":
+            one = ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device)
+        else:
+            w = mixer_window(mixer, cfg)
+            one = attn_mod.init_kv_cache(cfg, batch, min(cache_len, w) if w else cache_len,
+                                         dtype, kvq=kv_spec(cfg), per_slot=per_slot,
+                                         device=device)
         caches.append({k: v.unsqueeze(0).repeat((n_periods,) + (1,) * v.ndim)
                        for k, v in one.items()})
     return tuple(caches)

@@ -225,6 +225,14 @@ class Init:
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=torch.float32, device=self.device)
 
+    def const(self, values: torch.Tensor) -> torch.Tensor:
+        """A fixed f32 leaf (``values``, made on the host), the same in every
+        stacked item; it draws nothing from the stream."""
+        shape = self.lead + tuple(values.shape)
+        if self.gen is None:
+            return torch.empty(shape, dtype=torch.float32, device=self.device)
+        return values.to(torch.float32).to(self.device).expand(shape).contiguous()
+
     def dense(self, d_in: int, d_out: int, *, bias: bool = False,
               scale: float | None = None) -> dict:
         p = {"w": self.normal((d_in, d_out), scale if scale is not None else d_in**-0.5)}

@@ -1,13 +1,15 @@
 """Decoder-only LM assembled from blocks.py: init, loss, prefill, decode —
 port of the decoder path of ``repro/models/lm.py`` (llama-style stacks,
 sliding windows, gemma2's local/global period and soft-caps, mixture-of-
-experts FFNs).
+experts FFNs, Mamba-2 SSM layers and jamba's hybrid period).
 
 The parameter tree has the reference's keys (``embed``, ``stack``,
 ``final_norm``, ``lm_head`` when untied), so a reference tree carries
 across with ``interop.params_from_reference``.  Decode updates the caches
 in place; its position lives in device memory (an int is accepted and
 filled on the device once), so a step can be captured as a CUDA graph.
+A cache tree mixes, a period position each, attention caches (K/V and
+positions) and SSM ones (state and conv tail, no positions).
 """
 
 from __future__ import annotations

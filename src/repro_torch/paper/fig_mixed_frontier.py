@@ -16,14 +16,14 @@ Figures 2/3 (core/scaling_laws Observations, precision = MIXED):
   uniform in the candidate set, so a FAILED row here means the
   planning/quantize path broke, not a noisy flake.
 
-The reference gates an attention and an SSM family (h2o-danube-3-4b and
-mamba2-130m at ``reduced()`` shapes).  The port gates danube as the
-reference does; tiny-2.6m stands in for mamba2 until the SSM stack is
-ported (ROADMAP A10.3).  Each gate row names the arch it ran.
+The gate runs an attention and an SSM family, as the reference does
+(h2o-danube-3-4b and mamba2-130m at ``reduced()`` shapes).  Each gate row
+names the arch it ran.
 
 ``run_plan`` is the fast suite ("plan" in paper/run.py): build and save
-plans for the gate archs under artifacts/plans/ (the reference's path; a
-plan saved by either package serves in the other), so that
+plans for the gate archs and tiny-2.6m under artifacts/plans/ (the
+reference's path; a plan saved by either package serves in the other), so
+that
 ``python -m repro_torch.launch.serve --arch tiny-2.6m --plan
 artifacts/plans/tiny-2.6m.json`` works out of the box.  Everything runs on
 the device of the ladder (figmix) or on ``device`` (plan; CUDA by
@@ -61,10 +61,9 @@ MIXED = -1
 UNIFORM_KS = [3, 4, 5, 6, 8]
 MIXED_ANCHORS = [3, 4, 5]
 
-#: the acceptance-gate archs: the reference's h2o-danube-3-4b, and
-#: tiny-2.6m for its mamba2-130m (ROADMAP A10.3); registry archs other than
-#: the tiny ladder run at reduced() shapes
-GATE_ARCHS = ["h2o-danube-3-4b", "tiny-2.6m"]
+#: the acceptance-gate archs: one attention family, one SSM family (run at
+#: reduced() shapes, as every registry arch but the tiny ladder)
+GATE_ARCHS = ["h2o-danube-3-4b", "mamba2-130m"]
 
 BASE = QuantConfig(bits=4, dtype="float", block_size=64)
 
@@ -216,10 +215,10 @@ def run(family, log=print):
     return rows, {"gates": gates, "observations": obs}
 
 
-#: `plan` suite coverage: the gate archs, tiny-2.6m among them, so
+#: `plan` suite coverage: the gate archs and tiny-2.6m, so
 #: `launch/serve.py --arch tiny-2.6m --plan artifacts/plans/tiny-2.6m.json`
 #: works out of the box
-PLAN_ARCHS = GATE_ARCHS
+PLAN_ARCHS = GATE_ARCHS + ["tiny-2.6m"]
 
 
 def run_plan(log=print, device=None, cli_args=None):

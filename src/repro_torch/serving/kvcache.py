@@ -22,7 +22,8 @@ padded to its bucket): entries at positions >= the prompt's length read as
 empty (-1).  A k-bit cache moves its packed codes and scales as stored:
 ``spill_slot`` copies a row to host memory without dequantizing and
 ``restore_slot`` writes it back bit for bit, a ring as it stands (its
-positions with it).
+positions with it).  An SSM layer's state and conv tail have no position
+axis: they move through the same row writes, spills and restores as stored.
 
 The device-side position vector (``pos_vector``) is one tensor for the
 pool's lifetime, refreshed from the host's positions each step, so a
@@ -53,7 +54,9 @@ def scatter_row(pool, cc, slot: int, length: int) -> None:
     [n_periods, B, S_c, ...] against cc's [n_periods, 1, S_c, ...]; pool
     pos [n_periods, B, S_c] against cc's shared [n_periods, S_c].  Positions
     outside [0, length) become -1; the test is on the stored positions, so
-    it holds for a ring, whose slots are not in position order."""
+    it holds for a ring, whose slots are not in position order.  SSM
+    state and conv leaves have no position axis and take the same generic
+    row write."""
     for pl, cl in zip(pool, cc):
         for key, dst in pl.items():
             src = cl[key]
@@ -113,7 +116,8 @@ class SlotKVCache:
 
     def _init_slots(self) -> None:
         """Every slot free and idle, on the caches' device."""
-        self.device = self.caches[0]["pos"].device
+        # any leaf's device: an SSM group has no "pos"
+        self.device = next(iter(self.caches[0].values())).device
         self._free = list(range(self.num_slots - 1, -1, -1))   # pop() -> lowest id
         self.active = np.zeros(self.num_slots, dtype=bool)
         # absolute position of the next token fed to each slot (-1 = idle)

@@ -33,9 +33,12 @@ length off that multiple) prefills plainly, as does a bucket past
 ``KV_CHUNK``.  Prompt-length bucketing is safe where every layer is
 causal full attention: padded positions are masked out of the cache
 (``kvcache.scatter_row``).  An arch with a sliding window (h2o-danube-3,
-gemma2's local layers) keeps ring caches, which padding would overwrite, so
-it prefills every prompt at its exact length, and ``paged=True`` and
-``prefill_chunk`` refuse it (``_bucketing_safe``, the reference's rule).
+gemma2's local layers) keeps ring caches, which padding would overwrite,
+and one with SSM layers (mamba2, jamba) a recurrent state, which padding
+would advance, so it prefills every prompt at its exact length, and
+``paged=True`` and ``prefill_chunk`` refuse it (``_bucketing_safe``, the
+reference's rule).  An SSM prompt's length must then divide into the
+arch's SSD chunks (``ssm.ssd_chunked``), as in the reference.
 Mixture-of-experts archs bucket too: their bucket-padded prefills pass the
 router pad mask (``lm.backbone_seq(pad_mask=)``, ``models/moe.py``), so
 padding claims no expert capacity and real tokens keep and drop what they
@@ -505,7 +508,7 @@ class Server:
         self._cur_tok[slot] = spill["cur_tok"]
         self._temps[slot] = req.temperature
         if tel.enabled:
-            fence(self.pool.caches[0]["pos"])
+            fence(next(iter(self.pool.caches[0].values())))
             t1 = tel.now()
             if self._paged:
                 tel.event("page_alloc", t0, request_id=req.id, step=self.steps, slot=slot,

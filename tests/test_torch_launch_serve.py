@@ -229,7 +229,8 @@ def test_plan_suite_json_serves(tmp_path, monkeypatch, capsys):
     run.main(["--only", "plan", "--device", "cpu"])
     rows = capsys.readouterr().out.splitlines()
     assert rows[0] == "name,us_per_call,derived"
-    assert [r.split(",")[0] for r in rows[1:]] == ["plan/h2o-danube-3-4b", "plan/tiny-2.6m"]
+    assert [r.split(",")[0] for r in rows[1:]] == ["plan/h2o-danube-3-4b", "plan/mamba2-130m",
+                                                   "plan/tiny-2.6m"]
     path = tmp_path / "plans" / "tiny-2.6m.json"
     m = tmp_path / "m.prom"
     serve_mod.main(["--arch", "tiny-2.6m", "--plan", str(path), "--kv-bits", "4",
@@ -242,6 +243,17 @@ def test_plan_suite_json_serves(tmp_path, monkeypatch, capsys):
     units = PrecisionPlan.load(path).assignments
     text = m.read_text()
     assert all(f'quant_unit_bits{{unit="{u}"}}' in text for u in units)
+
+
+def test_figmix_gate_and_plan_archs_are_the_reference_s():
+    """figmix gates the reference's attention and SSM archs, and the plan
+    suite saves their plans and tiny-2.6m's, as benchmarks/fig_mixed_frontier.py."""
+    from benchmarks import fig_mixed_frontier as rfig
+
+    from repro_torch.paper import fig_mixed_frontier as tfig
+
+    assert tfig.GATE_ARCHS == rfig.GATE_ARCHS == ["h2o-danube-3-4b", "mamba2-130m"]
+    assert tfig.PLAN_ARCHS == rfig.PLAN_ARCHS
 
 
 def test_reference_plan_serves_in_the_port(tmp_path, capsys):

@@ -68,7 +68,12 @@ where the card is (a machine without JAX):
   decoder (reduced() moonshot-v1 with experts of width 128) through the
   Engine (captured steps = eager ones, 3 expert GEMVs a layer and step)
   and the Server with bucketed, pad-masked prefills (= the per-request
-  Engine).
+  Engine);
+* state-space and hybrid decoders: reduced() mamba2 (kv16) and jamba (kv4)
+  with d 128 through the Engine (captured SSM steps, the state and conv
+  updated in place, = eager ones; two GEMVs an SSM layer and step), and an
+  SSM decode step of full-width mamba2 (4-bit in_proj and out_proj) whose
+  row alone equals the same row among 8 bit for bit (output, state, conv).
 """
 
 import numpy as np
@@ -1299,3 +1304,59 @@ def test_moe_server_equals_engine_with_pad_masked_buckets():
         assert res[i] == eng[0].tolist(), i
     with pytest.raises(ValueError):
         Server(params, cfg, num_slots=2, max_seq_len=48, device="cuda", prefill_chunk=128)
+
+
+def _ssm_cfg(name="mamba2-130m"):
+    """reduced() SSM shapes with whole 64-blocks in every quantized row:
+    d 128 (d_inner 256, 16 heads of 16), so the fused GEMV serves in_proj
+    and out_proj."""
+    return get_arch(name).reduced(d_model=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv", [("mamba2-130m", 16), ("jamba-v0.1-52b", 4)])
+def test_ssm_engine_graph_tokens_equal_eager(name, kv):
+    """The captured SSM decode step (the state and conv updated in place,
+    no host sync): tokens equal eager steps', two tensor-core GEMVs an SSM
+    layer and step."""
+    _need_cuda()
+    cfg = _ssm_cfg(name).with_kv_quant(kv)
+    params = _q4_params(cfg)
+    S, n = 16, 12
+    prompts = torch.randint(0, cfg.vocab_size, (3, S), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(kv))
+    g0 = tqm.qmatmul_gemv_tc.launches
+    graph = Engine(params, cfg, max_seq_len=S + n, device="cuda").generate(prompts, n)
+    torch.cuda.synchronize()
+    n_ssm = sum(m == "ssm" for m, _ in cfg.layer_schedule())
+    assert tqm.qmatmul_gemv_tc.launches - g0 >= 2 * n_ssm * n
+    assert torch.equal(graph, _eager(params, cfg, prompts, n, 0.0, None, S + n))
+
+
+@pytest.mark.cuda
+def test_ssm_decode_row_does_not_depend_on_the_batch():
+    """A row's SSM decode step alone equals the same row among 8 bit for bit:
+    its output, state and conv (the Server's pool against the Engine's
+    batch of 1), through ssm_block_decode on full-width mamba2 shapes with
+    4-bit in_proj and out_proj (B1's GEMV)."""
+    _need_cuda()
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import Init
+    from repro_torch.models.quantize import quantize_unit
+
+    cfg = get_arch("mamba2-130m")
+    p = ssm.init_ssm(Init(0, torch.device("cuda"), torch.bfloat16), cfg)
+    for key in ("in_proj", "out_proj"):
+        p[key]["w"] = quantize_unit("matrix", p[key]["w"], QuantConfig(bits=4))
+    g = torch.Generator("cuda").manual_seed(3)
+    u = torch.randn((8, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    cache = ssm.init_ssm_cache(cfg, 8, device="cuda")
+    cache["state"].normal_(generator=g)
+    cache["conv"].copy_(torch.randn(cache["conv"].shape, generator=g, device="cuda"))
+    one = {k: v[3:4].clone() for k, v in cache.items()}
+    with torch.inference_mode():
+        y8 = ssm.ssm_block_decode(p, u, cache, cfg)
+        y1 = ssm.ssm_block_decode(p, u[3:4], one, cfg)
+    assert torch.equal(y8[3:4].view(torch.int16), y1.view(torch.int16))
+    assert torch.equal(cache["state"][3:4], one["state"])
+    assert torch.equal(cache["conv"][3:4].view(torch.int16), one["conv"].view(torch.int16))

@@ -32,9 +32,11 @@ The bars:
 * the Engine's and the Server's greedy tokens under a plan equal to the
   reference's at kv16 and kv4.
 
-The reference's SSM archs (A10) and its sharded decode (A11) become checks
-that the port refuses them, naming the item; an MoE arch (phi3.5-moe at
-reduced()) runs the plan path and the load-time health.
+The reference's sharded decode (A11) becomes a check that the port refuses
+it, naming the item; the SSM archs (mamba2-130m, jamba-v0.1-52b at
+reduced()) enumerate the reference's units, in_proj and out_proj among
+them; an MoE arch (phi3.5-moe at reduced()) runs the plan path and the
+load-time health.
 Probe tokens are the reference's, passed across as numpy: the two
 ``probe_tokens`` draw different streams.
 """
@@ -209,12 +211,22 @@ def test_units_match_reference(name, pct):
     assert (pct > 0) == any(u["outlier_idx"] is not None for u in mine.values())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m"])
-def test_moe_ssm_and_window_archs_refused_naming_a10(arch):
-    """The reference enumerates SSM units; the port does not serve that
-    family yet (its danube runs the cases above, its MoE archs the next)."""
-    with pytest.raises(KeyError, match="A10"):
-        get_arch(arch)
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_units_enumerate_as_reference(arch):
+    """tests/test_precision.py's SSM case on the port: the SSM mixers'
+    in_proj and out_proj are units, and every unit's name, kind, shape and
+    n_params is the reference's."""
+    rcfg, tcfg = r_get_arch(arch).reduced(), get_arch(arch).reduced()
+    raw = jax.jit(lambda k: rlm.init_params(k, rcfg))(jax.random.PRNGKey(1))
+    params = interop.params_from_reference(jax.tree.map(np.asarray, raw), device="cpu")
+    ref = rquant.quantizable_units(raw, rcfg, R_BASE)
+    mine = quantizable_units(params, tcfg, BASE)
+    assert list(mine) == list(ref)
+    assert any(u.endswith("mixer/in_proj") for u in mine)
+    assert any(u.endswith("mixer/out_proj") for u in mine)
+    for u, r in ref.items():
+        m = mine[u]
+        assert (m["kind"], m["n_params"], m["shape"]) == (r["kind"], r["n_params"], r["shape"])
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b"])

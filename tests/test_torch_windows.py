@@ -116,7 +116,7 @@ def test_configs_and_full_size_counts_equal_reference(name):
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_other_archs_still_refused_naming_a10(name):
-    assert len(NOT_PORTED) == 3
+    assert len(NOT_PORTED) == 1
     r_get_arch(name)
     with pytest.raises(KeyError, match="A10"):
         get_arch(name)
