@@ -45,7 +45,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                16-column blocks; jamba's in_proj, out_proj, MLP and head);
                the expert-batched GEMV at the MoE archs' expert shapes,
                jamba's 16 experts of 14336 x 4096 and 4096 x 14336 among
-               them.
+               them; B1 and the encode to the stored form at the seq2seq
+               phase's matrices (seamless-m4t-large-v2's 1024 x 1024, 1024 x
+               8192, 8192 x 1024 and its 256,206-row head) at 1, 4 and 8
+               rows (GEMV) and 9, 260 and 4096 rows (GEMM).
   3. serve   — Qwen2-7B at full width and depth, seeded random weights
                quantized on the card (4-bit float, block 64; one
                quantize_pack launch per quantized matrix), Engine with a
@@ -136,6 +139,33 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                1024, 16 new: graph = eager, one replay 31 GEMVs, 12
                expert-batched GEMVs and 1 fused attention, the experts that
                hold a token; fused vs dequant_einsum as the moe phase gates.
+  3i. seq2seq — (right after the ssm phase, on an empty card)
+               seamless-m4t-large-v2 at full width and depth (24 encoder and
+               24 decoder layers, d 1024, 16 heads of 64, a gated-GELU MLP of
+               8192, LayerNorm, an untied 256,206-row head) through
+               models/seq2seq.py, seeded bf16 weights quantized on the card
+               (434 quantize_pack launches and nothing else): 4 sources of
+               1024 stub frames, a decoder prefix of 2 tokens, 64 greedy
+               tokens, each step seq2seq.decode_step at a 0-d device
+               position.  Gates the prefill's launches (217 tensor-core
+               GEMMs: the encoder's 169 and the cross K/V's 48 at 4096
+               rows; 217 tensor-core GEMVs: the decoder's 216 at 8 rows and
+               the head at 4) and a decode step's (217 GEMVs, nothing else:
+               no fused attention, no KV dequant: the bf16 caches go through
+               the plain partials, as the reference's); one step captured
+               with serving.engine.capture_graph, no host sync in its body,
+               its replay's logits equal to the eager step's bit for bit and
+               its launches the step's; finite logits, tokens in range;
+               teacher-forced fused vs dequant_einsum logits within 0.5; the
+               decode-vs-forward gap (the prefill and decode steps against
+               decoder_seq + logits_from_hidden over the same tokens) with
+               both stacks cut to 2, 4 and 8 layers within the reference's
+               0.05 of the reference's own gap at that depth and width (on
+               the CPU, scripts/seq2seq_gaps_reference.py), the full depth's
+               reported.  Reports the prefill and the step on
+               the card and by the host clock, the step's GEMVs alone beside
+               their bound and its attention reads' share, init and
+               quantize times and peaks.
   3a. bits   — the serve phase's Engine at 3, 5 and 6 bits (the same seeded
                weights quantized at each width in turn, each freed before the
                next): captured-step tokens identical to eager ones, one replay
@@ -403,6 +433,23 @@ JAMBA_ARCH, JAMBA_DEPTH, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW = "jamba-v0.1-52b"
 # down): 16 experts, empty ones, 1 row and 8
 JAMBA_GEMV_SHAPES = ((14336, 4096), (4096, 14336))
 JAMBA_GEMV_COUNTS = (0, 1, 8, 3, 0, 5, 8, 2, 1, 0, 8, 4, 6, 0, 7, 1)
+# the seq2seq phase: seamless-m4t-large-v2 at full width and depth, 4 sources
+# of 1024 stub frames (N(0, 1) draws), a decoder prefix of two fixed ids
+# standing for a start token and a target-language tag, 64 greedy tokens;
+# its decode-vs-forward bar is the reference's own
+# (tests/test_decode_consistency.py, test_seq2seq_prefill_decode_matches_full)
+S2S_ARCH, S2S_BATCH, S2S_FRAMES, S2S_NEW = "seamless-m4t-large-v2", 4, 1024, 64
+S2S_PREFIX = (2, 256047)
+S2S_GAP_TOL = 0.05
+S2S_TIMED_STEPS = 20
+# at full width the reference's own decode is further than its 0.05 from its
+# forward, more so the deeper the stacks: its gap on the CPU with both
+# stacks cut to a depth (scripts/seq2seq_gaps_reference.py: 4-bit weights,
+# 2 sources of 256 frames, a prefix of 2, 16 steps, compiled without excess
+# precision), by depth.  The card's gap with the stacks cut to each of these
+# depths may be at most the reference's own plus its bar S2S_GAP_TOL; the
+# gap at full depth is reported beside them
+S2S_REF_GAPS = {2: 0.03179931640625, 4: 0.0546875, 8: 0.078125}
 # the launcher subprocess: tiny-2.6m served per the plan suite's JSON
 LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
@@ -448,6 +495,8 @@ def main() -> int:
     _memory_note(torch, "moe")
     ssm_counts = ssm_path(torch, dev)
     _memory_note(torch, "ssm")
+    s2s_counts = seq2seq_path(torch, dev)
+    _memory_note(torch, "seq2seq")
     run = serve_main_path(torch, dev)
     low_bits = serve_low_bits(torch, dev, run)
     _memory_note(torch, "bits")
@@ -464,7 +513,7 @@ def main() -> int:
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
     main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   run["plan_counts"], windows, experts["launches"], ssm_counts,
+                   run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"])
     del run
 
@@ -488,8 +537,10 @@ def main() -> int:
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
             # mamba2-130m and jamba (their loads, Engines and mamba2's
-            # Servers), kernel_bench, the paper's sweep, its remaining
-            # experiments and the figmix and plan suites
+            # Servers), seamless-m4t-large-v2 (its load, prefill, decode
+            # steps, captured step and teacher-forced forward), kernel_bench,
+            # the paper's sweep, its remaining experiments and the figmix and
+            # plan suites
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -711,6 +762,14 @@ def check_kernels(torch, dev) -> dict:
             check_b1((1, JAMBA_BATCH, SSM_BATCH, SSM_SLOTS, SSM_SHORT_PROMPTS[0],
                       SSM_LONG_PROMPTS[-1], JAMBA_BATCH * JAMBA_PROMPT, SSM_BATCH * SSM_PROMPT),
                      cols, rows, 4, "float", 64, torch.bfloat16, True)
+    # the seq2seq phase's matrices (the head's 256,206 rows: N % 8 = 6): its
+    # decode steps (1 and 4 rows), the prefill's decoder products (8) and
+    # head (4), a GEMM just past the GEMV (9), the teacher-forced forward
+    # over the 65 tokens and the encoder's and cross K/V's GEMMs (4096)
+    for rows, cols, _ in _s2s_items():
+        check_b1((1, S2S_BATCH, 2 * S2S_BATCH, 9, S2S_BATCH * (len(S2S_PREFIX) + S2S_NEW - 1),
+                  S2S_BATCH * S2S_FRAMES), cols, rows, 4, "float", 64, torch.bfloat16, True)
+        torch.cuda.empty_cache()
     # a row's result does not depend on the rows sharing the call: row 0 of
     # an 8-row call equals the 1-row call bit for bit, on every f32 route
     for (K, N), bits, dtype, block in ([(kn, 4, "float", 64) for kn in shapes]
@@ -961,8 +1020,10 @@ def check_pack(torch, dev, g, cfg, worst) -> int:
         one(stored, cb, 4, 64, transposed, f"Qwen2-7B item {rows}x{cols}")
         del stored
         torch.cuda.empty_cache()
-    # the windows and ssm phases' items (out, in), each as its layer stores it
-    for name, items in itertools.chain(_window_items().items(), _ssm_items().items()):
+    # the windows, ssm and seq2seq phases' items (out, in), each as its layer
+    # stores it
+    for name, items in itertools.chain(_window_items().items(), _ssm_items().items(),
+                                       [(S2S_ARCH, _s2s_items())]):
         for rows, cols, transposed in items:
             shape = (cols, rows) if transposed else (rows, cols)
             stored = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -992,6 +1053,17 @@ def _ssm_items() -> dict:
         if not c.tie_embeddings:
             out[name].append((c.vocab_size, D, False))
     return out
+
+
+def _s2s_items() -> list:
+    """[(out, in, stored transposed)] over the distinct matrices of the
+    seq2seq phase's model: frame_proj and the attention projections, the
+    MLP's gate/up and down, and the untied lm_head."""
+    from repro_torch.configs import get_arch
+
+    c = get_arch(S2S_ARCH)
+    D, F = c.d_model, c.d_ff
+    return [(D, D, True), (F, D, True), (D, F, True), (c.vocab_size, D, False)]
 
 
 def _window_items() -> dict:
@@ -2342,9 +2414,13 @@ def _encode_items(cfg) -> int:
     """quantize_pack launches of a whole-model 4-bit quantization: a layer's
     four attention projections or its SSM mixer's in_proj and out_proj, its
     MLP's three matrices or its three expert stacks an expert at a time (no
-    FFN: none), and an untied lm_head."""
+    FFN: none), and an untied lm_head.  An encoder-decoder: frame_proj, 7 an
+    encoder layer (attention and MLP), 11 a decoder layer (self and cross
+    attention, MLP) and its lm_head."""
     from repro_torch.models import blocks
 
+    if cfg.encoder_decoder:
+        return 1 + 7 * cfg.n_encoder_layers + 11 * cfg.n_layers + 1
     mixer = {"attn": 4, "attn_local": 4, "attn_global": 4, "ssm": 2}
     ffn = {"mlp": 3, "moe": 3 * cfg.n_experts, None: 0}
     sched = blocks.stack_schedule(cfg)
@@ -2357,13 +2433,14 @@ def _load_quantized(torch, dev, cfg, total):
     block 64), one quantize_pack launch an item (``_encode_items``; an
     expert stack's item is one expert's matrix): (qparams, report)."""
     from repro_torch.configs import QuantConfig
-    from repro_torch.models import lm
+    from repro_torch.models import lm, seq2seq
     from repro_torch.models.quantize import quantize_params
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    init = seq2seq.init_params if cfg.encoder_decoder else lm.init_params
+    params = init(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated()
     params_bytes = torch.cuda.memory_allocated()
@@ -3405,6 +3482,281 @@ def ssm_path(torch, dev) -> dict:
     return total
 
 
+def _s2s_step_gemvs(torch, dev, qparams, cfg, B) -> dict:
+    """A decode step's B1 GEMVs alone (each decoder layer's nine products and
+    the head, on B rows, the step's operands), captured and replayed, beside
+    the bound of their bytes (words, scales, codebook, x and y)."""
+    from repro_torch.kernels import qmatmul as qk
+    from repro_torch.models.blocks import take
+
+    names = [("self_attn", "wq"), ("self_attn", "wk"), ("self_attn", "wv"),
+             ("self_attn", "wo"), ("cross_attn", "wq"), ("cross_attn", "wo"),
+             ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+    stack = qparams["dec_stack"]
+    qts = [take(stack, i)[a][b]["w"] for i in range(cfg.n_layers) for a, b in names]
+    qts.append(qparams["lm_head"])
+    calls, _, nbytes, flops = _b1_launches(torch, dev, qts, B, _gen(torch, dev, SEED + 23))
+    with torch.inference_mode():
+        ms = _time_ms(torch, _b1_run(calls, qk.qmatmul_gemv), 10)
+    del calls
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {"gemvs": len(qts), "rows": B, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "weights": sum(math.prod(qt.quant_shape) for qt in qts)}
+
+
+def _s2s_decode_gap(torch, qparams, cfg, frames, seq, P) -> float:
+    """The largest logit gap between ``seq2seq.prefill`` over seq[:, :P] then
+    teacher-forced ``decode_step``s over the rest of seq, and the forward
+    (``decoder_seq`` + ``logits_from_hidden``) at the same positions."""
+    from repro_torch.models import lm, seq2seq
+
+    h, _ = seq2seq.decoder_seq(qparams, seq, seq2seq.encode(qparams, frames, cfg), cfg)
+    full = lm.logits_from_hidden(qparams, h[:, P - 1:], cfg).float()
+    del h
+    logits, caches = seq2seq.prefill(qparams, frames, seq[:, :P], cfg)
+    gap = float((logits.float() - full[:, 0]).abs().max())
+    pos = torch.full((), P, dtype=torch.int32, device=seq.device)
+    for t in range(P, seq.shape[1]):
+        logits, caches = seq2seq.decode_step(qparams, seq[:, t], caches, pos, cfg)
+        gap = max(gap, float((logits.float() - full[:, t - P + 1]).abs().max()))
+        pos.add_(1)
+    return gap
+
+
+def seq2seq_path(torch, dev) -> dict:
+    """Phase 3i: the encoder-decoder with frame inputs at full width and depth.
+    seamless-m4t-large-v2 (24 + 24 layers, d 1024, an untied 256,206-row
+    head), seeded bf16 weights quantized on the card (434 quantize_pack
+    launches).  The main path: ``seq2seq.prefill`` over S2S_BATCH sources of
+    S2S_FRAMES stub frames and the S2S_PREFIX tokens (217 tensor-core GEMMs
+    and 217 tensor-core GEMVs, nothing else), then S2S_NEW - 1 greedy
+    ``seq2seq.decode_step``s at a 0-d device position (217 GEMVs each,
+    nothing else): its counts set to 0 just before, read just after.  One
+    step captured with ``capture_graph`` from the same caches: no host sync
+    in its body, its logits the eager step's bit for bit, its replay's
+    launches the step's.  Gated: finite logits, tokens in range, the
+    teacher-forced fused vs dequant_einsum logits within MODE_GAP_TOL (no B1
+    launch under dequant_einsum), the decode path's gap to the forward with
+    both stacks cut to each depth of S2S_REF_GAPS at most the reference's own
+    gap there plus S2S_GAP_TOL (the full depth's reported).  Timed: the
+    prefill and its encoder, the step (replayed and eager), its GEMVs alone
+    and its attention reads alone.  Returns the phase's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention, blocks, lm, seq2seq
+    from repro_torch.serving import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    gc.collect()
+    cfg = get_arch(S2S_ARCH)
+    qparams, load = _load_quantized(torch, dev, cfg, total)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    out = {"phase": "seq2seq", "arch": S2S_ARCH, "encoder_depth": n_enc, "decoder_depth": n_dec,
+           "width": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": lm.count_params(cfg), **load}
+    B, S, P = S2S_BATCH, S2S_FRAMES, len(S2S_PREFIX)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 22).standard_normal(
+        (B, S, cfg.d_model), dtype=np.float32)).to(dev).to(torch.bfloat16)
+    prefix = torch.tensor([S2S_PREFIX] * B, dtype=torch.int64, device=dev)
+    none = dict.fromkeys(_COUNT_KEYS, 0)
+    step_gemvs = 9 * n_dec + 1
+    want_step = {**none, "gemv": step_gemvs, "gemv_tc": step_gemvs}
+    want_prefill = {**none, "gemm": 1 + 7 * n_enc + 2 * n_dec, "gemv": step_gemvs,
+                    "gemv_tc": step_gemvs}
+    torch.cuda.reset_peak_memory_stats()
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    with torch.inference_mode():
+        # the main path: the prefill, then the greedy decode steps
+        torch.cuda.synchronize()
+        e0, e1 = events()
+        _reset_counts()
+        t0 = time.perf_counter()
+        e0.record()
+        logits, caches = seq2seq.prefill(qparams, frames, prefix, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_device_s = e0.elapsed_time(e1) / 1e3
+        pre = _counts()
+        toks, step_logits = [logits.argmax(-1).to(torch.int32)], [logits]
+        pos = torch.full((), P, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for t in range(S2S_NEW - 1):
+            logits, caches = seq2seq.decode_step(qparams, toks[-1], caches, pos, cfg)
+            if t == 0:
+                first = {k: n - pre[k] for k, n in _counts().items()}
+            toks.append(logits.argmax(-1).to(torch.int32))
+            step_logits.append(logits)
+            pos.add_(1)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / (S2S_NEW - 1) * 1e3
+        main = _counts()
+        for key in total:
+            total[key] += main[key]
+        require(pre == want_prefill, f"seq2seq prefill launched {pre}, want {want_prefill}")
+        require(first == want_step, f"seq2seq decode step launched {first}, want {want_step}")
+        want_main = {k: want_prefill[k] + (S2S_NEW - 1) * want_step[k] for k in none}
+        require(main == want_main, f"seq2seq prefill + decode launched {main}, want {want_main}")
+        tokens = torch.stack(toks, 1)
+        dec = torch.stack(step_logits, 1).float()
+        del step_logits
+        require(tuple(tokens.shape) == (B, S2S_NEW)
+                and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+                and bool(torch.isfinite(dec).all()),
+                f"seq2seq: tokens {tuple(tokens.shape)} out of range or non-finite logits")
+        self_c, cross = caches
+        require(self_c["k"].dtype == torch.bfloat16
+                and tuple(self_c["k"].shape) == (n_dec, B, cfg.decoder_cache_len, cfg.n_kv_heads,
+                                                 cfg.head_dim)
+                and tuple(cross["k"].shape) == (n_dec, B, S, cfg.n_kv_heads, cfg.head_dim),
+                f"seq2seq caches: self {tuple(self_c['k'].shape)} {self_c['k'].dtype}, "
+                f"cross {tuple(cross['k'].shape)}")
+
+        # one step captured from the same caches: the replay against the
+        # eager step, bit for bit
+        snap = {k: v.clone() for k, v in self_c.items()}
+        tok_s, pos_s = toks[-1].clone(), pos.clone()
+        box = {}
+
+        def body():
+            lg, _ = seq2seq.decode_step(qparams, tok_s, caches, pos_s, cfg)
+            if "out" not in box:
+                box["out"] = torch.empty_like(lg)   # allocated by the warm-up call
+            box["out"].copy_(lg)
+
+        def reload():
+            for k, v in snap.items():
+                self_c[k].copy_(v)
+
+        before = _counts()
+        with _capture_guard(torch) as syncs:
+            step = engine_mod.capture_graph(body, dev)
+        warm = {k: n - before[k] for k, n in _counts().items()}
+        require(not syncs, f"seq2seq: the captured step syncs with the host: {syncs[:5]}")
+        reload()
+        _reset_counts()
+        step.replay()
+        torch.cuda.synchronize()
+        replay = _counts()
+        graph_logits = box["out"].clone()
+        reload()
+        eager_logits, _ = seq2seq.decode_step(qparams, tok_s, caches, pos_s, cfg)
+        torch.cuda.synchronize()
+        for key in total:
+            total[key] += warm[key] + replay[key]
+        require(warm == replay == want_step,
+                f"seq2seq captured step: warm-up {warm}, replay {replay}, want {want_step}")
+        require(torch.equal(graph_logits.view(torch.int16), eager_logits.view(torch.int16)),
+                "seq2seq: the replayed step's logits differ from the eager step's")
+        del graph_logits, eager_logits
+        t0 = time.perf_counter()
+        for _ in range(S2S_TIMED_STEPS):
+            step.graph.replay()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / S2S_TIMED_STEPS * 1e3
+        device_ms = _time_graph(torch, step.graph, S2S_TIMED_STEPS)
+        reload()
+        # the step's attention reads alone: each layer's self read over its
+        # 4096 slots at the step's position and cross read over the source
+        q = torch.randn((B, cfg.n_heads, cfg.head_dim), generator=_gen(torch, dev, SEED + 24),
+                        device=dev).to(torch.bfloat16)
+        every = S + 1
+        reads_ms = _time_ms(torch, lambda: [
+            (attention.decode_attention(q, blocks.take(self_c, i), pos_s),
+             attention.decode_attention(q, blocks.take(cross, i), every))
+            for i in range(n_dec)], 10)
+        del step, snap, caches, self_c, cross, box
+        torch.cuda.empty_cache()
+        # the prefill again, warm (the first one above paid the phase's
+        # first launches), and its encoder alone
+        e0, e1 = events()
+        t0 = time.perf_counter()
+        e0.record()
+        seq2seq.prefill(qparams, frames, prefix, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        warm_prefill_s, warm_prefill_device_s = time.perf_counter() - t0, e0.elapsed_time(e1) / 1e3
+        e0, e1 = events()
+        e0.record()
+        seq2seq.encode(qparams, frames, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        encode_device_s = e0.elapsed_time(e1) / 1e3
+
+        # teacher-forced on the greedy tokens: the forward's logits at the
+        # positions the prefill and the decode steps predicted from, fused
+        # and dequant_einsum
+        seq = torch.cat([prefix, tokens[:, :-1].long()], 1)
+        full = {}
+        for mode in ("fused", "dequant_einsum"):
+            c = cfg.with_matmul_mode(mode)
+            _reset_counts()
+            h, _ = seq2seq.decoder_seq(qparams, seq, seq2seq.encode(qparams, frames, c), c)
+            full[mode] = lm.logits_from_hidden(qparams, h[:, P - 1:], c).float()
+            del h
+            torch.cuda.synchronize()
+            counts = _counts()
+            for key in total:
+                total[key] += counts[key]
+            if mode == "dequant_einsum":
+                require(counts == none, f"seq2seq dequant_einsum launched {counts}")
+        mode_gap = float((full["fused"] - full["dequant_einsum"]).abs().max())
+        require(bool(torch.isfinite(full["dequant_einsum"]).all()) and mode_gap <= MODE_GAP_TOL,
+                f"seq2seq: fused vs dequant_einsum logit gap {mode_gap} > {MODE_GAP_TOL}")
+        gap = float((dec - full["fused"]).abs().max())
+        max_logit = float(full["fused"].abs().max())
+        del full, dec
+        # the same gap with both stacks cut to the depths the reference was
+        # measured at (the first layers of the same tree, the same tokens)
+        cut_gaps = {}
+        for d in S2S_REF_GAPS:
+            c = dataclasses.replace(cfg, n_layers=d, n_encoder_layers=d)
+            _reset_counts()
+            cut_gaps[d] = _s2s_decode_gap(torch, qparams, c, frames, seq, P)
+            for key, n in _counts().items():
+                total[key] += n
+    bars = {d: S2S_REF_GAPS[d] + S2S_GAP_TOL for d in S2S_REF_GAPS}
+    require(all(cut_gaps[d] <= bars[d] for d in bars),
+            f"seq2seq: decode-vs-forward gaps by depth {cut_gaps}, bars (the reference's own "
+            f"gap + {S2S_GAP_TOL}) {bars}")
+    out.update({
+        "sources": B, "frames": S, "prefix": list(S2S_PREFIX), "new_tokens": S2S_NEW,
+        "kv_cache": f"bf16, {cfg.decoder_cache_len} self slots; cross K/V over {S} frames",
+        "launches_prefill": pre, "launches_per_step": first, "launches_per_replay": replay,
+        "host_syncs_in_captured_step": len(syncs), "replay_equals_eager": True,
+        "prefill_s": prefill_s, "prefill_device_s": prefill_device_s,
+        "prefill_s_warm": warm_prefill_s, "prefill_device_s_warm": warm_prefill_device_s,
+        "encode_device_s": encode_device_s,
+        "decode_ms_per_step": host_ms, "decode_step_device_ms": device_ms,
+        "decode_ms_per_step_eager": eager_ms,
+        "step_gemvs": _s2s_step_gemvs(torch, dev, qparams, cfg, B),
+        "attention_reads_ms": reads_ms, "attention_reads_share": reads_ms / device_ms,
+        "mode_gap": {"max_abs_logit_gap": mode_gap, "gate": MODE_GAP_TOL,
+                     "positions": S2S_NEW},
+        "decode_vs_forward": {"max_abs_logit_gap": gap, "gated": False,
+                              "max_abs_logit": max_logit, "positions": S2S_NEW,
+                              "by_depth": cut_gaps, "reference_cpu_by_depth": S2S_REF_GAPS,
+                              "bars_by_depth": bars},
+        "peak_bytes": max(load["init_peak_bytes"], torch.cuda.max_memory_allocated())})
+    del qparams
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["memory_allocated_after_bytes"] = torch.cuda.memory_allocated()
+    out["weights"] = "4-bit float b64"
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    emit(out)
+    return total
+
+
 def _fixed_plan(cfg, base):
     """FIXED_PLAN_BITS over the unit names of Qwen2-7B's tree."""
     import dataclasses
@@ -4220,7 +4572,6 @@ def _b1_calls(torch, dev, qparams, cfg, M, with_head, g):
     the model's quantized matrices, x of M random bf16 rows a K: [(x padded,
     packed, scales, operand, x)], the matrices, and the bytes (packed words,
     scales, codebook, x in and y out) and operations of the launches."""
-    from repro_torch.kernels import ops
     from repro_torch.models.blocks import take
 
     names = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
@@ -4228,6 +4579,13 @@ def _b1_calls(torch, dev, qparams, cfg, M, with_head, g):
     stack = qparams["stack"][0]
     qts = [take(stack, i)[a][b]["w"] for i in range(cfg.n_layers) for a, b in names]
     qts += [qparams["lm_head"]] if with_head else []
+    return _b1_launches(torch, dev, qts, M, g)
+
+
+def _b1_launches(torch, dev, qts, M, g):
+    """``_b1_calls``' launches over the matrices ``qts``."""
+    from repro_torch.kernels import ops
+
     xs, calls = {}, []
     nbytes = flops = 0.0
     for qt in qts:

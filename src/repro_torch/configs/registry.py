@@ -3,9 +3,10 @@ architectures the port serves: the dense decoders (Qwen2-7B, deepseek-coder,
 chameleon's backbone, h2o-danube-3's sliding window, gemma2's local/global
 stack with sandwich norms), the mixture-of-experts decoders (moonshot-v1's
 64 experts, phi3.5-moe's 16), the state-space and hybrid decoders
-(mamba2-130m, jamba-v0.1's attention and SSM period of 8 with MoE) and the
-tiny ladder.  The reference's other registry arch (``NOT_PORTED``) raises,
-naming ROADMAP A10."""
+(mamba2-130m, jamba-v0.1's attention and SSM period of 8 with MoE), the
+encoder-decoder with frame inputs (seamless-m4t-large-v2, served by
+``models/seq2seq.py``) and the tiny ladder: every arch of the reference's
+registry."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.configs import (
     moonshot_v1_16b_a3b,
     phi35_moe_42b_a66b,
     qwen2_7b,
+    seamless_m4t_large_v2,
     tiny,
 )
 from repro_torch.configs.base import ArchConfig
@@ -35,19 +37,13 @@ ARCHS: dict[str, ArchConfig] = {
         phi35_moe_42b_a66b.CONFIG,
         mamba2_130m.CONFIG,
         jamba_v01_52b.CONFIG,
+        seamless_m4t_large_v2.CONFIG,
     ]
 }
 ARCHS.update(tiny.TINY_FAMILY)
 
 
-#: the reference's registry arch that the port does not serve yet: the
-#: seq2seq stack with frame inputs (ROADMAP A10.4)
-NOT_PORTED = ("seamless-m4t-large-v2",)
-
-
 def get_arch(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP A10); known: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

@@ -54,7 +54,8 @@ same three), ``--kv-block-size/--kv-dtype`` need ``--kv-bits < 16``,
 ``--kv-probe-every`` needs a quantized cache plus a telemetry sink, and
 each mode rejects the other's workload flags.  ``--mesh`` (ROADMAP A11)
 and ``--profile`` (A7) are not ported and are refused.  ``--device`` is
-the port's only addition.
+the port's only addition.  An encoder-decoder arch (seamless-m4t-large-v2)
+is refused before anything is built: it runs through ``models/seq2seq.py``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ from repro_torch.configs import QuantConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models.quantize import bits_report, quantize_params, quantize_tree
 from repro_torch.precision import PrecisionPlan
 from repro_torch.serving import NOOP, Engine, Server, Telemetry
@@ -393,6 +394,7 @@ def main(argv=None):
             if args.kv_probe_every is not None else 0)
 
     cfg = get_arch(args.arch).with_matmul_mode(args.matmul_mode)
+    blocks.check_dense(cfg)   # before anything is built
     if args.matmul_mode != "auto":
         print(f"matmul mode: {args.matmul_mode}")
     if args.kv_bits < 16:

@@ -32,8 +32,10 @@ layer writes its token and attends through ``decode_attn``, the
 reference's hook: ``local_decode_attn`` over a slot cache by default, the
 paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
-Not in the port yet: frame inputs (ROADMAP A10.4) and sharding constraints
-(A11).
+The encoder-decoder with frame inputs (``models/seq2seq.py``) uses ``mlp``,
+``take`` and ``local_decode_attn`` from here and has its own layer loops;
+``check_dense`` refuses it on this path.  Not in the port yet: sharding
+constraints (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -81,10 +83,13 @@ def init_layer(init, mixer: str, ffn: str | None, cfg) -> dict:
 
 
 def check_dense(cfg) -> None:
-    """Raise for the part of the config the port does not serve yet."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: frame inputs are not ported yet "
-                                  "(ROADMAP A10.4)")
+    """Raise for a config the decoder-only path does not run: an
+    encoder-decoder with frame inputs runs through ``models/seq2seq.py``."""
+    if cfg.encoder_decoder or cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder with frame inputs runs through "
+            "models/seq2seq.py (encode, prefill, decode_step), not the decoder-only "
+            "path of models/lm.py, the Engine or the Server")
 
 
 def mixer_window(mixer: str, cfg) -> int:

@@ -15,6 +15,7 @@ is on the CPU.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 
 import torch
@@ -140,12 +141,24 @@ def norm(params: dict, x: torch.Tensor, norm_type: str) -> torch.Tensor:
     return rmsnorm(x, params["scale"])
 
 
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as jax.nn casts its constants to x's
+    dtype (exact in f32, so a product with it rounds once, as XLA's)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def activation(x: torch.Tensor, act: str) -> torch.Tensor:
     """jax.nn's formulas, one op at a time in x's dtype — each op rounds,
     as XLA evaluates them (a fused F.silu rounds once and differs in the
-    last bf16 bit for about a third of the values)."""
+    last bf16 bit for about a third of the values).  The tanh GELU takes
+    jax.nn.gelu's order and constants in x's dtype: x * (0.5 * (1 +
+    tanh(c * (x + 0.044715 * (x * x) * x)))), the cube two rounded
+    products."""
     if act == "gelu":
-        return 0.5 * x * (1 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x**3)))
+        c = _in_dtype(0.7978845608028654, x.dtype)
+        a = _in_dtype(0.044715, x.dtype)
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
     return x * (1 / (1 + torch.exp(-x)))
 
 

@@ -1,7 +1,8 @@
 """Decoder-only LM assembled from blocks.py: init, loss, prefill, decode —
 port of the decoder path of ``repro/models/lm.py`` (llama-style stacks,
 sliding windows, gemma2's local/global period and soft-caps, mixture-of-
-experts FFNs, Mamba-2 SSM layers and jamba's hybrid period).
+experts FFNs, Mamba-2 SSM layers and jamba's hybrid period); the
+encoder-decoder is ``models/seq2seq.py``, built from the same blocks.
 
 The parameter tree has the reference's keys (``embed``, ``stack``,
 ``final_norm``, ``lm_head`` when untied), so a reference tree carries
@@ -43,8 +44,14 @@ def count_params(cfg, active_only: bool = False) -> int:
     """Exact parameter count of the model, from shapes on the meta device
     (no memory: gemma2-27b's 27.2 B).  ``active_only`` counts each expert
     stack ([n_periods, E, in, out] under an FFN) at top_k / n_experts, the
-    parameters a token reads, as the reference."""
-    shapes = init_params(cfg, device="meta")
+    parameters a token reads, as the reference.  An encoder-decoder counts
+    ``seq2seq.init_params``' tree."""
+    if cfg.encoder_decoder:
+        from repro_torch.models import seq2seq
+
+        shapes = seq2seq.init_params(cfg, device="meta")
+    else:
+        shapes = init_params(cfg, device="meta")
 
     def count(tree, keys=()):
         if isinstance(tree, dict):

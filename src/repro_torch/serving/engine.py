@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import launches
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models.quantize import quantize_tree
 from repro_torch.serving.telemetry import NOOP, record_quant_health, record_tree_bits
 
@@ -210,6 +210,7 @@ def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None):
 class Engine:
     def __init__(self, params, cfg, *, max_seq_len: int, eos_id: int | None = None,
                  plan=None, matmul_mode: str | None = None, telemetry=NOOP, device=None):
+        blocks.check_dense(cfg)
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
         check_no_profiler(telemetry)

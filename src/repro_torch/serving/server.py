@@ -139,6 +139,7 @@ class Server:
                  prefill_chunk: int | None = None, aging_steps: int | None = 64,
                  max_preemptions: int = 0, paged: bool = False, page_size: int = 16,
                  n_pages: int | None = None, device=None):
+        blocks.check_dense(cfg)
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
         if paged:

@@ -2,8 +2,10 @@
 ``repro/train/step.py`` for one device.
 
 Gradients come from ``torch.autograd`` over the port's ``lm.loss_fn`` (the
-model computes in bf16 on f32 master weights, as the reference's does).
-The dense weights carry no kernel, so no backward kernel is needed.
+model computes in bf16 on f32 master weights, as the reference's does), or
+over ``seq2seq.loss_fn`` for an encoder-decoder config, whose batch adds
+"frames" [B, S, D] to "tokens" and "labels".  The dense weights carry no
+kernel, so no backward kernel is needed.
 
 Not in this slice: the sharder (TP/FSDP specs, head padding) and blockwise
 gradient compression with error feedback (ROADMAP queue A11).
@@ -15,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import lm, seq2seq
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, unflatten
 
@@ -27,7 +29,8 @@ class TrainState(NamedTuple):
 
 def init_state(cfg, *, seed: int = 0, device=None) -> TrainState:
     """Seeded f32 parameters on ``device`` (CUDA by default) and zero moments."""
-    params = lm.init_params(cfg, seed=seed, device=device)
+    init = seq2seq.init_params if cfg.encoder_decoder else lm.init_params
+    params = init(cfg, seed=seed, device=device)
     return TrainState(params=params, opt=adamw.init(params))
 
 
@@ -37,6 +40,11 @@ def make_train_step(cfg, *, peak_lr: float = 3e-3, warmup: int = 50, total_steps
     > 1 accumulates f32 gradients over that many slices of the batch, which
     bounds activation memory by one slice's."""
 
+    def loss_of(params, mb):
+        if cfg.encoder_decoder:
+            return seq2seq.loss_fn(params, mb["frames"], mb["tokens"], mb["labels"], cfg)
+        return lm.loss_fn(params, mb["tokens"], mb["labels"], cfg, loss_chunk=loss_chunk)
+
     def grads_of(params, batch):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         live = unflatten(params, flat)
@@ -44,9 +52,9 @@ def make_train_step(cfg, *, peak_lr: float = 3e-3, warmup: int = 50, total_steps
         if microbatches < 1 or b % microbatches:
             raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
         loss_sum, acc = 0.0, [torch.zeros_like(p, dtype=torch.float32) for p in flat]
-        for tokens, labels in zip(batch["tokens"].chunk(microbatches),
-                                  batch["labels"].chunk(microbatches)):
-            loss = lm.loss_fn(live, tokens, labels, cfg, loss_chunk=loss_chunk)
+        keys = ("frames", "tokens", "labels") if cfg.encoder_decoder else ("tokens", "labels")
+        for parts in zip(*(batch[k].chunk(microbatches) for k in keys)):
+            loss = loss_of(live, dict(zip(keys, parts)))
             grads = torch.autograd.grad(loss, flat)
             acc = [a + g.to(torch.float32) for a, g in zip(acc, grads)]
             loss_sum = loss_sum + loss.detach()

@@ -73,7 +73,10 @@ where the card is (a machine without JAX):
   with d 128 through the Engine (captured SSM steps, the state and conv
   updated in place, = eager ones; two GEMVs an SSM layer and step), and an
   SSM decode step of full-width mamba2 (4-bit in_proj and out_proj) whose
-  row alone equals the same row among 8 bit for bit (output, state, conv).
+  row alone equals the same row among 8 bit for bit (output, state, conv);
+* the encoder-decoder (reduced() seamless-m4t-large-v2, 4-bit): the prefill
+  and decode steps through B1's GEMM and GEMV within 0.5 of dequant_einsum,
+  and a captured ``seq2seq.decode_step`` equal to the eager one bit for bit.
 """
 
 import numpy as np
@@ -1360,3 +1363,93 @@ def test_ssm_decode_row_does_not_depend_on_the_batch():
     assert torch.equal(y8[3:4].view(torch.int16), y1.view(torch.int16))
     assert torch.equal(cache["state"][3:4], one["state"])
     assert torch.equal(cache["conv"][3:4].view(torch.int16), one["conv"].view(torch.int16))
+
+
+def _s2s_case(seed):
+    """reduced() seamless (2 + 2 layers, d 64, 4 heads over 2 KV heads, an
+    untied 256-row head) with 4-bit weights, frames and tokens on the card."""
+    from repro_torch.models import seq2seq
+
+    cfg = get_arch("seamless-m4t-large-v2").reduced()
+    params = quantize_params(seq2seq.init_params(cfg, seed=0, device="cuda",
+                                                 dtype=torch.bfloat16),
+                             QuantConfig(bits=4), cfg, device="cuda")
+    g = torch.Generator("cuda").manual_seed(seed)
+    frames = torch.randn((3, 40, cfg.d_model), generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=g, device="cuda")
+    return cfg, params, frames, toks
+
+
+def _s2s_logits(params, cfg, frames, toks, prefix):
+    """The prefill over toks[:, :prefix], then decode steps fed the rest:
+    every step's logits [B, T - prefix + 1, V] in f32."""
+    from repro_torch.models import seq2seq
+
+    with torch.inference_mode():
+        logits, caches = seq2seq.prefill(params, frames, toks[:, :prefix], cfg)
+        out = [logits.float()]
+        pos = torch.full((), prefix, dtype=torch.int32, device="cuda")
+        for t in range(prefix, toks.shape[1]):
+            logits, caches = seq2seq.decode_step(params, toks[:, t], caches, pos, cfg)
+            out.append(logits.float())
+            pos.add_(1)
+    return torch.stack(out, 1)
+
+
+@pytest.mark.cuda
+def test_seq2seq_fused_within_dequant_einsum():
+    """The encoder-decoder's prefill and decode steps through B1's kernels
+    (one tensor-core GEMV a product and step, the encoder's and cross K/V's
+    products GEMMs) within 0.5 of dequant_einsum's logits, which launch no
+    B1 kernel."""
+    _need_cuda()
+    cfg, params, frames, toks = _s2s_case(5)
+    g0, m0 = tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemm.launches
+    # a prefix of 2 on 3 rows: the decoder's prefill products are GEMVs (6 rows)
+    fused = _s2s_logits(params, cfg.with_matmul_mode("fused"), frames, toks, 2)
+    torch.cuda.synchronize()
+    n_dec, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    assert tqm.qmatmul_gemv_tc.launches - g0 == (9 * n_dec + 1) * (1 + toks.shape[1] - 2)
+    assert tqm.qmatmul_gemm.launches - m0 == 1 + 7 * n_enc + 2 * n_dec
+    g0, m0 = tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemm.launches
+    plain = _s2s_logits(params, cfg.with_matmul_mode("dequant_einsum"), frames, toks, 2)
+    assert (tqm.qmatmul_gemv_tc.launches, tqm.qmatmul_gemm.launches) == (g0, m0)
+    assert bool(torch.isfinite(fused).all())
+    assert float((fused - plain).abs().max()) <= 0.5
+
+
+@pytest.mark.cuda
+def test_seq2seq_captured_step_equals_eager():
+    """One seq2seq.decode_step captured as a CUDA graph (capture_graph) from
+    the prefill's caches: its logits equal an eager step's from the same
+    caches bit for bit, and it wrote the token's K/V in place."""
+    _need_cuda()
+    from repro_torch.models import seq2seq
+    from repro_torch.serving.engine import capture_graph
+
+    cfg, params, frames, toks = _s2s_case(6)
+    with torch.inference_mode():
+        _, caches = seq2seq.prefill(params, frames, toks[:, :4], cfg)
+        snap = {k: v.clone() for k, v in caches[0].items()}
+        tok, pos = toks[:, 4].contiguous(), torch.full((), 4, dtype=torch.int32, device="cuda")
+        box = {}
+
+        def body():
+            logits, _ = seq2seq.decode_step(params, tok, caches, pos, cfg)
+            if "out" not in box:
+                box["out"] = torch.empty_like(logits)
+            box["out"].copy_(logits)
+
+        graph = capture_graph(body, torch.device("cuda"))
+        for k, v in snap.items():
+            caches[0][k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = box["out"].clone()
+        written = caches[0]["pos"].clone()
+        for k, v in snap.items():
+            caches[0][k].copy_(v)
+        eager, _ = seq2seq.decode_step(params, tok, caches, pos, cfg)
+    assert torch.equal(replayed.view(torch.int16), eager.view(torch.int16))
+    assert bool((written[:, :5] == torch.arange(5, device="cuda")).all())
+    assert bool((written[:, 5:] == -1).all())

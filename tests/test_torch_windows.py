@@ -10,8 +10,8 @@ without XLA's excess precision, as in ``tests/test_torch_model.py``.  The
 bars:
 
 * configs: the four new configs field for field, ``count_params`` at full
-  size equal to the reference's, the three archs still missing raising
-  "A10", the two MoE archs served (backbone logits within 0.08);
+  size equal to the reference's, the two MoE archs served (backbone logits
+  within 0.08; the encoder-decoder's tests are tests/test_torch_seq2seq.py);
 * ``backbone_seq`` logits of all four archs within 0.08 of the reference's
   (the decode-consistency bar of tests/test_decode_consistency.py; the gaps
   are 0.0 to 0.008);
@@ -54,7 +54,6 @@ from repro.models.quantize import quantizable_units as r_units  # noqa: E402
 from repro.models.quantize import quantize_params as r_quantize_params  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import QuantConfig, get_arch  # noqa: E402
-from repro_torch.configs.registry import NOT_PORTED  # noqa: E402
 from repro_torch.kernels import kv_dequant as tkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -114,21 +113,13 @@ def test_configs_and_full_size_counts_equal_reference(name):
     assert lm.count_params(mine.reduced()) == rlm.count_params(ref.reduced())
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_other_archs_still_refused_naming_a10(name):
-    assert len(NOT_PORTED) == 1
-    r_get_arch(name)
-    with pytest.raises(KeyError, match="A10"):
-        get_arch(name)
-
-
 @pytest.mark.parametrize("name", MOE_ARCHS)
 def test_moe_archs_ported_and_backbone_matches_reference(name):
-    """The MoE archs left NOT_PORTED with this slice: their configs are the
+    """The MoE archs, ported after this file's slice: their configs are the
     reference's, and their backbone logits at reduced() (raw weights, the
     ring test's tokens) within 0.08 of the reference's."""
     ref, mine = r_get_arch(name), get_arch(name)
-    assert name not in NOT_PORTED and mine.n_experts == ref.n_experts
+    assert mine.n_experts == ref.n_experts
     gap = float(np.abs(_ref_backbone_logits(name) - _port_backbone_logits(name)).max())
     assert gap < LOGIT_TOL, (name, gap)
 
