@@ -186,6 +186,30 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                teacher-forced through the Engine's step at batch 1 (logits
                within 0.08, a differing greedy token a near-tie) and one
                decode step over the pool's launches.
+  3j. profile — the step profiler (serving/profiler.py, utils/cost.py) on
+               the serve phase's Qwen2-7B tree: the Engine with
+               Telemetry(profiler=StepProfiler()) on the same 4 x 256
+               prompts, 32 greedy tokens, three generates: tokens and the
+               launches of a generate equal to the unprofiled run's, one
+               replay's launches the unprofiled step's, rows for
+               prefill[4x256] and decode_step[4]; every row's roofline_frac
+               in (0, 1], decode_step[4]'s bytes at least the stored bytes
+               of its 197 matrices, prefill[4x256]'s dot FLOPs the analytic
+               2·M·N·K sum of its matrices plus its causal attention; the
+               server phase's 24 requests through a profiled Server, plain
+               and in chunks of 128: tokens the unprofiled run's, a plain
+               run's launches the server phase's, one replay's the step's,
+               rows for prefill[*], prefill_chunk[*], chunk_commit[*] and
+               decode_step; tiny-10m's prefill and decode step at kv4 (the
+               routed read) costed on the CPU and on the card: flops,
+               dot_flops and the charged share equal, hbm_bytes within 1 %;
+               compress_tree on a gradient tree of tiny-160k on the card
+               (two steps, the error fed back) bit-identical to its plain
+               version on the CPU, one flat-encode launch a leaf of 1,024
+               values or more, and tiny-650k trained 150 steps (batch 32,
+               sequence 128) with 8-bit gradient compression, its loss down
+               by MIN_LOSS_DROP; python -m repro_torch.examples.quickstart
+               exits 0.  Prints each row and the phase's seconds.
   3c. paged  — the same Server on the paged pool (pages of 16): the server
                phase's 24 requests at kv4, the first 8 at kv8 and kv16, and
                the two classes with preemption, tokens identical to the slot
@@ -285,6 +309,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -501,6 +526,7 @@ def main() -> int:
     low_bits = serve_low_bits(torch, dev, run)
     _memory_note(torch, "bits")
     server_path(torch, dev, run)
+    profile_path(torch, dev, run)
     paged_path(torch, dev, run)
     _memory_note(torch, "paged")
     routed_path(torch, dev, run)
@@ -512,8 +538,8 @@ def main() -> int:
     suites = plan_suites(torch, dev, paper)
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
-    main_counts = (run["server_counts"], run["paged_counts"], run["routed_counts"],
-                   run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
+    main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
+                   run["routed_counts"], run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"])
     del run
 
@@ -532,7 +558,9 @@ def main() -> int:
             "source": t["source"], "replaces": t["replaces"],
             # the main paths' launches: serving Qwen2-7B through the Engine
             # (its quantization included), through the Server on the slot
-            # pool and on pages, tiny-10m's routed read (Engine and Server),
+            # pool and on pages, the profile phase (the profiled Engine and
+            # Servers, gradient compression and its training run),
+            # tiny-10m's routed read (Engine and Server),
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
@@ -1553,8 +1581,10 @@ def serve_main_path(torch, dev) -> dict:
           "launches": counts, "launches_per_decode_step": step_counts,
           "launches_quantize": quant_counts})
     require(counts["b3"] == counts["pack"] == 0, f"generate launched encodes: {counts}")
+    generate_counts = dict(counts)
     counts["b3"], counts["pack"] = quant_counts["b3"], quant_counts["pack"]
-    return {"cfg": cfg, "qparams": qparams, "prompts": prompts, "counts": counts}
+    return {"cfg": cfg, "qparams": qparams, "prompts": prompts, "counts": counts,
+            "tokens": tokens, "generate_counts": generate_counts, "step_counts": step_counts}
 
 
 class _capture_guard:
@@ -1927,6 +1957,247 @@ def server_path(torch, dev, run) -> dict:
     run["server_counts"] = counts
     run["server_plain"] = plain
     return counts
+
+
+#: the profile phase: the roofline share is a fraction of the measured time,
+#: so above 0, and at most 1 unless the cost counts work the card did not do
+#: or the time is wrong; the CPU and the card may differ in hbm_bytes by
+#: the counted ops between charged units (the card's decode partials go a
+#: row at a time and are concatenated), at most this share
+PROFILE_BYTES_REL_TOL = 0.01
+PROFILE_GENERATES = 3
+# gradient compression on the card: the smallest ladder model's gradients,
+# and a training run as the reference's examples train (150 steps, batch
+# 32, sequence 128) on tiny-650k
+GC_ARCH, GC_TRAIN_ARCH, GC_STEPS, GC_BATCH, GC_SEQ = "tiny-160k", "tiny-650k", 150, 32, 128
+
+
+def _profile_rows(prof) -> list:
+    return [{k: r[k] for k in ("program", "calls", "fastest_half_ms", "flops", "dot_flops",
+                               "hbm_bytes", "achieved_gflops_s", "achieved_hbm_gbps",
+                               "roofline_frac", "cost_s")} for r in prof.summary()]
+
+
+def _prefill_dots(cfg, B: int, S: int) -> int:
+    """The analytic dot FLOPs of a dense decoder's prefill of B x S: every
+    row through each layer's q, k, v, o and FFN matrices, the causal
+    attention counted over the whole S x S square (as the reference's
+    masked attention multiplies it), the head on each prompt's last row."""
+    D, H, K, Dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_row = D * H * Dh + 2 * D * K * Dh + H * Dh * D + 3 * D * F
+    return cfg.n_layers * (2 * B * S * per_row + 4 * B * H * S * S * Dh) \
+        + 2 * B * D * cfg.vocab_size
+
+
+def _tiny_costs(torch, device):
+    """tiny-10m's prefill and decode step at kv4 costed on ``device``
+    (weights seeded and quantized there: a cost reads shapes only)."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.utils import cost
+
+    cfg = get_arch(ROUTED_ARCH).with_kv_quant(4)
+    params = quantize_params(lm.init_params(cfg, seed=SEED, device=device),
+                             QuantConfig(bits=4, dtype="float", block_size=64), cfg,
+                             device=device)
+    prompts = torch.randint(0, cfg.vocab_size, (ROUTED_BATCH, ROUTED_PROMPT),
+                            generator=_gen(torch, "cpu", SEED + 9)).to(device)
+    cache_len = ROUTED_PROMPT + ROUTED_NEW
+    with torch.inference_mode():
+        pf = cost.measure("prefill", lambda: lm.prefill(params, prompts, cfg,
+                                                         cache_len=cache_len))
+        _, caches = lm.prefill(params, prompts, cfg, cache_len=cache_len)
+        tok = prompts[:, -1].to(torch.int32)
+        ds = cost.measure("decode_step", lambda: lm.decode_step(params, tok, caches,
+                                                               ROUTED_PROMPT, cfg))
+    return {"prefill": pf, "decode_step": ds}
+
+
+def _grad_compress_on_card(torch, dev) -> dict:
+    """compress_tree on tiny-160k's gradients on the card against its plain
+    version on the CPU, two steps with the error fed back; then tiny-650k
+    trained with 8-bit compression.  Returns the launches and the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.train import loop
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    cfg = get_arch(GC_ARCH)
+    params = step_mod.init_state(cfg, seed=SEED, device=dev).params
+    batch = next(synthetic.batches(cfg.vocab_size, GC_BATCH, GC_SEQ, seed=SEED, device=dev))
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss = lm.loss_fn(unflatten(params, flat), batch["tokens"], batch["labels"], cfg,
+                      loss_chunk=GC_SEQ)
+    grads = unflatten(params, list(torch.autograd.grad(loss, flat)))
+    n_big = sum(g.numel() >= gc.MIN_ELEMENTS for g in leaves(grads))
+    _reset_counts()
+    g1, e1 = gc.compress_tree(grads, None)
+    g2, e2 = gc.compress_tree(grads, e1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    require(counts == {**dict.fromkeys(_COUNT_KEYS, 0), "b3": 2 * n_big},
+            f"compress_tree twice over {n_big} leaves of >= {gc.MIN_ELEMENTS} launched {counts}")
+    cpu = tree_map(lambda t: t.detach().cpu(), grads)
+    p1, q1 = gc.compress_tree(cpu, None)
+    p2, q2 = gc.compress_tree(cpu, q1)
+    for card, plain in ((g1, p1), (e1, q1), (g2, p2), (e2, q2)):
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(leaves(card), leaves(plain),
+                                                            strict=True)),
+                "compress_tree on the card differs from its plain version")
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, hist = loop.train(get_arch(GC_TRAIN_ARCH), steps=GC_STEPS, batch=GC_BATCH,
+                             seq_len=GC_SEQ, grad_compress_bits=8, log=lambda *_: None,
+                             device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = _counts()
+    n_train = sum(e.numel() >= gc.MIN_ELEMENTS for e in leaves(state.err))
+    require(train_counts == {**dict.fromkeys(_COUNT_KEYS, 0), "b3": GC_STEPS * n_train},
+            f"{GC_STEPS} compressed steps launched {train_counts}, want {n_train} flat "
+            f"encodes a step")
+    require(hist[0] - hist[-1] >= MIN_LOSS_DROP,
+            f"compressed training: loss {hist[0]:.3f} -> {hist[-1]:.3f}")
+    return {"leaves": len(leaves(grads)), "compressed_leaves": n_big,
+            "launches": {k: counts[k] + train_counts[k] for k in _COUNT_KEYS},
+            "train_arch": GC_TRAIN_ARCH, "train_steps": GC_STEPS, "train_s": train_s,
+            "loss_first": hist[0], "loss_last": hist[-1]}
+
+
+def profile_path(torch, dev, run) -> dict:
+    """Phase 3j: the step profiler on the serve phase's Qwen2-7B tree, in
+    the Engine and the Server; tiny-10m's costs on the CPU and on the card;
+    gradient compression on the card; the quickstart example."""
+    from repro_torch.core.qtensor import QuantizedTensor
+    from repro_torch.serving import Engine, Server, StepProfiler, Telemetry
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg, qparams, prompts = run["cfg"], run["qparams"], run["prompts"]
+    phase_counts = dict.fromkeys(_COUNT_KEYS, 0)
+
+    def bounded(rows, what):
+        for r in rows:
+            require(0.0 < r["roofline_frac"] <= 1.0,
+                    f"{what} {r['program']}: roofline_frac {r['roofline_frac']}")
+
+    # the Engine: tokens and launches as unprofiled, rows for both programs
+    tel = Telemetry(profiler=StepProfiler())
+    engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, telemetry=tel, device=dev)
+    for i in range(PROFILE_GENERATES):
+        _reset_counts()
+        tokens = engine.generate(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        counts = _counts()
+        require(torch.equal(tokens, run["tokens"]), "profiled Engine tokens differ")
+        if i == 0:
+            require(counts == run["generate_counts"],
+                    f"a profiled generate launched {counts}, unprofiled "
+                    f"{run['generate_counts']}")
+        phase_counts = {k: phase_counts[k] + counts[k] for k in _COUNT_KEYS}
+    _reset_counts()
+    engine._graphs[BATCH].step.replay()
+    torch.cuda.synchronize()
+    require(_counts() == run["step_counts"], f"a profiled replay launched {_counts()}")
+    phase_counts = {k: phase_counts[k] + n for k, n in _counts().items()}
+    engine_rows = _profile_rows(tel.profiler)
+    names = {r["program"] for r in engine_rows}
+    pf_name, ds_name = f"prefill[{BATCH}x{PROMPT}]", f"decode_step[{BATCH}]"
+    require(names == {pf_name, ds_name}, f"Engine rows {names}")
+    bounded(engine_rows, "Engine")
+    (session,) = tel.profiler.sessions
+    matrices = [t for t in leaves(qparams) if isinstance(t, QuantizedTensor)]
+    stored = sum(t.packed.numel() * 4 + t.scales.numel() * t.scales.element_size()
+                 for t in matrices)
+    step_cost, prefill_cost = session.costs[ds_name], session.costs[pf_name]
+    n_matrices = sum(math.prod(t.packed.shape[:-2]) for t in matrices)   # stacked layers
+    require(n_matrices == 7 * cfg.n_layers + 1 and step_cost.hbm_bytes >= stored,
+            f"decode_step[{BATCH}]: {step_cost.hbm_bytes} bytes, the {n_matrices} "
+            f"matrices store {stored}")
+    analytic = _prefill_dots(cfg, BATCH, PROMPT)
+    require(prefill_cost.dot_flops == analytic,
+            f"{pf_name}: {prefill_cost.dot_flops} dot FLOPs, analytic {analytic}")
+    del engine
+
+    # the Server: the server phase's traffic, plain and chunked
+    reqs = _server_requests(cfg)
+    cache_len = SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]
+    server_rows = {}
+    with torch.inference_mode():
+        for label, kw in (("plain", {}), ("chunked", {"prefill_chunk": SERVER_CHUNK})):
+            tel_s = Telemetry(profiler=StepProfiler())
+            _reset_counts()
+            srv = Server(qparams, cfg, num_slots=SERVER_SLOTS, max_seq_len=cache_len,
+                         device=dev, telemetry=tel_s, **kw)
+            _, toks, _, _ = _drive_server(torch, srv, reqs)
+            torch.cuda.synchronize()
+            counts = _counts()
+            require(toks == run["server_plain"], f"the profiled {label} Server gave other "
+                    f"tokens: {sum(a != b for a, b in zip(toks, run['server_plain']))} "
+                    "requests differ")
+            if label == "plain":
+                require(counts == run["server_counts"],
+                        f"the profiled Server launched {counts}, unprofiled "
+                        f"{run['server_counts']}")
+            _reset_counts()
+            srv._graph.replay()
+            torch.cuda.synchronize()
+            require(_counts() == run["step_counts"],
+                    f"a profiled Server replay launched {_counts()}")
+            phase_counts = {k: phase_counts[k] + counts[k] + n
+                            for k, n in zip(_COUNT_KEYS, _counts().values())}
+            rows = _profile_rows(tel_s.profiler)
+            bounded(rows, f"Server ({label})")
+            server_rows[label] = rows
+            del srv
+    for label, prefixes in (("plain", ("prefill[", "decode_step")),
+                            ("chunked", ("prefill[", "prefill_chunk[", "chunk_commit[",
+                                         "decode_step"))):
+        names = {r["program"] for r in server_rows[label]}
+        require(all(any(n.startswith(p) for n in names) for p in prefixes),
+                f"Server ({label}) rows {sorted(names)}")
+
+    # tiny-10m's costs: the same on the CPU and on the card
+    cpu, card = _tiny_costs(torch, torch.device("cpu")), _tiny_costs(torch, dev)
+    tiny = {}
+    for name in ("prefill", "decode_step"):
+        a, b = cpu[name], card[name]
+        rel = abs(b.hbm_bytes - a.hbm_bytes) / a.hbm_bytes
+        require((a.flops, a.dot_flops, a.kernel_flops, a.kernel_bytes)
+                == (b.flops, b.dot_flops, b.kernel_flops, b.kernel_bytes)
+                and rel <= PROFILE_BYTES_REL_TOL,
+                f"tiny-10m {name}: CPU {a}, card {b}")
+        tiny[name] = {"flops": b.flops, "dot_flops": b.dot_flops,
+                      "kernel_flops": b.kernel_flops, "kernel_bytes": b.kernel_bytes,
+                      "hbm_bytes_cpu": a.hbm_bytes, "hbm_bytes_card": b.hbm_bytes,
+                      "hbm_bytes_rel_diff": rel}
+
+    gcomp = _grad_compress_on_card(torch, dev)
+    phase_counts = {k: phase_counts[k] + gcomp["launches"][k] for k in _COUNT_KEYS}
+
+    t0 = time.perf_counter()
+    quick = subprocess.run([sys.executable, "-m", "repro_torch.examples.quickstart"],
+                           cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                           capture_output=True, text=True, timeout=300)
+    quick_s = time.perf_counter() - t0
+    require(quick.returncode == 0 and "fused 4-bit dequant-matmul" in quick.stdout,
+            f"examples.quickstart exited {quick.returncode}: {quick.stderr[-2000:]}")
+    emit({"phase": "profile", "arch": ARCH, "kv_bits": cfg.kv_bits,
+          "peak_flops": StepProfiler().peak_flops, "hbm_bw": StepProfiler().hbm_bw,
+          "engine_rows": engine_rows, "engine_generates": PROFILE_GENERATES,
+          "decode_step_stored_matrix_bytes": stored, "prefill_analytic_dot_flops": analytic,
+          "server_rows": server_rows, "server_requests": len(reqs),
+          "tiny10m_cpu_vs_card": tiny,
+          "grad_compress": {k: v for k, v in gcomp.items() if k != "launches"},
+          "quickstart_s": quick_s, "quickstart_tail": quick.stdout.strip().splitlines()[-2:],
+          "tokens_identical": True, "launches": phase_counts,
+          "seconds": time.perf_counter() - t_phase})
+    run["profile_counts"] = phase_counts
+    return phase_counts
 
 
 def paged_path(torch, dev, run) -> dict:

@@ -10,6 +10,12 @@ from __future__ import annotations
 
 import torch
 
+# H100 SXM data-sheet rates: dense bf16 tensor-core FLOP/s and HBM bytes/s —
+# the step profiler's default peaks (serving/profiler.py), the counterparts
+# of repro/launch/mesh.py's TPU v5e PEAK_FLOPS_BF16 and HBM_BW
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device, ``cuda`` when None; raises when CUDA

@@ -68,7 +68,9 @@ from repro_torch.kernels.kv_dequant import (
     gather_pages,
     kv_codebook,
     kv_layout,
+    kv_rows_read,
 )
+from repro_torch.utils import cost
 
 KERNEL_BITS = (4, 8)
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -289,6 +291,27 @@ def decode_attention_packed_cuda(q: torch.Tensor, cache: dict, pos, spec: KVQuan
 decode_attention_packed_cuda.launches = 0
 
 
+def _fused_work(q, cache, pos, spec, *, cap=0.0, window=0, page_map=None,
+                page_size=None) -> dict:
+    """B2.1's charge: q·kᵀ and p·v over every slot (masked ones too, as the
+    reference multiplies them), a FLOP a K and V value dequantized and a
+    FLOP a score; K and V as stored, the positions, q and the output."""
+    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+    dot, flops = cost.attention_work(1, H, Dh, S, B)
+    _, read = kv_rows_read(cache, spec, feat, page_map)
+    return dict(flops=flops + 2 * B * S * feat, dot_flops=dot,
+                hbm_bytes=read + 4 * B * S + 2 * cost.nbytes(q))
+
+
+@cost.unit(_fused_work)
+def _fused_read(q, cache, pos, spec, **kw) -> torch.Tensor:
+    """A read the fused kernel takes: the kernel on CUDA, the plain version
+    on the CPU (one charged unit, so it costs the same on both)."""
+    if q.device.type == "cuda":
+        return decode_attention_packed_cuda(q, cache, pos, spec, **kw)
+    return decode_attention_packed_plain(q, cache, pos, spec, **kw)
+
+
 def decode_attention_packed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec, *,
                             cap: float = 0.0, window: int = 0, page_map=None,
                             page_size=None) -> torch.Tensor:
@@ -297,11 +320,11 @@ def decode_attention_packed(q: torch.Tensor, cache: dict, pos, spec: KVQuantSpec
     says it takes the shapes, else the routed read; the plain version for
     CPU tensors."""
     kw = dict(cap=cap, window=window, page_map=page_map, page_size=page_size)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode_attention_packed runs on cuda or cpu tensors, not {q.device}")
+    B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
+    if fused_takes(B, H, Dh, S, spec, feat, window):
+        return _fused_read(q, cache, pos, spec, **kw)
     if q.device.type == "cuda":
-        B, H, Dh, S, feat = _check(q, cache, spec, page_map, page_size)
-        if fused_takes(B, H, Dh, S, spec, feat, window):
-            return decode_attention_packed_cuda(q, cache, pos, spec, **kw)
         return decode_attention_packed_routed(q, cache, pos, spec, **kw)
-    if q.device.type == "cpu":
-        return decode_attention_packed_plain(q, cache, pos, spec, **kw)
-    raise ValueError(f"decode_attention_packed runs on cuda or cpu tensors, not {q.device}")
+    return decode_attention_packed_plain(q, cache, pos, spec, **kw)

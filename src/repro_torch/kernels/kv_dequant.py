@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.codebooks import codebook_boundaries, make_codebook
 from repro_torch.kernels import _build
+from repro_torch.utils import cost
 
 
 class KVQuantSpec(NamedTuple):
@@ -216,6 +217,24 @@ def dequant_pages(packed, scales, page_map, spec: KVQuantSpec, feat: int,
 _KV_LEAVES = (("k_packed", "k_scales"), ("v_packed", "v_scales"))
 
 
+def kv_rows_read(cache: dict, spec: KVQuantSpec, feat: int, page_map=None) -> tuple[int, int]:
+    """(slots, bytes) a layer's read of K and V takes: every row's slots
+    (through the map, the pages it names, not the pool) as stored, and the
+    map."""
+    _, n_blocks, n_words = kv_layout(spec, feat)
+    kp = cache["k_packed"]
+    rows = kp.shape[0] * kp.shape[1] if page_map is None else page_map.numel() * kp.shape[1]
+    extra = 0 if page_map is None else cost.nbytes(page_map)
+    return rows, 2 * rows * (4 * n_words + 2 * n_blocks) + extra
+
+
+def _kv_work(cache: dict, spec: KVQuantSpec, feat: int, page_map=None) -> dict:
+    """B2.2's charge: a FLOP a value; K and V read as stored, written bf16."""
+    rows, read = kv_rows_read(cache, spec, feat, page_map)
+    return dict(flops=2 * rows * feat, hbm_bytes=read + 2 * rows * feat * 2)
+
+
+@cost.unit(_kv_work)
 def dequant_kv_plain(cache: dict, spec: KVQuantSpec, feat: int, page_map=None):
     """The plain version of a layer's read: (K, V) bf16 [B, S, feat] of a
     packed cache, a paged one gathered through ``page_map`` first."""
@@ -224,6 +243,7 @@ def dequant_kv_plain(cache: dict, spec: KVQuantSpec, feat: int, page_map=None):
     return tuple(dequant_rows_ref(cache[p], cache[s], spec, feat) for p, s in _KV_LEAVES)
 
 
+@cost.unit(_kv_work)
 def dequant_kv(cache: dict, spec: KVQuantSpec, feat: int, page_map=None):
     """A layer's K and V of a packed cache (rows, or pages through
     ``page_map``) as bf16 [B, S, feat]: one launch of the kernel for CUDA

@@ -26,6 +26,7 @@ from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels import qmatmul as qk
 from repro_torch.kernels import quantize as quantk
 from repro_torch.kernels.ref import QMatmulOperand
+from repro_torch.utils import cost
 
 
 def prepare_operand(w: torch.Tensor, *, bits: int, dtype: str = "float",
@@ -100,6 +101,18 @@ def pad_for_kernel(x2: torch.Tensor, op: QMatmulOperand):
     return x2, op.packed.contiguous(), op.scales.contiguous()
 
 
+def qmatmul_work(x: torch.Tensor, op: QMatmulOperand) -> dict:
+    """B1's charge: 2·M·N·K over x's own K (the padding is no work) and the
+    bytes of the words and scales as stored, x and y."""
+    K = x.shape[-1]
+    M, N = x.numel() // K, op.packed.shape[0]
+    dot = 2 * M * N * K
+    return dict(flops=dot, dot_flops=dot,
+                hbm_bytes=cost.nbytes(op.packed) + cost.nbytes(op.scales)
+                + cost.nbytes(op.codebook) + cost.nbytes(x) + M * N * x.element_size())
+
+
+@cost.unit(qmatmul_work)
 def qmatmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
     """y = x @ W through the fused kernel, x [..., K<=k_dim] -> [..., N]."""
     lead = x.shape[:-1]

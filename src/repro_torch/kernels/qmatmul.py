@@ -70,6 +70,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import _build
+from repro_torch.utils import cost
 
 #: rows up to which the GEMV kernel runs (one pass over the packed weight)
 GEMV_MAX_M = 8
@@ -389,6 +390,19 @@ def qmatmul_gemv_experts(x, packed, scales, codebook, counts, *, bits, block_siz
 qmatmul_gemv_experts.launches = 0
 
 
+def _experts_work(x, packed, scales, codebook, counts, *, bits, block_size) -> dict:
+    """B1's charge for a layer's experts: every row of x [E, M, K] (the rows
+    an expert holds are device values, which a cost does not read) and
+    every expert's words and scales as stored."""
+    E, M, K = x.shape
+    dot = 2 * E * M * packed.shape[1] * K
+    return dict(flops=dot, dot_flops=dot,
+                hbm_bytes=cost.nbytes(packed) + cost.nbytes(scales) + cost.nbytes(codebook)
+                + cost.nbytes(counts) + cost.nbytes(x) + E * M * packed.shape[1]
+                * x.element_size())
+
+
+@cost.unit(_experts_work)
 def qmatmul_experts(x, packed, scales, codebook, counts, *, bits: int,
                     block_size: int) -> torch.Tensor:
     """A layer's experts on their rows (``qmatmul_gemv_experts``'s

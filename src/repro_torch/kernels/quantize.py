@@ -45,6 +45,7 @@ from repro_torch.core.blockwise import pad_to_blocks
 from repro_torch.core.codebooks import codebook_boundaries
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quantize_blocks_ref
+from repro_torch.utils import cost
 
 #: the plain PyTorch version of the kernel: the oracle itself
 quantize_blocks_plain = quantize_blocks_ref
@@ -100,6 +101,15 @@ def quantize_blocks_cuda(x_blocks: torch.Tensor, codebook: torch.Tensor):
 quantize_blocks_cuda.launches = 0
 
 
+def _blocks_work(x_blocks: torch.Tensor, codebook: torch.Tensor) -> dict:
+    """B3.2's charge: a FLOP a value; the f32 blocks read, int32 codes and
+    f32 scales written."""
+    n = x_blocks.numel()
+    return dict(flops=n, hbm_bytes=cost.nbytes(x_blocks) + cost.nbytes(codebook) + 4 * n
+                + 4 * x_blocks.shape[0])
+
+
+@cost.unit(_blocks_work)
 def quantize_blocks(x_blocks: torch.Tensor, codebook: torch.Tensor):
     """Encode whole blocks: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -193,6 +203,17 @@ def quantize_pack_cuda(item: torch.Tensor, codebook: torch.Tensor, *, bits: int,
 quantize_pack_cuda.launches = 0
 
 
+def _pack_work(item: torch.Tensor, codebook: torch.Tensor, *, bits: int, block_size: int,
+               transposed: bool = False) -> dict:
+    """B3.1's charge: a FLOP a value; the item read, the words and bf16
+    scales written as stored."""
+    rows, cols = (item.shape[1], item.shape[0]) if transposed else tuple(item.shape)
+    words = rows * -(-cols // packing.codes_per_word(bits))
+    return dict(flops=item.numel(), hbm_bytes=cost.nbytes(item) + cost.nbytes(codebook)
+                + 4 * words + 2 * rows * (cols // block_size))
+
+
+@cost.unit(_pack_work)
 def quantize_pack(item: torch.Tensor, codebook: torch.Tensor, *, bits: int, block_size: int,
                   transposed: bool = False):
     """Encode one row-structured item to (packed, scales) as stored: the

@@ -44,7 +44,11 @@ latency summary and dumps the Prometheus text exposition / the JSONL span
 trace (validate it with ``python -m repro_torch.serving.trace
 trace.jsonl``).  ``--kv-probe-every N`` additionally measures the
 append-quantize roundtrip error of every Nth admission's K/V rows
-(continuous mode, quantized cache only).
+(continuous mode, quantized cache only).  ``--profile`` (with a sink)
+attaches the step profiler (serving/profiler.py): each serving program is
+costed once and its measured step times attributed against the H100's
+roofline; the serve prints a per-program summary and the metrics dump
+carries the ``profile_*`` families.
 
 Flag pairings are validated up front, by the reference's rules
 (``validate_flags``): ``--plan`` carries the full weight quantization
@@ -53,7 +57,7 @@ config (conflicts with --bits/--dtype/--block-size/--outlier-pct),
 same three), ``--kv-block-size/--kv-dtype`` need ``--kv-bits < 16``,
 ``--kv-probe-every`` needs a quantized cache plus a telemetry sink, and
 each mode rejects the other's workload flags.  ``--mesh`` (ROADMAP A11)
-and ``--profile`` (A7) are not ported and are refused.  ``--device`` is
+is not ported and is refused.  ``--device`` is
 the port's only addition.  An encoder-decoder arch (seamless-m4t-large-v2)
 is refused before anything is built: it runs through ``models/seq2seq.py``.
 """
@@ -75,7 +79,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks, lm
 from repro_torch.models.quantize import bits_report, quantize_params, quantize_tree
 from repro_torch.precision import PrecisionPlan
-from repro_torch.serving import NOOP, Engine, Server, Telemetry
+from repro_torch.serving import NOOP, Engine, Server, StepProfiler, Telemetry
 from repro_torch.serving.engine import fence
 from repro_torch.serving.telemetry import record_quant_health
 from repro_torch.train import step as step_mod
@@ -111,7 +115,7 @@ def validate_flags(args) -> None:
     """Audit every flag pairing BEFORE any model work: each combination
     must either compose or fail loudly here.  The reference's rules, word
     for word, then the port's: --device names cuda or cpu, and --mesh
-    (ROADMAP A11) and --profile (A7) are refused."""
+    (ROADMAP A11) is refused."""
     quant_flags = [f for f in ("bits", "dtype", "block_size", "outlier_pct")
                    if getattr(args, f) is not None]
     if args.plan is not None and quant_flags:
@@ -242,11 +246,6 @@ def validate_flags(args) -> None:
             )
     if args.mesh is not None:
         parse_mesh(args.mesh)
-    if args.profile:
-        raise SystemExit(
-            "--profile: the step profiler (serving/profiler.py, XLA cost "
-            "analysis at TPU peaks) is not ported yet (ROADMAP A7)"
-        )
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -350,8 +349,11 @@ def build_argparser() -> argparse.ArgumentParser:
                          "every Nth admission's K/V rows (continuous mode; "
                          "needs --kv-bits < 16 and a telemetry sink)")
     ap.add_argument("--profile", action="store_true",
-                    help="attach the step profiler: not ported yet "
-                         "(ROADMAP A7); refused")
+                    help="attach the step profiler (serving/profiler.py): "
+                         "cost each serving program once, attribute its "
+                         "measured step times against the roofline, print "
+                         "a per-program summary and export profile_* "
+                         "gauges (needs a telemetry sink)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     return ap
@@ -370,6 +372,8 @@ def _finish_telemetry(tel, args) -> None:
                          f"p99 {h.percentile(99) * 1e3:.1f}ms")
     if parts:
         print("telemetry: " + "; ".join(parts))
+    if tel.profiler is not None:
+        print(tel.profiler.format_summary())
     qerr = tel.registry.gauge("kv_append_qerr_rms")
     if tel.kv_probe_every and qerr.value:
         print(f"kv append-quantize probe: rms {qerr.value:.4f} "
@@ -391,7 +395,8 @@ def main(argv=None):
     if args.metrics_out is not None or args.trace_out is not None:
         telemetry = Telemetry(
             kv_probe_every=args.kv_probe_every
-            if args.kv_probe_every is not None else 0)
+            if args.kv_probe_every is not None else 0,
+            profiler=StepProfiler() if args.profile else None)
 
     cfg = get_arch(args.arch).with_matmul_mode(args.matmul_mode)
     blocks.check_dense(cfg)   # before anything is built

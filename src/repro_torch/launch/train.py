@@ -5,9 +5,9 @@
 
 Trains on CUDA unless ``--device`` says otherwise.  Fault tolerance: with
 ``--ckpt-dir`` a run resumes from the latest checkpoint there; SIGTERM
-triggers a final synchronous save.  The production meshes (``--mesh``) and
-gradient compression (``--grad-compress-bits``) are not ported (ROADMAP
-queue A11) and raise.
+triggers a final synchronous save.  ``--grad-compress-bits k`` trains with
+blockwise k-bit gradient compression and error feedback.  The production
+meshes (``--mesh``) are not ported (ROADMAP queue A11) and raise.
 """
 
 from __future__ import annotations
@@ -37,16 +37,14 @@ def main(argv=None):
     if args.mesh != "none":
         raise NotImplementedError(f"--mesh {args.mesh}: the sharded train step is not "
                                   "ported yet (ROADMAP queue A11)")
-    if args.grad_compress_bits > 0:
-        raise NotImplementedError("--grad-compress-bits: gradient compression is not "
-                                  "ported yet (ROADMAP queue A11)")
 
     cfg = get_arch(args.arch)
     dev = resolve_device(args.device)
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.2f}M params on {dev}")
     state, history = loop.train(cfg, steps=args.steps, batch=args.batch, seq_len=args.seq,
                                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                                seed=args.seed, peak_lr=args.lr, device=dev)
+                                seed=args.seed, peak_lr=args.lr,
+                                grad_compress_bits=args.grad_compress_bits, device=dev)
     if history:
         print(f"done: loss {history[0]:.4f} -> {history[-1]:.4f}")
     else:

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.kernels import kv_attention, kv_dequant
 from repro_torch.models.layers import apply_rope, dense, rmsnorm
+from repro_torch.utils import cost
 
 NEG_INF = -1e30
 #: query rows a piece of ``flash_attention`` and ``prefill_chunk_attention``
@@ -144,6 +145,18 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _prefill_work(q, k, v, *args, **kwargs) -> dict:
+    """The charge of a prefill read of q [B, Sq, H, Dh] over k, v [B, Skv, K,
+    Dh]: every (row, key) product, as the reference counts its masked
+    attention (the padding of the pieces is no work); q, K, V read and the
+    output written."""
+    B, Sq, H, Dh = q.shape
+    dot, flops = cost.attention_work(Sq, H, Dh, k.shape[1], B)
+    return dict(flops=flops, dot_flops=dot,
+                hbm_bytes=2 * cost.nbytes(q) + cost.nbytes(k) + cost.nbytes(v))
+
+
+@cost.unit(_prefill_work)
 def flash_attention(q, k, v, *, q_start: int = 0, causal: bool = True, window: int = 0,
                     cap: float = 0.0, chunk_kv: int = KV_CHUNK):
     """Chunked online-softmax attention.  q [B,Sq,H,Dh]; k,v [B,Skv,K,Dh]
@@ -192,6 +205,7 @@ def flash_attention(q, k, v, *, q_start: int = 0, causal: bool = True, window: i
     return out[:, :Sq].reshape(B, Sq, H, Dh)
 
 
+@cost.unit(_prefill_work)
 def prefill_chunk_attention(q, k, v, q_pos: int, *, cap: float = 0.0):
     """One chunk of a chunked prefill: C query rows at absolute positions
     q_pos .. q_pos + C - 1 attend causally over a dense workspace k, v
@@ -355,6 +369,19 @@ def decode_attention_partial(q, k_cache, v_cache, pos_arr, pos, *, cap=0.0, wind
     return _partials(q, k_cache, v_cache, pos_arr, pos, cap=cap, window=window)
 
 
+def _partials_work(q, k_cache, v_cache, pos_arr, pos, *, cap, window) -> dict:
+    """The charge of a decode read of q [B, H, Dh] over [B, S, K, Dh]: every
+    slot's products (masked ones too, as the reference); q, K, V, a row's
+    positions (a shared array is read by every row) and the f32 partials."""
+    B, H, Dh = q.shape
+    S = k_cache.shape[1]
+    dot, flops = cost.attention_work(1, H, Dh, S, B)
+    return dict(flops=flops, dot_flops=dot,
+                hbm_bytes=cost.nbytes(q) + cost.nbytes(k_cache) + cost.nbytes(v_cache)
+                + B * S * pos_arr.element_size() + 4 * B * H * (Dh + 2))
+
+
+@cost.unit(_partials_work)
 def _partials(q, k_cache, v_cache, pos_arr, pos, *, cap, window):
     """``decode_attention_partial``'s math over all of q's rows at once."""
     B, H, Dh = q.shape

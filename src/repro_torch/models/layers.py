@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.kernels import ops
+from repro_torch.utils import cost
 
 
 def resolve_matmul_mode(mode: str, w) -> str:
@@ -58,6 +59,17 @@ def _pieces_matmul(buf: torch.Tensor, P: int, w: torch.Tensor) -> torch.Tensor:
     return torch.cat([buf[i:i + P] @ wt for i in range(0, buf.shape[0], P)])
 
 
+def _matmul_work(x: torch.Tensor, wt: torch.Tensor) -> dict:
+    """The charge of a dense product: 2·M·N·K (the pieces' padding is no
+    work); x and the weight as stored read, y written."""
+    N, K = wt.shape
+    M = x.numel() // K
+    dot = 2 * M * N * K
+    return dict(flops=dot, dot_flops=dot,
+                hbm_bytes=cost.nbytes(x) + cost.nbytes(wt) + M * N * x.element_size())
+
+
+@cost.unit(_matmul_work)
 def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype.
 

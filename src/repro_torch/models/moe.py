@@ -47,6 +47,7 @@ from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as qk
 from repro_torch.models.layers import activation, linear
+from repro_torch.utils import cost
 
 #: the expert stacks' keys, in the reference's order
 MOE_WEIGHTS = ("w_gate", "w_up", "w_down")
@@ -110,6 +111,12 @@ def _f32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         w.to(torch.float32)).to(a.dtype)
 
 
+def _gemm_rows_work(x: torch.Tensor, w: QuantizedTensor) -> dict:
+    """B1's charge (``kernels/ops.qmatmul``'s) for one expert's rows."""
+    return ops.qmatmul_work(x, ops.operand_from_qtensor(w))
+
+
+@cost.unit(_gemm_rows_work)
 def _gemm_rows(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x [M, K] times one expert's matrix: the prefill GEMM on the card
     (whatever M), its plain version on the CPU."""

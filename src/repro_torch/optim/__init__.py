@@ -1,2 +1,2 @@
-"""Optimizers — port of ``repro/optim``: AdamW (gradient compression comes
-with the multi-GPU slice)."""
+"""Optimizers — port of ``repro/optim``: AdamW and blockwise gradient
+compression with error feedback (``grad_compress``)."""

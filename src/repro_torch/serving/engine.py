@@ -29,9 +29,13 @@ entry point.  ``telemetry=`` (serving/telemetry.py, the no-op by default)
 records the load-time quantization health, and the prefill's and each
 decode step's times, spans and counters, timed at the host with a fence
 after each dispatch (a replay on the card); the captured step is the same
-with it on or off.
+with it on or off.  A ``Telemetry(profiler=StepProfiler())`` also costs
+``prefill[BxS]`` and ``decode_step[B]`` once each (serving/profiler.py:
+the prefill on its real prompts, the step on clones of the caches, both
+before their timed windows and outside any capture) and attributes their
+measured times against the H100's roofline.
 
-Not in the port yet: the sharder (ROADMAP A11) and the step profiler (A7).
+Not in the port yet: the sharder (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import launches
 from repro_torch.models import blocks, lm
 from repro_torch.models.quantize import quantize_tree
+from repro_torch.serving.profiler import null_annotation
 from repro_torch.serving.telemetry import NOOP, record_quant_health, record_tree_bits
 
 #: stated per-token logit tolerance of a k-bit KV cache vs the bf16-cache
@@ -83,12 +88,22 @@ def fence(t: torch.Tensor) -> None:
         torch.cuda.current_stream(t.device).synchronize()
 
 
-def check_no_profiler(telemetry) -> None:
-    """The step profiler (serving/profiler.py: XLA cost analysis at TPU
-    peaks) has no counterpart in the port yet."""
-    if getattr(telemetry, "profiler", None) is not None:
-        raise NotImplementedError("the step profiler (serving/profiler.py) is not ported "
-                                  "yet: ROADMAP A7")
+def profiler_session(telemetry, cfg):
+    """(the step profiler's session for a serving instance or None, the
+    annotation its dispatch sites wrap), as the reference opens them:
+    labelled with the instance's kv_bits and matmul_mode."""
+    prof = getattr(telemetry, "profiler", None)
+    if not telemetry.enabled or prof is None:
+        return None, null_annotation
+    session = prof.session(telemetry.registry, kv_bits=str(cfg.kv_bits),
+                           matmul_mode=cfg.matmul_mode)
+    return session, session.annotation
+
+
+def clone_caches(caches):
+    """A copy of a cache tree (a list of dicts of tensors) to cost a
+    program that writes the caches in place on."""
+    return [{k: v.clone() for k, v in c.items()} for c in caches]
 
 
 class CapturedStep:
@@ -213,7 +228,6 @@ class Engine:
         blocks.check_dense(cfg)
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
-        check_no_profiler(telemetry)
         self.device = resolve_device(device)
         self.telemetry = telemetry
         if plan is not None:
@@ -230,6 +244,9 @@ class Engine:
         self._graphs: dict[int, _DecodeGraph] = {}   # batch -> captured step
         # the captured steps' generator (CUDA only; see the module docstring)
         self._gen = torch.Generator(self.device) if self.device.type == "cuda" else None
+        # optional roofline attribution (serving/profiler.py): host-side only,
+        # the captured step is the same graph with it on or off
+        self._prof, self._annot = profiler_session(telemetry, cfg)
 
     def _decode_graph(self, batch: int) -> _DecodeGraph:
         """The captured step for ``batch`` rows, captured on first use (CUDA
@@ -238,11 +255,34 @@ class Engine:
             self._graphs[batch] = _DecodeGraph(self, batch)
         return self._graphs[batch]
 
-    def _record_step(self, t: int, t0: float, t_prev: float, batch: int) -> float:
-        """Decode step ``t`` into the telemetry: it ran from ``t0`` to now,
-        the previous token came at ``t_prev``.  Returns now."""
+    def _prefill(self, prompts: torch.Tensor):
+        return lm.prefill(self.params, prompts, self.cfg, cache_len=self.max_seq_len)
+
+    def _cost_step(self, name: str, tok, caches, pos: int, temperature: float, done) -> None:
+        """Cost ``decode_step[B]`` (the step, its sampling and the EOS
+        update, as the reference's step program) on clones of the caches,
+        drawing from a generator of its own."""
+        if name in self._prof.costs:
+            return
+        clones, gen = clone_caches(caches), torch.Generator(self.device)
+
+        def step():
+            logits, _ = lm.decode_step(self.params, tok, clones, pos, self.cfg)
+            nxt = sample_token(logits, gen, temperature)
+            if self.eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, self.eos_id), nxt)
+            return nxt
+
+        self._prof.ensure_costed(name, step, ())
+
+    def _record_step(self, t: int, t0: float, t_prev: float, batch: int, name: str) -> float:
+        """Decode step ``t`` (program ``name``) into the telemetry: it ran
+        from ``t0`` to now, the previous token came at ``t_prev``.  Returns
+        now."""
         tel = self.telemetry
         t1 = tel.now()
+        if self._prof is not None:
+            self._prof.observe(name, t1 - t0)
         tel.observe("serve_decode_step_seconds", t1 - t0)
         tel.observe("serve_itl_seconds", t1 - t_prev)
         tel.inc("serve_decode_steps_total")
@@ -260,15 +300,22 @@ class Engine:
         if S + max_new_tokens > self.max_seq_len:
             raise ValueError(f"{S} + {max_new_tokens} tokens exceed the cache budget "
                              f"{self.max_seq_len}")
-        tel = self.telemetry
+        tel, prof = self.telemetry, self._prof
+        pf_name, ds_name = f"prefill[{B}x{S}]", f"decode_step[{B}]"
+        if prof is not None:
+            # costed BEFORE t_start, so the extra run never pollutes the
+            # timed window
+            prof.ensure_costed(pf_name, self._prefill, (prompts,))
         if tel.enabled:
             t_start = tel.now()
-        logits, caches = lm.prefill(self.params, prompts, self.cfg,
-                                    cache_len=self.max_seq_len)
+        with self._annot(pf_name):
+            logits, caches = self._prefill(prompts)
         tok = sample_token(logits, generator, temperature)
         if tel.enabled:
             fence(tok)
             t_tok = tel.now()
+            if prof is not None:
+                prof.observe(pf_name, t_tok - t_start)
             tel.observe("serve_prefill_seconds", t_tok - t_start)
             tel.observe("serve_ttft_seconds", t_tok - t_start)
             tel.inc("serve_prefills_total")
@@ -276,6 +323,8 @@ class Engine:
             tel.span("prefill", t_start, t_tok, step=0, slot=-1, prompt_len=S, padded_len=S)
         done = (tok == self.eos_id) if self.eos_id is not None \
             else torch.zeros((B,), dtype=torch.bool, device=self.device)
+        if prof is not None and max_new_tokens > 1:
+            self._cost_step(ds_name, tok, caches, S, temperature, done)
         if self.device.type == "cuda" and max_new_tokens > 1:
             g = self._decode_graph(B)
             g.load(caches, tok, done, S, temperature)
@@ -290,10 +339,11 @@ class Engine:
             while n < max_new_tokens:
                 if tel.enabled:
                     t0 = tel.now()
-                g.step.replay()
+                with self._annot(ds_name):
+                    g.step.replay()
                 if tel.enabled:
                     fence(g.tok)
-                    t_tok = self._record_step(n, t0, t_tok, B)
+                    t_tok = self._record_step(n, t0, t_tok, B, ds_name)
                 n += 1
                 if self.eos_id is not None and bool(g.done.all()):
                     break
@@ -304,14 +354,15 @@ class Engine:
         for t in range(1, max_new_tokens):   # the plain path (CPU), eager
             if tel.enabled:
                 t0 = tel.now()
-            logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg)
-            tok = sample_token(logits, generator, temperature)
-            if self.eos_id is not None:
-                tok = torch.where(done, torch.full_like(tok, self.eos_id), tok)
-                done = done | (tok == self.eos_id)
+            with self._annot(ds_name):
+                logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg)
+                tok = sample_token(logits, generator, temperature)
+                if self.eos_id is not None:
+                    tok = torch.where(done, torch.full_like(tok, self.eos_id), tok)
+                    done = done | (tok == self.eos_id)
             if tel.enabled:
                 fence(tok)
-                t_tok = self._record_step(t, t0, t_tok, B)
+                t_tok = self._record_step(t, t0, t_tok, B, ds_name)
             out.append(tok)
             if self.eos_id is not None and bool(done.all()):
                 break

@@ -66,12 +66,20 @@ round-tripped through the cache's encode and the plain dequant
 (``kv_append_qerr_rms``/``_max``, ``kv_probe_rows_total``); the served
 caches, steps and tokens are untouched.
 
+``Telemetry(profiler=StepProfiler())`` (serving/profiler.py) costs each
+program once under the reference's names — ``prefill[Sb]``,
+``prefill_paged[Sb]``, ``prefill_chunk[Sb]``, ``chunk_commit[Sb]`` and
+``decode_step`` (a replay of the pool's graph on the card) — on clones of
+the pool's caches or of the chunk workspace and with the generator's state
+put back, before the dispatch's timed window, and attributes the measured
+times against the H100's roofline; the served steps, the captured graph
+and the tokens are the same with it on or off.
+
 ``plan=`` (a precision/plan.py PrecisionPlan) quantizes a RAW tree at
 construction, on the Server's device, before the pool is allocated and its
 step captured, recording the load-time quantization health first.
 
-Not in the port yet: the mesh (``sharder=``, ROADMAP A11) and the roofline
-profiler (A7).
+Not in the port yet: the mesh (``sharder=``, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -83,7 +91,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention, blocks, lm
 from repro_torch.models.quantize import quantize_tree
-from repro_torch.serving.engine import capture_graph, check_no_profiler, fence, sample_token
+from repro_torch.serving.engine import (
+    capture_graph,
+    clone_caches,
+    fence,
+    profiler_session,
+    sample_token,
+)
 from repro_torch.serving.kvcache import SlotKVCache, scatter_row, workspace_to_row
 from repro_torch.serving.pages import PagedKVPool, paged_decode_attn_fn, scatter_pages
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -155,7 +169,6 @@ class Server:
         if sharder is not None:
             raise NotImplementedError("the Server on a mesh (sharder=) is not ported yet: "
                                       "ROADMAP A11")
-        check_no_profiler(telemetry)
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError("prefill_chunk must be >= 1")
@@ -220,13 +233,34 @@ class Server:
         # at the trash page)
         self._graph = (capture_graph(self._decode_body, self.device, self._gen)
                        if self.device.type == "cuda" else None)
+        # optional roofline attribution (serving/profiler.py): a private
+        # session labelled with this server's quant config; host-side only,
+        # the steps above are the same with it on
+        self._prof, self._annot = profiler_session(telemetry, cfg)
+
+    def _cost(self, name: str, program, written) -> None:
+        """Cost ``program(clone)`` once under ``name``, where ``written`` is
+        the cache tree it writes in place (the pool's caches or a chunk
+        workspace) and ``clone`` a copy of it; the generator's state is put
+        back after."""
+        if self._prof is None or name in self._prof.costs:
+            return
+        state = self._gen.get_state()
+        try:
+            self._prof.ensure_costed(name, program, (clone_caches(written),))
+        finally:
+            self._gen.set_state(state)
 
     # -- the model steps -----------------------------------------------------
     def _decode_body(self) -> None:
         """One decode step over the pool, on the static buffers."""
-        logits, _ = lm.decode_step(self.params, self._tok, self.pool.caches,
-                                   self.pool._pos_dev, self.cfg, decode_attn=self._decode_attn)
-        self._nxt.copy_(sample_token(logits, self._gen, self._temps_dev))
+        self._nxt.copy_(self._decode_program(self.pool.caches))
+
+    def _decode_program(self, caches) -> torch.Tensor:
+        """The pool's decode step over ``caches``: the sampled tokens."""
+        logits, _ = lm.decode_step(self.params, self._tok, caches, self.pool._pos_dev,
+                                   self.cfg, decode_attn=self._decode_attn)
+        return sample_token(logits, self._gen, self._temps_dev)
 
     def _pad_mask(self, prompt: torch.Tensor, length: int):
         """The router pad mask of a [1, Sb] prefill (MoE archs), else None."""
@@ -234,32 +268,33 @@ class Server:
             return None
         return torch.arange(prompt.shape[1], device=self.device)[None, :] < length
 
-    def _prefill_into_pages(self, padded: np.ndarray, length: int, pages: np.ndarray,
-                            write_mask: np.ndarray, temperature: float) -> torch.Tensor:
+    def _prefill_into_pages(self, pool_caches, padded: np.ndarray, length: int,
+                            pages: np.ndarray, write_mask: np.ndarray,
+                            temperature: float) -> torch.Tensor:
         """The paged twin of ``_prefill_into_slot``: prefill [1, Sb] at its
         own length, sample the first token at length - 1 and write the
-        request's own prompt pages (``write_mask``), leaving the COW-shared
-        prefix and the bucket's padding unwritten."""
+        request's own prompt pages (``write_mask``) of ``pool_caches``,
+        leaving the COW-shared prefix and the bucket's padding unwritten."""
         prompt = torch.as_tensor(padded, device=self.device)
         h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True,
                                     pad_mask=self._pad_mask(prompt, length))
         logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
         tok = sample_token(logits, self._gen, float(temperature))
-        scatter_pages(self.pool.caches, caches, pages, write_mask, length, self.pool.page_size)
+        scatter_pages(pool_caches, caches, pages, write_mask, length, self.pool.page_size)
         return tok
 
-    def _prefill_into_slot(self, padded: np.ndarray, length: int, slot: int,
+    def _prefill_into_slot(self, pool_caches, padded: np.ndarray, length: int, slot: int,
                            temperature: float) -> torch.Tensor:
         """Prefill [1, Sb], sample the first token at the true last prompt
         position length - 1 (padded positions are causally downstream) and
-        scatter the KV rows into ``slot``."""
+        scatter the KV rows into ``slot`` of ``pool_caches``."""
         prompt = torch.as_tensor(padded, device=self.device)
         h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True,
                                     cache_len=self.pool.cache_len,
                                     pad_mask=self._pad_mask(prompt, length))
         logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
         tok = sample_token(logits, self._gen, float(temperature))
-        scatter_row(self.pool.caches, caches, slot, length)
+        scatter_row(pool_caches, caches, slot, length)
         return tok
 
     def _probe_kv_error(self, padded: np.ndarray, length: int) -> None:
@@ -438,23 +473,33 @@ class Server:
                 if tel.enabled:
                     tel.event("page_alloc", tel.now(), request_id=req.id, step=self.steps,
                               slot=slot, n_pages=n_new, n_shared=n_shared)
+            if self._paged:
+                pf_name = f"prefill_paged[{Sb}]"
+                program = lambda pool: self._prefill_into_pages(  # noqa: E731
+                    pool, padded, L, pages, wmask, req.temperature)
+            else:
+                pf_name = f"prefill[{Sb}]"
+                program = lambda pool: self._prefill_into_slot(  # noqa: E731
+                    pool, padded, L, slot, req.temperature)
+            # costed BEFORE t0, so the extra run never pollutes the timed window
+            self._cost(pf_name, program, self.pool.caches)
             if tel.enabled:
                 t0 = tel.now()
                 if req.t_submit is not None:
                     tel.span("queue_wait", req.t_submit, t0, request_id=req.id,
                              step=self.steps, steps=float(self.steps - req.arrival_time))
+            with self._annot(pf_name):
+                tok = program(self.pool.caches)
+            self.pool.install_prefill(slot, L)
             if self._paged:
-                tok = self._prefill_into_pages(padded, L, pages, wmask, req.temperature)
-                self.pool.install_prefill(slot, L)
                 # publish the full prompt pages before anything can preempt
                 # this slot (a spill retains sealed pages only)
                 self.pool.seal_slot(slot)
-            else:
-                tok = self._prefill_into_slot(padded, L, slot, req.temperature)
-                self.pool.install_prefill(slot, L)
             if tel.enabled:
                 fence(tok)
                 t1 = tel.now()
+                if self._prof is not None:
+                    self._prof.observe(pf_name, t1 - t0)
                 tel.observe("serve_prefill_seconds", t1 - t0)
                 tel.observe("serve_prefill_pad_frac", (Sb - L) / Sb)
                 tel.inc("serve_prefills_total")
@@ -548,12 +593,18 @@ class Server:
             st = self._chunking[slot]
             c0 = st.starts[st.next]
             tokens = torch.as_tensor(st.padded[:, c0:c0 + C], device=self.device)
+            ck_name = f"prefill_chunk[{st.Sb}]"
+            self._cost(ck_name, lambda ws: lm.backbone_chunk(self.params, tokens, ws, c0,
+                                                             self.cfg), st.workspace)
             if tel.enabled:
                 t0 = tel.now()
-            h = lm.backbone_chunk(self.params, tokens, st.workspace, c0, self.cfg)
+            with self._annot(ck_name):
+                h = lm.backbone_chunk(self.params, tokens, st.workspace, c0, self.cfg)
             if tel.enabled:
                 fence(h)
                 t1 = tel.now()
+                if self._prof is not None:
+                    self._prof.observe(ck_name, t1 - t0)
                 tel.observe("serve_prefill_chunk_seconds", t1 - t0)
                 tel.inc("serve_prefill_chunks_total")
                 tel.span("prefill_chunk", t0, t1, request_id=st.req.id, step=self.steps,
@@ -570,14 +621,26 @@ class Server:
         req = st.req
         tel = self.telemetry
         del self._chunking[slot]
-        logits = lm.logits_from_hidden(self.params, h[:, st.L - 1 - st.starts[-1]], self.cfg)
-        tok = sample_token(logits, self._gen, float(req.temperature))
-        cc = workspace_to_row(st.workspace, self.pool.cache_len, self.kvq)
-        scatter_row(self.pool.caches, cc, slot, st.L)
+
+        def commit(pool_caches):
+            logits = lm.logits_from_hidden(self.params, h[:, st.L - 1 - st.starts[-1]],
+                                           self.cfg)
+            tok = sample_token(logits, self._gen, float(req.temperature))
+            cc = workspace_to_row(st.workspace, self.pool.cache_len, self.kvq)
+            scatter_row(pool_caches, cc, slot, st.L)
+            return tok
+
+        cm_name = f"chunk_commit[{st.Sb}]"
+        self._cost(cm_name, commit, self.pool.caches)
+        t0c = tel.now() if tel.enabled else 0.0
+        with self._annot(cm_name):
+            tok = commit(self.pool.caches)
         self.pool.install_prefill(slot, st.L)
         if tel.enabled:
             fence(tok)
             t1 = tel.now()
+            if self._prof is not None:
+                self._prof.observe(cm_name, t1 - t0c)
             tel.observe("serve_prefill_seconds", t1 - st.t_start)
             tel.observe("serve_prefill_pad_frac", (st.Sb - st.L) / st.Sb)
             tel.inc("serve_prefills_total")
@@ -599,16 +662,20 @@ class Server:
         if self._paged:
             self.pool.page_map_vector()
         tel = self.telemetry
+        self._cost("decode_step", self._decode_program, self.pool.caches)
         if tel.enabled:
             n_active = self.pool.n_active
             t0 = tel.now()
-        if self._graph is not None:
-            self._graph.replay()
-        else:
-            self._decode_body()
+        with self._annot("decode_step"):
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                self._decode_body()
         nxt = self._nxt.cpu().numpy()
         if tel.enabled:
             t1 = tel.now()
+            if self._prof is not None:
+                self._prof.observe("decode_step", t1 - t0)
             fill = n_active / self.pool.num_slots
             tel.observe("serve_decode_step_seconds", t1 - t0)
             tel.observe("serve_batch_fill", fill)

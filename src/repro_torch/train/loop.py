@@ -4,7 +4,11 @@ SIGTERM preemption save and a straggler log (per-step wall-clock EWMA; a
 step over ``straggler_factor`` x the EWMA is logged — on a cluster the
 signal to evict a slow host, here only detected and surfaced).
 
-Not in this slice: the sharder and gradient compression (ROADMAP queue A11).
+``grad_compress_bits`` k > 0 trains with blockwise k-bit gradient
+compression and error feedback (``optim/grad_compress.py``); the error
+state is checkpointed with the parameters.
+
+Not in this slice: the sharder (ROADMAP queue A11).
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ from repro_torch.train import step as step_mod
 
 
 def train(cfg, *, steps: int, batch: int, seq_len: int, ckpt_dir: str | None = None,
-          ckpt_every: int = 100, seed: int = 0, peak_lr: float = 3e-3, log_every: int = 20,
-          straggler_factor: float = 3.0, log=print, device=None):
+          ckpt_every: int = 100, seed: int = 0, peak_lr: float = 3e-3,
+          grad_compress_bits: int = 0, log_every: int = 20, straggler_factor: float = 3.0,
+          log=print, device=None):
     """Train a (tiny) model on the synthetic corpus on ``device`` (CUDA by
     default); returns (final state, this call's per-step losses).
 
@@ -31,8 +36,10 @@ def train(cfg, *, steps: int, batch: int, seq_len: int, ckpt_dir: str | None = N
     replaced is put back when it returns.  Each checkpoint's ``extra`` holds
     ``data_step`` and ``losses``, every step's loss from step 0."""
     dev = resolve_device(device)
-    state = step_mod.init_state(cfg, seed=seed, device=dev)
+    state = step_mod.init_state(cfg, seed=seed, device=dev,
+                                grad_compress_bits=grad_compress_bits)
     train_step = step_mod.make_train_step(cfg, peak_lr=peak_lr, total_steps=steps,
+                                          grad_compress_bits=grad_compress_bits,
                                           loss_chunk=min(512, seq_len))
     start_step, losses, mgr, done = 0, [], None, 0
     hooked, previous_handler = False, None

@@ -1,14 +1,18 @@
-"""Train step assembly: loss -> grads -> AdamW — port of
-``repro/train/step.py`` for one device.
+"""Train step assembly: loss -> grads (-> optional blockwise gradient
+compression with error feedback) -> AdamW — port of ``repro/train/step.py``
+for one device.
 
 Gradients come from ``torch.autograd`` over the port's ``lm.loss_fn`` (the
 model computes in bf16 on f32 master weights, as the reference's does), or
 over ``seq2seq.loss_fn`` for an encoder-decoder config, whose batch adds
 "frames" [B, S, D] to "tokens" and "labels".  The dense weights carry no
-kernel, so no backward kernel is needed.
+kernel, so no backward kernel is needed.  ``grad_compress_bits`` k > 0
+sends the gradients through ``optim/grad_compress.compress_tree`` before
+AdamW (on the card one flat-encode launch a leaf of 1,024 elements or
+more), its error feedback carried in ``TrainState.err``.
 
-Not in this slice: the sharder (TP/FSDP specs, head padding) and blockwise
-gradient compression with error feedback (ROADMAP queue A11).
+Not in this slice: the sharder (TP/FSDP specs, head padding; ROADMAP queue
+A11).
 """
 
 from __future__ import annotations
@@ -18,24 +22,28 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import lm, seq2seq
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, grad_compress
 from repro_torch.tree import leaves, unflatten
 
 
 class TrainState(NamedTuple):
     params: dict
     opt: adamw.AdamWState
+    err: dict | None = None   # gradient-compression error feedback
 
 
-def init_state(cfg, *, seed: int = 0, device=None) -> TrainState:
-    """Seeded f32 parameters on ``device`` (CUDA by default) and zero moments."""
+def init_state(cfg, *, seed: int = 0, device=None, grad_compress_bits: int = 0) -> TrainState:
+    """Seeded f32 parameters on ``device`` (CUDA by default), zero moments
+    and, with ``grad_compress_bits``, zero f32 compression errors."""
     init = seq2seq.init_params if cfg.encoder_decoder else lm.init_params
     params = init(cfg, seed=seed, device=device)
-    return TrainState(params=params, opt=adamw.init(params))
+    err = grad_compress.init_error_state(params) if grad_compress_bits else None
+    return TrainState(params=params, opt=adamw.init(params), err=err)
 
 
 def make_train_step(cfg, *, peak_lr: float = 3e-3, warmup: int = 50, total_steps: int = 1000,
-                    loss_chunk: int = 512, microbatches: int = 1):
+                    grad_compress_bits: int = 0, loss_chunk: int = 512,
+                    microbatches: int = 1):
     """``train_step(state, batch) -> (state, metrics)``.  ``microbatches``
     > 1 accumulates f32 gradients over that many slices of the batch, which
     bounds activation memory by one slice's."""
@@ -63,9 +71,13 @@ def make_train_step(cfg, *, peak_lr: float = 3e-3, warmup: int = 50, total_steps
 
     def train_step(state: TrainState, batch):
         loss, grads = grads_of(state.params, batch)
+        err = state.err
+        if grad_compress_bits:
+            grads, err = grad_compress.compress_tree(grads, err, bits=grad_compress_bits)
         lr = adamw.cosine_lr(state.opt.step, peak=peak_lr, warmup=warmup, total=total_steps)
         params, opt, gnorm = adamw.update(state.params, grads, state.opt, lr=lr)
-        return TrainState(params=params, opt=opt), {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return (TrainState(params=params, opt=opt, err=err),
+                {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
     return train_step
 

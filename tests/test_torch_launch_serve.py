@@ -7,8 +7,12 @@ Mirrors ``tests/test_launch_serve.py:80-172`` case for case:
   message, and both packages accept and reject the same argv lists;
 * the legal flag matrix serves end to end (``--device cpu``), the plan
   riding along;
-* the reference's ``--mesh`` cases (ROADMAP A11) and ``--profile`` cases
-  (A7) become checks that the port refuses them, naming the item.
+* the reference's ``--mesh`` cases (ROADMAP A11) become checks that the
+  port refuses them, naming the item;
+* ``--profile`` is accepted where the reference accepts it, and serves
+  with the roofline summary and the ``profile_*`` families (the two
+  ``..._refused_naming_a7`` tests keep the names they had while the port
+  refused the flag).
 
 Added: the plan path the launcher's docstring gives — the ``plan`` suite
 writes ``plans/tiny-2.6m.json`` and the launcher serves it — and a plan
@@ -125,9 +129,10 @@ def test_legal_flag_combinations_validate(argv):
 
 @pytest.mark.parametrize("argv", PROFILED)
 def test_profile_refused_naming_a7(argv):
+    """Named when the port refused --profile (A7); since the step profiler
+    is ported, both packages accept these argv lists."""
     r_serve.validate_flags(_args(r_serve, *argv))
-    with pytest.raises(SystemExit, match="A7"):
-        serve_mod.validate_flags(_args(serve_mod, *argv))
+    serve_mod.validate_flags(_args(serve_mod, *argv))
 
 
 @pytest.mark.parametrize("device,ok", [("cpu", True), ("cuda", True), ("cuda:1", True),
@@ -162,11 +167,22 @@ def test_mesh_serve_refused_naming_a11():
                         "--max-new", "4", "--device", "cpu"])
 
 
-def test_profile_serve_refused_naming_a7(tmp_path):
-    with pytest.raises(SystemExit, match="A7"):
-        serve_mod.main(["--arch", "tiny-160k", "--kv-bits", "4", "--num-requests", "3",
-                        "--num-slots", "2", "--max-new", "4", "--profile",
-                        "--metrics-out", str(tmp_path / "m.prom"), "--device", "cpu"])
+def test_profile_serve_refused_naming_a7(tmp_path, capsys):
+    """Named when the port refused --profile (A7); now the reference's
+    test_profile_flag_serves_with_roofline_gauges on the CPU: the serve
+    prints the roofline summary and the metrics dump carries the profile_*
+    families."""
+    mpath = tmp_path / "m.prom"
+    serve_mod.main(["--arch", "tiny-160k", "--mode", "continuous", "--kv-bits", "4",
+                    "--num-requests", "3", "--num-slots", "2", "--max-new", "4", "--profile",
+                    "--metrics-out", str(mpath), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "profiler (" in out and "decode_step" in out, out
+    text = mpath.read_text()
+    for fam in ("profile_program_flops", "profile_roofline_frac",
+                "profile_step_seconds_bucket"):
+        assert fam in text, fam
+    assert 'kv_bits="4"' in text
 
 
 # -------------------------------------------------------------------------

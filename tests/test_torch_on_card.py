@@ -76,7 +76,13 @@ where the card is (a machine without JAX):
   row alone equals the same row among 8 bit for bit (output, state, conv);
 * the encoder-decoder (reduced() seamless-m4t-large-v2, 4-bit): the prefill
   and decode steps through B1's GEMM and GEMV within 0.5 of dequant_einsum,
-  and a captured ``seq2seq.decode_step`` equal to the eager one bit for bit.
+  and a captured ``seq2seq.decode_step`` equal to the eager one bit for bit;
+* the step profiler: tiny-160k's programs cost the same on the card as on
+  the CPU (FLOPs, dot FLOPs, the charged share; bytes within 1 %, the
+  card's partials concatenated a row at a time), the profiled Engine's and
+  paged Server's tokens and a replay's launches equal to unprofiled ones;
+  gradient compression on the card bit-identical to the CPU's, one flat
+  encode a leaf of 1,024 values or more.
 """
 
 import numpy as np
@@ -1453,3 +1459,108 @@ def test_seq2seq_captured_step_equals_eager():
     assert torch.equal(replayed.view(torch.int16), eager.view(torch.int16))
     assert bool((written[:, :5] == torch.arange(5, device="cuda")).all())
     assert bool((written[:, 5:] == -1).all())
+
+
+def _profiled_programs(device, kv):
+    """tiny-160k's prefill[2x7] and decode_step[2] costed on ``device`` by
+    a profiled Engine (4-bit weights from one CPU tree), and its tokens."""
+    from repro_torch.serving import StepProfiler
+
+    cfg = get_arch("tiny-160k").with_kv_quant(kv)
+    params = _tree_to(quantize_params(lm.init_params(cfg, seed=0, device="cpu"),
+                                      QuantConfig(bits=4, dtype="float", block_size=64), cfg,
+                                      device="cpu"), device)
+    prompts = torch.tensor(np.random.RandomState(80).randint(0, 2048, (2, 7)), device=device)
+    tel = Telemetry(profiler=StepProfiler())
+    eng = Engine(params, cfg, max_seq_len=14, telemetry=tel, device=device)
+    out = eng.generate(prompts, 5)
+    (session,) = tel.profiler.sessions
+    return session.costs, out, params, cfg, prompts, eng
+
+
+def _tree_to(tree, device):
+    from repro_torch.core.qtensor import QuantizedTensor
+
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    if isinstance(tree, QuantizedTensor):
+        import dataclasses
+
+        return dataclasses.replace(tree, **{f.name: getattr(tree, f.name).to(device)
+                                            for f in dataclasses.fields(tree)
+                                            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [16, 4])
+def test_profiled_costs_equal_on_card_and_cpu(kv):
+    _need_cuda()
+    cpu, _, _, _, _, _ = _profiled_programs("cpu", kv)
+    card, out_card, params, cfg, prompts, profiled = _profiled_programs("cuda", kv)
+    for name, a in cpu.items():
+        b = card[name]
+        assert (a.flops, a.dot_flops, a.kernel_flops, a.kernel_bytes) == \
+            (b.flops, b.dot_flops, b.kernel_flops, b.kernel_bytes), name
+        assert abs(b.hbm_bytes - a.hbm_bytes) <= 0.01 * a.hbm_bytes, name
+    assert card["decode_step[2]"].dot_flops == 964_608
+    # the profiled Engine's tokens and one replay's launches are the unprofiled ones
+    eng = Engine(params, cfg, max_seq_len=14, device="cuda")
+    assert torch.equal(eng.generate(prompts, 5), out_card)
+    assert profiled._graphs[2].step.launched == eng._graphs[2].step.launched
+    assert sum(eng._graphs[2].step.launched) > 0
+
+
+@pytest.mark.cuda
+def test_profiled_paged_server_tokens_equal_unprofiled():
+    _need_cuda()
+    from repro_torch.serving import NOOP, StepProfiler
+
+    cfg = get_arch("tiny-160k").with_kv_quant(4)
+    params = quantize_params(lm.init_params(cfg, seed=0, device="cuda"),
+                             QuantConfig(bits=4, dtype="float", block_size=64), cfg,
+                             device="cuda")
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 2048, n) for n in (10, 6, 20, 8)]
+
+    def serve(tel):
+        srv = Server(params, cfg, num_slots=2, max_seq_len=32, paged=True, page_size=8,
+                     telemetry=tel, device="cuda")
+        ids = [srv.submit(p, 5, arrival_time=float(i)) for i, p in enumerate(prompts)]
+        res = srv.run_until_drained()
+        return [res[i] for i in ids], srv
+
+    tel = Telemetry(profiler=StepProfiler())
+    on, srv = serve(tel)
+    off, _ = serve(NOOP)
+    assert on == off
+    rows = tel.profiler.summary()
+    assert {r["program"] for r in rows} >= {"decode_step"}
+    assert all(0 < r["roofline_frac"] <= 1 for r in rows)
+
+
+@pytest.mark.cuda
+def test_grad_compression_on_card_equals_cpu():
+    _need_cuda()
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.tree import leaves
+
+    rs = np.random.RandomState(0)
+    tree = {"w": torch.tensor(rs.randn(96, 64) * 0.01, dtype=torch.float32),
+            "b": torch.tensor(rs.randn(64) * 0.01, dtype=torch.float32),
+            "v": torch.tensor(rs.randn(5000) * 0.01, dtype=torch.float32)}
+    card = {k: v.cuda() for k, v in tree.items()}
+    n0 = launches.snapshot()
+    g1, e1 = gc.compress_tree(card, None)
+    g2, e2 = gc.compress_tree(card, e1)
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(launches.snapshot(), n0)]
+    from repro_torch.kernels import quantize as tq
+
+    assert tq.quantize_blocks_cuda.launches - n0[7] == 4 and sum(delta) == 4
+    p1, q1 = gc.compress_tree(tree, None)
+    p2, q2 = gc.compress_tree(tree, q1)
+    for c, p in ((g1, p1), (e1, q1), (g2, p2), (e2, q2)):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(leaves(c), leaves(p)))

@@ -45,7 +45,7 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import kv_dequant as tkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
-from repro_torch.serving import Server, Telemetry, trace  # noqa: E402
+from repro_torch.serving import Server, StepProfiler, Telemetry, trace  # noqa: E402
 from repro_torch.serving.pages import (  # noqa: E402
     PageAllocator,
     PagedKVPool,
@@ -571,9 +571,13 @@ def test_paged_flag_validation():
         Server(params, tcfg, paged=True, prefill_chunk=8, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         Server(params, tcfg, paged=True, sharder=object(), **kw)
-    # the kv probe is ported; the step profiler is still A7's
-    with pytest.raises(NotImplementedError, match="A7"):
-        Server(params, tcfg, paged=True, telemetry=Telemetry(profiler=object()), **kw)
+    # the step profiler is ported: a paged Server serves and attributes
+    tel = Telemetry(profiler=StepProfiler())
+    srv = Server(params, tcfg, paged=True, page_size=8, telemetry=tel, **kw)
+    srv.submit(list(range(1, 12)), 5)
+    srv.run_until_drained()
+    names = {r["program"] for r in tel.profiler.summary()}
+    assert names == {"prefill_paged[16]", "decode_step"}, names
     with pytest.raises(ValueError):
         PagedKVPool(tcfg, 2, 32, page_size=6, device="cpu")
     with pytest.raises(ValueError):

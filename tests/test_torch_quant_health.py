@@ -43,7 +43,7 @@ from repro_torch.configs import QuantConfig, get_arch  # noqa: E402
 from repro_torch.kernels import kv_dequant as tkv  # noqa: E402
 from repro_torch.models.quantize import quantizable_units, quantize_params  # noqa: E402
 from repro_torch.precision import PrecisionPlan  # noqa: E402
-from repro_torch.serving import NOOP, Engine, Server, Telemetry  # noqa: E402
+from repro_torch.serving import NOOP, Engine, Server, StepProfiler, Telemetry  # noqa: E402
 from repro_torch.serving.telemetry import (  # noqa: E402
     kv_roundtrip_error,
     record_quant_health,
@@ -257,12 +257,18 @@ def test_engine_plan_records_health_before_quantizing():
 
 
 def test_step_profiler_refused_naming_a7():
+    """Named when the port refused the step profiler (A7); since it is
+    ported, the Engine and the Server take it beside the quant-health
+    telemetry and attribute their programs."""
     _, cfg, _, params = _weights("tiny-650k")
-    tel = Telemetry(profiler=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        Engine(params, cfg, max_seq_len=16, telemetry=tel, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        Server(params, cfg, num_slots=2, max_seq_len=16, telemetry=tel, device="cpu")
+    tel = Telemetry(profiler=StepProfiler())
+    Engine(params, cfg, max_seq_len=16, telemetry=tel, device="cpu").generate(
+        np.arange(1, 9)[None], 3)
+    srv = Server(params, cfg, num_slots=2, max_seq_len=16, telemetry=tel, device="cpu")
+    srv.submit(np.arange(1, 6), 3)
+    srv.run_until_drained()
+    names = {r["program"] for r in tel.profiler.summary()}
+    assert names == {"prefill[1x8]", "decode_step[1]", "prefill[8]", "decode_step"}, names
 
 
 def test_launcher_writes_validating_artifacts(tmp_path, capsys):

@@ -42,7 +42,13 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import QuantConfig, get_arch  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
-from repro_torch.serving import Engine, Server, SlotKVCache, Telemetry  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    Engine,
+    Server,
+    SlotKVCache,
+    StepProfiler,
+    Telemetry,
+)
 from repro_torch.serving import server as server_mod  # noqa: E402
 from repro_torch.serving import trace  # noqa: E402
 from repro_torch.serving.engine import sample_token  # noqa: E402
@@ -296,9 +302,8 @@ def test_server_rejects_unported_options():
         Server(params, cfg, prefill_chunk=0, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         Server(params, cfg, sharder=object(), **kw)
-    # the kv probe is ported; the step profiler is still A7's
-    with pytest.raises(NotImplementedError, match="A7"):
-        Server(params, cfg, telemetry=Telemetry(profiler=object()), **kw)
+    # the kv probe and the step profiler are ported: both construct
+    Server(params, cfg, telemetry=Telemetry(kv_probe_every=1, profiler=StepProfiler()), **kw)
     srv = Server(params, cfg, **kw)
     with pytest.raises(ValueError):
         srv.submit(np.arange(12), 8)
