@@ -176,6 +176,26 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                and its prefill's GEMMs as the path runs them (K padded to
                whole words at every call) beside rows padded beforehand and
                that copy alone.
+  3k. audit  — (run last, after the times phase, so that its captures
+               come after every other phase's; on the serve phase's tree)
+               reprolint's captured-graph auditor
+               (src/repro_torch/analysis/audit.py): tiny-160k at kv16, kv8
+               and kv4 through the Engine (two batch sizes), the slot
+               Server with a forced preemption, the chunked and the paged
+               Server (a remap sweep with preemptions) and the 4-bit float
+               b64 fused slot Server, then Qwen2-7B: the Engine's batch-4
+               decode graph and the Server's pool graph (8 slots, a forced
+               preemption).  Each captured step is dumped as DOT
+               (build/audit/) and gated: no host node and no host memcpy,
+               no host sync while capturing, every buffer at its
+               capture-time address after the workload and no growth over
+               50 replays, the eager spill, restore and page wipe in the
+               pool's own storage with peak memory under one slot's rows,
+               each hand-written kernel's nodes equal to its recorded
+               launches (Qwen2-7B: 197 tensor-core GEMVs and 28 fused
+               attentions a graph), one capture a Server and a batch size.
+               Prints every verdict, the full-width graphs' kernel nodes by
+               family and the phase's seconds.
   3b. server — the continuous-batching Server on the same weights with a kv4
                cache and 8 slots: 24 requests of 16-512 prompt tokens and
                16-64 new tokens with staggered arrivals, plain, with
@@ -372,6 +392,8 @@ PAGED_SHORT_REQUESTS = 8
 # the bits phase: the widths below 8 other than 4 (the paper sweeps 3 to 8
 # bits; the reference's mixed-precision planner proposes 3, 5 and 6)
 LOW_BITS = (3, 5, 6)
+# the audit phase: decode steps of the Engine on the serve phase's prompts
+AUDIT_NEW_TOKENS = 8
 # the routed phase: the paper ladder's largest model, whose head dim of 56
 # the fused attention does not take, through the Engine (4 prompts of 64
 # tokens, 32 new) and the Server (4 slots of 256, 12 requests of 16-200
@@ -538,6 +560,7 @@ def main() -> int:
     suites = plan_suites(torch, dev, paper)
     bench = bench_path(torch, dev)
     times = time_kernels(torch, dev, run, paper)
+    audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
                    run["routed_counts"], run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"])
@@ -1587,63 +1610,46 @@ def serve_main_path(torch, dev) -> dict:
             "tokens": tokens, "generate_counts": generate_counts, "step_counts": step_counts}
 
 
-class _capture_guard:
-    """Records every .item(), .cpu(), .tolist(), .numpy(), int(), float(),
-    bool() or index use of a CUDA tensor inside the bodies that the port
-    captures as CUDA graphs (serving.engine.capture_graph, which the Engine
-    and the Server call), while the guard is open.  Yields the list of
-    calls seen."""
+def _capture_guard(torch):
+    """The capture guard of reprolint's auditor
+    (``repro_torch.analysis.audit._capture_guard``): records every host sync
+    of a CUDA tensor inside the bodies the port captures, while open."""
+    from repro_torch.analysis.audit import _capture_guard as guard
 
-    NAMES = ("item", "cpu", "tolist", "numpy", "__int__", "__float__", "__bool__", "__index__")
+    return guard(torch)
 
-    def __init__(self, torch):
-        self.torch = torch
-        self.calls = []
-        self.inside = False
 
-    def __enter__(self):
-        from repro_torch.serving import engine as engine_mod
-        from repro_torch.serving import server as server_mod
+def audit_path(torch, dev, run) -> None:
+    """Phase 3k: reprolint's captured-graph auditor (analysis/audit.py):
+    tiny-160k's grid at kv16, kv8 and kv4 (the Engine, the slot Server with
+    a forced preemption, the chunked and the paged Server, the 4-bit fused
+    slot Server), then the serve phase's Qwen2-7B tree: the Engine's batch
+    decode graph and the Server's pool graph (SERVER_SLOTS slots, a forced
+    preemption), each 0 host nodes, 0 host memcpys, 0 host syncs, one
+    capture, 197 tensor-core GEMV and 28 fused-attention nodes."""
+    from repro_torch.analysis import audit
 
-        Tensor = self.torch.Tensor
-        self.saved = {n: getattr(Tensor, n) for n in self.NAMES}
-        self.own = {n for n in self.NAMES if n in Tensor.__dict__}
-        self.capture = engine_mod.capture_graph
-        self.mods = (engine_mod, server_mod)
-        guard = self
-
-        def watched(name, real):
-            def call(t, *a, **k):
-                if guard.inside and t.is_cuda:
-                    guard.calls.append(name)
-                return real(t, *a, **k)
-            return call
-
-        for n, real in self.saved.items():
-            setattr(Tensor, n, watched(n, real))
-
-        def capture(body, device, generator=None):
-            def guarded():
-                guard.inside = True
-                try:
-                    body()
-                finally:
-                    guard.inside = False
-            return guard.capture(guarded, device, generator)
-
-        for m in self.mods:
-            m.capture_graph = capture
-        return self.calls
-
-    def __exit__(self, *exc):
-        for n, real in self.saved.items():
-            if n in self.own:
-                setattr(self.torch.Tensor, n, real)
-            else:
-                delattr(self.torch.Tensor, n)
-        for m in self.mods:
-            m.capture_graph = self.capture
-        return False
+    t0 = time.perf_counter()
+    dots = ROOT / "build" / "audit"
+    report = audit.run_audit(device=dev, dot_dir=dots)
+    audit.audit_full(report, run["qparams"], run["cfg"], device=dev, dot_dir=dots,
+                     batch=BATCH, prompt_len=PROMPT, new_tokens=AUDIT_NEW_TOKENS,
+                     num_slots=SERVER_SLOTS,
+                     slot_len=SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    full = {p: {"kernel_nodes": sum(f.values()), "families": dict(f.most_common())}
+            for p, f in report.families.items() if ARCH in p}
+    emit({"phase": "audit", "seconds": seconds, "checks": len(report.checks),
+          "failed": [c.render() for c in report.failures()],
+          "verdicts": {f"{c.program} {c.check}": ("ok " if c.ok else "FAIL ") + c.detail
+                       for c in report.checks},
+          "full_width_graphs": full,
+          "tiny_kernel_nodes": {p: sum(f.values()) for p, f in report.families.items()
+                                if ARCH not in p}})
+    require(report.ok, f"audit: {len(report.failures())} checks failed: "
+            + "; ".join(c.render() for c in report.failures()[:5]))
+    require(len(full) == 2, f"audit: full-width graphs {sorted(full)}")
 
 
 def _eager_generate(torch, qparams, cfg, prompts, temperature=0.0, generator=None):

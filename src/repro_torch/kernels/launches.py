@@ -26,6 +26,12 @@ def _counters() -> tuple:
             (qmatmul.qmatmul_gemv_experts, "launches"))
 
 
+def names() -> tuple[str, ...]:
+    """Every counter's name, ``<wrapper>.<attribute>``, in ``snapshot``'s
+    order."""
+    return tuple(f"{fn.__name__}.{attr}" for fn, attr in _counters())
+
+
 def snapshot() -> tuple[int, ...]:
     """Every counter's value, in a fixed order."""
     return tuple(getattr(fn, attr) for fn, attr in _counters())

@@ -41,6 +41,7 @@ Not in the port yet: the sharder (ROADMAP A11).
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -109,43 +110,63 @@ def clone_caches(caches):
 class CapturedStep:
     """A body captured as a ``torch.cuda.CUDAGraph`` (``capture_graph``):
     ``replay()`` runs it and adds the kernel launches that it recorded to
-    the wrappers' counters (``kernels/launches.py``)."""
+    the wrappers' counters (``kernels/launches.py``).  A step captured with
+    ``debug=True`` keeps its graph's node list, which ``dump_dot`` writes."""
 
-    def __init__(self, graph, launched: tuple[int, ...]):
+    def __init__(self, graph, launched: tuple[int, ...], debug: bool = False):
         self.graph = graph
         self.launched = launched
+        self.debug = debug
 
     def replay(self) -> None:
         self.graph.replay()
         launches.add(self.launched)
 
+    def dump_dot(self, path) -> None:
+        """Write the captured graph's nodes as Graphviz DOT text to ``path``
+        (``cudaGraphDebugDotPrint``, verbose: every node's type and
+        parameters, a kernel's function name among them).  Needs a step
+        captured with ``debug=True``.  Replays are not affected."""
+        if not self.debug:
+            raise RuntimeError("dump_dot needs a step captured with capture_graph(debug=True)")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # PyTorch warns at every debug dump
+            self.graph.debug_dump(str(path))
 
-def capture_graph(body, device: torch.device, generator: torch.Generator | None = None):
+
+def capture_graph(body, device: torch.device, generator: torch.Generator | None = None,
+                  *, debug: bool = False):
     """``body`` captured as a ``CapturedStep``, after one warm-up call on a
     side stream (PyTorch's CUDA-graph recipe); a ``generator`` that the body
     draws from is registered with the graph, and left in the state it had
     before the warm-up.  The warm-up runs the body once on its static
     buffers, so callers load their state after the capture.  Its launches
     count; the recording's do not (it launches nothing), they count at each
-    replay.  Raises if the body cannot be captured (a host sync inside it,
-    say)."""
+    replay.  ``debug=True`` keeps the graph's node list for
+    ``CapturedStep.dump_dot`` (``analysis/audit.py`` reads it).  Raises if
+    the body cannot be captured (a host sync inside it, say)."""
     state = generator.get_state() if generator is not None else None
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         body()
     torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    # debug: keep this graph's node list past instantiation (keep_graph),
+    # which the dump reads.  Not CUDAGraph.enable_debug_mode(): it is
+    # process-wide, and every later graph would keep its nodes too
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if debug else torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
     before = launches.snapshot()
     with torch.cuda.graph(graph):
         body()
+    if debug:
+        graph.instantiate()
     launched = tuple(a - b for a, b in zip(launches.snapshot(), before))
     launches.add([-n for n in launched])
     if state is not None:
         generator.set_state(state)
-    return CapturedStep(graph, launched)
+    return CapturedStep(graph, launched, debug)
 
 
 class _DecodeGraph:

@@ -82,7 +82,13 @@ where the card is (a machine without JAX):
   card's partials concatenated a row at a time), the profiled Engine's and
   paged Server's tokens and a replay's launches equal to unprofiled ones;
   gradient compression on the card bit-identical to the CPU's, one flat
-  encode a leaf of 1,024 values or more.
+  encode a leaf of 1,024 values or more;
+* reprolint's captured-graph auditor (``analysis/audit.py``): tiny-160k's
+  grid at kv16, kv8 and kv4 passes (the Engine, the slot, chunked and paged
+  Servers, the fused 4-bit Server), and two broken bodies are caught: a
+  host copy captured into the step fails ``no_host_nodes`` (PyTorch refuses
+  a pageable one at capture; a pinned one is captured), and a Server that
+  rebinds its token buffer after capture fails ``in_place``.
 """
 
 import numpy as np
@@ -1564,3 +1570,67 @@ def test_grad_compression_on_card_equals_cpu():
     p2, q2 = gc.compress_tree(tree, q1)
     for c, p in ((g1, p1), (e1, q1), (g2, p2), (e2, q2)):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(leaves(c), leaves(p)))
+
+
+@pytest.mark.cuda
+def test_audit_grid_on_tiny_160k(tmp_path):
+    """The auditor's tiny-160k grid at kv16, kv8 and kv4 passes on the card,
+    with every graph check run."""
+    _need_cuda()
+    from repro_torch.analysis import audit
+
+    report = audit.run_audit(kv_bits=(16, 8, 4), dot_dir=tmp_path)
+    assert report.ok, "\n".join(c.render() for c in report.failures())
+    checks = {(c.program, c.check) for c in report.checks}
+    for tag in ("kv16", "kv8", "kv4"):
+        assert (f"server.paged[{tag}]", "recapture") in checks
+        assert (f"server.decode_step[{tag}+fused]", "kernel_nodes") in checks
+        assert (f"engine.decode_step[{tag},B2]", "no_host_nodes") in checks
+        assert (f"server.paged[{tag}]", "in_place[wipe_pages]") in checks
+    assert len(report.families) == 3 * 6
+
+
+@pytest.mark.cuda
+def test_audit_catches_a_host_copy_in_a_captured_body(tmp_path):
+    """A body that copies a host value into the step: pageable, PyTorch
+    refuses it at capture; pinned, it is captured as a host-to-device
+    memcpy node read at every replay, and no_host_nodes fails."""
+    _need_cuda()
+    from repro_torch.analysis import audit
+    from repro_torch.serving.engine import capture_graph
+
+    buf = torch.zeros(2, device="cuda")
+    with pytest.raises(RuntimeError, match="pinned"):
+        capture_graph(lambda: buf.copy_(torch.tensor([1.0, 2.0], device="cuda")), "cuda")
+    torch.cuda.synchronize()
+    host = torch.tensor([1.0, 2.0]).pin_memory()
+    step = capture_graph(lambda: buf.copy_(host.to("cuda", non_blocking=True) * 2), "cuda",
+                         debug=True)
+    step.replay()
+    torch.cuda.synchronize()
+    assert buf.tolist() == [2.0, 4.0]
+    report = audit.AuditReport()
+    nodes = audit.audit_graph(report, "broken", step, tmp_path / "host.dot")
+    assert [c.check for c in report.failures()] == ["no_host_nodes"]
+    assert [n.kind for n in nodes if n.touches_host] == ["HtoD"]
+
+
+@pytest.mark.cuda
+def test_audit_catches_a_buffer_rebound_after_capture(tmp_path):
+    """A Server that rebinds its token buffer after its step was captured
+    (the graph goes on reading the old one): in_place fails, and only it."""
+    _need_cuda()
+    from repro_torch.analysis import audit
+
+    class Rebinding(Server):
+        def _decode_once(self):
+            self._tok = torch.zeros_like(self._tok)
+            return super()._decode_once()
+
+    cfg = get_arch("tiny-160k").with_kv_quant(4)
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    report = audit.AuditReport()
+    audit.audit_server_slot(report, params, cfg, "kv4", device="cuda", dot_dir=tmp_path,
+                            server=Rebinding)
+    assert [(c.check, c.detail.split(":")[0]) for c in report.failures()] == \
+        [("in_place", "rebound")]
