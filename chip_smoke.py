@@ -304,6 +304,33 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                64; every fused call one launch of qmatmul.cu's GEMV
                (qmatmul_gemv_simt) and no other kernel, the smoke within
                2e-5 of the oracle; prints each row's us and the speedups.
+  6e. ledger — (right after bench, while the serve phase's tree is alive)
+               the bench tooling (paper/ledger.py, paper/bench_diff.py,
+               paper/serve_bench.py): the pinned records (tiny-160k,
+               ledger.SERVE_ARGS and PAGED_ARGS; the kernel record from
+               the bench phase's kernel_bench output) diffed with the port's
+               bench_diff CLI against the reference's committed
+               BENCH_SERVE.json and BENCH_KERNELS.json: both exit 0 (every
+               virtual series within its tol: step counts, byte ratios and
+               weight bytes exact), the weight bytes 2,228,224 (float4,
+               int4), 1,808,793 (int3) and 4,325,376 (int8); the pinned
+               serve record run a second time: its virtual series equal the
+               first's exactly and their diff exits 0.  Then
+               serve_bench.run on the serve phase's Qwen2-7B tree (full width
+               and depth, 4-bit float b64): kv16/8/4, 8 slots, 24 requests,
+               rate 4.0, budgets of 8-48, seed 0, prompts from the first
+               serve_bench.WORKLOAD_VOCAB = 4096 ids (the workload's sampler
+               holds a vocab x vocab matrix: 92 GB at 152,064), with the
+               reference's gates
+               (static = continuous tokens at kv16, kv4 at least 3x fewer KV
+               bytes); kv8 and kv4 held to static = continuous tokens
+               (kv_gate="tokens"), their logit gaps reported: at Qwen2-7B's
+               random weights they exceed KV_LOGIT_TOL, as the reference's do
+               from qwen2-7b's reduced() shapes up
+               (scripts/kv_gap_reference.py); prints tokens/s,
+               TTFT and ITL p50/p99 and batch fill a precision, the static
+               tokens/s and the speedup, beside the card's name and power
+               limit, and the phase's seconds.
   7. times   — each kernel at the main path's shapes beside its plain
                version, its bound and a PyTorch library call, each timed
                as device time: captured in a CUDA graph and replayed; B1
@@ -559,11 +586,12 @@ def main() -> int:
     rest = paper_rest(torch, dev, paper)
     suites = plan_suites(torch, dev, paper)
     bench = bench_path(torch, dev)
+    ledger = ledger_path(torch, dev, run, bench)
     times = time_kernels(torch, dev, run, paper)
     audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
                    run["routed_counts"], run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
-                   bench["launches"], rest["launches"], suites["launches"])
+                   bench["launches"], rest["launches"], suites["launches"], ledger)
     del run
 
     kernels = []
@@ -591,7 +619,8 @@ def main() -> int:
             # Servers), seamless-m4t-large-v2 (its load, prefill, decode
             # steps, captured step and teacher-forced forward), kernel_bench,
             # the paper's sweep, its remaining experiments and the figmix and
-            # plan suites
+            # plan suites, and the ledger phase's serves (the pinned records
+            # and Qwen2-7B's sweep)
             "launches": t["launches"] + sum(c[count] for c in main_counts) + swept[count],
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4762,7 +4791,113 @@ def bench_path(torch, dev) -> dict:
           "speedup": {t: out["fused"][t]["speedup"] for t in tags},
           "kernel_smoke": smoke, "fused_calls": len(fused), "launches": counts,
           "seconds": seconds, "meta": out["meta"]})
-    return {"launches": counts}
+    return {"launches": counts, "out": out}
+
+
+#: the ledger phase's full-width sweep: Qwen2-7B through serve_bench.run
+LEDGER_FULL = dict(num_slots=8, n_requests=24, rate=4.0, max_new_range=(8, 48), seed=0,
+                   kv_gate="tokens")
+#: the reference's committed weight bytes (BENCH_KERNELS.json)
+LEDGER_WEIGHT_BYTES = {"float4": 2228224, "int4": 2228224, "int3": 1808793, "int8": 4325376}
+
+
+def _bench_diff(baseline, new, report) -> int:
+    """The port's bench_diff CLI on two ledgers, its report on stderr and
+    in ``report``; returns its exit code."""
+    import contextlib
+
+    from repro_torch.paper import bench_diff
+
+    with contextlib.redirect_stdout(sys.stderr):
+        return bench_diff.main(["--baseline", str(baseline), "--new", str(new),
+                                "--report", str(report)])
+
+
+def ledger_path(torch, dev, run, bench) -> dict:
+    """Phase 6e: the bench tooling on the card (see the module docstring).
+    Returns the launches of its serves."""
+    from repro_torch.paper import ledger, serve_bench
+    from repro_torch.serving import KV_LOGIT_TOL
+
+    def log(*args):
+        print(*args, file=sys.stderr, flush=True)
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "ledger"
+    _reset_counts()
+    _, recs = ledger.run(log=log, device=dev, kernel_out=bench["out"])
+    rcs = {suite: _bench_diff(base, ledger.candidate_path(suite), out_dir / f"{suite}.txt")
+           for suite, base in (("serve", ledger.REFERENCE_SERVE_LEDGER),
+                               ("kernels", ledger.REFERENCE_KERNEL_LEDGER))}
+    require(rcs == {"serve": 0, "kernels": 0},
+            f"bench_diff against the reference's ledgers exited {rcs}: "
+            + " | ".join((out_dir / f"{s}.txt").read_text()[-600:] for s in rcs if rcs[s]))
+    series = recs["serve"]["series"]
+    kseries = recs["kernels"]["series"]
+    weight_bytes = {t: kseries[f"kernel.{t}_weight_bytes"]["value"] for t in LEDGER_WEIGHT_BYTES}
+    require(weight_bytes == LEDGER_WEIGHT_BYTES, f"weight bytes {weight_bytes}")
+    # the pinned serve record again, in this process: the same virtual series
+    second = ledger.serve_record(log, device=dev)
+    pinned_counts = _counts()
+
+    def virtual(rec):
+        return {k: v["value"] for k, v in rec["series"].items() if v["clock"] == "virtual"}
+
+    require(virtual(second) == virtual(recs["serve"]),
+            f"the pinned serve record's virtual series differ between two runs: "
+            f"{virtual(recs['serve'])} vs {virtual(second)}")
+    again = out_dir / "BENCH_SERVE.again.json"
+    ledger.write(again, "serve", [second])
+    rc_again = _bench_diff(ledger.candidate_path("serve"), again, out_dir / "again.txt")
+    require(rc_again == 0, f"bench_diff of two pinned serve runs exited {rc_again}")
+    pinned_s = time.perf_counter() - t0
+
+    # full width: Qwen2-7B's tree from the serve phase
+    _reset_counts()
+    t1 = time.perf_counter()
+    _, stats = serve_bench.run(log, arch=ARCH, params=run["qparams"], device=dev,
+                               **LEDGER_FULL)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    full_counts = _counts()
+    require(stats["kv4_ratio"] >= 3.0, f"kv4 cut KV bytes {stats['kv4_ratio']}x")
+    require(full_counts["gemv_tc"] > 0 and full_counts["gemm"] > 0 and full_counts["attn"] > 0,
+            f"Qwen2-7B's sweep launched {full_counts}")
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    per_kv = {f"kv{b}": {"tokens_per_s": stats[f"tok_s_kv{b}"],
+                         "ttft_p50_ms": stats[f"kv{b}_ttft_p50_ms"],
+                         "ttft_p99_ms": stats[f"kv{b}_ttft_p99_ms"],
+                         "itl_p50_ms": stats[f"kv{b}_itl_p50_ms"],
+                         "itl_p99_ms": stats[f"kv{b}_itl_p99_ms"],
+                         "batch_fill": stats[f"kv{b}_batch_fill"],
+                         "engine_steps": stats[f"kv{b}_steps"],
+                         "kv_mb": stats[f"kv{b}_mb"]}
+              for b in (16, 8, 4)}
+    for b in (8, 4):
+        require(stats[f"kv{b}_static_equals_continuous"],
+                f"kv{b}: static and continuous tokens not compared")
+        per_kv[f"kv{b}"].update(bytes_ratio=stats[f"kv{b}_ratio"],
+                                logit_gap=stats[f"kv{b}_logit_gap"],
+                                oracle_greedy_agree=stats[f"kv{b}_greedy_agree"],
+                                logit_tol=KV_LOGIT_TOL[b], gate=stats[f"kv{b}_gate"],
+                                static_equals_continuous=True)
+    emit({"phase": "ledger", "seconds": time.perf_counter() - t0,
+          "pinned": {"seconds": pinned_s, "bench_diff_rc": {**rcs, "second_run": rc_again},
+                     "virtual": virtual(recs["serve"]), "weight_bytes": weight_bytes,
+                     "bytes_vs_bf16": {t: kseries[f"kernel.{t}_bytes_vs_bf16"]["value"]
+                                       for t in LEDGER_WEIGHT_BYTES},
+                     "wall": {k: v["value"] for k, v in series.items()
+                              if v["clock"] == "wall"},
+                     "launches": pinned_counts},
+          "full_width": {"arch": ARCH, "weights": "4-bit float b64", **LEDGER_FULL,
+                         "seconds": full_s, "static_equals_continuous_kv16": True,
+                         "tokens_per_s_static": stats["tok_s_static"],
+                         "speedup": stats["speedup"], "per_kv": per_kv,
+                         "launches": full_counts},
+          "card": smi, "diff_reports": str(out_dir)})
+    return {k: pinned_counts[k] + full_counts[k] for k in _COUNT_KEYS}
 
 
 class flat_encodes:

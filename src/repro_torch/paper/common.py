@@ -142,6 +142,18 @@ def timed_robust(fn, *args, repeats=30):
     return sample_times(fn, *args, repeats=repeats).fastest_mean(0.5) * 1e6
 
 
+def compile_warm(fn, passes: int = 2):
+    """Run ``fn`` ``passes`` times and return the LAST result: the serving
+    benches' two-pass idiom (the reference's).  On the port the first pass
+    through a fresh Engine or Server builds the kernels and captures the
+    decode graphs; the pass returned is warm.  ``fn`` must reuse the same
+    instance across calls (the captured graphs live per instance)."""
+    r = None
+    for _ in range(passes):
+        r = fn()
+    return r
+
+
 def run_meta(cli_args: dict | None = None, device=None) -> dict:
     """Provenance stamp of a bench JSON: the commit, torch and CUDA versions,
     and the device (CUDA unless ``device`` says otherwise) with, on a card,

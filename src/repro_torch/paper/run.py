@@ -2,7 +2,7 @@
 suites of the port.
 
     PYTHONPATH=src python -m repro_torch.paper.run
-        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel,figmix,plan]
+        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel,serve,figmix,plan,ledger]
         [--device cpu] [--sizes tiny-160k,tiny-650k] [--steps N]
         [--cache-dir DIR]
 
@@ -10,10 +10,13 @@ Trains the tiny ladder on the device (CUDA unless ``--device cpu``;
 ``--sizes`` picks models, ``--steps`` shortens every model's recipe), or
 restores it from the checkpoint cache under ``artifacts/ckpt_torch/``
 (``--cache-dir`` names another; ``common.trained_family``), when a chosen
-suite needs it (all but ``kernel`` and ``plan``), then runs each suite; the
-kernel microbench (``kernel_bench``) and the plan suite
-(``fig_mixed_frontier.run_plan``: plans for random-init archs under
-``artifacts/plans/``) train nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
+suite needs it (all but ``kernel``, ``serve``, ``plan`` and ``ledger``), then
+runs each suite; the kernel microbench (``kernel_bench``), the serving bench
+(``serve_bench.run``: static vs continuous batching over kv16/8/4 on
+tiny-160k), the plan suite (``fig_mixed_frontier.run_plan``: plans for
+random-init archs under ``artifacts/plans/``) and the regression ledger's
+pinned records (``ledger.run``: candidates under artifacts/bench_torch/)
+train nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
 human-readable logs on stderr) and writes machine-readable results under
 artifacts/bench_torch/.
 """
@@ -26,7 +29,7 @@ import time
 
 from repro_torch.paper import (appb_centering, common, fig2_bitlevel, fig3_blocksize,
                                fig3_datatypes, fig4_proxy, fig_mixed_frontier, kernel_bench,
-                               table1_gptq)
+                               ledger, serve_bench, table1_gptq)
 
 SUITES = {
     "fig2": fig2_bitlevel.run,
@@ -36,8 +39,10 @@ SUITES = {
     "table1": table1_gptq.run,
     "appb": appb_centering.run,
     "kernel": kernel_bench.run,
+    "serve": serve_bench.run,
     "figmix": fig_mixed_frontier.run,
     "plan": fig_mixed_frontier.run_plan,
+    "ledger": ledger.run,
 }
 #: the suites that run on the trained ladder
 ON_FAMILY = ("fig2", "fig3dt", "fig3bs", "fig4", "table1", "appb", "figmix")

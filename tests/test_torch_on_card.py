@@ -88,7 +88,12 @@ where the card is (a machine without JAX):
   Servers, the fused 4-bit Server), and two broken bodies are caught: a
   host copy captured into the step fails ``no_host_nodes`` (PyTorch refuses
   a pageable one at capture; a pinned one is captured), and a Server that
-  rebinds its token buffer after capture fails ``in_place``.
+  rebinds its token buffer after capture fails ``in_place``;
+* the bench tooling (``paper/serve_bench.py``, ``paper/ledger.py``,
+  ``paper/bench_diff.py``): the pinned serve record served on the card
+  diffs clean (exit 0) against the reference's committed BENCH_SERVE.json,
+  and Qwen2-7B at full width through ``serve_bench.run`` gives the static
+  Engine's tokens in the continuous Server at kv16 and kv4.
 """
 
 import numpy as np
@@ -1634,3 +1639,45 @@ def test_audit_catches_a_buffer_rebound_after_capture(tmp_path):
                             server=Rebinding)
     assert [(c.check, c.detail.split(":")[0]) for c in report.failures()] == \
         [("in_place", "rebound")]
+
+
+@pytest.mark.cuda
+def test_bench_diff_of_a_card_candidate_against_the_reference_ledger(tmp_path):
+    """The pinned serve record (ledger.SERVE_ARGS, PAGED_ARGS) served on the
+    card, diffed with the port's bench_diff CLI against the reference's
+    committed BENCH_SERVE.json: exit 0, every virtual series within its tol
+    (steps, latency, byte ratios exact)."""
+    _need_cuda()
+    from repro_torch.paper import bench_diff, ledger
+
+    rec = ledger.serve_record(lambda *a: None, device="cuda")
+    assert rec["meta"]["platform"] == "cuda" and rec["meta"]["torch_version"]
+    cand = ledger.write(tmp_path / "BENCH_SERVE.candidate.json", "serve", [rec])
+    report = tmp_path / "report.txt"
+    assert bench_diff.main(["--baseline", str(ledger.REFERENCE_SERVE_LEDGER),
+                            "--new", str(cand), "--report", str(report)]) == 0
+    assert "ok        serve.kv4_steps: 89 -> 89" in report.read_text()
+
+
+@pytest.mark.cuda
+def test_serve_bench_static_equals_continuous_at_full_width():
+    """serve_bench.run on Qwen2-7B at full width and depth (seeded random
+    weights, 4-bit float b64, prompts from the first 4096 ids): the static
+    Engine's greedy tokens equal the continuous Server's, request for
+    request, at kv16 (the reference's gate) and at kv4 (kv_gate="tokens"),
+    and kv4 cuts the KV bytes at least 3x."""
+    _need_cuda()
+    from repro_torch.paper import serve_bench
+
+    cfg = get_arch("qwen2-7b")
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    qparams = quantize_params(params, QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    del params
+    _, stats = serve_bench.run(lambda *a: None, arch="qwen2-7b", params=qparams, device="cuda",
+                               num_slots=8, n_requests=8, kv_bits=4, kv_gate="tokens")
+    # kv_bits=4: the kv16 pool gives the byte baseline only; the kv4 sweep
+    # runs the static Engine and the Server over the same packed cache
+    assert stats["kv4_static_equals_continuous"] and stats["kv4_ratio"] >= 3.0
+    _, stats = serve_bench.run(lambda *a: None, arch="qwen2-7b", params=qparams, device="cuda",
+                               num_slots=8, n_requests=8, kv_bits=16)
+    assert stats["kv16_static_equals_continuous"] and stats["tok_s_static"] > 0

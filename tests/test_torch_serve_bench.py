@@ -1,0 +1,217 @@
+"""The port's serving bench (``paper/serve_bench.py``) against the reference's
+``benchmarks/serve_bench.py`` and its committed ``BENCH_SERVE.json``, on the
+CPU (the plain path):
+
+* ``run(**ledger.SERVE_ARGS)`` gives the last committed record's virtual
+  series: engine steps, mean latency in steps and the KV byte ratio exactly,
+  batch fill within its 1e-6 tol.  They are functions of the scheduling
+  policy (no EOS in the workload), so the weights' seed does not enter;
+* ``run_paged(**ledger.PAGED_ARGS)`` gives 7 residents, a bytes ratio of
+  4/7 and 26 steps exactly, with the reference's ``run_paged``'s
+  copy-on-write hits;
+* on the reference's weights (``lm.init_params(PRNGKey(0))``, 4-bit float
+  at block 64, carried with ``interop.params_from_reference``) the port's
+  ``kv4_logit_gap`` is within 2 x LOGIT_TOL = 0.16 of the gap the
+  reference's ``run`` computes (``kv_oracle_logit_gap`` on its own probe:
+  the first 4 prompts of its workload, 16 steps; its prefill and decode
+  step compiled): each of the gap's two logit sets is held to the
+  reference's within 0.08 (tests/test_torch_model.py);
+* ``run_sla``'s virtual stats at the reference's defaults equal the
+  reference's: the engine steps of both policies, the preemptions and the
+  spilled bytes exactly; the hi class's p99 admission waits to 1e-12
+  relative: each is (admitted_at - (clock0 + arrival)) over the fastest of
+  three passes, whose clock0 differs, so the last f64 bit depends on which
+  pass was fastest, in the reference too;
+* ``kv_gate="tokens"`` runs the static Engine over the packed cache too and
+  holds its tokens to the Server's;
+* ``--mesh`` raises naming ROADMAP A11; ``--sla`` with ``--paged`` is refused;
+  the CLI writes its stats with the port's provenance;
+* the bench modules import neither jax nor the reference.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+import jax  # noqa: E402
+import torch  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))  # benchmarks/ is a repo-root package
+
+from benchmarks import serve_bench as rsb  # noqa: E402
+from repro.configs import QuantConfig as RQuantConfig  # noqa: E402
+from repro.configs.registry import get_arch as r_get_arch  # noqa: E402
+from repro.data import synthetic as rsyn  # noqa: E402
+from repro.models import lm as rlm  # noqa: E402
+from repro.models.quantize import quantize_params as r_quantize_params  # noqa: E402
+from repro.serving import kv_oracle_logit_gap as r_kv_oracle_logit_gap  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.paper import ledger, serve_bench  # noqa: E402
+
+torch.set_num_threads(2)
+
+#: each of the kv gap's two logit sets within 0.08 of the reference's
+#: (tests/test_torch_model.py LOGIT_TOL): the gaps within twice that
+GAP_TOL = 2 * 0.08
+
+
+def _quiet(*_a, **_k):
+    pass
+
+
+@pytest.fixture(scope="module")
+def pinned():
+    return serve_bench.run(_quiet, **ledger.SERVE_ARGS, device="cpu")[1]
+
+
+@pytest.fixture(scope="module")
+def reference_record():
+    return ledger.load(ledger.REFERENCE_SERVE_LEDGER)["runs"][-1]["series"]
+
+
+@pytest.mark.parametrize("name,stat", [
+    ("serve.kv4_steps", "kv4_steps"),
+    ("serve.kv4_mean_latency_steps", "kv4_mean_latency_steps"),
+    ("serve.kv4_bytes_ratio", "kv4_ratio"),
+])
+def test_pinned_serve_reproduces_the_committed_virtual_series(pinned, reference_record,
+                                                              name, stat):
+    assert pinned[stat] == reference_record[name]["value"]
+    assert ledger.serve_series(pinned, 4)[name]["value"] == reference_record[name]["value"]
+
+
+def test_pinned_serve_batch_fill_and_committed_numbers(pinned, reference_record):
+    ref_fill = reference_record["serve.kv4_batch_fill"]
+    assert abs(pinned["kv4_batch_fill"] - ref_fill["value"]) <= ref_fill["tol"] == 1e-6
+    assert (pinned["kv4_steps"], pinned["kv4_mean_latency_steps"], pinned["kv4_ratio"]) \
+        == (89, 48.34920584411714, 3.764705882352941)
+    # the gap of the port's own seeded tree, within the ledger's band
+    gap = reference_record["serve.kv4_logit_gap"]
+    assert 0 < pinned["kv4_logit_gap"] <= gap["value"] * (1 + gap["tol"])
+
+
+@pytest.fixture(scope="module")
+def paged_pair():
+    port = serve_bench.run_paged(_quiet, **ledger.PAGED_ARGS, device="cpu")[1]
+    ref = rsb.run_paged(_quiet, **ledger.PAGED_ARGS)[1]
+    return port, ref
+
+
+@pytest.mark.parametrize("name,stat,want", [
+    ("serve.paged_slots_resident", "paged_slots_resident", 7),
+    ("serve.paged_bytes_ratio", "paged_bytes_ratio", 0.5714285714285714),
+    ("serve.paged_steps", "paged_steps", 26),
+])
+def test_paged_reproduces_the_committed_virtual_series(paged_pair, reference_record, name,
+                                                       stat, want):
+    port, ref = paged_pair
+    assert port[stat] == want == reference_record[name]["value"] == ref[stat]
+
+
+def test_paged_cow_hits_and_baseline_equal_the_reference(paged_pair):
+    port, ref = paged_pair
+    for key in ("paged_cow_hits", "slots_resident_baseline", "baseline_steps"):
+        assert port[key] == ref[key], key
+    assert port["paged_cow_hits"] > 0
+
+
+def test_kv4_logit_gap_on_the_reference_weights(monkeypatch):
+    # the reference's prefill and decode step compiled (its gap calls them
+    # op by op, 26 s here; compiled it gives the same 0.3706 in 3.6 s)
+    monkeypatch.setattr(rlm, "prefill", jax.jit(rlm.prefill, static_argnums=(2,),
+                                                static_argnames=("cache_len",)))
+    monkeypatch.setattr(rlm, "decode_step", jax.jit(rlm.decode_step, static_argnums=(4,)))
+    rcfg = r_get_arch("tiny-160k").with_matmul_mode("auto")
+    rparams = r_quantize_params(rlm.init_params(jax.random.PRNGKey(0), rcfg),
+                                RQuantConfig(bits=4, dtype="float", block_size=64), rcfg)
+    args = ledger.SERVE_ARGS
+    # the reference's run: kv_oracle_logit_gap on its workload's first 4
+    # prompts, cut to the shortest, 16 steps
+    reqs = rsyn.serving_workload(rcfg.vocab_size, args["n_requests"], max_new_range=(8, 48),
+                                 rate=args["rate"], seed=0)
+    n_probe = min(4, args["n_requests"])
+    probe_len = min(len(r["prompt"]) for r in reqs[:n_probe])
+    probe = np.stack([r["prompt"][:probe_len] for r in reqs[:n_probe]])
+    ref_gap, _ = r_kv_oracle_logit_gap(rparams, rcfg.with_kv_quant(4), probe, 16)
+    carried = interop.params_from_reference(jax.tree.map(np.asarray, rparams), device="cpu")
+    _, stats = serve_bench.run(_quiet, **args, device="cpu", params=carried)
+    assert abs(stats["kv4_logit_gap"] - float(ref_gap)) <= GAP_TOL, (stats["kv4_logit_gap"],
+                                                                     float(ref_gap))
+    assert stats["kv4_steps"] == 89
+
+
+@pytest.fixture(scope="module")
+def sla_pair():
+    return (serve_bench.run_sla(_quiet, device="cpu")[1], rsb.run_sla(_quiet)[1])
+
+
+@pytest.mark.parametrize("key", ["vsteps_fifo", "vsteps_sla", "n_preemptions",
+                                 "spill_bytes_packed", "spill_bytes_logical"])
+def test_sla_exact_virtual_stats_equal_the_reference(sla_pair, key):
+    port, ref = sla_pair
+    assert port[key] == ref[key]
+
+
+@pytest.mark.parametrize("key", ["hi_wait_p99_steps_fifo", "hi_wait_p99_steps_sla"])
+def test_sla_admission_waits_equal_the_reference(sla_pair, key):
+    port, ref = sla_pair
+    assert port[key] == pytest.approx(ref[key], rel=1e-12, abs=0)
+    assert port["spill_ratio"] == pytest.approx(ref["spill_ratio"], rel=1e-12, abs=0)
+
+
+def test_tokens_gate_holds_static_equal_to_continuous_at_kv4():
+    """kv_gate="tokens" (the gate for archs whose random weights miss
+    KV_LOGIT_TOL in the reference too): the static Engine runs over the
+    packed cache as well and its tokens equal the Server's; the gap is
+    recorded, not gated."""
+    _, stats = serve_bench.run(_quiet, num_slots=2, n_requests=6, kv_bits=4, device="cpu",
+                               kv_gate="tokens")
+    assert stats["kv4_static_equals_continuous"] and stats["kv4_gate"] == "tokens"
+    assert stats["kv4_logit_gap"] > 0 and stats["kv4_ratio"] >= 3.0
+    assert "kv16_static_equals_continuous" not in stats   # kv16: bytes only
+    with pytest.raises(ValueError, match="kv_gate"):
+        serve_bench.run(_quiet, device="cpu", kv_gate="none")
+
+
+def test_mesh_is_refused_naming_a11():
+    with pytest.raises(SystemExit, match="A11"):
+        serve_bench.run(_quiet, mesh_spec="2x4", device="cpu")
+    with pytest.raises(SystemExit, match="A11"):
+        serve_bench.main(["--mesh", "2x4", "--device", "cpu"])
+
+
+def test_sla_and_paged_together_are_refused():
+    with pytest.raises(SystemExit, match="separate benches"):
+        serve_bench.main(["--sla", "--paged", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="drop --mesh"):
+        serve_bench.main(["--paged", "--mesh", "2x4", "--device", "cpu"])
+
+
+def test_paged_cli_writes_stats_with_the_port_meta(tmp_path):
+    out = tmp_path / "paged.json"
+    serve_bench.main(["--paged", "--device", "cpu", "--json-out", str(out)])
+    got = json.loads(out.read_text())
+    assert got["paged_slots_resident"] == 7 and got["paged_steps"] == 26
+    assert got["meta"]["torch_version"] == torch.__version__
+    assert got["meta"]["platform"] == "cpu" and got["meta"]["args"]["paged"] is True
+
+
+def test_bench_modules_import_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import repro_torch.paper.serve_bench, repro_torch.paper.ledger\n"
+        "import repro_torch.paper.bench_diff, repro_torch.paper.run\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "assert not leaked, leaked\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(ROOT))
+    assert res.returncode == 0, res.stderr
