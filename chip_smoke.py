@@ -248,6 +248,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                routed reads' device times; the Server on 4 slots and on
                pages of 16 over 12 requests: pages give the slots' tokens,
                each request within 0.08 of the Engine's step at batch 1.
+  3l. mesh   — serving on a 1x1 ("data", "model") mesh: a world of one rank
+               (NCCL, a file:// rendezvous) and Sharder(make_mesh(1, 1),
+               replicate_params_below=0) on the serve phase's Qwen2-7B tree.
+               The sharded Engine at kv16, kv8 and kv4 (4 x 256, 32 greedy
+               tokens): prefill and decode logits and tokens equal bit for
+               bit the unsharded prefill and lm.decode_step reading every
+               layer through the routed read (the combine's correction is
+               exp(0) = 1 and the collectives of one rank copy), graph
+               tokens = those eager ones; kv16 tokens = the unsharded
+               Engine's; kv8 and kv4's teacher-forced gap to the bf16
+               oracle over 16 steps reported beside KV_LOGIT_TOL.  The sharded Server on
+               8 kv4 slots of 576 over the server phase's first 8 requests:
+               each request's tokens = the sharded batch-1 Engine's.
+               `torch.distributed.run --standalone --nproc-per-node 1 -m
+               repro_torch.launch.serve --mesh 1x1 --kv-bits 4` exits 0.
+               The sharded captured step through analysis/audit.py: no
+               host node, no host memcpy, no host sync, 197 GEMV and 28 KV
+               dequant nodes, NCCL's kernel and copy nodes counted.
+               Prints the step's device and host ms beside the unsharded
+               one's (fused attention) and the unsharded step over the
+               routed read, its nodes, prefill s, the Server's tokens/s
+               and TTFT.
   3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
                width and depth): precision.build_plan on the card at the
                uniform-4 budget with KL probes (a Zipf-Markov batch over the
@@ -579,6 +601,7 @@ def main() -> int:
     paged_path(torch, dev, run)
     _memory_note(torch, "paged")
     routed_path(torch, dev, run)
+    mesh_path(torch, dev, run)
     plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
@@ -590,7 +613,8 @@ def main() -> int:
     times = time_kernels(torch, dev, run, paper)
     audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
-                   run["routed_counts"], run["plan_counts"], windows, experts["launches"], ssm_counts, s2s_counts,
+                   run["routed_counts"], run["mesh_counts"], run["plan_counts"], windows,
+                   experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"], ledger)
     del run
 
@@ -611,7 +635,8 @@ def main() -> int:
             # (its quantization included), through the Server on the slot
             # pool and on pages, the profile phase (the profiled Engine and
             # Servers, gradient compression and its training run),
-            # tiny-10m's routed read (Engine and Server),
+            # tiny-10m's routed read (Engine and Server), the 1x1 mesh's
+            # sharded Engines and Server (Qwen2-7B),
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
@@ -2583,6 +2608,271 @@ def routed_path(torch, dev, run) -> dict:
     run["routed_counts"] = total
     del qparams
     torch.cuda.empty_cache()
+    return total
+
+
+# the mesh phase: the server phase's first requests on the sharded Server;
+# the audit's decode steps; the launcher's traffic (tiny-650k, 4 heads)
+MESH_REQUESTS = 8
+MESH_LAUNCH_ARCH = "tiny-650k"
+# the teacher-forced kv8 / kv4 gaps over the first steps of the serve
+# phase's traffic (reported, not gated: at random weights Qwen2-7B misses
+# KV_LOGIT_TOL, as the reference's family does; PERF.md §7 question 8)
+MESH_GAP_STEPS = 16
+
+
+def _routed_oracle_read(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
+    """The unsharded decode read the 1x1 mesh is held to: the token written
+    by attention.write_cache_decode, then every cache read the routed way
+    (kv_attention.decode_attention_packed_routed: the KV dequant and the
+    partials) and a bf16 cache through the same partials."""
+    from repro_torch.kernels import kv_attention
+    from repro_torch.models import attention
+
+    attention.write_cache_decode(cache, k_new, v_new, pos, window=window, kvq=kvq)
+    if kvq is not None and "k_packed" in cache:
+        return kv_attention.decode_attention_packed_routed(q, cache, pos, kvq, cap=cap,
+                                                           window=window)
+    B, H, Dh = q.shape
+    m, l, pv = attention.decode_attention_partial(q, cache["k"], cache["v"], cache["pos"], pos,
+                                                  cap=cap, window=window)
+    return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
+
+
+def _rollout(torch, params, cfg, prompts, cache_len, *, engine=None, feed=None):
+    """(tokens [B, NEW_TOKENS], logits [B, NEW_TOKENS, V]) of eager steps:
+    a sharded Engine's prefill and step (its placement and decode read), or
+    without one the unsharded prefill and lm.decode_step over the routed
+    oracle read; each step fed its own greedy token or feed's."""
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        if engine is not None:
+            logits, caches = engine._prefill(prompts)
+            read = engine._decode_attn(prompts.shape[0])
+        else:
+            logits, caches = lm.prefill(params, prompts, cfg, cache_len=cache_len)
+            read = _routed_oracle_read
+        toks, logs = [torch.argmax(logits, -1).to(torch.int32)], [logits]
+        for t in range(1, NEW_TOKENS):
+            prev = toks[-1] if feed is None else feed[:, t - 1]
+            logits, caches = lm.decode_step(params, prev, caches, PROMPT + t - 1, cfg,
+                                            decode_attn=read)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+            logs.append(logits)
+    return torch.stack(toks, 1), torch.stack(logs, 1)
+
+
+def _mesh_launcher():
+    """launch/serve.py on a 1x1 mesh through torchrun (torch.distributed.run,
+    --standalone: its rendezvous on this host), continuous mode at kv4,
+    started in the background: (the process, its start time)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "repro_torch.launch.serve", "--arch", MESH_LAUNCH_ARCH, "--mesh", "1x1",
+           "--kv-bits", "4", "--num-requests", "6", "--num-slots", "2", "--max-new", "8"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def _mesh_launcher_result(proc, t0) -> dict:
+    """Wait for the launcher and check it exited 0 and served."""
+    out, err = proc.communicate(timeout=300)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"launch/serve.py --mesh 1x1 exited {proc.returncode}: "
+            f"{err[-2000:]}")
+    served = [ln for ln in out.splitlines() if ln.startswith("served ")]
+    require(len(served) == 1 and "mesh: {'data': 1, 'model': 1}" in out,
+            f"launch/serve.py --mesh 1x1 printed {out[-1000:]}")
+    return {"exit": proc.returncode, "seconds": seconds, "served": served[0]}
+
+
+def mesh_path(torch, dev, run) -> dict:
+    """Phase 3l: serving on a 1x1 mesh (module docstring).  Its counts are
+    set to 0 before the sharded Engines and Server run and read after
+    (the oracles', the kv gap's, the unsharded Engines' and the audit's
+    launches are not counted)."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import audit
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.serving import KV_LOGIT_TOL, Engine, Server, Telemetry, kv_oracle_logit_gap
+
+    base, qparams, prompts = run["cfg"], run["qparams"], run["prompts"]
+    t_phase = time.perf_counter()
+    cache_len = PROMPT + NEW_TOKENS
+    per_layer, n_layers = 7, base.n_layers
+    b1_step = per_layer * n_layers + 1
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+
+    def counted(fn):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for key, n in _counts().items():
+            total[key] += n
+        return out
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
+        init_world("cuda", rank=0, world=1, init_file=os.path.join(rdv, "rendezvous"))
+        # the launcher's process runs beside the gates below, before anything is timed
+        proc, t_launch = _mesh_launcher()
+        try:
+            mesh = make_mesh(1, 1, "cuda")
+            engines, kv_runs = {}, {}
+            for kv in (16, 8, 4):
+                cfg = base.with_kv_quant(kv)
+                sharder = Sharder(mesh, cfg, replicate_params_below=0)
+                engine = Engine(qparams, cfg, max_seq_len=cache_len, sharder=sharder, device=dev)
+                require(engine.max_seq_len == cache_len,
+                        f"a 1x1 mesh padded the cache to {engine.max_seq_len}")
+                _reset_counts()
+                with _capture_guard(torch) as syncs:
+                    tokens = engine.generate(prompts, NEW_TOKENS)
+                torch.cuda.synchronize()
+                counts = _counts()
+                for key in total:
+                    total[key] += counts[key]
+                require(not syncs, f"mesh kv{kv}: the sharded captured step syncs with the "
+                        f"host: {syncs[:5]}")
+                kv_dequants = NEW_TOKENS * n_layers if kv < 16 else 0
+                require(counts["gemm"] == per_layer * n_layers
+                        and counts["gemv"] == counts["gemv_tc"] == 1 + NEW_TOKENS * b1_step
+                        and counts["kv"] == kv_dequants and counts["attn"] == 0,
+                        f"mesh kv{kv}: generate launched {counts}, want {per_layer * n_layers} "
+                        f"GEMMs, 1 + {NEW_TOKENS} x {b1_step} GEMVs, {kv_dequants} KV "
+                        "dequants, no fused attention")
+                mine, mine_logits = counted(lambda: _rollout(torch, engine.params, cfg, prompts,
+                                                             cache_len, engine=engine))
+                oracle, oracle_logits = _rollout(torch, qparams, cfg, prompts, cache_len)
+                require(torch.equal(mine_logits.view(torch.int16),
+                                    oracle_logits.view(torch.int16))
+                        and torch.equal(mine, oracle) and torch.equal(tokens, oracle),
+                        f"mesh kv{kv}: the 1x1 sharded logits or tokens differ from the "
+                        "unsharded routed read's")
+                run_kv = {"launches": counts, "host_syncs_in_captured_step": len(syncs),
+                          "logits_equal_unsharded_routed": True,
+                          "graph_tokens_equal_eager": True}
+                if kv == 16:
+                    plain = Engine(qparams, cfg, max_seq_len=cache_len, device=dev)
+                    require(torch.equal(plain.generate(prompts, NEW_TOKENS), tokens),
+                            "mesh kv16: tokens differ from the unsharded Engine's")
+                    run_kv["tokens_equal_unsharded_engine"] = True
+                    del plain
+                else:
+                    # not counted: the gap's bf16 oracle runs unsharded
+                    gap, agree = kv_oracle_logit_gap(qparams, cfg, prompts, MESH_GAP_STEPS,
+                                                     device=dev, sharder=sharder)
+                    run_kv.update(kv_oracle_logit_gap=gap, kv_oracle_greedy_agreement=agree,
+                                  kv_logit_tol=KV_LOGIT_TOL[kv], kv_logit_tol_gated=False)
+                kv_runs[f"kv{kv}"] = run_kv
+                engines[kv] = engine
+
+            launcher = _mesh_launcher_result(proc, t_launch)
+
+            # the kv4 step: its device time beside the unsharded Engine's
+            # (one step at the prompt's end, captured anew and replayed,
+            # CUDA events) and both by the host clock over generate
+            engine = engines[KV_BITS]
+            plain = Engine(qparams, base, max_seq_len=cache_len, device=dev)
+            plain.generate(prompts, NEW_TOKENS)
+            times = {}
+            for name, e in (("sharded", engine), ("unsharded", plain)):
+                e.generate(prompts, 1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.generate(prompts, 1)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                e.generate(prompts, NEW_TOKENS)
+                torch.cuda.synchronize()
+                total_s = time.perf_counter() - t0
+                with torch.inference_mode():
+                    _, caches = e._prefill(prompts)
+                    tok, read = tokens[:, 0].contiguous(), e._decode_attn(BATCH)   # kv4's
+
+                    def step(e=e, caches=caches, tok=tok, read=read):
+                        lm.decode_step(e.params, tok, caches, PROMPT, base, decode_attn=read)
+
+                    device_ms = _time_ms(torch, step, 10)
+                times[name] = {"prefill_s": prefill_s,
+                               "decode_ms_per_step": (total_s - prefill_s) / (NEW_TOKENS - 1) * 1e3,
+                               "decode_step_device_ms": device_ms}
+                del caches
+            # the unsharded step over the same read as the mesh's (the
+            # routed read): what of the mesh's step the read is and what
+            # the mesh machinery
+            with torch.inference_mode():
+                _, caches = lm.prefill(qparams, prompts, base, cache_len=cache_len)
+                times["unsharded_routed"] = {"decode_step_device_ms": _time_ms(
+                    torch, lambda: lm.decode_step(qparams, tokens[:, 0], caches, PROMPT, base,
+                                                  decode_attn=_routed_oracle_read), 10)}
+                del caches
+            del plain
+
+            # the audit: the sharded kv4 step captured with its node list
+            report = audit.AuditReport()
+            with audit.CaptureLog() as log, _capture_guard(torch) as syncs:
+                Engine(qparams, base, max_seq_len=cache_len, sharder=engine.sharder,
+                       device=dev).generate(prompts, AUDIT_NEW_TOKENS)
+            torch.cuda.synchronize()
+            require(len(log.steps) == 1, f"mesh audit: {len(log.steps)} captures")
+            nodes = audit.audit_graph(
+                report, f"{ARCH} mesh-1x1 engine kv4", log.steps[0],
+                ROOT / "build" / "audit" / "qwen2-7b_mesh_engine_kv4.dot",
+                expect={"qmatmul_gemv.launches": b1_step,
+                        "dequant_kv_cuda.launches": n_layers,
+                        "decode_attention_packed_cuda.launches": 0})
+            audit._syncs_check(report, f"{ARCH} mesh-1x1 engine kv4", syncs)
+            require(report.ok, "mesh audit: " + "; ".join(c.render()
+                                                          for c in report.failures()[:5]))
+            nccl = audit.collective_nodes(nodes)
+
+            # the Server on the mesh: 8 kv4 slots of 576, each request's
+            # tokens against the sharded Engine at batch 1
+            reqs = _server_requests(base)[:MESH_REQUESTS]
+            slot_len = SERVER_PROMPT_LENS[1] + SERVER_NEW_TOKENS[1]
+            tel = Telemetry()
+            with torch.inference_mode(), _capture_guard(torch) as srv_syncs:
+                srv = counted(lambda: Server(qparams, base, num_slots=SERVER_SLOTS,
+                                             max_seq_len=slot_len, sharder=engine.sharder,
+                                             telemetry=tel, device=dev))
+                ids, served, wall, _ = counted(lambda: _drive_server(torch, srv, reqs))
+            require(not srv_syncs, f"mesh Server: its captured step syncs with the host: "
+                    f"{srv_syncs[:5]}")
+            solo = Engine(qparams, base, max_seq_len=slot_len, sharder=engine.sharder, device=dev)
+            alone = counted(lambda: [
+                solo.generate(torch.as_tensor(r["prompt"], device=dev)[None],
+                              len(t))[0].tolist() for r, t in zip(reqs, served)])
+            require(alone == served, "mesh Server: tokens differ from the sharded batch-1 "
+                    f"Engine's on {sum(a != b for a, b in zip(alone, served))} requests")
+            reg = tel.registry
+            ttft = reg.histogram("serve_ttft_seconds")
+            n_tokens = sum(len(t) for t in served)
+            del srv, solo, engines, engine, e, step, log
+        finally:
+            proc.kill()
+            dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    emit({"phase": "mesh", "arch": ARCH, "mesh": "1x1", "backend": "nccl",
+          "depth": base.n_layers, "width": base.d_model, "weights": "4-bit float b64",
+          "batch": BATCH, "prompt_len": PROMPT, "new_tokens": NEW_TOKENS,
+          "engine": kv_runs, "step_kv4": times,
+          "step_kernel_nodes": sum(report.families[f"{ARCH} mesh-1x1 engine kv4"].values()),
+          "step_nccl": nccl, "audit": {c.check: c.detail for c in report.checks},
+          "server": {"num_slots": SERVER_SLOTS, "max_seq_len": slot_len,
+                     "requests": MESH_REQUESTS, "tokens": n_tokens, "serve_s": wall,
+                     "tokens_per_s": n_tokens / wall,
+                     "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
+                     "tokens_equal_sharded_engine_b1": True,
+                     "host_syncs_in_captured_step": len(srv_syncs)},
+          "launcher": launcher, "card": smi.stdout.strip(), "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    run["mesh_counts"] = total
     return total
 
 

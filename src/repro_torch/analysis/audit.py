@@ -182,7 +182,18 @@ KERNEL_NODES = {
     "quantize_blocks_cuda.launches": _is("quantize_blocks_kernel", "quantize_blocks_vec_kernel"),
     "quantize_pack_cuda.launches": _is("quantize_pack_kernel"),
     "qmatmul_gemv_experts.launches": lambda base, name: base in _GEMV_TC and _experts(name),
+    # NCCL's collective kernels (a mesh's all-gathers and all-reduces; no
+    # wrapper counts them)
+    "nccl": lambda base, name: base.startswith("nccl"),
 }
+
+
+def collective_nodes(nodes) -> dict:
+    """A graph's NCCL nodes: its kernels (``KERNEL_NODES["nccl"]``) and its
+    device copies of the default kind, the node NCCL records for a
+    collective of one rank (PyTorch's own device copies are "DtoD")."""
+    return {"kernels": route_counts(nodes)["nccl"],
+            "copies": sum(n.type == "MEMCPY" and n.kind == "default" for n in nodes)}
 
 
 def kernel_families(nodes) -> Counter:
@@ -505,7 +516,7 @@ def audit_graph(report: AuditReport, program: str, step, dot_path: Path, *,
                + (f" ({sorted({n.kind_text for n in copies})})" if copies else ""))
     routes = route_counts(nodes)
     recorded = dict(zip(launches.names(), step.launched, strict=True))
-    off = {k: (routes[k], recorded[k]) for k in routes if routes[k] != recorded[k]}
+    off = {k: (routes[k], recorded[k]) for k in recorded if routes[k] != recorded[k]}
     seen = ", ".join(f"{k.split('.')[0]} {v}" for k, v in routes.items() if v) or "none"
     report.add(program, "kernel_route", not off,
                f"differ (nodes, launches): {off}" if off

@@ -12,10 +12,19 @@ padded here: the kernels read rows as stored and mask rows and columns.
 ``kernels/quantize.quantize_blocks``: the CUDA kernel for CUDA tensors, the
 plain version for CPU tensors.
 
-Not in this slice: the tensor-parallel dispatch scope (multi-GPU).
+On a mesh (``models/sharding.Sharder``) a rank holds a ``Placed`` leaf: its
+slice of a weight, the weight's placement and the sharder that placed it.
+A column-parallel product runs on this rank's output rows and its result
+is gathered over "model" (``tp_column_parallel``): B1 (``qmatmul``) for
+the fused mode, the dequantized rows for the oracle mode, both with the
+same split of x's rows over the data axes where they divide
+(``_row_part``).  The collectives are ``torch.distributed``'s, issued
+whatever the size of their group.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -125,6 +134,96 @@ def qmatmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
 def fused_matmul(x: torch.Tensor, op: QMatmulOperand) -> torch.Tensor:
     """Fused dequant-GEMM: x [..., K<=k_dim] -> [..., N] in x's dtype."""
     return qmatmul(x, op)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel products (models/sharding.Sharder)
+# --------------------------------------------------------------------------
+
+class Placed(NamedTuple):
+    """A parameter leaf of which this rank holds a slice: ``local`` (a
+    tensor, or a QuantizedTensor sliced on its output rows), ``spec``, the
+    whole leaf's placement, one entry a dimension (an axis name, a tuple of
+    them, or None; for a QuantizedTensor its packed words'), and
+    ``sharder``, the Sharder that placed it (its groups and this rank's
+    coordinates: ``group(axes)``, ``coord(axes)``, ``tp``, ``dp_axes``)."""
+
+    local: object
+    spec: tuple
+    sharder: object
+
+    def select(self, i: int) -> "Placed":
+        """Item ``i`` of the leading (stacked layer) axis."""
+        local = self.local.select(i) if isinstance(self.local, QuantizedTensor) else self.local[i]
+        return Placed(local, self.spec[1:], self.sharder)
+
+    def split_on(self, axis: str, dim: int) -> bool:
+        """Whether dimension ``dim`` is split over ``axis``."""
+        return axis in axis_names(self.spec[dim])
+
+
+def axis_names(entry) -> tuple:
+    """A spec entry as a tuple of axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _row_part(sharder, m_rows: int):
+    """The data axes x's rows [M, K] split over: the sharder's, when their
+    size is above 1 and divides M (each rank then computes its batch
+    slice), else None.  A row's reduction is untouched either way, so this
+    is a choice of work and traffic shared by both matmul modes."""
+    if sharder.dp_axes:
+        size = sharder.coord(sharder.dp_axes)[1]
+        if size > 1 and m_rows % size == 0:
+            return sharder.dp_axes
+    return None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in group
+    rank order: one all-gather."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """x reduced in place over ``group`` ("sum" or "max"); returns x."""
+    import torch.distributed as dist
+
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
+    return x
+
+
+def tp_column_parallel(x: torch.Tensor, local_product, sharder, bias=None) -> torch.Tensor:
+    """x [..., K] -> [..., N] where ``local_product`` maps rows [m, K] to
+    this rank's N / tp output columns of a weight ``sharder`` placed: x's
+    rows split over the data axes where they divide, the local columns
+    (plus this rank's ``bias`` slice) computed, and one all-gather over the
+    axes involved puts [M, N] together on every rank.  B1 (``qmatmul``)
+    and the dequantized rows take the same split, so fused = dequant stays
+    token-identical on a mesh."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    M = x2.shape[0]
+    rows = _row_part(sharder, M)
+    axes = (rows or ()) + (sharder.tp,)
+    r_idx, r_n = sharder.coord(rows or ())
+    xl = x2[r_idx * (M // r_n):(r_idx + 1) * (M // r_n)] if rows else x2
+    y = local_product(xl)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    g = gather_dim(y[None], 0, sharder.group(axes))   # [r_n * tp, m, n]
+    n = y.shape[-1]
+    y = g.reshape(r_n, -1, y.shape[0], n).permute(0, 2, 1, 3).reshape(M, -1)
+    return y.reshape(lead + (y.shape[-1],))
 
 
 def quantize_blocks(x: torch.Tensor, codebook: torch.Tensor, block_size: int):

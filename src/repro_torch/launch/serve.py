@@ -56,9 +56,19 @@ config (conflicts with --bits/--dtype/--block-size/--outlier-pct),
 ``--dtype fp16`` skips weight quantization entirely (conflicts with the
 same three), ``--kv-block-size/--kv-dtype`` need ``--kv-bits < 16``,
 ``--kv-probe-every`` needs a quantized cache plus a telemetry sink, and
-each mode rejects the other's workload flags.  ``--mesh`` (ROADMAP A11)
-is not ported and is refused.  ``--device`` is
-the port's only addition.  An encoder-decoder arch (seamless-m4t-large-v2)
+each mode rejects the other's workload flags.  ``--device`` is the port's
+only addition.
+
+``--mesh DATAxMODEL`` serves on a ("data", "model") mesh of ranks, one
+process a rank (``launch/mesh.py``), started by torchrun::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch tiny-650k --mesh 1x2 --kv-bits 4 --device cpu
+
+(NCCL on the card, a card a rank; gloo on the CPU).  DATA x MODEL must be
+the world's size; a world of one (``--mesh 1x1``) also starts without
+torchrun.  As in the reference, an explicit mesh shards even a model
+under the replication threshold (``replicate_params_below=0``).  An encoder-decoder arch (seamless-m4t-large-v2)
 is refused before anything is built: it runs through ``models/seq2seq.py``.
 """
 
@@ -66,6 +76,8 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,7 +88,9 @@ from repro_torch.configs import QuantConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_world, make_mesh
 from repro_torch.models import blocks, lm
+from repro_torch.models.sharding import Sharder
 from repro_torch.models.quantize import bits_report, quantize_params, quantize_tree
 from repro_torch.precision import PrecisionPlan
 from repro_torch.serving import NOOP, Engine, Server, StepProfiler, Telemetry
@@ -100,22 +114,34 @@ def load_params(cfg, ckpt_dir, device=None):
     return state.params
 
 
-def parse_mesh(spec: str | None):
-    """None -> None; a mesh is refused: serving on a device mesh is not
-    ported (ROADMAP A11)."""
+def parse_mesh(spec: str | None, device=None):
+    """'DxM' -> a ("data", "model") mesh over the world of ranks (torchrun's;
+    a world of one without it), after joining it; None -> None."""
     if spec is None:
         return None
-    raise SystemExit(
-        f"--mesh {spec}: serving on a device mesh (the sharder) is not "
-        "ported yet (ROADMAP A11)"
-    )
+    try:
+        d, m = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DATAxMODEL (e.g. 2x4), got {spec!r}")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if d * m != world:
+        raise SystemExit(
+            f"--mesh {spec} needs {d * m} ranks but the world has {world} (start "
+            f"them with torchrun --nproc-per-node {d * m} -m repro_torch.launch.serve)"
+        )
+    kind = torch.device(device or "cuda").type
+    if "WORLD_SIZE" in os.environ:
+        init_world(kind)
+    else:
+        init_world(kind, rank=0, world=1,
+                   init_file=os.path.join(tempfile.mkdtemp(), "rendezvous"))
+    return make_mesh(d, m, kind)
 
 
 def validate_flags(args) -> None:
     """Audit every flag pairing BEFORE any model work: each combination
     must either compose or fail loudly here.  The reference's rules, word
-    for word, then the port's: --device names cuda or cpu, and --mesh
-    (ROADMAP A11) is refused."""
+    for word, then the port's: --device names cuda or cpu."""
     quant_flags = [f for f in ("bits", "dtype", "block_size", "outlier_pct")
                    if getattr(args, f) is not None]
     if args.plan is not None and quant_flags:
@@ -244,8 +270,6 @@ def validate_flags(args) -> None:
                 f"--device wants cuda, cuda:N or cpu (the kernels run on the "
                 f"card, their plain versions on the CPU), got {args.device!r}"
             )
-    if args.mesh is not None:
-        parse_mesh(args.mesh)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -286,8 +310,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=["int", "float", "dynamic"],
                     help="default: float (needs --kv-bits < 16)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="serve on a device mesh: not ported yet (ROADMAP "
-                         "A11); refused")
+                    help="serve on a (data, model) mesh of DATA x MODEL ranks, "
+                         "started by torchrun --nproc-per-node DATA*MODEL "
+                         "(a world of one without it)")
     ap.add_argument("--mode", choices=["continuous", "static"],
                     default="continuous")
     # static-mode flags (None = unset, so continuous mode can reject
@@ -390,6 +415,22 @@ def _finish_telemetry(tel, args) -> None:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     validate_flags(args)
+    mesh = parse_mesh(args.mesh, args.device)
+    try:
+        _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank():   # every rank serves; rank 0 reports
+            sys.stdout = open(os.devnull, "w")
     dev = resolve_device(args.device)
     telemetry = NOOP
     if args.metrics_out is not None or args.trace_out is not None:
@@ -407,6 +448,11 @@ def main(argv=None):
         kv_dt = args.kv_dtype if args.kv_dtype is not None else "float"
         cfg = cfg.with_kv_quant(args.kv_bits, block_size=kv_bs, dtype=kv_dt)
         print(f"kv cache: {kv_dt}{args.kv_bits}-b{kv_bs}")
+    # an explicit --mesh asks for real sharding even below the
+    # replicate-small-models threshold (that is the point of the flag)
+    sharder = Sharder(mesh, cfg, replicate_params_below=0) if mesh is not None else None
+    if mesh is not None:
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     if args.ckpt_dir:
         params = load_params(cfg, args.ckpt_dir, device=dev)
     else:
@@ -440,7 +486,7 @@ def main(argv=None):
         batch = args.batch if args.batch is not None else 8
         prompt_len = args.prompt_len if args.prompt_len is not None else 32
         engine = Engine(params, cfg, max_seq_len=prompt_len + args.max_new,
-                        telemetry=telemetry, device=dev)
+                        sharder=sharder, telemetry=telemetry, device=dev)
         proc = synthetic.ZipfMarkov(cfg.vocab_size, device=dev)
         prompts = proc.sample(synthetic.generator(1, dev), batch, prompt_len)
         t0 = time.perf_counter()
@@ -473,7 +519,7 @@ def main(argv=None):
         # pages must tile the cache budget exactly
         max_seq_len = -(-max_seq_len // page_size) * page_size
     server = Server(params, cfg, num_slots=num_slots,
-                    max_seq_len=max_seq_len, telemetry=telemetry,
+                    max_seq_len=max_seq_len, sharder=sharder, telemetry=telemetry,
                     prefill_chunk=args.prefill_chunk,
                     max_preemptions=max_preemptions,
                     paged=args.paged, page_size=page_size,
@@ -486,6 +532,10 @@ def main(argv=None):
         print(f"scheduler: {priorities} priority classes, "
               f"prefill chunk {args.prefill_chunk or 'off'}, "
               f"max preemptions {max_preemptions}")
+    if sharder is not None:
+        kvb = server.pool.kv_bytes()
+        print(f"kv pool: {kvb['total']/1e6:.3f} MB total, "
+              f"{kvb['per_device']/1e6:.3f} MB/device")
     first_id = None
     t0 = time.perf_counter()
     for r in reqs:

@@ -7,7 +7,8 @@ Trains on CUDA unless ``--device`` says otherwise.  Fault tolerance: with
 ``--ckpt-dir`` a run resumes from the latest checkpoint there; SIGTERM
 triggers a final synchronous save.  ``--grad-compress-bits k`` trains with
 blockwise k-bit gradient compression and error feedback.  The production
-meshes (``--mesh``) are not ported (ROADMAP queue A11) and raise.
+meshes (``--mesh``) wait for the sharded train step (ROADMAP A11.2) and
+raise.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: the sharded train step is not "
-                                  "ported yet (ROADMAP queue A11)")
+        raise NotImplementedError(f"--mesh {args.mesh}: the sharded train step (FSDP "
+                                  "storage) waits for ROADMAP A11.2")
 
     cfg = get_arch(args.arch)
     dev = resolve_device(args.device)

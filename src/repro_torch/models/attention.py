@@ -43,7 +43,11 @@ The paged pool (``serving/pages.py``) keeps every leaf page-major,
 ``paged_decode_attention`` reads through it (a packed cache in the fused
 kernel or the KV dequant, which follow the map themselves).
 
-Not in the port yet: the sharded combine (ROADMAP A11).
+On a mesh the cache is sequence-sharded (``models/sharding.py``): each
+rank holds a window [offset, offset + S_loc) of the slots, writes a token
+only where it owns the token's slot (``write_cache_local_window``) and
+takes the partials over its window; ``combine_partials(group=)`` merges the
+ranks' partials with two all-reduces (the max, then the corrected sums).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import kv_attention, kv_dequant
+from repro_torch.kernels import kv_attention, kv_dequant, ops
 from repro_torch.models.layers import apply_rope, dense, rmsnorm
 from repro_torch.utils import cost
 
@@ -324,6 +328,46 @@ def write_cache_decode(cache: dict, k_new, v_new, pos, *, window: int = 0, kvq=N
     return cache
 
 
+def write_cache_local_window(cache: dict, k_new, v_new, pos, *, S_total: int, offset,
+                             window: int = 0, kvq=None) -> dict:
+    """``write_cache_decode`` on a rank's window [offset, offset + S_loc) of
+    a sequence-sharded cache of ``S_total`` slots, in place: the write
+    lands only where this rank owns the token's slot, and elsewhere the
+    window keeps what it holds.  ``cache`` holds the local slices ([B, S_loc,
+    ...] leaves, positions [S_loc] or per-slot [B, S_loc]); scalar and
+    per-row positions, idle rows (pos -1 at the clamped slot), rings and
+    the append-quantize are ``write_cache_decode``'s, so the two stay in
+    lockstep.  ``offset`` is an int or a 0-d device tensor."""
+    pos = as_position(pos, k_new.device)
+    S_loc = cache["pos"].shape[-1]
+    vals = _cache_values(cache, k_new, v_new, kvq)
+    slot = cache_slot(pos, S_total, window)
+    if pos.ndim:
+        slot = torch.clamp(slot, 0, S_total - 1)
+    lp = slot - offset
+    ok = (lp >= 0) & (lp < S_loc)
+    lpc = torch.clamp(lp, 0, S_loc - 1).to(torch.int64)
+    if pos.ndim == 0:
+        if cache["pos"].ndim != 1:
+            raise ValueError("a shared position needs a shared [S_loc] position array")
+        idx = lpc.reshape(1)
+        for key, val in vals:
+            cur = cache[key].index_select(1, idx)
+            cache[key].index_copy_(1, idx, torch.where(ok, val[:, None], cur))
+        cur = cache["pos"].index_select(0, idx)
+        cache["pos"].index_copy_(0, idx, torch.where(ok, pos.reshape(1), cur))
+        return cache
+    if cache["pos"].ndim != 2 or pos.shape[0] != cache["pos"].shape[0]:
+        raise ValueError(f"positions {tuple(pos.shape)} need a per-slot position array, got "
+                         f"{tuple(cache['pos'].shape)}")
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for key, val in vals:
+        sel = ok.reshape((-1,) + (1,) * (val.ndim - 1))
+        cache[key].index_put_((rows, lpc), torch.where(sel, val, cache[key][rows, lpc]))
+    cache["pos"].index_put_((rows, lpc), torch.where(ok, pos, cache["pos"][rows, lpc]))
+    return cache
+
+
 def write_cache_prefill(cache: dict, k_seq, v_seq, *, window: int = 0, kvq=None) -> dict:
     """Write a prefilled sequence [B,S,K,Dh] into slots [0..S), in place.
     A prompt longer than a ring cache keeps its last S_c positions, each at
@@ -403,9 +447,22 @@ def _partials(q, k_cache, v_cache, pos_arr, pos, *, cap, window):
     return m, l, pv
 
 
-def combine_partials(m, l, pv):
-    """Merge flash-decoding partials of one (unsharded) cache."""
-    return pv / torch.clamp(l, min=1e-30)[..., None]
+def combine_partials(m, l, pv, group=None):
+    """Merge flash-decoding partials: of one cache, or (``group``, a
+    process group) of every rank's window of a sequence-sharded one — the
+    max over the group, then each rank's l and pv scaled by exp(m - max)
+    and summed over it (one all-reduce of the two).  A rank whose window
+    holds no valid slot of a row has m at the masked floor, so it adds
+    exactly 0; a row no rank holds (an idle row) stays a zero output."""
+    if group is None:
+        return pv / torch.clamp(l, min=1e-30)[..., None]
+    m_g = ops.all_reduce(m.clone(), group, "max")
+    corr = torch.exp(m - m_g)
+    l_c, pv_c = l * corr, pv * corr[..., None]
+    sums = ops.all_reduce(torch.cat([l_c.reshape(-1), pv_c.reshape(-1)]), group)
+    l_g = sums[:l_c.numel()].reshape(l_c.shape)
+    pv_g = sums[l_c.numel():].reshape(pv_c.shape)
+    return pv_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 
 def decode_attention(q, cache, pos, *, cap=0.0, window=0, kvq=None):

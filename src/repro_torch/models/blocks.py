@@ -34,8 +34,18 @@ paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
 The encoder-decoder with frame inputs (``models/seq2seq.py``) uses ``mlp``,
 ``take`` and ``local_decode_attn`` from here and has its own layer loops;
-``check_dense`` refuses it on this path.  Not in the port yet: sharding
-constraints (ROADMAP A11).
+``check_dense`` refuses it on this path.
+
+On a mesh (``models/sharding.py``) the sequence mode takes the sharder's
+``constrain`` and ``q_pad``, as the reference's: q heads are zero-padded to
+``q_pad`` inside each KV group (the padded heads attend like any other and
+are sliced off before ``wo``), split over "model" with the batch over the
+data axes (``constrain(q, "heads")``, the KV heads a rank's q heads read:
+``constrain(k, "kv_heads")``), attended, and gathered back
+(``constrain.gather``).  The defaults (``NO_CONSTRAIN``, no padding) leave
+every unsharded path as it was.  Stacked weights are ``kernels/ops.Placed``
+slices there, and ``take`` selects a layer of them; the products and the
+decode read (the sharder's ``decode_attn``) do their own collectives.
 """
 
 from __future__ import annotations
@@ -43,11 +53,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.kernels import ops
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation, dense, norm
+
+
+class NoConstrain:
+    """The unsharded placement: every activation stays whole."""
+
+    def __call__(self, x, kind: str):
+        return x
+
+    def gather(self, x, kind: str, shape):
+        return x
+
+
+#: the reference's NO_CONSTRAIN
+NO_CONSTRAIN = NoConstrain()
 
 
 def init_mlp(init, cfg) -> dict:
@@ -113,7 +138,7 @@ def take(tree, i: int):
     """Item i of the leading (stacked layer) axis of every leaf, as views."""
     if isinstance(tree, dict):
         return {k: take(v, i) for k, v in tree.items()}
-    if isinstance(tree, QuantizedTensor):
+    if isinstance(tree, (QuantizedTensor, ops.Placed)):
         return tree.select(i)
     return tree[i]
 
@@ -139,20 +164,53 @@ def _ffn(p, h, cfg, ffn: str, pad_mask=None):
     return mlp(p["ffn"], h, cfg), {}
 
 
+def _pad_heads(q, K: int, q_pad: int):
+    """q [B, S, H, Dh] with zero heads appended inside each of the K groups
+    up to q_pad heads in all: head g of group k stays at k * q_pad // K + g,
+    so the GQA grouping of the real heads is kept."""
+    B, S, H, Dh = q.shape
+    qg = q.reshape(B, S, K, H // K, Dh)
+    pad = qg.new_zeros((B, S, K, q_pad // K - H // K, Dh))
+    return torch.cat([qg, pad], dim=3).reshape(B, S, q_pad, Dh)
+
+
+def _unpad_heads(o, K: int, H: int):
+    """``_pad_heads`` undone: the real heads of o [B, S, q_pad, Dh]."""
+    B, S, Hp, Dh = o.shape
+    return o.reshape(B, S, K, Hp // K, Dh)[:, :, :, :H // K].reshape(B, S, H, Dh)
+
+
+def attend_seq(q, k, v, *, window, cap, constrain=NO_CONSTRAIN, q_pad=None):
+    """The prefill read: q [B,S,H,Dh] over k, v [B,S,K,Dh], q heads padded
+    to ``q_pad`` and split, attended and gathered by ``constrain``."""
+    H, K = q.shape[2], k.shape[2]
+    padded = bool(q_pad) and q_pad != H
+    if padded:
+        q = _pad_heads(q, K, q_pad)
+    shape = q.shape
+    o = attn_mod.flash_attention(constrain(q, "heads"), constrain(k, "kv_heads"),
+                                 constrain(v, "kv_heads"), causal=True, window=window, cap=cap)
+    o = constrain.gather(o, "heads", shape)
+    return _unpad_heads(o, K, H) if padded else o
+
+
 def apply_layer_seq(p, x, *, cfg, positions, mixer="attn", window=0, cache_len=None,
-                    write_cache=False, ffn="mlp", pad_mask=None):
+                    write_cache=False, ffn="mlp", pad_mask=None, constrain=NO_CONSTRAIN,
+                    q_pad=None):
     """Sequence mode (prefill).  Returns (x, cache or None, aux); a
     windowed layer's cache is its ring, min(cache length, window) slots, an
     SSM layer's the tail state and conv of ``ssm.ssm_block``.
     ``pad_mask`` [B, S] (True = real token) reaches only the MoE router's
     capacity accounting: attention is causal, so pad rows never feed real
-    ones, and the serving scatter drops padded cache positions."""
+    ones, and the serving scatter drops padded cache positions.
+    ``constrain`` and ``q_pad`` place the attention on a mesh (module
+    docstring)."""
     cache = None
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     if mixer.startswith("attn"):
         q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
-        o = attn_mod.flash_attention(q, k, v, causal=True, window=window,
-                                     cap=cfg.attn_logit_softcap)
+        o = attend_seq(q, k, v, window=window, cap=cfg.attn_logit_softcap,
+                       constrain=constrain, q_pad=q_pad)
         o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], x.shape[1], -1),
                   mode=cfg.matmul_mode)
         if write_cache:
@@ -250,7 +308,7 @@ def init_stack(init, cfg) -> list:
 
 
 def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False,
-                    pad_mask=None):
+                    pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None):
     """All layers in sequence mode.  Returns (x, caches, aux_sum): caches is
     a tuple of dicts, one a period position, stacked over periods, as the
     reference's; aux_sum the MoE layers' aux losses (0.0 without any)."""
@@ -259,7 +317,8 @@ def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=Fal
     for p, j, _, mixer, window, ffn in _layers(stack, cfg):
         x, cache, aux = apply_layer_seq(p, x, cfg=cfg, positions=positions, mixer=mixer,
                                         window=window, cache_len=cache_len,
-                                        write_cache=write_cache, ffn=ffn, pad_mask=pad_mask)
+                                        write_cache=write_cache, ffn=ffn, pad_mask=pad_mask,
+                                        constrain=constrain, q_pad=q_pad)
         caches[j].append(cache)
         aux_sum = aux_sum + aux.get("moe_aux", 0.0)
     if not write_cache:

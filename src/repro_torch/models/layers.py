@@ -10,6 +10,16 @@ the weight to the activation dtype and sum in f32, so they differ only in
 summation order.  Dense weights are cast to the activation dtype, and the
 product is summed in f32 and rounded to it, as the reference's bf16 einsum
 is on the CPU.
+
+On a mesh a weight is a ``kernels/ops.Placed`` slice, and ``linear`` runs it
+by the reference's placement over the groups of the sharder it holds: a
+quantized weight column-parallel on its output rows (B1 or the dequantized
+rows on this rank, then an all-gather, ``ops.tp_column_parallel``); a dense
+one of ``_COL_MODULES`` on its local columns, then an all-gather; a dense
+one of ``_ROW_MODULES`` (split on its input rows) as this rank's slice of x
+times its rows, summed in f32 and reduced over "model" (``all_reduce``)
+before the rounding — the reference's GSPMD partial sum.  Each shard keeps
+``matmul_rounded``'s fixed row pieces.
 """
 
 from __future__ import annotations
@@ -71,7 +81,13 @@ def _matmul_work(x: torch.Tensor, wt: torch.Tensor) -> dict:
 
 @cost.unit(_matmul_work)
 def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype.
+    """x [..., K] @ wt[N, K]^T summed in f32, rounded to x's dtype
+    (``matmul_f32``'s sums)."""
+    return matmul_f32(x, wt).to(x.dtype)
+
+
+def matmul_f32(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ wt[N, K]^T, wt rounded to x's dtype, summed in f32.
 
     On CUDA outside autograd every cuBLAS call has one fixed shape: the rows
     go in zero-padded pieces (``_row_pieces``), and a weight of more than
@@ -85,7 +101,7 @@ def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     and a 256,000-row head never has a whole f32 copy (4.7 GB at gemma2's)."""
     grad = torch.is_grad_enabled() and (x.requires_grad or wt.requires_grad)
     if not x.is_cuda or grad:
-        return (x.to(torch.float32) @ wt.to(x.dtype).to(torch.float32).T).to(x.dtype)
+        return x.to(torch.float32) @ wt.to(x.dtype).to(torch.float32).T
     buf, P = _row_pieces(x.reshape(-1, x.shape[-1]).to(torch.float32))
     N, K = wt.shape
     piece = torch.zeros((min(N, COL_PIECE), K), dtype=torch.float32, device=x.device)
@@ -97,12 +113,37 @@ def matmul_rounded(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
         outs.append(_pieces_matmul(buf, P, piece)[:, :w.shape[0]])
     y = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     M = x.numel() // K
-    return y[:M].reshape(x.shape[:-1] + (N,)).to(x.dtype)
+    return y[:M].reshape(x.shape[:-1] + (N,))
+
+
+def _linear_placed(x: torch.Tensor, w: ops.Placed, bias, mode: str) -> torch.Tensor:
+    """``linear`` on this rank's slice of a weight (module docstring)."""
+    s = w.sharder
+    local = bias.local if isinstance(bias, ops.Placed) else bias
+    if isinstance(w.local, QuantizedTensor):
+        if resolve_matmul_mode(mode, w.local) == "fused":
+            op = ops.operand_from_qtensor(w.local)
+            return ops.tp_column_parallel(x, lambda xl: ops.fused_matmul(xl, op), s, local)
+        wt = dequantize_tensor(w.local, out_dtype=x.dtype)
+        return ops.tp_column_parallel(x, lambda xl: matmul_rounded(xl, wt), s, local)
+    if w.split_on(s.tp, -1):    # column-parallel [in, out / tp]
+        return ops.tp_column_parallel(x, lambda xl: matmul_rounded(xl, w.local.T), s, local)
+    # row-parallel [in / tp, out]: this rank's input slice, partial sums reduced
+    r, _ = s.coord(s.tp)
+    k = w.local.shape[0]
+    y = matmul_f32(x[..., r * k:(r + 1) * k], w.local.T)
+    y = ops.all_reduce(y.contiguous(), s.group(s.tp)).to(x.dtype)
+    if isinstance(bias, ops.Placed):
+        local = ops.gather_dim(bias.local, -1, s.group(s.tp))
+    return y if local is None else y + local.to(y.dtype)
 
 
 def linear(x: torch.Tensor, w, bias=None, *, mode: str = "dequant_einsum") -> torch.Tensor:
     """y = x @ w (+ bias).  ``w`` is [in, out], or a QuantizedTensor storing
-    the weight as (out, in) with blocks along the reduction dim."""
+    the weight as (out, in) with blocks along the reduction dim, or this
+    rank's ``ops.Placed`` slice of either."""
+    if isinstance(w, ops.Placed):
+        return _linear_placed(x, w, bias, mode)
     if isinstance(w, QuantizedTensor):
         if resolve_matmul_mode(mode, w) == "fused":
             y = ops.fused_matmul(x, ops.operand_from_qtensor(w))

@@ -11,6 +11,13 @@ in place; its position lives in device memory (an int is accepted and
 filled on the device once), so a step can be captured as a CUDA graph.
 A cache tree mixes, a period position each, attention caches (K/V and
 positions) and SSM ones (state and conv tail, no positions).
+
+On a mesh (``models/sharding.py``) the sequence mode takes the sharder's
+``constrain`` and ``q_pad`` (``blocks.apply_layer_seq``); the embedding
+and the head are ``kernels/ops.Placed`` slices of the vocabulary there: a lookup takes the tokens this rank holds
+and sums the ranks' rows over "model" (each token's row comes from one
+rank, the rest add zeros), and the logits are gathered column-parallel.
+``decode_step`` takes the sharder's ``decode_attn``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,9 @@ import torch
 
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention, blocks, moe
+from repro_torch.models.blocks import NO_CONSTRAIN
 from repro_torch.models.layers import Init, linear, matmul_rounded, norm, softcap
 
 
@@ -75,8 +84,11 @@ def head_matrix(params):
 def logits_from_hidden(params, h, cfg):
     """h [..., D] -> logits [..., V]."""
     w = head_matrix(params)
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, QuantizedTensor) or (isinstance(w, ops.Placed)
+                                          and isinstance(w.local, QuantizedTensor)):
         out = linear(h, w, mode=cfg.matmul_mode)
+    elif isinstance(w, ops.Placed):
+        out = ops.tp_column_parallel(h, lambda hl: matmul_rounded(hl, w.local), w.sharder)
     else:
         out = matmul_rounded(h, w)
     return softcap(out, cfg.final_logit_softcap)
@@ -84,30 +96,46 @@ def logits_from_hidden(params, h, cfg):
 
 def embed_inputs(params, tokens, cfg):
     emb = params["embed"]
+    placed = isinstance(emb, ops.Placed)
+    if placed:
+        s, emb = emb.sharder, emb.local
     if isinstance(emb, QuantizedTensor):
         emb = dequantize_tensor(emb)
-    return emb.to(torch.bfloat16)[tokens]
+    emb = emb.to(torch.bfloat16)
+    if not placed:
+        return emb[tokens]
+    # this rank's vocabulary rows [r * V_loc, (r + 1) * V_loc)
+    r, _ = s.coord(s.tp)
+    idx = tokens.to(torch.int64) - r * emb.shape[0]
+    mine = (idx >= 0) & (idx < emb.shape[0])
+    rows = emb[torch.clamp(idx, 0, emb.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return ops.all_reduce(rows, s.group(s.tp))
 
 
 def backbone_seq_aux(params, tokens, cfg, *, write_cache=False, cache_len=None,
-                     pad_mask=None):
+                     pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None):
     """The backbone in sequence mode: (normed hidden [B, S, D], caches or
     None, the MoE layers' summed aux loss), the reference's
     ``backbone_seq``.  ``pad_mask`` [B, S] (True = real token) reaches the
     MoE routers' capacity accounting only: the Server passes it for
-    bucket-padded prefills, so MoE archs bucket safely."""
+    bucket-padded prefills, so MoE archs bucket safely.  ``constrain`` and
+    ``q_pad``: the sharder's (``blocks.apply_layer_seq``)."""
     x = embed_inputs(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, caches, aux = blocks.apply_stack_seq(params["stack"], x, cfg, positions=positions,
                                             cache_len=cache_len, write_cache=write_cache,
-                                            pad_mask=pad_mask)
+                                            pad_mask=pad_mask, constrain=constrain,
+                                            q_pad=q_pad)
     return norm(params["final_norm"], x, cfg.norm_type), caches, aux
 
 
-def backbone_seq(params, tokens, cfg, *, write_cache=False, cache_len=None, pad_mask=None):
+def backbone_seq(params, tokens, cfg, *, write_cache=False, cache_len=None, pad_mask=None,
+                 constrain=NO_CONSTRAIN, q_pad=None):
     """``backbone_seq_aux`` without the aux loss: (hidden, caches or None)."""
     h, caches, _ = backbone_seq_aux(params, tokens, cfg, write_cache=write_cache,
-                                    cache_len=cache_len, pad_mask=pad_mask)
+                                    cache_len=cache_len, pad_mask=pad_mask,
+                                    constrain=constrain, q_pad=q_pad)
     return h, caches
 
 
@@ -149,12 +177,14 @@ def loss_fn(params, tokens, labels, cfg, *, loss_chunk: int = 512):
     return loss
 
 
-def prefill(params, tokens, cfg, *, cache_len=None, pad_mask=None):
+def prefill(params, tokens, cfg, *, cache_len=None, pad_mask=None, constrain=NO_CONSTRAIN,
+            q_pad=None):
     """Process a prompt; returns (last-token logits, caches).  ``cache_len``
-    reserves decode room (defaults to the prompt length); ``pad_mask`` as in
-    ``backbone_seq_aux`` (the logits are the last row's, padded or not)."""
+    reserves decode room (defaults to the prompt length); ``pad_mask``,
+    ``constrain`` and ``q_pad`` as in ``backbone_seq_aux`` (the logits are
+    the last row's, padded or not)."""
     h, caches = backbone_seq(params, tokens, cfg, write_cache=True, cache_len=cache_len,
-                             pad_mask=pad_mask)
+                             pad_mask=pad_mask, constrain=constrain, q_pad=q_pad)
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 

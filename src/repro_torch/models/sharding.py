@@ -1,0 +1,588 @@
+"""Sharding policy on a ("data", "model") mesh of ranks — port of
+``repro/models/sharding.py`` with explicit ``torch.distributed`` collectives
+in place of GSPMD and ``shard_map``.
+
+Placements are the reference's, as tuples with one entry a dimension (an
+axis name, a tuple of them, or None): ``param_spec_tree`` and
+``cache_spec_tree`` give them, and ``shard_params`` / ``shard_caches`` cut a
+whole tree to the slices this rank holds.  Activations stay whole on every
+rank between operations; each operation on a slice puts its result back
+together with its own collectives:
+
+* weights: a quantized weight is column-parallel on its output rows over
+  "model" (B1 on this rank's rows, then an all-gather:
+  ``kernels/ops.tp_column_parallel``); a dense one of ``_COL_MODULES`` the
+  same on its columns; one of ``_ROW_MODULES`` is split on its input rows,
+  and the partial sums are all-reduced (``layers.linear``).  The
+  embedding and the head split the vocabulary (``lm.embed_inputs``,
+  ``lm.logits_from_hidden``).  FSDP: the reference also splits dense
+  leaves over "data"; a serving step reads every weight and a gather is
+  exact, so in this slice they stay whole along "data" (the spec tuples
+  still name it).  FSDP's sharded storage comes with the train step
+  (ROADMAP A11.2).  A flat (not row-structured) QuantizedTensor stays whole.
+* prefill attention: q heads, zero-padded to ``head_pad()`` inside their KV
+  groups, split over "model" and the batch over the data axes
+  (``constrain``), attended and gathered (``constrain.gather``).
+* decode: the KV cache is SEQUENCE-sharded over "model" (and over the
+  data axes the batch does not fill: ``decode_plan``), the batch over the
+  data axes.  ``decode_attn_fn``'s step writes the new token on the rank
+  that owns its slot (``attention.write_cache_local_window``), reads this
+  rank's window (a packed one through ``kv_dequant.dequant_kv``, one launch
+  of csrc/kv_dequant.cu on the card for K and V), takes the
+  flash-decoding partials and combines them over the sequence group
+  (``attention.combine_partials``).  Cache lengths that do not divide the
+  grid (a ring shorter than it) keep their slots whole and read them with
+  ``blocks.local_decode_attn``, with a ``SeqShardFallbackWarning`` at setup
+  and at first use.
+
+Every collective is issued whatever the size of its group: a 1x1 mesh runs
+the whole machinery (on the card, NCCL at world size 1).  ``replicate``
+(models under ``replicate_params_below`` bytes of bf16) and ``Sharder(None,
+cfg)`` make every method a no-op, as in the reference.  Mixture-of-experts
+expert parallelism, SSM head sharding and the encoder-decoder wait for
+ROADMAP A11.2: a Sharder on a mesh refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import warnings
+
+import torch
+
+from repro_torch.core.qtensor import QuantizedTensor
+from repro_torch.kernels import kv_dequant, ops
+from repro_torch.kernels.kv_dequant import kv_spec
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks
+
+_COL_MODULES = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "frame_proj", "router"}
+_ROW_MODULES = {"wo", "w_down", "out_proj"}
+
+#: the leaves of an attention cache that hold K/V (dense or packed k-bit):
+#: [.., B, S_c, ...], so they sequence-shard alike
+_KV_CACHE_KEYS = ("k", "v", "k_packed", "k_scales", "v_packed", "v_scales")
+#: a QuantizedTensor's data fields (the leaves of its placement)
+_QT_FIELDS = ("packed", "scales", "means", "codebook", "outlier_vals", "outlier_idx")
+
+#: activation kinds the port places (the dense ones of the reference's
+#: table): "dp" = the data axes, "tp" = "model"
+_ACTIVATIONS = {
+    "residual": ("dp", None, None),
+    "heads": ("dp", None, "tp", None),
+    "kv_heads": ("dp", None, None, None),
+    "ffn_hidden": ("dp", None, "tp"),
+    "logits": ("dp", None, "tp"),
+}
+
+
+class SeqShardFallbackWarning(UserWarning):
+    """A per-layer cache length does not divide the sequence-shard grid:
+    that layer decodes over its whole (batch-split) cache with the local
+    read instead of the sharded flash-decoding."""
+
+
+def check_decode_capability(cfg, sharder, *, caller: str = "the serving entry point") -> None:
+    """The one gate for a quantized cache on a mesh: a quantile KV codebook
+    (``kv_spec``) and a feature row that cannot hold whole code words
+    (``kv_layout``) raise, naming ``caller``; cache lengths that do not
+    divide the grid are not errors (``decode_attn_fn`` falls back)."""
+    try:
+        kvq = kv_spec(cfg)
+    except ValueError as e:
+        raise ValueError(f"{e} (rejected at setup for {caller})") from e
+    if kvq is None or sharder is None:
+        return
+    if getattr(sharder, "mesh", None) is None or sharder.replicate:
+        return
+    try:
+        kv_dequant.kv_layout(kvq, cfg.n_kv_heads * cfg.head_dim)
+    except ValueError as e:
+        raise ValueError(f"kv_bits={cfg.kv_bits} cannot serve {caller} on a mesh: {e}") from e
+
+
+def _maybe(axis, dim_size, axis_size):
+    """``axis`` if it divides the dim, else None."""
+    if axis is None:
+        return None
+    return axis if dim_size % axis_size == 0 else None
+
+
+def _check_arch(cfg) -> None:
+    if cfg.encoder_decoder or cfg.input_kind != "tokens" or cfg.n_experts or any(
+            m == "ssm" for m, _ in cfg.layer_schedule()):
+        raise NotImplementedError(
+            f"{cfg.name}: serving on a mesh takes dense decoders (attention and MLP "
+            "layers); expert parallelism, SSM head sharding and the encoder-decoder wait "
+            "for ROADMAP A11.2")
+
+
+def _map(fn, tree, specs=None, keys=()):
+    """``fn(keys, leaf, spec)`` over a tree of dicts, lists and tuples (a
+    QuantizedTensor is a leaf); ``specs`` is a tree of the same shape, or
+    None (spec None everywhere)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, None if specs is None else specs[k], keys + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, None if specs is None else specs[i], keys + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(list(keys), tree, specs)
+
+
+class PlacedParams(dict):
+    """A params tree cut to this rank's slices (``Sharder.shard_params``)."""
+
+
+class _Constrain:
+    """A sharder's activation placement: ``constrain(x, kind)`` is this
+    rank's slice of a whole activation, ``constrain.gather(x, kind, shape)``
+    the whole one (shape ``shape``) back from every rank's slice."""
+
+    def __init__(self, sharder: "Sharder"):
+        self.sharder = sharder
+
+    def __call__(self, x, kind: str):
+        s = self.sharder
+        spec = s._act_spec(x.shape, kind)
+        if spec is None:
+            return x
+        if kind == "heads" and x.shape[2] != s.head_pad():
+            raise ValueError(f"q has {x.shape[2]} heads: pad them to head_pad() = "
+                             f"{s.head_pad()} (q_pad) before splitting them")
+        x = s._slice(x, spec)
+        return s._kv_heads_for_local_q(x) if kind == "kv_heads" else x
+
+    def gather(self, x, kind: str, shape):
+        s = self.sharder
+        spec = s._act_spec(shape, kind)
+        if spec is None:
+            return x
+        for d, axes in enumerate(spec):
+            if axes is not None:
+                x = ops.gather_dim(x, d, s.group(axes))
+        return x
+
+
+class Sharder:
+    def __init__(self, mesh, cfg, *, fsdp: bool = True,
+                 replicate_params_below: int = 400_000_000):
+        """``mesh``: a ``DeviceMesh`` (``launch/mesh.make_mesh``), None (no
+        mesh), or any object with ``mesh_dim_names`` (or ``axis_names``) and
+        ``shape`` (a tuple or a {name: size} dict) for the placements alone."""
+        self.mesh = mesh
+        self.cfg = cfg
+        self.fsdp = fsdp
+        self.constrain = _Constrain(self)
+        self._groups: dict = {}
+        self._coords: dict = {}
+        if mesh is None:
+            self.axis_names, self.axis_sizes = (), {}
+            self.dp_axes = ()
+            self.tp = None
+            self.tp_size = 1
+            self.dp_size = 1
+            self.replicate = True
+            self.fsdp_axis = None
+            return
+        _check_arch(cfg)
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or mesh.axis_names)
+        shape = mesh.shape
+        self.axis_names = names
+        self.axis_sizes = dict(shape) if isinstance(shape, dict) else dict(zip(names, shape))
+        self.tp = "model"
+        self.dp_axes = tuple(n for n in names if n != "model")
+        self.tp_size = self.axis_sizes["model"]
+        self.dp_size = math.prod(self.axis_sizes[n] for n in self.dp_axes)
+        # small models: replicating weights beats TP overhead
+        self.replicate = cfg.param_count() * 2 < replicate_params_below
+        self.fsdp_axis = "data" if (fsdp and not self.replicate) else None
+        if hasattr(mesh, "get_group"):
+            self._init_groups()
+
+    # -- the world -----------------------------------------------------------
+    def _init_groups(self) -> None:
+        """A process group for every set of axes (one axis: the mesh's own;
+        several: ``new_group``, made by every rank in the same order) and
+        this rank's coordinate on each axis."""
+        import torch.distributed as dist
+
+        names, ranks = self.axis_names, self.mesh.mesh
+        me = dist.get_rank()
+        for r in range(1, len(names) + 1):
+            for dims in itertools.combinations(range(len(names)), r):
+                key = tuple(names[d] for d in dims)
+                if r == 1:
+                    self._groups[key] = self.mesh.get_group(key[0])
+                    continue
+                rest = [d for d in range(len(names)) if d not in dims]
+                rows = ranks.permute(rest + list(dims)).reshape(
+                    -1, math.prod(ranks.shape[d] for d in dims))
+                for row in rows.tolist():
+                    g = dist.new_group(row)
+                    if me in row:
+                        self._groups[key] = g
+        self._coords = dict(zip(names, self.mesh.get_coordinate()))
+
+    def _axes(self, axes) -> tuple:
+        """Axes (a name, a tuple of them, or None) as a tuple in mesh order."""
+        want = set(ops.axis_names(axes))
+        return tuple(n for n in self.axis_names if n in want)
+
+    def group(self, axes):
+        """The process group over ``axes`` that holds this rank."""
+        return self._groups[self._axes(axes)]
+
+    def coord(self, axes) -> tuple[int, int]:
+        """(this rank's linear index over ``axes`` in mesh order, their size);
+        (0, 1) for no axes."""
+        idx, size = 0, 1
+        for a in self._axes(axes):
+            idx = idx * self.axis_sizes[a] + self._coords[a]
+            size *= self.axis_sizes[a]
+        return idx, size
+
+    def _slice(self, x: torch.Tensor, spec, axes=None) -> torch.Tensor:
+        """This rank's slice of a whole ``x`` placed by ``spec``: each dim
+        split over its entry's axes (only those in ``axes`` when given)."""
+        for d, entry in enumerate(spec):
+            if entry is None or (axes is not None and not set(ops.axis_names(entry)) & set(axes)):
+                continue
+            i, n = self.coord(entry)
+            c = x.shape[d] // n
+            x = x.narrow(d, i * c, c)
+        return x
+
+    # -- helpers ---------------------------------------------------------------
+    def _ns(self, *spec) -> tuple:
+        return tuple(spec)
+
+    @property
+    def dp(self):
+        return self.dp_axes if self.dp_axes else None
+
+    def _axis_size(self, a) -> int:
+        if a is None:
+            return 1
+        if isinstance(a, tuple):
+            return math.prod(self.axis_sizes[n] for n in a)
+        return self.axis_sizes[a]
+
+    def head_pad(self) -> int:
+        """q-head count padded so heads are TP- and GQA-divisible."""
+        cfg = self.cfg
+        if not cfg.n_heads:
+            return 0
+        if self.mesh is None or self.replicate:
+            return cfg.n_heads
+        K = max(cfg.n_kv_heads, 1)
+        h = cfg.n_heads
+        while h % K or h % self.tp_size:
+            h += 1
+        return h
+
+    # -- activations -----------------------------------------------------------
+    def _act_spec(self, shape, kind: str):
+        """The placement of an activation of ``shape`` and ``kind`` (axes
+        that do not divide dropped), or None where it stays whole."""
+        if self.mesh is None or self.replicate:
+            return None
+        spec = _ACTIVATIONS.get(kind)
+        if spec is None or len(spec) != len(shape):
+            return None
+        named = [self.dp if a == "dp" else self.tp if a == "tp" else None for a in spec]
+        return tuple(_maybe(a, shape[i], self._axis_size(a)) for i, a in enumerate(named))
+
+    def _kv_heads_for_local_q(self, k: torch.Tensor) -> torch.Tensor:
+        """The KV heads [B, S, K', Dh] this rank's q heads read: a rank
+        holds q heads [h0, h0 + Hl) of head_pad(), grouped G = head_pad() / K
+        a KV head.  A whole number of groups, or heads within one group,
+        is a slice; otherwise each q head gets its KV head (K' = Hl)."""
+        Hp, K = self.head_pad(), k.shape[2]
+        G, Hl = Hp // K, Hp // self.tp_size
+        h0 = self.coord(self.tp)[0] * Hl
+        if Hl % G == 0 and h0 % G == 0:
+            return k.narrow(2, h0 // G, Hl // G)
+        if G % Hl == 0:
+            return k.narrow(2, h0 // G, 1)
+        idx = torch.div(h0 + torch.arange(Hl, device=k.device), G, rounding_mode="floor")
+        return k.index_select(2, idx)
+
+    # -- parameter specs -------------------------------------------------------
+    def param_spec_tree(self, params):
+        """The placement of every leaf of a (possibly quantized) params tree:
+        a tuple a tensor leaf, a QuantizedTensor of tuples for a quantized
+        one; None everywhere without a mesh."""
+        return _map(lambda keys, leaf, _: self._leaf_spec(keys, leaf), params)
+
+    def _leaf_spec(self, keys, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return self._qt_spec(keys, leaf)
+        if self.mesh is None:
+            return None
+        if self.replicate or leaf.ndim == 0:
+            return self._ns()
+        tp, fs = self.tp, self.fsdp_axis
+        name = next((k for k in reversed(keys) if isinstance(k, str)), "")
+        shape = leaf.shape
+        if name in ("embed", "lm_head"):
+            return self._ns(_maybe(tp, shape[0], self.tp_size),
+                            _maybe(fs, shape[1], self._axis_size(fs)))
+        if name == "w" and leaf.ndim >= 2:
+            owner = next((k for k in reversed(keys[:-1]) if isinstance(k, str)), "")
+            lead = (None,) * (leaf.ndim - 2)
+            i, o = shape[-2], shape[-1]
+            if owner in _ROW_MODULES:
+                return self._ns(*lead, _maybe(tp, i, self.tp_size),
+                                _maybe(fs, o, self._axis_size(fs)))
+            return self._ns(*lead, _maybe(fs, i, self._axis_size(fs)),
+                            _maybe(tp, o, self.tp_size))
+        if name == "b" and leaf.ndim >= 1:
+            lead = (None,) * (leaf.ndim - 1)
+            return self._ns(*lead, _maybe(tp, leaf.shape[-1], self.tp_size))
+        return self._ns()
+
+    def _qt_spec(self, keys, qt: QuantizedTensor):
+        """Quantized leaves: column-parallel on the output rows over "model".
+        Row-structured storage splits its row dim (-2); flat storage its
+        flat dim when it divides."""
+        if self.mesh is None:
+            return dataclasses.replace(qt, **{f: None for f in _QT_FIELDS})
+        tp = None if self.replicate else self.tp
+
+        def leaf_spec(a, shardable=True, structured_leaf=False):
+            if a is None:
+                return None
+            lead = [None] * a.ndim
+            if shardable and tp is not None:
+                out_rows = qt.quant_shape[0]
+                if structured_leaf and a.ndim >= 2:
+                    if out_rows % self.tp_size == 0:
+                        lead[-2] = tp
+                elif a.ndim >= 1:
+                    if out_rows % self.tp_size == 0 and a.shape[-1] % self.tp_size == 0:
+                        lead[-1] = tp
+            return self._ns(*lead)
+
+        st = qt.structured
+        return dataclasses.replace(
+            qt,
+            packed=leaf_spec(qt.packed, structured_leaf=st),
+            scales=leaf_spec(qt.scales, structured_leaf=st),
+            means=leaf_spec(qt.means, structured_leaf=st),
+            codebook=leaf_spec(qt.codebook, shardable=False),
+            outlier_vals=leaf_spec(qt.outlier_vals, shardable=False),
+            outlier_idx=leaf_spec(qt.outlier_idx, shardable=False),
+        )
+
+    def shard_params(self, params):
+        """This rank's slices of a whole params tree (a ``PlacedParams``):
+        each leaf split over "model" by its placement becomes a
+        ``kernels/ops.Placed``; the rest stays as it is (FSDP's "data" too,
+        module docstring).  A tree that is placed already comes back as it is."""
+        if self.mesh is None or self.replicate or isinstance(params, PlacedParams):
+            return params
+        tp = self.tp
+
+        def own(full, part):
+            return part if part.numel() == full.numel() else part.contiguous().clone()
+
+        def place(keys, leaf, spec):
+            if isinstance(leaf, QuantizedTensor):
+                ps = spec.packed
+                if not leaf.structured or ps is None or tp not in ops.axis_names(ps[-2]):
+                    return leaf
+                i, n = self.coord(tp)
+                c = leaf.quant_shape[0] // n
+                cut = {f: own(getattr(leaf, f), getattr(leaf, f).narrow(-2, i * c, c))
+                       for f in ("packed", "scales", "means") if getattr(leaf, f) is not None}
+                local = dataclasses.replace(leaf, **cut,
+                                            quant_shape=(c,) + tuple(leaf.quant_shape[1:]))
+                return ops.Placed(local, ps, self)
+            if not spec or not any(tp in ops.axis_names(a) for a in spec):
+                return leaf
+            return ops.Placed(own(leaf, self._slice(leaf, spec, axes=(tp,))), spec, self)
+
+        return PlacedParams(_map(place, params, self.param_spec_tree(params)))
+
+    # -- caches ----------------------------------------------------------------
+    def decode_plan(self, batch: int):
+        """(batch_axes, seq_axes) of the KV cache at this batch size."""
+        if self.mesh is None:
+            return None, None
+        usable = []
+        rem = batch
+        for a in self.dp_axes:
+            if rem % self.axis_sizes[a] == 0:
+                usable.append(a)
+                rem //= self.axis_sizes[a]
+        batch_axes = tuple(usable) or None
+        # seq gets "model" plus any dp axis not absorbed by the batch
+        seq_axes = tuple(a for a in self.axis_names if a not in usable)
+        return batch_axes, seq_axes
+
+    def cache_spec_tree(self, caches, batch: int, *, paged: bool = False):
+        """The placement of every leaf of a decode-cache tree.  ``paged``: a
+        page-major pool (serving/pages.py), pages over the batch axes like
+        slots and the intra-page token axis whole."""
+        if self.mesh is None:
+            return _map(lambda *_: None, caches)
+        b_ax, s_ax = self.decode_plan(batch)
+
+        def spec(keys, leaf, _):
+            if any(k in _KV_CACHE_KEYS for k in keys):
+                # dense [n_p, B, S, K, Dh] or packed [n_p, B, S, X]: slots on dim 2
+                if paged:
+                    return self._ns(None, b_ax, None, *((None,) * (leaf.ndim - 3)))
+                s = _maybe(s_ax, leaf.shape[2], self._axis_size(s_ax))
+                return self._ns(None, b_ax, s, *((None,) * (leaf.ndim - 3)))
+            if "pos" in keys:
+                if leaf.ndim == 3:  # per-slot [n_p, B, S_c]
+                    if paged:
+                        return self._ns(None, b_ax, None)
+                    s = _maybe(s_ax, leaf.shape[2], self._axis_size(s_ax))
+                    return self._ns(None, b_ax, s)
+                s = _maybe(s_ax, leaf.shape[1], self._axis_size(s_ax))
+                return self._ns(None, s)
+            return self._ns()
+
+        return _map(spec, caches)
+
+    def shard_caches(self, caches, batch: int, *, paged: bool = False):
+        """This rank's slices of a whole cache tree (placed by
+        ``cache_spec_tree``), each its own storage."""
+        if self.mesh is None or self.replicate:
+            return caches
+
+        def place(keys, leaf, spec):
+            part = self._slice(leaf, spec)
+            return part if part.numel() == leaf.numel() else part.contiguous().clone()
+
+        return _map(place, caches, self.cache_spec_tree(caches, batch, paged=paged))
+
+    def local_row(self, cc, slot: int, batch: int):
+        """A whole batch-1 prefill cache ``cc`` for ``slot`` of a pool of
+        ``batch`` rows, as this rank writes it: (its row in this rank's
+        slice of the pool, ``cc`` cut to this rank's slot windows), or
+        (None, None) where another rank holds the slot."""
+        if self.mesh is None or self.replicate:
+            return slot, cc
+        b_ax, _ = self.decode_plan(batch)
+        i, n = self.coord(b_ax)
+        per = batch // n
+        if not i * per <= slot < (i + 1) * per:
+            return None, None
+
+        def piece(keys, leaf, spec):
+            if any(k in _KV_CACHE_KEYS for k in keys):
+                spec = (None, None) + tuple(spec[2:])   # cc's batch of one stays whole
+            return self._slice(leaf, spec)
+
+        return slot - i * per, _map(piece, cc, self.cache_spec_tree(cc, batch))
+
+    # -- sharded decode attention ----------------------------------------------
+    def pad_cache_len(self, cache_len: int) -> int:
+        """A cache budget rounded UP to a multiple of the mesh size, so full
+        attention caches divide any sequence-shard grid the batch split can
+        give."""
+        if self.mesh is None or self.replicate:
+            return cache_len
+        n = math.prod(self.axis_sizes.values())
+        return -(-cache_len // n) * n
+
+    def seq_shard_plan(self, batch: int, cache_len: int) -> dict[int, bool]:
+        """Every per-layer cache length this config decodes with (a ring
+        caps its at the window) -> whether it divides the sequence-shard
+        grid; False entries decode with the local fallback."""
+        if self.mesh is None or self.replicate:
+            return {}
+        _, s_ax = self.decode_plan(batch)
+        s_size = self._axis_size(s_ax)
+        plan: dict[int, bool] = {}
+        for mixer, _ in self.cfg.layer_schedule():
+            if not mixer.startswith("attn"):
+                continue
+            w = blocks.mixer_window(mixer, self.cfg)
+            eff = min(cache_len, w) if w else cache_len
+            plan[eff] = eff % s_size == 0
+        return plan
+
+    def _warn_fallback(self, lengths, s_size) -> None:
+        warnings.warn(
+            f"cache length(s) {sorted(lengths)} do not divide the {s_size}-way "
+            "sequence-shard grid: those layers fall back to the local decode read over "
+            "their whole cache. Pad the cache budget / window to a multiple of the "
+            "seq shards to keep them sharded.",
+            SeqShardFallbackWarning, stacklevel=3)
+
+    def decode_attn_fn(self, batch: int, cache_len: int | None = None):
+        """A ``decode_attn`` (``blocks.apply_layer_decode``'s hook) for a
+        decode batch of ``batch`` rows over caches of ``cache_len`` placed by
+        ``shard_caches``: ``blocks.local_decode_attn`` without a mesh or when
+        replicating, else the sequence-sharded read (module docstring), for
+        dense or packed caches, shared or per-slot positions.  The rows of
+        the batch split over the data axes it fills and are gathered after.
+        Lengths that do not divide the grid warn here and at their first
+        read, and take the local read."""
+        if self.mesh is None or self.replicate:
+            return blocks.local_decode_attn
+        if cache_len is None:
+            raise ValueError("a sharded decode needs the cache length its caches were "
+                             "placed with (decode_attn_fn(batch, cache_len))")
+        b_ax, s_ax = self.decode_plan(batch)
+        s_size = self._axis_size(s_ax)
+        plan = self.seq_shard_plan(batch, cache_len)
+        bad = [L for L, ok in plan.items() if not ok]
+        if bad:
+            self._warn_fallback(bad, s_size)
+        warned: set = set()
+        b_idx, b_n = self.coord(b_ax)
+        rows = slice(b_idx * (batch // b_n), (b_idx + 1) * (batch // b_n))
+        seq = self.group(s_ax)
+        offset_of = self.coord(s_ax)[0]
+
+        def fn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
+            S_total = min(cache_len, window) if window else cache_len
+            kvq = kvq if "k_packed" in cache else None
+            q, k_new, v_new = q[rows], k_new[rows], v_new[rows]
+            pos = pos[rows] if pos.ndim else pos
+            if S_total % s_size == 0:
+                o = self._sharded_decode(q, k_new, v_new, cache, pos, cap=cap, window=window,
+                                         kvq=kvq, S_total=S_total,
+                                         offset=offset_of * (S_total // s_size), group=seq)
+            else:
+                if S_total not in warned:
+                    warned.add(S_total)
+                    self._warn_fallback([S_total], s_size)
+                o = blocks.local_decode_attn(q, k_new, v_new, cache, pos, cap=cap,
+                                             window=window, kvq=kvq)
+            return o if b_ax is None else ops.gather_dim(o, 0, self.group(b_ax))
+
+        return fn
+
+    def _sharded_decode(self, q, k_new, v_new, cache, pos, *, cap, window, kvq, S_total,
+                        offset, group):
+        """One rank's step of the sequence-sharded read: the token written
+        where this rank owns its slot, the window (dequantized when packed)
+        read into partials, the partials combined over the sequence group."""
+        attn_mod.write_cache_local_window(cache, k_new, v_new, pos, S_total=S_total,
+                                          offset=offset, window=window, kvq=kvq)
+        B, H, Dh = q.shape
+        S_loc = cache["pos"].shape[-1]
+        if kvq is not None:
+            K = k_new.shape[-2]
+            k, v = (t.reshape(B, S_loc, K, Dh)
+                    for t in kv_dequant.dequant_kv(cache, kvq, K * Dh))
+        else:
+            k, v = cache["k"], cache["v"]
+        m, l, pv = attn_mod.decode_attention_partial(q, k, v, cache["pos"], pos, cap=cap,
+                                                     window=window)
+        return attn_mod.combine_partials(m, l, pv, group=group).reshape(B, H, Dh).to(q.dtype)
+
+
+def no_sharder(cfg):
+    return Sharder(None, cfg)

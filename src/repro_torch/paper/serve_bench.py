@@ -34,8 +34,17 @@ they are what the regression ledger gates (``paper/ledger.py``).
 ``--sla`` benches FIFO vs SLA-aware scheduling (``run_sla``: priority
 classes, chunked prefill, preemption with a packed spill) on the two-class
 trace; ``--paged`` the paged pool with copy-on-write prefixes against the
-slot pool (``run_paged``) on the shared-prefix trace.  ``--mesh`` raises:
-serving on a device mesh is ROADMAP A11.
+slot pool (``run_paged``) on the shared-prefix trace.
+
+``--mesh DATAxMODEL`` (``mesh_spec``) serves the continuous path on a mesh
+of ranks (``launch/serve.parse_mesh``: torchrun's world, one of them
+without it): every row gains a per-rank KV-bytes column, the bench holds
+the per-rank bytes to at least the sequence-shard degree below the whole
+pool's, and the k-bit logit gate runs the sharded decode against the
+unsharded bf16 oracle.  The static comparison is skipped on a mesh, as in
+the reference, so ``kv_gate="tokens"`` refuses one; ``--paged`` and
+``--sla`` refuse it too.  Rank 0 writes ``--json-out``; a world that
+``run`` starts (a 1x1 mesh without torchrun) ends with it.
 
 Every entry point runs on the card unless ``device`` (``--device``) says
 otherwise; ``device="cpu"`` runs the plain path.  ``run(params=)`` serves a
@@ -427,13 +436,37 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
     whose random weights miss that tolerance in the reference too
     (Qwen2-7B's family: scripts/kv_gap_reference.py), to static = continuous
     greedy tokens at that precision, the identity the bench holds at kv16,
-    with the gap recorded.  ``mesh_spec`` raises (ROADMAP A11); json_out
-    dumps the stats dict."""
+    with the gap recorded.  ``mesh_spec`` ('DATAxMODEL') serves the
+    continuous path on a mesh (module docstring); json_out dumps the stats
+    dict."""
     if kv_gate not in ("logit_gap", "tokens"):
         raise ValueError(f"kv_gate must be logit_gap | tokens, got {kv_gate!r}")
+    if mesh_spec is not None and kv_gate == "tokens":
+        raise ValueError("kv_gate='tokens' holds static = continuous tokens, and the static "
+                         "comparison is skipped on a mesh: use kv_gate='logit_gap'")
+    import torch.distributed as dist
+
     from repro_torch.launch.serve import parse_mesh
 
-    parse_mesh(mesh_spec)   # the launcher's refusal: no mesh in the port yet
+    # a world this call starts (not one the caller runs in) ends with it
+    started = mesh_spec is not None and not dist.is_initialized()
+    mesh = parse_mesh(mesh_spec, device)
+    try:
+        return _run(log, mesh, arch=arch, num_slots=num_slots, n_requests=n_requests,
+                    rate=rate, max_new_range=max_new_range, quantized=quantized, seed=seed,
+                    kv_bits=kv_bits, matmul_mode=matmul_mode, mesh_spec=mesh_spec,
+                    json_out=json_out, cli_args=cli_args, device=device, params=params,
+                    kv_gate=kv_gate)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(log, mesh, *, arch, num_slots, n_requests, rate, max_new_range, quantized, seed,
+         kv_bits, matmul_mode, mesh_spec, json_out, cli_args, device, params, kv_gate):
+    """``run``'s sweep on ``mesh`` (a DeviceMesh, or None)."""
+    from repro_torch.models.sharding import Sharder
+
     dev = resolve_device(device)
     cfg = get_arch(arch).with_matmul_mode(matmul_mode)
     if params is None:
@@ -458,9 +491,10 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
     bytes16 = None
     for bits in sweep:
         cfg_b = cfg.with_kv_quant(bits) if bits < 16 else cfg
+        sharder = None if mesh is None else Sharder(mesh, cfg_b, replicate_params_below=0)
         tel = Telemetry()
         srv = Server(params, cfg_b, num_slots=num_slots, max_seq_len=max_seq_len,
-                     telemetry=tel, device=dev)
+                     sharder=sharder, telemetry=tel, device=dev)
         kvb = srv.pool.kv_bytes()
         if bits == 16:
             bytes16 = kvb["total"]
@@ -485,7 +519,20 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
         stats[f"kv{bits}_steps"] = cstats["steps"]
         stats[f"kv{bits}_mean_latency_steps"] = cstats["mean_latency_steps"]
 
-        if bits == 16 or kv_gate == "tokens":
+        if mesh is not None:
+            # sequence sharding must shrink what one rank holds by at least
+            # the seq-shard degree (batch sharding stacks on top)
+            s_size = sharder._axis_size(sharder.decode_plan(num_slots)[1])
+            dev_shrink = kvb["total"] / max(kvb["per_device"], 1)
+            log(f"  kv{bits} mesh {mesh_spec}: {kvb['per_device']/1e6:.3f} MB/rank "
+                f"({dev_shrink:.1f}x below the whole pool, seq shards {s_size})")
+            if not dev_shrink >= s_size:
+                raise AssertionError(f"per-rank KV bytes shrank only {dev_shrink:.2f}x, "
+                                     f"expected >= the {s_size}-way seq-shard degree")
+            stats[f"kv{bits}_dev_shrink"] = dev_shrink
+            stats["seq_shards"] = s_size
+
+        if (bits == 16 or kv_gate == "tokens") and mesh is None:
             # offline-oracle static baseline + token-identity check
             tel_s = Telemetry()
             eng = Engine(params, cfg_b, max_seq_len=max_seq_len, telemetry=tel_s, device=dev)
@@ -500,7 +547,7 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
                 raise AssertionError(f"greedy outputs diverge for requests {mism[:5]} at "
                                      f"kv{bits}")
             stats[f"kv{bits}_static_equals_continuous"] = True
-        if bits == 16:
+        if bits == 16 and mesh is None:
             tps_s = total_tokens / dt_s
             speedup = tps_c / tps_s
             lat_s, lat_s_str = _latency_columns(tel_s)
@@ -524,7 +571,8 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
             n_probe = min(4, n_requests)
             probe_len = min(len(r["prompt"]) for r in reqs[:n_probe])
             probe = np.stack([r["prompt"][:probe_len] for r in reqs[:n_probe]])
-            gap, agree = kv_oracle_logit_gap(params, cfg_b, probe, 16, device=dev)
+            gap, agree = kv_oracle_logit_gap(params, cfg_b, probe, 16, device=dev,
+                                             sharder=sharder)
             tol = KV_LOGIT_TOL[bits]
             line += (f"  {ratio:.2f}x fewer KV bytes, logit gap {gap:.3f} (tol {tol}), "
                      f"greedy agree {agree:.0%}")
@@ -539,9 +587,11 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
             if bits == 4 and not ratio >= 3.0:
                 raise AssertionError(f"kv4 must cut KV bytes >= 3x vs kv16, got {ratio:.2f}x")
         log(line)
+        tag = ("" if mesh is None
+               else f";mesh={mesh_spec};kv_dev_mb={kvb['per_device']/1e6:.3f}")
         rows.append((f"serve/continuous_kv{bits}", dt_c / total_tokens * 1e6,
                      f"tok_s={tps_c:.1f};mm={matmul_mode};kv_mb={kvb['total']/1e6:.3f};"
-                     f"slots_equal_hbm={slots_equal_hbm};" + lat_c_str))
+                     f"slots_equal_hbm={slots_equal_hbm};" + lat_c_str + tag))
         stats[f"tok_s_kv{bits}"] = tps_c
         stats[f"kv{bits}_mb"] = kvb["total"] / 1e6
         stats[f"kv{bits}_dev_mb"] = kvb["per_device"] / 1e6
@@ -549,10 +599,12 @@ def run(log=print, *, arch="tiny-160k", num_slots=8, n_requests=48, rate=4.0,
         stats[f"kv{bits}_batch_fill"] = fill
 
     stats["matmul_mode"] = matmul_mode
+    if mesh_spec is not None:
+        stats["mesh"] = mesh_spec
     if "speedup" in stats:
         log(f"  speedup: {stats['speedup']:.2f}x (outputs token-identical at kv16)")
         rows.append(("serve/speedup", 0.0, f"x={stats['speedup']:.2f};outputs_match=1"))
-    if json_out is not None:
+    if json_out is not None and (mesh is None or mesh.get_rank() == 0):
         _dump(json_out, log, arch, num_slots, n_requests, stats, cli_args, dev)
     return rows, stats
 
@@ -579,7 +631,9 @@ def main(argv=None) -> None:
                     help="QuantizedTensor matmul dispatch for both the static and "
                          "continuous paths (the mm= column of every row)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="serve on a device mesh: not ported yet (ROADMAP A11), refused")
+                    help="serve the continuous path on a (data, model) mesh of ranks "
+                         "(torchrun --nproc-per-node DATA*MODEL; a world of one "
+                         "without it)")
     ap.add_argument("--json-out", default=None, metavar="PATH.json",
                     help="dump the stats dict as JSON")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")

@@ -35,7 +35,16 @@ the prefill on its real prompts, the step on clones of the caches, both
 before their timed windows and outside any capture) and attributes their
 measured times against the H100's roofline.
 
-Not in the port yet: the sharder (ROADMAP A11).
+``sharder=`` (``models/sharding.Sharder``) serves on a mesh of ranks, each
+running the same Engine on its own slices: the cache budget is padded to a
+multiple of the mesh size (``pad_cache_len``), the params are cut to this
+rank's slices (``shard_params``; a tree placed already is taken as it is),
+the prefill runs with the sharder's ``constrain`` and ``q_pad`` and its
+caches are cut to this rank's windows (``_place_caches``), and the decode step reads them through
+``decode_attn_fn``.  On the card the sharded step is captured as one graph
+like the unsharded one, its collectives (NCCL) inside; the capture's eager
+warm-up call on its side stream uses every communicator first.  The step
+profiler does not run on a mesh yet (ROADMAP A11.2).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import launches
 from repro_torch.models import blocks, lm
 from repro_torch.models.quantize import quantize_tree
+from repro_torch.models.sharding import check_decode_capability
 from repro_torch.serving.profiler import null_annotation
 from repro_torch.serving.telemetry import NOOP, record_quant_health, record_tree_bits
 
@@ -144,7 +154,9 @@ def capture_graph(body, device: torch.device, generator: torch.Generator | None 
     count; the recording's do not (it launches nothing), they count at each
     replay.  ``debug=True`` keeps the graph's node list for
     ``CapturedStep.dump_dot`` (``analysis/audit.py`` reads it).  Raises if
-    the body cannot be captured (a host sync inside it, say)."""
+    the body cannot be captured (a host sync inside it, say).  The warm-up
+    also makes each collective communicator the body uses (a mesh's NCCL)
+    before the capture."""
     state = generator.get_state() if generator is not None else None
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -175,7 +187,8 @@ class _DecodeGraph:
 
     def __init__(self, engine: "Engine", batch: int):
         dev, cfg = engine.device, engine.cfg
-        self.caches = lm.init_caches(cfg, batch, engine.max_seq_len, device=dev)
+        self.caches = engine._place_caches(
+            lm.init_caches(cfg, batch, engine.max_seq_len, device=dev), batch)
         self.tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
         self.pos = torch.zeros((), dtype=torch.int32, device=dev)
         self.temps = torch.zeros((batch,), dtype=torch.float32, device=dev)
@@ -183,9 +196,11 @@ class _DecodeGraph:
         self.out = torch.zeros((batch, engine.max_seq_len), dtype=torch.int32, device=dev)
         self.col = torch.zeros((1,), dtype=torch.int64, device=dev)
         eos, gen = engine.eos_id, engine._gen
+        decode_attn = engine._decode_attn(batch)
 
         def body():
-            logits, _ = lm.decode_step(engine.params, self.tok, self.caches, self.pos, cfg)
+            logits, _ = lm.decode_step(engine.params, self.tok, self.caches, self.pos, cfg,
+                                       decode_attn=decode_attn)
             nxt = sample_token(logits, gen, self.temps)
             if eos is not None:
                 nxt = torch.where(self.done, torch.full_like(nxt, eos), nxt)
@@ -213,42 +228,61 @@ class _DecodeGraph:
 
 
 @torch.inference_mode()
-def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None):
+def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None, sharder=None):
     """Teacher-forced per-token logit gap of cfg_q's k-bit KV cache vs the
     bf16-cache oracle: rolls the bf16-cache model greedily over ``prompts``
     [B, S], replays the same tokens through the k-bit cache, and returns
     (max |logit gap| over all steps including prefill, greedy-agreement
-    fraction)."""
+    fraction).  With a ``sharder`` the k-bit replay runs sharded (the
+    whole ``params`` cut to this rank's slices, the sequence-sharded
+    decode), held against the same unsharded bf16 oracle."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, device=dev)
     cache_len = prompts.shape[1] + n_steps
+    B = prompts.shape[0]
+    if sharder is not None:
+        cache_len = sharder.pad_cache_len(cache_len)
 
-    def rollout(c, force=None):
-        logits, caches = lm.prefill(params, prompts, c, cache_len=cache_len)
+    def rollout(c, force=None, s=None):
+        p, kw = params, {}
+        decode_attn = blocks.local_decode_attn
+        if s is not None:
+            p = s.shard_params(params)
+            kw = dict(constrain=s.constrain, q_pad=s.head_pad())
+            decode_attn = s.decode_attn_fn(B, cache_len)
+        logits, caches = lm.prefill(p, prompts, c, cache_len=cache_len, **kw)
+        if s is not None:
+            caches = s.shard_caches(caches, B)
         logs = [logits.to(torch.float32)]
         tok = torch.argmax(logits, -1).to(torch.int32)
         toks = [tok]
         for t in range(n_steps - 1):
             feed = tok if force is None else force[t]
-            logits, caches = lm.decode_step(params, feed, caches, prompts.shape[1] + t, c)
+            logits, caches = lm.decode_step(p, feed, caches, prompts.shape[1] + t, c,
+                                            decode_attn=decode_attn)
             tok = torch.argmax(logits, -1).to(torch.int32)
             toks.append(tok)
             logs.append(logits.to(torch.float32))
         return torch.stack(toks), torch.stack(logs)
 
     toks16, logs16 = rollout(cfg_q.with_kv_quant(16))
-    toksq, logsq = rollout(cfg_q, force=toks16)
+    toksq, logsq = rollout(cfg_q, force=toks16, s=sharder)
     gap = float((logs16 - logsq).abs().max())
     agree = float((toks16 == toksq).to(torch.float32).mean())
     return gap, agree
 
 
 class Engine:
-    def __init__(self, params, cfg, *, max_seq_len: int, eos_id: int | None = None,
-                 plan=None, matmul_mode: str | None = None, telemetry=NOOP, device=None):
+    def __init__(self, params, cfg, *, max_seq_len: int, sharder=None,
+                 eos_id: int | None = None, plan=None, matmul_mode: str | None = None,
+                 telemetry=NOOP, device=None):
         blocks.check_dense(cfg)
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
+        check_decode_capability(cfg, sharder, caller="the static Engine (serving/engine.py)")
+        if sharder is not None and getattr(telemetry, "profiler", None) is not None:
+            raise NotImplementedError("the step profiler on a mesh (sharder=) waits for "
+                                      "ROADMAP A11.2")
         self.device = resolve_device(device)
         self.telemetry = telemetry
         if plan is not None:
@@ -258,10 +292,16 @@ class Engine:
             params = quantize_tree(params, cfg, plan=plan, device=self.device)
         else:
             record_tree_bits(telemetry, params)
+        if sharder is not None:
+            # extra decode room so full-attention caches divide the grid
+            max_seq_len = sharder.pad_cache_len(max_seq_len)
+            params = sharder.shard_params(params)
         self.params = params
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.eos_id = eos_id
+        self.sharder = sharder
+        self._attn: dict = {}                        # batch -> decode_attn
         self._graphs: dict[int, _DecodeGraph] = {}   # batch -> captured step
         # the captured steps' generator (CUDA only; see the module docstring)
         self._gen = torch.Generator(self.device) if self.device.type == "cuda" else None
@@ -276,8 +316,26 @@ class Engine:
             self._graphs[batch] = _DecodeGraph(self, batch)
         return self._graphs[batch]
 
+    def _decode_attn(self, batch: int):
+        """The decode read for ``batch`` rows (the sharder's, made once)."""
+        if self.sharder is None:
+            return blocks.local_decode_attn
+        if batch not in self._attn:
+            self._attn[batch] = self.sharder.decode_attn_fn(batch, self.max_seq_len)
+        return self._attn[batch]
+
+    def _place_caches(self, caches, batch: int):
+        """The caches cut to this rank's windows (as they are without a
+        sharder)."""
+        return caches if self.sharder is None else self.sharder.shard_caches(caches, batch)
+
     def _prefill(self, prompts: torch.Tensor):
-        return lm.prefill(self.params, prompts, self.cfg, cache_len=self.max_seq_len)
+        kw = {}
+        if self.sharder is not None:
+            kw = dict(constrain=self.sharder.constrain, q_pad=self.sharder.head_pad())
+        logits, caches = lm.prefill(self.params, prompts, self.cfg,
+                                    cache_len=self.max_seq_len, **kw)
+        return logits, self._place_caches(caches, prompts.shape[0])
 
     def _cost_step(self, name: str, tok, caches, pos: int, temperature: float, done) -> None:
         """Cost ``decode_step[B]`` (the step, its sampling and the EOS
@@ -376,7 +434,8 @@ class Engine:
             if tel.enabled:
                 t0 = tel.now()
             with self._annot(ds_name):
-                logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg)
+                logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg,
+                                                decode_attn=self._decode_attn(B))
                 tok = sample_token(logits, generator, temperature)
                 if self.eos_id is not None:
                     tok = torch.where(done, torch.full_like(tok, self.eos_id), tok)

@@ -29,7 +29,12 @@ The device-side position vector (``pos_vector``) is one tensor for the
 pool's lifetime, refreshed from the host's positions each step, so a
 captured step reads it at replay.
 
-Not in this slice: the mesh placement (``sharder=``, ROADMAP A11).
+``sharder=`` places the pool on a mesh (``Sharder.shard_caches``: rows over
+the data axes the slots fill, slots over the sequence grid), each rank
+holding its windows; the server writes a prefill into them through
+``Sharder.local_row``.  ``kv_bytes`` then counts this rank's bytes as
+``per_device`` beside the whole pool's.  Spilling a row of a sharded pool
+(preemption) waits for ROADMAP A11.2.
 """
 
 from __future__ import annotations
@@ -103,13 +108,16 @@ class SlotKVCache:
     """A fixed pool of ``num_slots`` decode slots over per-slot caches."""
 
     def __init__(self, cfg, num_slots: int, cache_len: int, dtype=torch.bfloat16, *,
-                 telemetry=NOOP, device=None):
+                 sharder=None, telemetry=NOOP, device=None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.cache_len = cache_len
         self.telemetry = telemetry
         self.caches = lm.init_caches(cfg, num_slots, cache_len, dtype, per_slot=True,
                                      device=device)
+        self._total_bytes = self._kv_bytes()
+        if sharder is not None:
+            self.caches = sharder.shard_caches(self.caches, num_slots)
         self._init_slots()
         if telemetry.enabled:
             self.record_footprint()
@@ -218,10 +226,8 @@ class SlotKVCache:
                 leaf[:, slot].copy_(rows[key])
         self.next_pos[slot] = spill["next_pos"]
 
-    def kv_bytes(self) -> dict:
-        """Resident bytes of the pool's K/V leaves (packed codes and scales
-        for a k-bit cache; positions excluded), their bf16-equivalent
-        ``logical`` bytes and the compression between them."""
+    def _kv_bytes(self) -> tuple[int, int]:
+        """(stored, bf16-equivalent) bytes of the K/V leaves this rank holds."""
         total = logical = 0
         for group in self.caches:
             for key, leaf in group.items():
@@ -229,7 +235,16 @@ class SlotKVCache:
                     b, lb = self._kv_bytes_of(key, leaf)
                     total += b
                     logical += lb
-        return {"total": total, "per_device": total, "logical": logical,
+        return total, logical
+
+    def kv_bytes(self) -> dict:
+        """Resident bytes of the pool's K/V leaves (packed codes and scales
+        for a k-bit cache; positions excluded), their bf16-equivalent
+        ``logical`` bytes and the compression between them; ``per_device``
+        is this rank's share on a mesh."""
+        total, logical = self._total_bytes
+        per_device = self._kv_bytes()[0]
+        return {"total": total, "per_device": per_device, "logical": logical,
                 "compression": logical / max(total, 1),
                 "per_slot": total / max(self.num_slots, 1),
                 "per_token": total / max(self.num_slots * self.cache_len, 1)}

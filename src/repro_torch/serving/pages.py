@@ -49,7 +49,10 @@ COW index), a copy of the reference's.  ``PagedKVPool`` wraps it around the
 device tree behind ``SlotKVCache``'s interface, so ``Server`` runs on
 either pool.
 
-Not in this slice: the mesh placement (``sharder=``, ROADMAP A11).
+``sharder=`` places the pool on a mesh as the reference does
+(``Sharder.shard_caches(paged=True)``: pages over the data axes, the
+intra-page token axis whole); the Server refuses paged serving with a
+sharder, as the reference's, so nothing serves from a placed pool yet.
 """
 
 from __future__ import annotations
@@ -286,8 +289,8 @@ class PagedKVPool(SlotKVCache):
     ``n_pages`` alone."""
 
     def __init__(self, cfg, num_slots: int, cache_len: int, dtype=torch.bfloat16, *,
-                 page_size: int = 16, n_pages: int | None = None, telemetry=NOOP,
-                 device=None):
+                 page_size: int = 16, n_pages: int | None = None, sharder=None,
+                 telemetry=NOOP, device=None):
         if page_size < 1 or (page_size & (page_size - 1)):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
         if cache_len % page_size:
@@ -305,6 +308,9 @@ class PagedKVPool(SlotKVCache):
         # every position starts at -1: the free-page invariant holds at t0
         self.caches = lm.init_caches(cfg, n_pages, page_size, dtype, per_slot=True,
                                      device=device)
+        self._total_bytes = self._kv_bytes()
+        if sharder is not None:
+            self.caches = sharder.shard_caches(self.caches, n_pages, paged=True)
         self._init_slots()
         self.allocator = PageAllocator(n_pages, page_size)
         self.page_map = np.zeros((num_slots, self.pages_per_seq), np.int32)

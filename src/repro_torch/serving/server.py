@@ -79,7 +79,16 @@ and the tokens are the same with it on or off.
 construction, on the Server's device, before the pool is allocated and its
 step captured, recording the load-time quantization health first.
 
-Not in the port yet: the mesh (``sharder=``, ROADMAP A11).
+``sharder=`` (``models/sharding.Sharder``) serves the slot pool on a mesh
+of ranks, every rank running the same Server on its slices: the params cut
+by ``shard_params``, the pool placed by ``shard_caches`` (rows over the
+data axes, slots sequence-sharded), each admission's prefill run with the
+sharder's ``constrain`` and ``q_pad`` and written into the windows this
+rank holds (``Sharder.local_row``), and the pool step
+reading through ``decode_attn_fn`` with per-slot positions; on the card the
+step is one graph, its collectives inside.  As in the reference, ``paged``
+and ``prefill_chunk`` refuse a sharder; preemption (spilling a sharded row)
+and the step profiler on a mesh wait for ROADMAP A11.2.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention, blocks, lm
 from repro_torch.models.quantize import quantize_tree
+from repro_torch.models.sharding import check_decode_capability
 from repro_torch.serving.engine import (
     capture_graph,
     clone_caches,
@@ -156,6 +166,8 @@ class Server:
         blocks.check_dense(cfg)
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
+        check_decode_capability(cfg, sharder,
+                                caller="the continuous-batching Server (serving/server.py)")
         if paged:
             if not _bucketing_safe(cfg):
                 raise ValueError("paged serving requires causal full attention in every "
@@ -164,17 +176,26 @@ class Server:
             if prefill_chunk is not None:
                 raise ValueError("prefill_chunk and paged are mutually exclusive (the chunk "
                                  "workspace commits whole slot rows)")
+            if sharder is not None:
+                raise ValueError("paged serving is single-host for now (the pool itself "
+                                 "places on a mesh via cache_spec_tree(paged=True)); drop "
+                                 "one of paged / sharder")
         elif n_pages is not None:
             raise ValueError("n_pages requires paged=True")
-        if sharder is not None:
-            raise NotImplementedError("the Server on a mesh (sharder=) is not ported yet: "
-                                      "ROADMAP A11")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError("prefill_chunk must be >= 1")
             if not _bucketing_safe(cfg) or cfg.n_experts:
                 raise ValueError("prefill_chunk needs a bucketing-safe arch (causal full "
                                  "attention, dense FFN)")
+            if sharder is not None:
+                raise ValueError("prefill_chunk is single-device only (the chunk workspace "
+                                 "and commit path are unsharded); drop one of prefill_chunk "
+                                 "/ sharder")
+        if sharder is not None and (max_preemptions > 0
+                                    or getattr(telemetry, "profiler", None) is not None):
+            raise NotImplementedError("preemption and the step profiler on a mesh "
+                                      "(sharder=) wait for ROADMAP A11.2")
         self.device = resolve_device(device)
         # chunk starts at multiples of this (see the module docstring)
         self._chunk_align = attention.Q_PIECE if self.device.type == "cuda" else 1
@@ -189,6 +210,13 @@ class Server:
             params = quantize_tree(params, cfg, plan=plan, device=self.device)
         else:
             record_tree_bits(telemetry, params)
+        self.sharder = sharder
+        self._kw = {}   # the prefills' placement on a mesh
+        if sharder is not None:
+            # extra decode room so full-attention caches divide the grid
+            max_seq_len = sharder.pad_cache_len(max_seq_len)
+            params = sharder.shard_params(params)
+            self._kw = dict(constrain=sharder.constrain, q_pad=sharder.head_pad())
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
@@ -205,9 +233,10 @@ class Server:
                                     n_pages=n_pages, telemetry=telemetry, device=self.device)
             self._decode_attn = paged_decode_attn_fn(self.pool._page_map_dev, page_size)
         else:
-            self.pool = SlotKVCache(cfg, num_slots, max_seq_len, dtype, telemetry=telemetry,
-                                    device=self.device)
-            self._decode_attn = blocks.local_decode_attn
+            self.pool = SlotKVCache(cfg, num_slots, max_seq_len, dtype, sharder=sharder,
+                                    telemetry=telemetry, device=self.device)
+            self._decode_attn = (blocks.local_decode_attn if sharder is None
+                                 else sharder.decode_attn_fn(num_slots, max_seq_len))
         self.scheduler = Scheduler(eos_id=eos_id, telemetry=telemetry,
                                    aging_steps=aging_steps, max_preemptions=max_preemptions)
         self._gen = torch.Generator(device=self.device)
@@ -291,10 +320,13 @@ class Server:
         prompt = torch.as_tensor(padded, device=self.device)
         h, caches = lm.backbone_seq(self.params, prompt, self.cfg, write_cache=True,
                                     cache_len=self.pool.cache_len,
-                                    pad_mask=self._pad_mask(prompt, length))
+                                    pad_mask=self._pad_mask(prompt, length), **self._kw)
         logits = lm.logits_from_hidden(self.params, h[:, length - 1], self.cfg)
         tok = sample_token(logits, self._gen, float(temperature))
-        scatter_row(pool_caches, caches, slot, length)
+        if self.sharder is not None:   # this rank's windows of the slot, if it holds it
+            slot, caches = self.sharder.local_row(caches, slot, self.pool.num_slots)
+        if slot is not None:
+            scatter_row(pool_caches, caches, slot, length)
         return tok
 
     def _probe_kv_error(self, padded: np.ndarray, length: int) -> None:
@@ -302,7 +334,8 @@ class Server:
         actual K/V rows (a kv16 prefill -> encode_rows -> plain dequant)
         and fold it into the cumulative gauges."""
         prompt = torch.as_tensor(padded, device=self.device)
-        _, caches = lm.backbone_seq(self.params, prompt, self._cfg16, write_cache=True)
+        _, caches = lm.backbone_seq(self.params, prompt, self._cfg16, write_cache=True,
+                                    **self._kw)
         tel = self.telemetry
         for cache in caches:
             for key in sorted(cache):

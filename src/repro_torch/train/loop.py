@@ -8,7 +8,7 @@ signal to evict a slow host, here only detected and surfaced).
 compression and error feedback (``optim/grad_compress.py``); the error
 state is checkpointed with the parameters.
 
-Not in this slice: the sharder (ROADMAP queue A11).
+Not in this slice: the sharder (ROADMAP A11.2).
 """
 
 from __future__ import annotations

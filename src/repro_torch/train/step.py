@@ -11,8 +11,8 @@ sends the gradients through ``optim/grad_compress.compress_tree`` before
 AdamW (on the card one flat-encode launch a leaf of 1,024 elements or
 more), its error feedback carried in ``TrainState.err``.
 
-Not in this slice: the sharder (TP/FSDP specs, head padding; ROADMAP queue
-A11).
+Not in this slice: the sharder (FSDP storage, TP over the train step;
+ROADMAP A11.2; serving on a mesh is ``models/sharding.py``).
 """
 
 from __future__ import annotations

@@ -202,9 +202,10 @@ def test_launch_train_resumes_from_ckpt_dir(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--mesh", "pod16x16"], ["--mesh", "pod2x16x16"]])
 def test_launch_train_refuses_a11(extra):
-    """The production meshes (A11).  The second case refused
-    --grad-compress-bits before gradient compression was ported
-    (test_torch_grad_compress.py runs it)."""
-    with pytest.raises(NotImplementedError, match="A11"):
+    """The production meshes: the sharded train step waits for A11.2 (the
+    serving mesh is A11.1).  The second case refused --grad-compress-bits
+    before gradient compression was ported (test_torch_grad_compress.py
+    runs it)."""
+    with pytest.raises(NotImplementedError, match="A11.2"):
         tlaunch.main(["--arch", "tiny-160k", "--steps", "1", "--device", "cpu"] + extra)
 

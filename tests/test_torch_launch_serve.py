@@ -7,8 +7,12 @@ Mirrors ``tests/test_launch_serve.py:80-172`` case for case:
   message, and both packages accept and reject the same argv lists;
 * the legal flag matrix serves end to end (``--device cpu``), the plan
   riding along;
-* the reference's ``--mesh`` cases (ROADMAP A11) become checks that the
-  port refuses them, naming the item;
+* the reference's ``--mesh`` cases: ``parse_mesh`` refuses a size that is
+  not the world's (the reference: the device count's), naming it, and
+  accepts the one that is; the mesh serve smoke runs on a world of one
+  (``--mesh 1x1``; a world of two under torchrun is in
+  ``tests/test_torch_mesh_serving.py``).  The two tests keep the names they
+  had while the port refused the flag (ROADMAP A11);
 * ``--profile`` is accepted where the reference accepts it, and serves
   with the roofline summary and the ``profile_*`` families (the two
   ``..._refused_naming_a7`` tests keep the names they had while the port
@@ -148,23 +152,47 @@ def test_device_flag_validated(device, ok):
 
 
 @pytest.mark.parametrize("spec", ["2x4", "1x1", "banana"])
-def test_mesh_refused_naming_a11(spec):
-    """The reference parses DATAxMODEL against the device count; the port
-    serves on one device and refuses any mesh, by flag and by parse_mesh."""
-    assert serve_mod.parse_mesh(None) is None
-    with pytest.raises(SystemExit, match="A11"):
-        serve_mod.parse_mesh(spec)
-    with pytest.raises(SystemExit, match="A11"):
-        serve_mod.validate_flags(_args(serve_mod, "--mesh", spec))
+def test_mesh_refused_naming_a11(spec, monkeypatch):
+    """The reference parses DATAxMODEL against its device count (1 here),
+    the port against the world's ranks (1 without torchrun): both refuse
+    2x4 naming the size, both refuse a malformed spec, both take 1x1 (the
+    port's a world of one, gloo on the CPU).  The flags validate either way:
+    the world decides."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert serve_mod.parse_mesh(None) is None and r_serve.parse_mesh(None) is None
+    serve_mod.validate_flags(_args(serve_mod, "--mesh", spec))
+    if spec == "1x1":
+        assert r_serve.parse_mesh(spec).shape == {"data": 1, "model": 1}
+        mesh = serve_mod.parse_mesh(spec, "cpu")
+        try:
+            assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+        finally:
+            dist.destroy_process_group()
+        return
+    match = "needs 8" if spec == "2x4" else "DATAxMODEL"
+    with pytest.raises(SystemExit, match=match):
+        r_serve.parse_mesh(spec)
+    with pytest.raises(SystemExit, match=match) as e:
+        serve_mod.parse_mesh(spec, "cpu")
+    assert spec != "2x4" or "the world has 1" in str(e.value)
+    assert not dist.is_initialized()
 
 
-def test_mesh_serve_refused_naming_a11():
-    """The reference's mesh serve smoke (--mesh 2x4 --kv-bits 4): the port's
-    launcher stops before any model work."""
-    with pytest.raises(SystemExit, match="A11"):
-        serve_mod.main(["--arch", "tiny-650k", "--mesh", "2x4", "--kv-bits", "4",
-                        "--mode", "continuous", "--num-requests", "3", "--num-slots", "2",
-                        "--max-new", "4", "--device", "cpu"])
+def test_mesh_serve_refused_naming_a11(capsys, monkeypatch):
+    """The reference's mesh serve smoke (--kv-bits 4, continuous) on a mesh
+    of one rank: the launcher serves every request and leaves no process
+    group behind."""
+    import torch.distributed as dist
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    serve_mod.main(["--arch", "tiny-650k", "--mesh", "1x1", "--kv-bits", "4",
+                    "--mode", "continuous", "--num-requests", "3", "--num-slots", "2",
+                    "--max-new", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1}" in out and "served 3 requests" in out
+    assert "MB/device" in out and not dist.is_initialized()
 
 
 def test_profile_serve_refused_naming_a7(tmp_path, capsys):

@@ -93,7 +93,12 @@ where the card is (a machine without JAX):
   ``paper/bench_diff.py``): the pinned serve record served on the card
   diffs clean (exit 0) against the reference's committed BENCH_SERVE.json,
   and Qwen2-7B at full width through ``serve_bench.run`` gives the static
-  Engine's tokens in the continuous Server at kv16 and kv4.
+  Engine's tokens in the continuous Server at kv16 and kv4;
+* serving on a 1x1 mesh (NCCL at world size 1, ``models/sharding.py``):
+  tiny-650k's sharded Engine at kv16, kv8 and kv4 equal bit for bit to
+  eager unsharded steps reading every layer the routed way (one KV dequant
+  a layer and step, no fused attention), and the sharded Server equal to
+  the sharded batch-1 Engine.
 """
 
 import numpy as np
@@ -1681,3 +1686,94 @@ def test_serve_bench_static_equals_continuous_at_full_width():
     _, stats = serve_bench.run(lambda *a: None, arch="qwen2-7b", params=qparams, device="cuda",
                                num_slots=8, n_requests=8, kv_bits=16)
     assert stats["kv16_static_equals_continuous"] and stats["tok_s_static"] > 0
+
+
+# -- serving on a 1x1 mesh: NCCL at world size 1 -------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one rank on the card (NCCL, a file:// rendezvous) and its
+    1x1 ("data", "model") mesh; the process group is destroyed after the
+    module's cases."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    init_world("cuda", rank=0, world=1,
+               init_file=str(tmp_path_factory.mktemp("nccl") / "rendezvous"))
+    try:
+        yield make_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _routed_read(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
+    """The unsharded read the 1x1 mesh equals: write_cache_decode, then the
+    routed read of a packed cache (the partials for a bf16 one)."""
+    from repro_torch.models import attention
+
+    attention.write_cache_decode(cache, k_new, v_new, pos, window=window, kvq=kvq)
+    if kvq is not None and "k_packed" in cache:
+        return tka.decode_attention_packed_routed(q, cache, pos, kvq, cap=cap, window=window)
+    B, H, Dh = q.shape
+    m, l, pv = attention.decode_attention_partial(q, cache["k"], cache["v"], cache["pos"], pos,
+                                                  cap=cap, window=window)
+    return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [16, 8, 4])
+def test_mesh_1x1_engine_equals_unsharded_routed_read(nccl_mesh, kv):
+    """tiny-650k, 4-bit weights: the sharded Engine's captured steps give
+    the tokens of eager unsharded steps reading every layer the routed way,
+    whose logits the sharded eager steps equal bit for bit; each step one
+    KV dequant a layer at kv8 and kv4 and no fused attention."""
+    from repro_torch.models.sharding import Sharder
+
+    cfg = get_arch("tiny-650k").with_kv_quant(kv)
+    qparams = quantize_params(lm.init_params(cfg, seed=0, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 24), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(kv))
+    n, S = 8, 32
+    engine = Engine(qparams, cfg, max_seq_len=S, device="cuda",
+                    sharder=Sharder(nccl_mesh, cfg, replicate_params_below=0))
+    before = launches.snapshot()
+    tokens = engine.generate(prompts, n)
+    counts = dict(zip(launches.names(), (a - b for a, b in zip(launches.snapshot(), before))))
+    want_kv = n * cfg.n_layers if kv < 16 else 0
+    assert counts["dequant_kv_cuda.launches"] == want_kv
+    assert counts["decode_attention_packed_cuda.launches"] == 0
+    with torch.inference_mode():
+        logits, caches = engine._prefill(prompts)
+        want, wcaches = lm.prefill(qparams, prompts, cfg, cache_len=S)
+        assert torch.equal(logits, want)
+        read = engine._decode_attn(4)
+        for t in range(n - 1):
+            logits, caches = lm.decode_step(engine.params, tokens[:, t], caches, 24 + t,
+                                            cfg, decode_attn=read)
+            want, wcaches = lm.decode_step(qparams, tokens[:, t], wcaches, 24 + t, cfg,
+                                           decode_attn=_routed_read)
+            assert torch.equal(logits, want), t
+            assert torch.equal(torch.argmax(want, -1).to(torch.int32), tokens[:, t + 1])
+
+
+@pytest.mark.cuda
+def test_mesh_1x1_server_equals_sharded_engine(nccl_mesh):
+    """The sharded Server (kv4, 2 slots, one graph for the pool step) gives
+    each request the sharded batch-1 Engine's tokens."""
+    from repro_torch.models.sharding import Sharder
+
+    cfg = get_arch("tiny-650k").with_kv_quant(4)
+    qparams = quantize_params(lm.init_params(cfg, seed=1, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, cfg.vocab_size, L) for L in (9, 20, 5, 14)]
+    srv = Server(qparams, cfg, num_slots=2, max_seq_len=40, sharder=sharder, device="cuda")
+    ids = [srv.submit(p, 8, arrival_time=0.5 * i) for i, p in enumerate(prompts)]
+    res = srv.run_until_drained()
+    eng = Engine(qparams, cfg, max_seq_len=40, sharder=sharder, device="cuda")
+    for p, i in zip(prompts, ids):
+        assert res[i] == eng.generate(torch.as_tensor(p, device="cuda")[None], 8)[0].tolist()

@@ -569,7 +569,8 @@ def test_paged_flag_validation():
         Server(params, tcfg, n_pages=8, **kw)
     with pytest.raises(ValueError, match="mutually exclusive"):
         Server(params, tcfg, paged=True, prefill_chunk=8, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # a sharder with pages: the reference's refusal
+    with pytest.raises(ValueError, match="drop one of paged / sharder"):
         Server(params, tcfg, paged=True, sharder=object(), **kw)
     # the step profiler is ported: a paged Server serves and attributes
     tel = Telemetry(profiler=StepProfiler())

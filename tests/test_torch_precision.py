@@ -32,8 +32,10 @@ The bars:
 * the Engine's and the Server's greedy tokens under a plan equal to the
   reference's at kv16 and kv4.
 
-The reference's sharded decode (A11) becomes a check that the port refuses
-it, naming the item; the SSM archs (mamba2-130m, jamba-v0.1-52b at
+The reference's quantized x sharded decode gate becomes the port's: a kv4
+Server with a sharder passes ``check_decode_capability`` and serves (a
+sharder without a mesh here; the meshes are
+``tests/test_torch_mesh_serving.py``); the SSM archs (mamba2-130m, jamba-v0.1-52b at
 reduced()) enumerate the reference's units, in_proj and out_proj among
 them; an MoE arch (phi3.5-moe at reduced()) runs the plan path and the
 load-time health.
@@ -604,11 +606,36 @@ def test_engine_and_server_with_plan_match_reference(reference_setup, kv):
 
 def test_server_on_a_mesh_refused_naming_a11():
     """The reference serves quantized x sharded decode through one
-    capability gate; the port's Server refuses a sharder."""
-    _, tcfg, _, params = _weights("tiny-650k")
-    with pytest.raises(NotImplementedError, match="A11"):
-        Server(params, tcfg.with_kv_quant(4), num_slots=2, max_seq_len=16, sharder=object(),
-               device="cpu")
+    capability gate, and so does the port: a kv4 config passes
+    ``check_decode_capability`` on a (duck-typed) 1x2 mesh as in the
+    reference, and a kv4 Server with a sharder serves the plain Server's
+    tokens.  (The name is the one the test had while the port refused a
+    sharder, ROADMAP A11.)"""
+    from repro.models.sharding import Sharder as RSharder
+    from repro.models.sharding import check_decode_capability as r_check
+    from repro_torch.models.sharding import Sharder, check_decode_capability
+
+    class Mesh:
+        axis_names = mesh_dim_names = ("data", "model")
+
+        def __init__(self, shape):
+            self.shape = shape
+
+    rcfg, tcfg, _, params = _weights("tiny-650k")
+    rcfg4, tcfg4 = rcfg.with_kv_quant(4), tcfg.with_kv_quant(4)
+    r_check(rcfg4, RSharder(Mesh({"data": 1, "model": 2}), rcfg4, replicate_params_below=0),
+            caller="the test")
+    check_decode_capability(tcfg4, Sharder(Mesh((1, 2)), tcfg4, replicate_params_below=0),
+                            caller="the test")
+    prompts = [np.arange(1, 9), np.arange(3, 8)]
+
+    def serve(**kw):
+        srv = Server(params, tcfg4, num_slots=2, max_seq_len=16, device="cpu", **kw)
+        ids = [srv.submit(p, 5) for p in prompts]
+        res = srv.run_until_drained()
+        return [res[i] for i in ids]
+
+    assert serve(sharder=Sharder(None, tcfg4)) == serve()
 
 
 def kl_gaps():

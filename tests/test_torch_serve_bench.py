@@ -24,12 +24,17 @@ CPU (the plain path):
   pass was fastest, in the reference too;
 * ``kv_gate="tokens"`` runs the static Engine over the packed cache too and
   holds its tokens to the Server's;
-* ``--mesh`` raises naming ROADMAP A11; ``--sla`` with ``--paged`` is refused;
+* ``--mesh`` of a size that is not the world's is refused, naming the
+  world (the test keeps the name it had while the port refused every mesh,
+  ROADMAP A11); a 1x1 mesh runs in process and a 1x2 one under torchrun,
+  each through the per-rank shrink gate and the sharded kv gaps;
+  ``--sla`` with ``--paged`` is refused;
   the CLI writes its stats with the port's provenance;
 * the bench modules import neither jax nor the reference.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -179,11 +184,57 @@ def test_tokens_gate_holds_static_equal_to_continuous_at_kv4():
         serve_bench.run(_quiet, device="cpu", kv_gate="none")
 
 
-def test_mesh_is_refused_naming_a11():
-    with pytest.raises(SystemExit, match="A11"):
+def test_mesh_is_refused_naming_a11(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="world has 1"):
         serve_bench.run(_quiet, mesh_spec="2x4", device="cpu")
-    with pytest.raises(SystemExit, match="A11"):
+    with pytest.raises(SystemExit, match="world has 1"):
         serve_bench.main(["--mesh", "2x4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="kv_gate"):
+        serve_bench.run(_quiet, mesh_spec="1x1", device="cpu", kv_gate="tokens")
+
+
+def test_mesh_run_1x1_in_process():
+    """The mesh path end to end in one process (a gloo world of one): rows
+    tagged with the mesh, the per-rank shrink gate at one sequence shard,
+    the sharded kv gaps under KV_LOGIT_TOL, no static comparison, and the
+    world it started gone after."""
+    import torch.distributed as dist
+
+    from repro_torch.serving import KV_LOGIT_TOL
+
+    rows, stats = serve_bench.run(_quiet, mesh_spec="1x1", device="cpu", num_slots=4,
+                                  n_requests=8)
+    assert not dist.is_initialized()
+    assert stats["mesh"] == "1x1" and stats["seq_shards"] == 1
+    for bits in (16, 8, 4):
+        assert stats[f"kv{bits}_dev_shrink"] == 1.0
+        assert stats[f"kv{bits}_dev_mb"] == stats[f"kv{bits}_mb"]
+    for bits in (8, 4):
+        assert stats[f"kv{bits}_logit_gap"] < KV_LOGIT_TOL[bits]
+    assert "speedup" not in stats and "kv16_static_equals_continuous" not in stats
+    tagged = [r for r in rows if r[0].startswith("serve/continuous_kv")]
+    assert len(tagged) == 3 and all(";mesh=1x1;kv_dev_mb=" in r[2] for r in tagged)
+
+
+def test_mesh_cli_1x2_under_torchrun(tmp_path):
+    """``torchrun --nproc-per-node 2 -m repro_torch.paper.serve_bench --mesh
+    1x2 --kv-bits 4``: two gloo ranks, the kv4 pool sequence-sharded two
+    ways (each rank holds half of its bytes), the sharded kv4 gap under
+    KV_LOGIT_TOL, the stats written once, by rank 0."""
+    from repro_torch.serving import KV_LOGIT_TOL
+
+    out = tmp_path / "stats.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "2", "-m", "repro_torch.paper.serve_bench",
+                          "--mesh", "1x2", "--device", "cpu", "--num-slots", "4",
+                          "--num-requests", "8", "--kv-bits", "4", "--json-out", str(out)],
+                         capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    stats = json.loads(out.read_text())
+    assert stats["mesh"] == "1x2" and stats["seq_shards"] == 2
+    assert stats["kv4_dev_shrink"] >= 2 and stats["kv4_logit_gap"] < KV_LOGIT_TOL[4]
 
 
 def test_sla_and_paged_together_are_refused():
