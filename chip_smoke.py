@@ -270,6 +270,26 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                one's (fused attention) and the unsharded step over the
                routed read, its nodes, prefill s, the Server's tokens/s
                and TTFT.
+  3m. train mesh — training on a 1x1 mesh (a world of one rank, NCCL;
+               Sharder(make_mesh(1, 1), replicate_params_below=0), the
+               train state stored FSDP's way): Qwen2-7B at full width cut to
+               depth 4 (2.02 B parameters), bf16 master weights, remat, 8-bit
+               gradient compression, 2 steps of 4 x 512 random tokens in 2
+               microbatches, unsharded and then sharded from the same seeded
+               init (the state donated): loss, grad norm and every parameter
+               after each step equal bit for bit (at one rank every
+               collective is a copy or nothing); the sharded steps'
+               flat-encode launches = steps x compressed leaves.  tiny-650k
+               trained 150 steps on the mesh with 8-bit compression (loss
+               down by MIN_LOSS_DROP, a flat encode a compressed leaf and
+               step), its sharded state saved through CheckpointManager
+               (gathered whole, rank 0 writing) and read back into an
+               unsharded TrainState, through launch/elastic.remesh_state and
+               onto the mesh: each equal to the saved state bit for bit.
+               (Qwen2-7B's 28.3 GB state took ~180 s through the manager on
+               an H100 machine's host, past the phase's time: PERF.md.)  Prints
+               each step's device ms (CUDA events around it) and host ms,
+               sharded and unsharded.
   3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
                width and depth): precision.build_plan on the card at the
                uniform-4 budget with KL probes (a Zipf-Markov batch over the
@@ -602,6 +622,7 @@ def main() -> int:
     _memory_note(torch, "paged")
     routed_path(torch, dev, run)
     mesh_path(torch, dev, run)
+    train_mesh = train_mesh_path(torch, dev)
     plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
@@ -613,7 +634,8 @@ def main() -> int:
     times = time_kernels(torch, dev, run, paper)
     audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
-                   run["routed_counts"], run["mesh_counts"], run["plan_counts"], windows,
+                   run["routed_counts"], run["mesh_counts"], train_mesh, run["plan_counts"],
+                   windows,
                    experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"], ledger)
     del run
@@ -636,7 +658,8 @@ def main() -> int:
             # pool and on pages, the profile phase (the profiled Engine and
             # Servers, gradient compression and its training run),
             # tiny-10m's routed read (Engine and Server), the 1x1 mesh's
-            # sharded Engines and Server (Qwen2-7B),
+            # sharded Engines and Server (Qwen2-7B), its sharded train
+            # steps (Qwen2-7B at depth 4, tiny-650k's run),
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
@@ -2874,6 +2897,205 @@ def mesh_path(torch, dev, run) -> dict:
           "seconds": time.perf_counter() - t_phase})
     run["mesh_counts"] = total
     return total
+
+
+# the train mesh phase: Qwen2-7B at full width, depth 4, bf16 masters, 2
+# steps of 4 x 512 tokens in 2 microbatches, 8-bit gradient compression
+TRAIN_MESH_DEPTH, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 4, 4, 512
+TRAIN_MESH_MICRO, TRAIN_MESH_STEPS, TRAIN_MESH_BITS = 2, 2, 8
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Two tensors of one dtype equal bit for bit (-0 is not 0 here)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = (t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+                for t in (a, b))
+    return torch.equal(a, b)
+
+
+def _free(torch) -> None:
+    """Free what the last train run held: the first checkpointed forward in a
+    process imports torch._dynamo, whose import keeps the calling frames
+    (and so a train state) in a reference cycle until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_steps(torch, dev, cfg, sharder, batches, want=None):
+    """TRAIN_MESH_STEPS train steps of ``cfg`` from the seeded bf16 init, the
+    state donated: (per step {loss, grad_norm, device_ms, host_ms}, the
+    params after each step, the final state).  With ``want`` (another run's
+    params after each step) each step's params are held to them instead of
+    kept: equal bit for bit, and the largest gap over each leaf's max |p|."""
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves
+
+    state = step_mod.init_state(cfg, seed=SEED, device=dev, grad_compress_bits=TRAIN_MESH_BITS,
+                                param_dtype=torch.bfloat16)
+    step = step_mod.make_train_step(cfg, sharder=sharder, grad_compress_bits=TRAIN_MESH_BITS,
+                                    microbatches=TRAIN_MESH_MICRO, loss_chunk=TRAIN_MESH_SEQ,
+                                    donate=True)
+    rows, kept = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                     "device_ms": start.elapsed_time(end),
+                     "host_ms": (time.perf_counter() - t0) * 1e3})
+        params = leaves(state.params)
+        if want is None:
+            kept.append([p.clone() for p in params])
+            continue
+        rows[-1]["params_equal"] = all(_bits_equal(torch, a, w)
+                                       for a, w in zip(params, want[i], strict=True))
+        rows[-1]["params_gap"] = max(
+            ((a.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-30)).item()
+            for a, w in zip(params, want[i], strict=True))
+    return rows, kept, state
+
+
+def _run_gap(rows, want_rows) -> dict:
+    """The largest differences of a run held to another (_train_steps'
+    ``want``): loss, grad norm, and params over each leaf's max |p|."""
+    return {"loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(rows, want_rows)),
+            "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"])
+                             for a, b in zip(rows, want_rows)),
+            "params_rel": max(r["params_gap"] for r in rows)}
+
+
+def train_mesh_path(torch, dev) -> dict:
+    """Phase 3m: training on a 1x1 mesh (module docstring).  Its counts are
+    set to 0 before the sharded steps and before tiny-650k's run, and read
+    after each (the unsharded steps' launches are not counted)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import elastic
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import grad_compress as gcomp
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=TRAIN_MESH_DEPTH)
+    g = _gen(torch, dev, SEED)
+    batches = []
+    for _ in range(TRAIN_MESH_STEPS):
+        t = torch.randint(0, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ + 1),
+                          generator=g, device=dev)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+
+    def counted(fn, want_b3, what):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        require(counts == {**dict.fromkeys(_COUNT_KEYS, 0), "b3": want_b3},
+                f"train mesh: {what} launched {counts}, want {want_b3} flat encodes")
+        for key in total:
+            total[key] += counts[key]
+        return out
+
+    _free(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        init_world("cuda", rank=0, world=1, init_file=os.path.join(work, "rendezvous"))
+        try:
+            sharder = Sharder(make_mesh(1, 1, "cuda"), cfg, replicate_params_below=0)
+            n_big = sum(math.prod(n) >= gcomp.MIN_ELEMENTS
+                        for n in sharder.train_placement().shapes)
+            # the unsharded steps first (not counted; their first step also
+            # takes this process's first train-step costs), then the same
+            # steps on the mesh from the same init, held to them step by step
+            plain, plain_params, state = _train_steps(torch, dev, cfg, None, batches)
+            del state
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            sharded, _, state = counted(
+                lambda: _train_steps(torch, dev, cfg, sharder, batches, want=plain_params),
+                TRAIN_MESH_STEPS * n_big, f"{TRAIN_MESH_STEPS} sharded steps")
+            peak = torch.cuda.max_memory_allocated()
+            _memory_note(torch, "train mesh: sharded steps")
+            del state
+            _free(torch)
+            same = ([(r["loss"], r["grad_norm"]) for r in sharded]
+                    == [(r["loss"], r["grad_norm"]) for r in plain]
+                    and all(r["params_equal"] for r in sharded))
+            spread = None
+            if not same:
+                # the unsharded step's own spread run to run, measured and printed
+                again, _, state = _train_steps(torch, dev, cfg, None, batches, want=plain_params)
+                del state
+                _free(torch)
+                spread, gap = _run_gap(again, plain), _run_gap(sharded, plain)
+                require(all(gap[k] <= spread[k] for k in gap),
+                        f"train mesh: the 1x1 steps differ from the unsharded ones by {gap}, "
+                        f"beyond the unsharded step's own spread {spread}")
+            del plain_params
+            _free(torch)
+
+            # tiny-650k on the mesh, compressed, as the profile phase trains it;
+            # its sharded state through a checkpoint: gathered whole (a copy
+            # at one rank), written by rank 0, read back unsharded, re-placed
+            # by launch/elastic.remesh_state and restored onto the mesh
+            tiny = get_arch(GC_TRAIN_ARCH)
+            tiny_sharder = Sharder(sharder.mesh, tiny, replicate_params_below=0)
+            n_tiny = sum(math.prod(n) >= gcomp.MIN_ELEMENTS
+                         for n in tiny_sharder.train_placement().shapes)
+            t0 = time.perf_counter()
+            state, hist = counted(
+                lambda: loop.train(tiny, steps=GC_STEPS, batch=GC_BATCH, seq_len=GC_SEQ,
+                                   grad_compress_bits=8, sharder=tiny_sharder,
+                                   log=lambda *_: None, device=dev),
+                GC_STEPS * n_tiny, f"{GC_STEPS} compressed steps of {GC_TRAIN_ARCH}")
+            tiny_s = time.perf_counter() - t0
+            require(hist[0] - hist[-1] >= MIN_LOSS_DROP,
+                    f"train mesh: {GC_TRAIN_ARCH} loss {hist[0]:.3f} -> {hist[-1]:.3f}")
+            mgr = CheckpointManager(os.path.join(work, "ckpt"))
+            mgr.save(GC_STEPS, state, sharder=tiny_sharder, block=True)
+            _, whole, _ = mgr.restore(state)
+            remeshed, _ = elastic.remesh_state(whole, tiny, sharder.mesh, sharder=tiny_sharder)
+            _, restored, _ = mgr.restore(state, sharder=tiny_sharder)
+            for got, what in ((whole, "into an unsharded TrainState"),
+                              (remeshed, "through launch/elastic.remesh_state"),
+                              (restored, "onto the mesh")):
+                require(_same_leaves(torch, got, state), f"train mesh: the checkpoint read "
+                        f"back {what} differs from the saved state")
+            del state, whole, remeshed, restored, got
+        finally:
+            dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    emit({"phase": "train_mesh", "arch": ARCH, "mesh": "1x1", "backend": "nccl",
+          "depth": cfg.n_layers, "width": cfg.d_model, "params": cfg.param_count(),
+          "param_dtype": "bfloat16", "remat": True, "grad_compress_bits": TRAIN_MESH_BITS,
+          "batch": TRAIN_MESH_BATCH, "seq_len": TRAIN_MESH_SEQ,
+          "microbatches": TRAIN_MESH_MICRO, "steps": {"sharded": sharded, "unsharded": plain},
+          "bit_identical": same, "unsharded_spread": spread,
+          "compressed_leaves": n_big, "peak_bytes": peak,
+          "tiny": {"arch": GC_TRAIN_ARCH, "steps": GC_STEPS, "train_s": tiny_s,
+                   "loss_first": hist[0], "loss_last": hist[-1],
+                   "checkpoint_round_trip_equal": True},
+          "card": smi.stdout.strip(), "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+def _same_leaves(torch, a, b) -> bool:
+    """Two trees' leaves equal bit for bit, in leaves order."""
+    from repro_torch.tree import leaves
+
+    return all(_bits_equal(torch, x, y) for x, y in zip(leaves(a), leaves(b), strict=True))
 
 
 def _window_requests(cfg):

@@ -12,6 +12,11 @@
   ``.opt.m[...]``), bf16 stored as raw 2-byte void as the reference stores
   it, so each package restores the other's checkpoints
 * SIGTERM preemption hook: a final synchronous save on eviction
+* a train state on a mesh (``sharder=``, ``models/sharding.TrainPlacement``):
+  ``save`` is collective — every rank gathers each leaf whole on the
+  calling thread before any writing starts, and rank 0 alone writes, so the files
+  are what an unsharded run writes; ``restore`` reads whole leaves and
+  cuts this rank's slices
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.interop import flatten
+from repro_torch.launch.mesh import world_rank
+from repro_torch.tree import leaves, unflatten
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -37,7 +44,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    arr = np.array(arr)   # a contiguous, writable copy; a 0-d array stays 0-d
+    arr = np.require(arr, requirements=("C", "W"))   # a copy only where it is not both
     if arr.dtype.kind == "V":   # bf16 as raw 2-byte void
         return torch.from_numpy(arr.view(np.int16)).view(like.dtype).to(like.device)
     return torch.from_numpy(arr).to(like.dtype).to(like.device)
@@ -75,7 +82,16 @@ class CheckpointManager:
         self._lock = threading.Lock()
 
     # -- save ------------------------------------------------------------
-    def save(self, step: int, tree, extra: dict | None = None, *, block=False):
+    def save(self, step: int, tree, extra: dict | None = None, *, block=False, sharder=None):
+        """Snapshot ``tree`` to the host now and write it (on a thread unless
+        ``block``).  With ``sharder`` (a TrainState of this rank's slices)
+        every rank must call it: the leaves are gathered whole here, and
+        only rank 0 writes."""
+        placement = _placement(sharder)
+        if placement is not None:
+            tree = placement.gather_state(tree)   # collective, on the caller's thread
+            if world_rank() != 0:
+                return
         flat = {k: _to_numpy(v) for k, v in flatten(tree).items()}  # host snapshot NOW
         meta = {"step": int(step), "extra": extra or {}}
         if self.async_save and not block:
@@ -125,9 +141,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, *, sharder=None):
         """Returns (step, tree, extra) or None if no checkpoint exists; each
-        leaf takes the dtype and device of ``template``'s leaf."""
+        leaf takes the dtype and device of ``template``'s leaf.  With
+        ``sharder``, ``template`` is a TrainState of this rank's slices (or
+        of whole leaves), and the tree comes back as this rank's slices of
+        the stored whole leaves."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -137,7 +156,27 @@ class CheckpointManager:
             flat = {k: z[k] for k in z.files}
         with open(d / "meta.json") as f:
             meta = json.load(f)
-        return meta["step"], _rebuild(template, flat), meta["extra"]
+        placement = _placement(sharder)
+        if placement is None:
+            return meta["step"], _rebuild(template, flat), meta["extra"]
+        whole = placement.map_state(template, lambda t: None if t is None else unflatten(
+            t, [_Like(n, x) for n, x in zip(placement.shapes, leaves(t), strict=True)]))
+        return meta["step"], placement.cut_state(_rebuild(whole, flat)), meta["extra"]
+
+
+class _Like:
+    """A stand-in template leaf: a whole leaf's shape with a slice's dtype
+    and device."""
+
+    def __init__(self, shape, like: torch.Tensor):
+        self.shape, self.dtype, self.device = tuple(shape), like.dtype, like.device
+
+
+def _placement(sharder):
+    """The train placement of a sharder on a mesh, else None."""
+    if sharder is None or sharder.mesh is None:
+        return None
+    return sharder.train_placement()
 
 
 def install_preemption_hook(save_fn):

@@ -20,6 +20,15 @@ the fused mode, the dequantized rows for the oracle mode, both with the
 same split of x's rows over the data axes where they divide
 (``_row_part``).  The collectives are ``torch.distributed``'s, issued
 whatever the size of their group.
+
+Under autograd (the train step on a mesh) each collective has its adjoint
+in that placement, where activations are whole and the same on every rank
+of a model group between operations: ``gather_dim``'s gradient is this
+rank's slice, ``all_reduce``'s (a sum) passes through, ``fan_in`` all-reduces
+the partial gradient of a value each rank uses a part of, and
+``fsdp_gather`` (a weight stored cut over "data") reduce-scatters its
+gradient over the data ranks.  Without autograd each is the plain
+collective it was.
 """
 
 from __future__ import annotations
@@ -146,20 +155,48 @@ class Placed(NamedTuple):
     whole leaf's placement, one entry a dimension (an axis name, a tuple of
     them, or None; for a QuantizedTensor its packed words'), and
     ``sharder``, the Sharder that placed it (its groups and this rank's
-    coordinates: ``group(axes)``, ``coord(axes)``, ``tp``, ``dp_axes``)."""
+    coordinates: ``group(axes)``, ``coord(axes)``, ``tp``, ``dp_axes``).
+
+    A train state's sharder (``Sharder.training()``, ``fsdp_storage``)
+    stores dense leaves cut over "data" too (FSDP): ``gathered`` puts those
+    dims back together where the leaf is used, a stacked layer item at a
+    time (``select``).  A serving sharder's leaves are whole along "data"
+    whatever their spec says, and ``gathered`` leaves them as they are."""
 
     local: object
     spec: tuple
     sharder: object
 
     def select(self, i: int) -> "Placed":
-        """Item ``i`` of the leading (stacked layer) axis."""
+        """Item ``i`` of the leading (stacked layer) axis, gathered over
+        "data" where the train state stores it cut (``gathered``)."""
         local = self.local.select(i) if isinstance(self.local, QuantizedTensor) else self.local[i]
-        return Placed(local, self.spec[1:], self.sharder)
+        return Placed(local, self.spec[1:], self.sharder).gathered()
+
+    def gathered(self) -> "Placed":
+        """This leaf with every dim stored cut over the FSDP axis all-gathered
+        (``fsdp_gather``: its gradient reduce-scattered back), that axis
+        dropped from the spec; the leaf itself where nothing is cut."""
+        s = self.sharder
+        fs = s.fsdp_axis if s.fsdp_storage else None
+        if fs is None or not any(fs in axis_names(e) for e in self.spec):
+            return self
+        local, spec = self.local, list(self.spec)
+        for d, entry in enumerate(self.spec):
+            names = axis_names(entry)
+            if fs in names:
+                local = fsdp_gather(local, d, s.group(fs))
+                rest = tuple(n for n in names if n != fs)
+                spec[d] = None if not rest else rest[0] if len(rest) == 1 else rest
+        return Placed(local, tuple(spec), s)
 
     def split_on(self, axis: str, dim: int) -> bool:
         """Whether dimension ``dim`` is split over ``axis``."""
         return axis in axis_names(self.spec[dim])
+
+    def tp_split(self) -> bool:
+        """Whether any dimension is split over the sharder's "model" axis."""
+        return any(self.sharder.tp in axis_names(e) for e in self.spec)
 
 
 def axis_names(entry) -> tuple:
@@ -173,17 +210,16 @@ def _row_part(sharder, m_rows: int):
     """The data axes x's rows [M, K] split over: the sharder's, when their
     size is above 1 and divides M (each rank then computes its batch
     slice), else None.  A row's reduction is untouched either way, so this
-    is a choice of work and traffic shared by both matmul modes."""
-    if sharder.dp_axes:
+    is a choice of work and traffic shared by both matmul modes.  A train
+    step's batch is split over the data axes already (``batch_local``)."""
+    if sharder.dp_axes and not sharder.batch_local:
         size = sharder.coord(sharder.dp_axes)[1]
         if size > 1 and m_rows % size == 0:
             return sharder.dp_axes
     return None
 
 
-def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in group
-    rank order: one all-gather."""
+def _gather_raw(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     import torch.distributed as dist
 
     n = dist.get_world_size(group)
@@ -193,13 +229,133 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """x reduced in place over ``group`` ("sum" or "max"); returns x."""
+def _reduce_scatter_raw(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``x``."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _this_slice(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice of ``g`` along ``dim`` (group rank order)."""
+    import torch.distributed as dist
+
+    c = g.shape[dim] // dist.get_world_size(group)
+    return g.narrow(dim, dist.get_rank(group) * c, c)
+
+
+def _all_reduce_raw(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     import torch.distributed as dist
 
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=group)
     return x
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather of per-rank slices of a value whose gradient is the same
+    on every rank of the group: the adjoint takes this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_raw(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _this_slice(g, ctx.dim, ctx.group), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum of per-rank partials into a value the whole group then holds:
+    the adjoint passes the (same on every rank) gradient through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_raw(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FanIn(torch.autograd.Function):
+    """Identity on a value the whole group holds, where each rank then uses
+    only a part of it: the adjoint sums the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_raw(g.contiguous().clone(), ctx.group), None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """All-gather of a weight stored cut over the data axis: every data rank
+    uses the whole weight on its own batch slice, so the adjoint sums the
+    ranks' gradients and keeps this rank's slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        # the whole leaf's own layout: a product's library call (and so its
+        # summation order) depends on its operands' strides
+        return _gather_raw(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_raw(g, ctx.dim, ctx.group), None, None
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in group
+    rank order: one all-gather.  Under autograd the gradient is this rank's
+    slice of the upstream gradient, which the port's placement keeps the
+    same on every rank of the group (activations whole between operations);
+    ``torch.distributed.nn``'s all-gather would sum it over the group."""
+    if _grad_on(x):
+        return _GatherDim.apply(x, dim, group)
+    return _gather_raw(x, dim, group)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """x reduced over ``group`` ("sum" or "max"): in place, returning x;
+    under autograd a sum is out of place and passes its gradient through
+    (a max there raises)."""
+    if _grad_on(x):
+        if op != "sum":
+            raise NotImplementedError(f"all_reduce {op!r} has no gradient")
+        return _AllReduceSum.apply(x, group)
+    return _all_reduce_raw(x, group, op)
+
+
+def fan_in(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is, marked as the input of per-rank partial uses over
+    ``group`` (a column-parallel product, a slice of heads or input rows):
+    its gradient is all-reduced over the group in the backward.  Without
+    autograd, x itself."""
+    return _FanIn.apply(x, group) if _grad_on(x) else x
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """A weight stored cut over the data axis along ``dim``, whole: one
+    all-gather; under autograd its gradient is reduce-scattered back over
+    the group (summed over the data ranks' batch slices)."""
+    if _grad_on(x):
+        return _FsdpGather.apply(x, dim, group)
+    return _gather_raw(x, dim, group).contiguous()
 
 
 def tp_column_parallel(x: torch.Tensor, local_product, sharder, bias=None) -> torch.Tensor:
@@ -209,9 +365,11 @@ def tp_column_parallel(x: torch.Tensor, local_product, sharder, bias=None) -> to
     (plus this rank's ``bias`` slice) computed, and one all-gather over the
     axes involved puts [M, N] together on every rank.  B1 (``qmatmul``)
     and the dequantized rows take the same split, so fused = dequant stays
-    token-identical on a mesh."""
+    token-identical on a mesh.  Under autograd x's gradient, partial on
+    each rank (this rank's columns only), is all-reduced over "model"
+    (``fan_in``) and the gather hands each rank its columns' gradient."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = fan_in(x.reshape(-1, x.shape[-1]), sharder.group(sharder.tp))
     M = x2.shape[0]
     rows = _row_part(sharder, M)
     axes = (rows or ()) + (sharder.tp,)

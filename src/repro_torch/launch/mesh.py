@@ -80,9 +80,22 @@ def make_mesh(data: int, model: int, device: str = "cuda"):
     return init_device_mesh(torch.device(device).type, (data, model), mesh_dim_names=AXES)
 
 
+def production_world(*, multi_pod: bool = False) -> int:
+    """The ranks the production mesh needs: 256, or 512 with "pod"."""
+    return 512 if multi_pod else 256
+
+
+def world_rank() -> int:
+    """This process's rank in the world, 0 without a process group."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     """The reference's production mesh over a world of 256 ranks, 16 x 16
-    ("data", "model"), or of 512, 2 x 16 x 16 with "pod" in front."""
+    ("data", "model"), or of 512, 2 x 16 x 16 with "pod" in front
+    (``production_world``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, names = ((2, 16, 16), ("pod",) + AXES) if multi_pod else ((16, 16), AXES)

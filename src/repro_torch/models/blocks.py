@@ -44,13 +44,17 @@ data axes (``constrain(q, "heads")``, the KV heads a rank's q heads read:
 ``constrain(k, "kv_heads")``), attended, and gathered back
 (``constrain.gather``).  The defaults (``NO_CONSTRAIN``, no padding) leave
 every unsharded path as it was.  Stacked weights are ``kernels/ops.Placed``
-slices there, and ``take`` selects a layer of them; the products and the
-decode read (the sharder's ``decode_attn``) do their own collectives.
+slices there, and ``take`` selects a layer of them (gathered over "data"
+where a train state stores them cut); the products and the decode read
+(the sharder's ``decode_attn``) do their own collectives.  Under autograd
+``apply_stack_seq(remat=True)`` recomputes each period in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.qtensor import QuantizedTensor
 from repro_torch.kernels import ops
@@ -68,6 +72,9 @@ class NoConstrain:
         return x
 
     def gather(self, x, kind: str, shape):
+        return x
+
+    def batch_sum(self, x):
         return x
 
 
@@ -308,23 +315,54 @@ def init_stack(init, cfg) -> list:
 
 
 def apply_stack_seq(stack, x, cfg, *, positions, cache_len=None, write_cache=False,
-                    pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None):
+                    pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None, remat=False):
     """All layers in sequence mode.  Returns (x, caches, aux_sum): caches is
     a tuple of dicts, one a period position, stacked over periods, as the
-    reference's; aux_sum the MoE layers' aux losses (0.0 without any)."""
+    reference's; aux_sum the MoE layers' aux losses (0.0 without any).
+    ``remat`` (under autograd, without caches) runs each period's body
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(
+    period_body)``): only its input is kept, and the backward runs it
+    again, a stacked weight's selection and gathers included, in the same
+    order on every rank."""
+    sched = stack_schedule(cfg)
     caches = [[] for _ in stack]
+
+    def period_body(x, aux_sum, p):
+        out = []
+        for j, (mixer, ffn) in enumerate(sched):
+            x, cache, aux = apply_layer_seq(take(stack[j], p), x, cfg=cfg, positions=positions,
+                                            mixer=mixer, window=mixer_window(mixer, cfg),
+                                            cache_len=cache_len, write_cache=write_cache,
+                                            ffn=ffn, pad_mask=pad_mask, constrain=constrain,
+                                            q_pad=q_pad)
+            out.append(cache)
+            aux_sum = aux_sum + aux.get("moe_aux", 0.0)
+        return x, out, aux_sum
+
+    ckpt = remat and not write_cache and torch.is_grad_enabled()
     aux_sum = 0.0
-    for p, j, _, mixer, window, ffn in _layers(stack, cfg):
-        x, cache, aux = apply_layer_seq(p, x, cfg=cfg, positions=positions, mixer=mixer,
-                                        window=window, cache_len=cache_len,
-                                        write_cache=write_cache, ffn=ffn, pad_mask=pad_mask,
-                                        constrain=constrain, q_pad=q_pad)
-        caches[j].append(cache)
-        aux_sum = aux_sum + aux.get("moe_aux", 0.0)
+    for p in range(cfg.n_layers // len(sched)):
+        if ckpt:
+            x, out, aux_sum = recompute_in_backward(period_body, x, aux_sum, p)
+        else:
+            x, out, aux_sum = period_body(x, aux_sum, p)
+        for j, cache in enumerate(out):
+            caches[j].append(cache)
     if not write_cache:
         return x, None, aux_sum
     return (x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in caches),
             aux_sum)
+
+
+def recompute_in_backward(fn, *args):
+    """``fn(*args)``, keeping only its inputs for the backward, which runs
+    ``fn`` again (``torch.utils.checkpoint``, non-reentrant).  The forward
+    draws no random numbers, so the RNG state is not kept (on the card
+    reading it would wait for the device), and it runs the same shapes
+    again, so the recomputed tensors' metadata is not checked."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False,
+                                             determinism_check="none")
 
 
 def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):

@@ -19,7 +19,9 @@ one of ``_COL_MODULES`` on its local columns, then an all-gather; a dense
 one of ``_ROW_MODULES`` (split on its input rows) as this rank's slice of x
 times its rows, summed in f32 and reduced over "model" (``all_reduce``)
 before the rounding — the reference's GSPMD partial sum.  Each shard keeps
-``matmul_rounded``'s fixed row pieces.
+``matmul_rounded``'s fixed row pieces.  A train state's weight stored cut
+over "data" (FSDP) is gathered first (``Placed.gathered``); under autograd
+the collectives carry their adjoints (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -119,6 +121,11 @@ def matmul_f32(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 def _linear_placed(x: torch.Tensor, w: ops.Placed, bias, mode: str) -> torch.Tensor:
     """``linear`` on this rank's slice of a weight (module docstring)."""
     s = w.sharder
+    w = w.gathered()
+    if not w.tp_split():     # stored cut over "data" only: whole once gathered
+        if isinstance(bias, ops.Placed):   # a bias is split over "model" alone
+            bias = ops.gather_dim(bias.local, -1, s.group(s.tp))
+        return linear(x, w.local, bias, mode=mode)
     local = bias.local if isinstance(bias, ops.Placed) else bias
     if isinstance(w.local, QuantizedTensor):
         if resolve_matmul_mode(mode, w.local) == "fused":
@@ -131,7 +138,7 @@ def _linear_placed(x: torch.Tensor, w: ops.Placed, bias, mode: str) -> torch.Ten
     # row-parallel [in / tp, out]: this rank's input slice, partial sums reduced
     r, _ = s.coord(s.tp)
     k = w.local.shape[0]
-    y = matmul_f32(x[..., r * k:(r + 1) * k], w.local.T)
+    y = matmul_f32(ops.fan_in(x, s.group(s.tp))[..., r * k:(r + 1) * k], w.local.T)
     y = ops.all_reduce(y.contiguous(), s.group(s.tp)).to(x.dtype)
     if isinstance(bias, ops.Placed):
         local = ops.gather_dim(bias.local, -1, s.group(s.tp))

@@ -17,7 +17,9 @@ On a mesh (``models/sharding.py``) the sequence mode takes the sharder's
 and the head are ``kernels/ops.Placed`` slices of the vocabulary there: a lookup takes the tokens this rank holds
 and sums the ranks' rows over "model" (each token's row comes from one
 rank, the rest add zeros), and the logits are gathered column-parallel.
-``decode_step`` takes the sharder's ``decode_attn``.
+``decode_step`` takes the sharder's ``decode_attn``.  ``loss_fn`` takes the
+train step's ``constrain`` and ``q_pad`` and gives the global loss; its
+collectives differentiate (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -81,9 +83,19 @@ def head_matrix(params):
     return params.get("lm_head", params["embed"])
 
 
+def _whole_on_data(w):
+    """A head or embedding leaf gathered over "data" where a train state
+    stores it cut (``Placed.gathered``), and its local tensor where it is
+    not split over "model" either."""
+    if not isinstance(w, ops.Placed):
+        return w
+    w = w.gathered()
+    return w if w.tp_split() else w.local
+
+
 def logits_from_hidden(params, h, cfg):
     """h [..., D] -> logits [..., V]."""
-    w = head_matrix(params)
+    w = _whole_on_data(head_matrix(params))
     if isinstance(w, QuantizedTensor) or (isinstance(w, ops.Placed)
                                           and isinstance(w.local, QuantizedTensor)):
         out = linear(h, w, mode=cfg.matmul_mode)
@@ -95,7 +107,7 @@ def logits_from_hidden(params, h, cfg):
 
 
 def embed_inputs(params, tokens, cfg):
-    emb = params["embed"]
+    emb = _whole_on_data(params["embed"])
     placed = isinstance(emb, ops.Placed)
     if placed:
         s, emb = emb.sharder, emb.local
@@ -114,19 +126,20 @@ def embed_inputs(params, tokens, cfg):
 
 
 def backbone_seq_aux(params, tokens, cfg, *, write_cache=False, cache_len=None,
-                     pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None):
+                     pad_mask=None, constrain=NO_CONSTRAIN, q_pad=None, remat=False):
     """The backbone in sequence mode: (normed hidden [B, S, D], caches or
     None, the MoE layers' summed aux loss), the reference's
     ``backbone_seq``.  ``pad_mask`` [B, S] (True = real token) reaches the
     MoE routers' capacity accounting only: the Server passes it for
     bucket-padded prefills, so MoE archs bucket safely.  ``constrain`` and
-    ``q_pad``: the sharder's (``blocks.apply_layer_seq``)."""
+    ``q_pad``: the sharder's (``blocks.apply_layer_seq``); ``remat``:
+    ``blocks.apply_stack_seq``'s."""
     x = embed_inputs(params, tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, caches, aux = blocks.apply_stack_seq(params["stack"], x, cfg, positions=positions,
                                             cache_len=cache_len, write_cache=write_cache,
                                             pad_mask=pad_mask, constrain=constrain,
-                                            q_pad=q_pad)
+                                            q_pad=q_pad, remat=remat)
     return norm(params["final_norm"], x, cfg.norm_type), caches, aux
 
 
@@ -153,25 +166,48 @@ def backbone_chunk(params, tokens, workspace, chunk_start: int, cfg):
     return norm(params["final_norm"], x, cfg.norm_type)
 
 
-def loss_fn(params, tokens, labels, cfg, *, loss_chunk: int = 512):
+def loss_fn(params, tokens, labels, cfg, *, constrain=NO_CONSTRAIN, q_pad=None,
+            loss_chunk: int = 512, remat: bool = True):
     """Mean next-token cross entropy over labels >= 0, logits formed per
     sequence chunk (the tail past a whole number of chunks is dropped, as
-    in the reference), plus the MoE aux loss (router_aux_weight a layer)."""
-    h, _, aux = backbone_seq_aux(params, tokens, cfg)
+    in the reference), plus the MoE aux loss (router_aux_weight a layer).
+    Under autograd each chunk's loss is recomputed in the backward (the
+    reference's ``jax.checkpoint(chunk_loss)``: no chunk's logits are kept)
+    and, with ``remat``, each period of the stack
+    (``blocks.apply_stack_seq``).
+
+    On a mesh (the train step's ``constrain`` and ``q_pad``) the batch is
+    this rank's slice: the loss is the global ``sum(tot) / sum(cnt)``, the
+    per-rank sums all-reduced over the data axes (``constrain.batch_sum``),
+    not a mean of per-rank means; a head or embedding stored cut over
+    "data" is gathered once here."""
+    params = {k: v.gathered() if k in ("embed", "lm_head") and isinstance(v, ops.Placed)
+              else v for k, v in params.items()}
+    h, _, aux = backbone_seq_aux(params, tokens, cfg, constrain=constrain, q_pad=q_pad,
+                                 remat=remat)
     B, S, D = h.shape
     loss_chunk = min(loss_chunk, S)
+
+    def chunk_loss(h_c, y):
+        logits = logits_from_hidden(params, h_c, cfg).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp(y, min=0)[..., None].long())[..., 0]
+        mask = (y >= 0).to(torch.float32)
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+    ckpt = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(S // loss_chunk):
         sl = slice(c * loss_chunk, (c + 1) * loss_chunk)
-        logits = logits_from_hidden(params, h[:, sl], cfg).to(torch.float32)
-        y = labels[:, sl]
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, torch.clamp(y, min=0)[..., None].long())[..., 0]
-        mask = (y >= 0).to(torch.float32)
-        tot = tot + torch.sum((lse - ll) * mask)
-        cnt = cnt + torch.sum(mask)
-    loss = tot / torch.clamp(cnt, min=1.0)
+        if ckpt:
+            t, n = blocks.recompute_in_backward(chunk_loss, h[:, sl], labels[:, sl])
+        else:
+            t, n = chunk_loss(h[:, sl], labels[:, sl])
+        tot = tot + t
+        cnt = cnt + n
+    cnt = constrain.batch_sum(cnt)
+    loss = constrain.batch_sum(tot / torch.clamp(cnt, min=1.0))
     if cfg.n_experts:
         loss = loss + cfg.router_aux_weight * aux / max(1, cfg.n_layers)
     return loss

@@ -17,9 +17,8 @@ together with its own collectives:
   embedding and the head split the vocabulary (``lm.embed_inputs``,
   ``lm.logits_from_hidden``).  FSDP: the reference also splits dense
   leaves over "data"; a serving step reads every weight and a gather is
-  exact, so in this slice they stay whole along "data" (the spec tuples
-  still name it).  FSDP's sharded storage comes with the train step
-  (ROADMAP A11.2).  A flat (not row-structured) QuantizedTensor stays whole.
+  exact, so serving keeps them whole along "data" (the spec tuples still
+  name it).  A flat (not row-structured) QuantizedTensor stays whole.
 * prefill attention: q heads, zero-padded to ``head_pad()`` inside their KV
   groups, split over "model" and the batch over the data axes
   (``constrain``), attended and gathered (``constrain.gather``).
@@ -35,16 +34,30 @@ together with its own collectives:
   ``blocks.local_decode_attn``, with a ``SeqShardFallbackWarning`` at setup
   and at first use.
 
+Training (``train/step.py``, ``TrainPlacement``) stores the train state
+FSDP's way: each dense leaf, and its AdamW moments and compression error,
+cut over "model" and over "data" by the reference's ``_leaf_spec``, a rank
+holding 1/(data x model) of it; norm scales and the leaves the reference
+replicates stay whole.  The batch is split over the data axes for the
+whole forward and backward (``training()``: ``batch_local``), a leaf is
+all-gathered over "data" where it is used (``kernels/ops.Placed.gathered``)
+and its gradient reduce-scattered back, which also sums the data ranks'
+gradients; a leaf not cut over a data axis has its gradient all-reduced
+over it (``TrainPlacement.reduce_grads``).  The collectives differentiate
+(``kernels/ops.py``); the loss is the global mean (``batch_sum``).
+
 Every collective is issued whatever the size of its group: a 1x1 mesh runs
 the whole machinery (on the card, NCCL at world size 1).  ``replicate``
 (models under ``replicate_params_below`` bytes of bf16) and ``Sharder(None,
-cfg)`` make every method a no-op, as in the reference.  Mixture-of-experts
+cfg)`` make every placement a no-op, as in the reference (a replicating
+train step still splits the batch over the data axes).  Mixture-of-experts
 expert parallelism, SSM head sharding and the encoder-decoder wait for
 ROADMAP A11.2: a Sharder on a mesh refuses them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import math
@@ -57,6 +70,7 @@ from repro_torch.kernels import kv_dequant, ops
 from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
+from repro_torch.tree import leaves, unflatten
 
 _COL_MODULES = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "frame_proj", "router"}
 _ROW_MODULES = {"wo", "w_down", "out_proj"}
@@ -114,9 +128,9 @@ def _check_arch(cfg) -> None:
     if cfg.encoder_decoder or cfg.input_kind != "tokens" or cfg.n_experts or any(
             m == "ssm" for m, _ in cfg.layer_schedule()):
         raise NotImplementedError(
-            f"{cfg.name}: serving on a mesh takes dense decoders (attention and MLP "
-            "layers); expert parallelism, SSM head sharding and the encoder-decoder wait "
-            "for ROADMAP A11.2")
+            f"{cfg.name}: a mesh (serving and training) takes dense decoders (attention "
+            "and MLP layers); expert parallelism, SSM head sharding and the "
+            "encoder-decoder wait for ROADMAP A11.2")
 
 
 def _map(fn, tree, specs=None, keys=()):
@@ -154,8 +168,18 @@ class _Constrain:
         if kind == "heads" and x.shape[2] != s.head_pad():
             raise ValueError(f"q has {x.shape[2]} heads: pad them to head_pad() = "
                              f"{s.head_pad()} (q_pad) before splitting them")
+        if s.batch_local:   # a part of a whole value: its gradient summed over "model"
+            x = ops.fan_in(x, s.group(s.tp))
         x = s._slice(x, spec)
         return s._kv_heads_for_local_q(x) if kind == "kv_heads" else x
+
+    def batch_sum(self, x):
+        """A per-rank partial of a sum over the batch, summed over the data
+        axes where the batch is split (a train step's), else x."""
+        s = self.sharder
+        if not s.batch_local or not s.dp_axes:
+            return x
+        return ops.all_reduce(x, s.group(s.dp_axes))
 
     def gather(self, x, kind: str, shape):
         s = self.sharder
@@ -180,6 +204,11 @@ class Sharder:
         self.constrain = _Constrain(self)
         self._groups: dict = {}
         self._coords: dict = {}
+        # the train step's view (``training()``): the batch split over the
+        # data axes already, dense leaves stored cut over "data"
+        self.batch_local = False
+        self.fsdp_storage = False
+        self._train_placement = None
         if mesh is None:
             self.axis_names, self.axis_sizes = (), {}
             self.dp_axes = ()
@@ -203,6 +232,8 @@ class Sharder:
         self.fsdp_axis = "data" if (fsdp and not self.replicate) else None
         if hasattr(mesh, "get_group"):
             self._init_groups()
+        elif hasattr(mesh, "get_coordinate"):   # a stand-in: placements and slices only
+            self._coords = dict(zip(names, mesh.get_coordinate()))
 
     # -- the world -----------------------------------------------------------
     def _init_groups(self) -> None:
@@ -294,7 +325,8 @@ class Sharder:
         spec = _ACTIVATIONS.get(kind)
         if spec is None or len(spec) != len(shape):
             return None
-        named = [self.dp if a == "dp" else self.tp if a == "tp" else None for a in spec]
+        dp = None if self.batch_local else self.dp
+        named = [dp if a == "dp" else self.tp if a == "tp" else None for a in spec]
         return tuple(_maybe(a, shape[i], self._axis_size(a)) for i, a in enumerate(named))
 
     def _kv_heads_for_local_q(self, k: torch.Tensor) -> torch.Tensor:
@@ -408,6 +440,56 @@ class Sharder:
             return ops.Placed(own(leaf, self._slice(leaf, spec, axes=(tp,))), spec, self)
 
         return PlacedParams(_map(place, params, self.param_spec_tree(params)))
+
+    # -- the train state (FSDP storage) ---------------------------------------
+    def training(self) -> "Sharder":
+        """The train step's view of this sharder (the same groups): the batch
+        is split over the data axes for the whole step (activation
+        placements drop them, products split no rows) and dense leaves are
+        stored cut over "data" (``Placed.gathered``).  Without a mesh, self."""
+        if self.mesh is None or self.batch_local:
+            return self
+        view = copy.copy(self)
+        view.batch_local = view.fsdp_storage = True
+        view.constrain = _Constrain(view)
+        view._train_placement = None
+        return view
+
+    def train_placement(self) -> "TrainPlacement":
+        """The FSDP placement of this config's train state (made once)."""
+        if self._train_placement is None:
+            self._train_placement = TrainPlacement(self)
+        return self._train_placement
+
+    def shard_train_state(self, state):
+        """This rank's slices of a whole TrainState (params, AdamW moments,
+        compression errors; ``TrainPlacement``)."""
+        return self.train_placement().cut_state(state)
+
+    def gather_train_state(self, state):
+        """The whole TrainState back from every rank's slices (collective:
+        every rank of the world calls it)."""
+        return self.train_placement().gather_state(state)
+
+    def cut(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's slice of a whole leaf placed by ``spec``, its own
+        storage where it is a part (the leaf itself where it is whole)."""
+        part = self._slice(x, spec)
+        return part if part.numel() == x.numel() else part.contiguous().clone()
+
+    def whole(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf placed by ``spec`` put back together from every rank's
+        slice (one all-gather a split dim; no gradient)."""
+        with torch.no_grad():
+            for d, entry in enumerate(spec or ()):
+                if entry is not None:
+                    x = ops.gather_dim(x, d, self.group(entry))
+        return x
+
+    def local_shape(self, shape, spec) -> tuple:
+        """The shape of this rank's slice of a leaf of ``shape``."""
+        spec = tuple(spec or ()) + (None,) * (len(shape) - len(spec or ()))
+        return tuple(n if e is None else n // self._axis_size(e) for n, e in zip(shape, spec))
 
     # -- caches ----------------------------------------------------------------
     def decode_plan(self, batch: int):
@@ -586,3 +668,128 @@ class Sharder:
 
 def no_sharder(cfg):
     return Sharder(None, cfg)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The specs of ``tree``'s leaves (``specs``: a tree of its structure
+    whose leaves are spec tuples) in ``tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in spec_leaves(v, specs[i])]
+    return [] if tree is None else [specs]
+
+
+class TrainPlacement:
+    """Where a rank keeps its part of a dense decoder's train state on a
+    mesh (FSDP storage; module docstring).  ``specs`` is the reference's
+    placement (``param_spec_tree``) of each leaf of the params tree, in
+    ``tree.leaves`` order; the AdamW moments and the compression errors
+    have the params' structure and take the same.  The state's step is
+    whole everywhere.  Without a mesh every method hands its tree back."""
+
+    def __init__(self, sharder: Sharder):
+        from repro_torch.models import lm
+
+        self.sharder = sharder.training()
+        s = self.sharder
+        self.template = lm.init_params(s.cfg, device="meta")
+        self.specs = spec_leaves(self.template, s.param_spec_tree(self.template))
+        self.shapes = [tuple(t.shape) for t in leaves(self.template)]
+        self.local_shapes = [s.local_shape(n, sp) for n, sp in zip(self.shapes, self.specs)]
+
+    @property
+    def on(self) -> bool:
+        return self.sharder.mesh is not None and not self.sharder.replicate
+
+    # -- trees of the params' structure ---------------------------------------
+    def cut_tree(self, tree):
+        if not self.on or tree is None:
+            return tree
+        return unflatten(tree, [self.sharder.cut(x, sp)
+                                for x, sp in zip(leaves(tree), self.specs, strict=True)])
+
+    def gather_tree(self, tree):
+        if not self.on or tree is None:
+            return tree
+        return unflatten(tree, [self.sharder.whole(x, sp)
+                                for x, sp in zip(leaves(tree), self.specs, strict=True)])
+
+    def live(self, flat: list):
+        """The params tree for the loss from this rank's leaves (``flat``, in
+        leaves order): a leaf split over any axis as a ``kernels/ops.Placed``
+        holding the train view, the rest as they are."""
+        s = self.sharder
+        if not self.on:
+            return unflatten(self.template, flat)
+        return unflatten(self.template, [
+            ops.Placed(x, sp, s) if any(e is not None for e in sp) else x
+            for x, sp in zip(flat, self.specs, strict=True)])
+
+    def reduce_grads(self, flat: list) -> list:
+        """Each leaf's gradient summed in place over the data axes its
+        storage is not cut over (the reduce-scatter of its gather summed the
+        rest)."""
+        s = self.sharder
+        if s.mesh is None or not s.dp_axes:
+            return flat
+        by_axes: dict = {}
+        for i, sp in enumerate(self.specs):
+            named = {n for e in (sp if self.on else ()) for n in ops.axis_names(e)}
+            axes = tuple(a for a in s.dp_axes if a not in named)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            group = s.group(axes)
+            for i in idx:
+                ops.all_reduce(flat[i], group)
+        return flat
+
+    def shard_sums(self, sums: list) -> list:
+        """Per-leaf sums over this rank's slices (a 0-d tensor each, leaves
+        order) as sums over the whole leaves: each all-reduced over the axes
+        its leaf is split over, one all-reduce a set of axes; a leaf stored
+        whole is counted once."""
+        if not self.on:
+            return sums
+        s, out = self.sharder, list(sums)
+        by_axes: dict = {}
+        for i, sp in enumerate(self.specs):
+            axes = s._axes(tuple(n for e in sp for n in ops.axis_names(e)))
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            stacked = ops.all_reduce(torch.stack([out[i] for i in idx]), s.group(axes))
+            for j, i in enumerate(idx):
+                out[i] = stacked[j]
+        return out
+
+    # -- TrainStates ----------------------------------------------------------
+    def map_state(self, state, fn):
+        """``fn`` over a TrainState's params, moments and errors (trees of the
+        params' structure); the step as it is."""
+        return state._replace(params=fn(state.params),
+                              opt=state.opt._replace(m=fn(state.opt.m), v=fn(state.opt.v)),
+                              err=fn(state.err))
+
+    def cut_state(self, state):
+        """This rank's slices of a whole TrainState; one already cut (its
+        leaves of the local shapes) comes back as it is."""
+        if not self.on or self.is_local(state.params):
+            return state
+        return self.map_state(state, self.cut_tree)
+
+    def gather_state(self, state):
+        """The whole TrainState from every rank's slices (collective)."""
+        return self.map_state(state, self.gather_tree)
+
+    def is_local(self, params) -> bool:
+        """Whether ``params`` holds this rank's slices; raises on shapes that
+        are neither the slices nor the whole leaves."""
+        got = [tuple(x.shape) for x in leaves(params)]
+        if got == self.local_shapes:
+            return True
+        if got == self.shapes:
+            return False
+        raise ValueError(f"{self.sharder.cfg.name}: a params tree of neither this rank's "
+                         "slices nor the whole leaves")

@@ -1,5 +1,6 @@
 """AdamW with a cosine schedule and global-norm clipping — port of
-``repro/optim/adamw.py`` (without the ZeRO sharding hooks).
+``repro/optim/adamw.py``; on a mesh the state is stored FSDP's way
+(``models/sharding.TrainPlacement``) and only the norm needs the mesh.
 
 The same math as the reference: f32 moments, bias correction, decoupled
 weight decay on every leaf of two or more dimensions (none on vectors,
@@ -43,29 +44,53 @@ def cosine_lr(step, *, peak: float, warmup: int, total: int, floor: float = 0.1)
     return torch.where(step < warmup, warm, peak * cos)
 
 
+def global_norm(grads, *, placement=None):
+    """The norm of all gradients.  With ``placement``
+    (``models/sharding.TrainPlacement``) ``grads`` are this rank's slices
+    and the norm is the whole tree's: each leaf's sum of squares
+    all-reduced over the axes it is split over, a leaf stored whole counted
+    once, the leaves added in the same order."""
+    sums = [torch.sum(g.to(torch.float32) ** 2) for g in leaves(grads)]
+    if placement is not None:
+        sums = placement.shard_sums(sums)
+    return torch.sqrt(sum(sums))
+
+
 def clip_by_global_norm(grads, max_norm: float):
-    gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in leaves(grads)))
+    """Gradients scaled to a global norm of at most ``max_norm``, and that
+    norm (``global_norm``)."""
+    gn = global_norm(grads)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gn
 
 
 @torch.no_grad()
 def update(params, grads, state: AdamWState, *, lr, b1: float = 0.9, b2: float = 0.95,
-           eps: float = 1e-8, weight_decay: float = 0.1, max_grad_norm: float = 1.0):
-    """One AdamW step -> (new params, new state, global grad norm)."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+           eps: float = 1e-8, weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+           placement=None, inplace: bool = False):
+    """One AdamW step -> (new params, new state, global grad norm).  On a
+    mesh (``placement``) every tree holds this rank's slices, updated
+    element by element as the whole leaves would be (a slice keeps its
+    leaf's ``ndim``, which decides the decay); only the norm is global.
+    ``inplace`` writes the new params and moments into the given ones (the
+    same numbers), so a step holds one copy of them, as the reference's
+    loop donates its state to the jitted step."""
+    gnorm = global_norm(grads, placement=placement)
+    scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        g = (g * scale).to(torch.float32)   # clip_by_global_norm's scaling, a leaf at a time
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * g * g
+        u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
         decay = weight_decay if p.ndim >= 2 else 0.0  # no decay on vectors
-        new_p = p.to(torch.float32) - lr * (u + decay * p.to(torch.float32))
-        return new_p.to(p.dtype), m, v
+        new_p = (p.to(torch.float32) - lr * (u + decay * p.to(torch.float32))).to(p.dtype)
+        if inplace:
+            return p.copy_(new_p), m.copy_(m2), v.copy_(v2)
+        return new_p, m2, v2
 
     out = tree_map(upd, params, grads, state.m, state.v)
     pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731

@@ -18,12 +18,18 @@ def leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def _seq(t, items):
+    """A list, tuple or NamedTuple of ``t``'s type holding ``items``."""
+    items = list(items)
+    return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over corresponding leaves of trees of one structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+        return _seq(tree, (tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)))
     return None if tree is None else fn(tree, *rest)
 
 
@@ -37,7 +43,7 @@ def unflatten(tree, flat):
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+            return _seq(t, (build(v) for v in t))
         return None if t is None else next(it)
 
     return build(tree)

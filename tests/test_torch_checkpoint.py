@@ -202,10 +202,12 @@ def test_launch_train_resumes_from_ckpt_dir(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--mesh", "pod16x16"], ["--mesh", "pod2x16x16"]])
 def test_launch_train_refuses_a11(extra):
-    """The production meshes: the sharded train step waits for A11.2 (the
-    serving mesh is A11.1).  The second case refused --grad-compress-bits
-    before gradient compression was ported (test_torch_grad_compress.py
-    runs it)."""
-    with pytest.raises(NotImplementedError, match="A11.2"):
+    """The production meshes train on a mesh (the sharded train step, A11.2;
+    tests/test_torch_train_mesh.py runs it on gloo worlds); in a world of
+    one rank the launcher refuses before starting one, naming the 256 or
+    512 ranks the mesh needs."""
+    ranks = 512 if extra[1] == "pod2x16x16" else 256
+    with pytest.raises(ValueError, match=f"needs a world of {ranks} ranks") as e:
         tlaunch.main(["--arch", "tiny-160k", "--steps", "1", "--device", "cpu"] + extra)
+    assert "has 1" in str(e.value)
 

@@ -98,7 +98,13 @@ where the card is (a machine without JAX):
   tiny-650k's sharded Engine at kv16, kv8 and kv4 equal bit for bit to
   eager unsharded steps reading every layer the routed way (one KV dequant
   a layer and step, no fused attention), and the sharded Server equal to
-  the sharded batch-1 Engine.
+  the sharded batch-1 Engine;
+* training on a 1x1 mesh: tiny-650k's sharded train steps (FSDP storage,
+  bf16 masters, remat, 8-bit compression, 2 microbatches, the state
+  donated) equal to the unsharded steps bit for bit, one flat encode a
+  compressed leaf and step; a sharded state saved through the checkpoint
+  manager reads back unsharded, through ``launch/elastic.remesh_state`` and
+  through ``restore(sharder=)`` bit for bit.
 """
 
 import numpy as np
@@ -1777,3 +1783,82 @@ def test_mesh_1x1_server_equals_sharded_engine(nccl_mesh):
     eng = Engine(qparams, cfg, max_seq_len=40, sharder=sharder, device="cuda")
     for p, i in zip(prompts, ids):
         assert res[i] == eng.generate(torch.as_tensor(p, device="cuda")[None], 8)[0].tolist()
+
+
+# -- training on a 1x1 mesh: NCCL at world size 1 ------------------------------
+
+def _train_runs(sharders, *, donate):
+    """Two train steps of tiny-650k on the card per sharder (None =
+    unsharded) from one seeded bf16 init, 8-bit compression, 2
+    microbatches: [(per-step loss and norm, the state's leaves, the flat
+    encodes launched)]."""
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("tiny-650k")
+    g = torch.Generator("cuda").manual_seed(0)
+    batches = [torch.randint(0, cfg.vocab_size, (4, 65), device="cuda", generator=g)
+               for _ in range(2)]
+    runs = []
+    for sharder in sharders:
+        state = tstep.init_state(cfg, device="cuda", grad_compress_bits=8,
+                                 param_dtype=torch.bfloat16)
+        step = tstep.make_train_step(cfg, sharder=sharder, grad_compress_bits=8,
+                                     microbatches=2, loss_chunk=64, donate=donate)
+        before = launches.snapshot()
+        metrics = []
+        for t in batches:
+            state, m = step(state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        counts = dict(zip(launches.names(), (a - b for a, b in zip(launches.snapshot(),
+                                                                      before))))
+        runs.append((metrics, leaves(state), counts["quantize_blocks_cuda.launches"]))
+    return runs
+
+
+@pytest.mark.cuda
+def test_train_mesh_1x1_steps_equal_unsharded_bit_for_bit(nccl_mesh):
+    """The sharded train step (FSDP storage, bf16 masters, remat, 8-bit
+    compression, 2 microbatches, the state donated) on the 1x1 mesh gives
+    the unsharded step's loss, norm and state bit for bit, and launches one
+    flat encode a compressed leaf and step."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import grad_compress
+
+    cfg = get_arch("tiny-650k")
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    (m1, s1, n1), (m2, s2, n2) = _train_runs([sharder, None], donate=True)
+    assert m1 == m2
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2, strict=True))
+    big = sum(int(np.prod(n)) >= grad_compress.MIN_ELEMENTS
+              for n in sharder.train_placement().shapes)
+    assert n1 == n2 == 2 * big
+
+
+@pytest.mark.cuda
+def test_train_mesh_1x1_checkpoint_and_remesh_round_trip(nccl_mesh, tmp_path):
+    """A sharded train state saved through the CheckpointManager (gathered
+    whole, rank 0 writing) reads back unsharded and through
+    launch/elastic.remesh_state equal to it bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import elastic
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("tiny-650k")
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    state = tstep.init_state(cfg, device="cuda", grad_compress_bits=8,
+                             param_dtype=torch.bfloat16)
+    t = torch.randint(0, cfg.vocab_size, (4, 33), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    state, _ = tstep.make_train_step(cfg, sharder=sharder, grad_compress_bits=8,
+                                     loss_chunk=32)(state, {"tokens": t[:, :-1],
+                                                            "labels": t[:, 1:]})
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, state, sharder=sharder, block=True)
+    _, whole, _ = mgr.restore(state)
+    remeshed, _ = elastic.remesh_state(whole, cfg, nccl_mesh, sharder=sharder)
+    _, restored, _ = mgr.restore(state, sharder=sharder)
+    for tree in (whole, remeshed, restored):
+        assert all(torch.equal(a, b) for a, b in zip(leaves(tree), leaves(state), strict=True))
