@@ -290,6 +290,36 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                an H100 machine's host, past the phase's time: PERF.md.)  Prints
                each step's device ms (CUDA events around it) and host ms,
                sharded and unsharded.
+  3n. moe/ssm mesh — mixture-of-experts, SSM and hybrid decoders on a 1x1
+               mesh (a world of one rank, NCCL; Sharder(make_mesh(1, 1),
+               cfg, replicate_params_below=0)), seeded bf16 weights quantized
+               on the card: moonshot-v1-16b-a3b at full width cut to depth 8
+               of 48 (4 x 256, 32 new tokens, kv4), mamba2-130m at full
+               width and depth (the ssm phase's 4 x 1024 prompts, 32 new) and
+               jamba-v0.1-52b at full width cut to depth 8 (2 x 1024, 16 new,
+               kv4).  Each sharded Engine: no host sync in its captured step,
+               one replay's launches (3 expert-batched GEMVs an MoE layer, the
+               GEMVs of the attention, SSM, MLP projections and head, a KV
+               dequant an attention layer: a mesh reads the routed way),
+               prefill and decode logits and the prefill's caches (the SSM
+               state and conv too) bit for bit the unsharded prefill's and
+               lm.decode_step's over the routed read, graph tokens = those
+               eager ones (mamba2: = the unsharded Engine's), the step's
+               device and host ms sharded and unsharded, the captured step
+               through analysis/audit.audit_generate (no host node, memcpy
+               or sync).  The sharded Server on 8 kv4 slots over the first 8
+               of the moe phase's one-group requests (moonshot) and on 8
+               slots over the ssm phase's first 8 (mamba2): each request's
+               tokens = the sharded batch-1 Engine's.  Training moonshot at
+               full width cut to depth 2 and mamba2 at full depth as 3m
+               trains (bf16 masters, remat, 8-bit compression, 2 steps of 4 x
+               512 in 2 microbatches), unsharded then sharded from one init:
+               loss, grad norm and every parameter equal bit for bit; the
+               sharded steps' flat encodes = steps x compressed leaves.
+               The kernels phase also holds the expert-batched GEMV on a
+               rank's slice of moonshot's expert stack (experts 16-31 of 64,
+               their own storage, local counts) bit for bit against the
+               whole-stack launch: the launch a "model" axis of 4 makes.
   3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
                width and depth): precision.build_plan on the card at the
                uniform-4 budget with KL probes (a Zipf-Markov batch over the
@@ -623,6 +653,7 @@ def main() -> int:
     routed_path(torch, dev, run)
     mesh_path(torch, dev, run)
     train_mesh = train_mesh_path(torch, dev)
+    moe_ssm_mesh = moe_ssm_mesh_path(torch, dev)
     plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
@@ -634,7 +665,8 @@ def main() -> int:
     times = time_kernels(torch, dev, run, paper)
     audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
-                   run["routed_counts"], run["mesh_counts"], train_mesh, run["plan_counts"],
+                   run["routed_counts"], run["mesh_counts"], train_mesh, moe_ssm_mesh,
+                   run["plan_counts"],
                    windows,
                    experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"], ledger)
@@ -659,7 +691,8 @@ def main() -> int:
             # Servers, gradient compression and its training run),
             # tiny-10m's routed read (Engine and Server), the 1x1 mesh's
             # sharded Engines and Server (Qwen2-7B), its sharded train
-            # steps (Qwen2-7B at depth 4, tiny-650k's run),
+            # steps (Qwen2-7B at depth 4, tiny-650k's run), the 1x1 mesh's
+            # MoE, SSM and hybrid loads, Engines, Servers and train steps,
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
@@ -680,8 +713,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/qgemv_sm90.cu",
         "replaces": "src/repro/kernels/qmatmul.py:97",
         # the moe phase (moonshot-v1's and phi3.5-moe's Engines and
-        # moonshot-v1's Servers) and the ssm phase (jamba's Engine), 3 an
-        # MoE layer and decode step
+        # moonshot-v1's Servers), the ssm phase (jamba's Engine) and the
+        # moe/ssm mesh phase (moonshot-v1's and jamba's sharded Engines and
+        # moonshot-v1's sharded Server), 3 an MoE layer and decode step
         "launches": sum(c["gemv_moe"] for c in main_counts), "max_abs_err": errs["gemv_moe"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1017,6 +1051,7 @@ def check_kernels(torch, dev) -> dict:
     n_checks += check_routed(torch, dev, g, cfg, worst)
     n_checks += check_ring(torch, dev, g, worst)
     n_checks += check_moe_gemv(torch, dev, g, worst)
+    n_checks += check_moe_gemv_slice(torch, dev, g)
     emit({"phase": "kernels", "checks": n_checks, "max_abs_err_main_shapes": worst,
           "tolerance": {"f32_rel": F32_REL_TOL, "bf16_rel_to_max": BF16_REL_TOL,
                         "kv_dequant": "bit-exact", "quantize_blocks": "bit-exact",
@@ -1079,6 +1114,51 @@ def check_moe_gemv(torch, dev, g, worst) -> int:
                 n_checks += 2
             del packed, scales, buf, x, y, plain
             torch.cuda.empty_cache()
+    return n_checks
+
+
+def check_moe_gemv_slice(torch, dev, g) -> int:
+    """The expert-batched GEMV on a rank's slice of an expert stack, the
+    launch a "model" axis of 4 makes: moonshot-v1's 64 experts (gate/up
+    and down shapes, 4-bit, block 64) of capacity buffers of 9 rows, one
+    launch over all 64, then experts 16-31 alone: their words, scales and
+    codebooks copied to their own storage, their buffers a view of the whole
+    one's (as models/moe.py slices them), their counts the local ones.  Its
+    rows equal those experts' rows of the whole-stack launch bit for bit.
+    Returns the checks."""
+    from repro_torch.core.codebooks import make_codebook
+    from repro_torch.kernels import qmatmul as qk
+
+    E, e0, El = 64, 16, 16
+    n_checks = 0
+    for N, K in MOE_GEMV_SHAPES[:2]:
+        bits, block = 4, 64
+        kw = dict(bits=bits, block_size=block)
+        counts = torch.randint(0, qk.GEMV_MAX_M + 1, (E,), generator=g, device=dev,
+                               dtype=torch.int32)
+        packed = torch.randint(-2**31, 2**31 - 1, (E, N, K // 8), generator=g, device=dev,
+                               dtype=torch.int32)
+        scales = (torch.rand((E, N, K // block), generator=g, device=dev) * 0.04
+                  + 0.01).to(torch.bfloat16)
+        cb = make_codebook("float", bits, device=dev).expand(E, -1).contiguous()
+        buf = torch.randn((E, qk.GEMV_MAX_M + 1, K), generator=g, device=dev).to(torch.bfloat16)
+        whole = qk.qmatmul_gemv_experts(buf[:, :qk.GEMV_MAX_M], packed, scales, cb, counts, **kw)
+        mine = [t[e0:e0 + El].clone() for t in (packed, scales, cb)]
+        before = qk.qmatmul_gemv_experts.launches
+        part = qk.qmatmul_gemv_experts(buf[e0:e0 + El, :qk.GEMV_MAX_M], *mine,
+                                       counts[e0:e0 + El].clone(), **kw)
+        torch.cuda.synchronize()
+        require(qk.qmatmul_gemv_experts.launches == before + 1,
+                f"expert GEMV on a slice {N}x{K}: not one launch")
+        for e in range(El):
+            c = int(counts[e0 + e])
+            require(torch.equal(part[e, :c].view(torch.int16),
+                                whole[e0 + e, :c].view(torch.int16)),
+                    f"expert GEMV on a slice {N}x{K}: expert {e0 + e}'s {c} rows differ from "
+                    "the whole-stack launch")
+            n_checks += 1
+        del packed, scales, buf, whole, part, mine
+        torch.cuda.empty_cache()
     return n_checks
 
 
@@ -2662,28 +2742,35 @@ def _routed_oracle_read(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=N
     return attention.combine_partials(m, l, pv).reshape(B, H, Dh).to(q.dtype)
 
 
-def _rollout(torch, params, cfg, prompts, cache_len, *, engine=None, feed=None):
-    """(tokens [B, NEW_TOKENS], logits [B, NEW_TOKENS, V]) of eager steps:
-    a sharded Engine's prefill and step (its placement and decode read), or
-    without one the unsharded prefill and lm.decode_step over the routed
-    oracle read; each step fed its own greedy token or feed's."""
+def _rollout(torch, params, cfg, prompts, cache_len, *, engine=None, feed=None,
+             new_tokens=NEW_TOKENS, with_caches=False):
+    """(tokens [B, new_tokens], logits [B, new_tokens, V]) of eager steps:
+    a sharded Engine's prefill and step (its placement, decode read and
+    constrain), or without one the unsharded prefill and lm.decode_step over
+    the routed oracle read; each step fed its own greedy token or feed's.
+    ``with_caches`` also returns the prefill's caches (cloned before the
+    steps write them)."""
     from repro_torch.models import lm
 
     with torch.inference_mode():
         if engine is not None:
             logits, caches = engine._prefill(prompts)
-            read = engine._decode_attn(prompts.shape[0])
+            kw = dict(decode_attn=engine._decode_attn(prompts.shape[0]),
+                      constrain=engine.constrain)
         else:
             logits, caches = lm.prefill(params, prompts, cfg, cache_len=cache_len)
-            read = _routed_oracle_read
+            kw = dict(decode_attn=_routed_oracle_read)
+        after_prefill = [{k: v.clone() for k, v in c.items()} for c in caches] \
+            if with_caches else None
         toks, logs = [torch.argmax(logits, -1).to(torch.int32)], [logits]
-        for t in range(1, NEW_TOKENS):
+        for t in range(1, new_tokens):
             prev = toks[-1] if feed is None else feed[:, t - 1]
-            logits, caches = lm.decode_step(params, prev, caches, PROMPT + t - 1, cfg,
-                                            decode_attn=read)
+            logits, caches = lm.decode_step(params, prev, caches, prompts.shape[1] + t - 1, cfg,
+                                            **kw)
             toks.append(torch.argmax(logits, -1).to(torch.int32))
             logs.append(logits)
-    return torch.stack(toks, 1), torch.stack(logs, 1)
+    out = torch.stack(toks, 1), torch.stack(logs, 1)
+    return out + (after_prefill,) if with_caches else out
 
 
 def _mesh_launcher():
@@ -3096,6 +3183,311 @@ def _same_leaves(torch, a, b) -> bool:
     from repro_torch.tree import leaves
 
     return all(_bits_equal(torch, x, y) for x, y in zip(leaves(a), leaves(b), strict=True))
+
+
+# the moe/ssm mesh phase: on a 1x1 mesh, moonshot-v1-16b-a3b at full width
+# cut to depth 8 of 48 (4 x 256, 32 new tokens, kv4) with 8 slots over the
+# first 8 of the moe phase's requests whose exact-length prefill runs one
+# dispatch group (its grouped request's prefill is not the bucketed one's);
+# mamba2-130m at full width and depth (the ssm phase's 4 x 1024 prompts,
+# 32 new tokens) with 8 slots over the ssm phase's first 8 requests;
+# jamba-v0.1-52b at full width cut to depth 8 (2 x 1024, 16 new tokens,
+# kv4); training moonshot at depth 2 and mamba2 at full depth as the train
+# mesh phase trains Qwen2-7B
+MESH_MOE_DEPTH, MESH_JAMBA_DEPTH, MESH_MOE_TRAIN_DEPTH = 8, 8, 2
+MESH_TIMED_STEPS = 10
+
+
+def _mesh_step_times(torch, engine, B: int, S: int) -> dict:
+    """An Engine's captured step for B rows: its device time (CUDA events
+    around replays) and its host time (the host clock over replays), each
+    over MESH_TIMED_STEPS replays from position S."""
+    g = engine._graphs[B]
+    with torch.inference_mode():   # the graph's buffers are inference tensors
+        g.pos.fill_(S)
+        g.col.fill_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED_STEPS):
+            g.step.graph.replay()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / MESH_TIMED_STEPS * 1e3
+        g.pos.fill_(S)
+        g.col.fill_(1)
+        device_ms = _time_graph(torch, g.step.graph, MESH_TIMED_STEPS)
+    return {"decode_step_device_ms": device_ms, "decode_ms_per_step": host_ms}
+
+
+def _mesh_engine(torch, dev, qparams, cfg, prompts, new_tokens, mesh, total, want_step,
+                 report) -> tuple:
+    """One arch's sharded Engine on the 1x1 mesh (phase 3n): generate (its
+    launches counted, no host sync in its capture), one replay's launches =
+    ``want_step``, the sharded eager steps' logits and the prefill's caches
+    (K/V, or the SSM state and conv) equal bit for bit to the unsharded
+    prefill's and steps' over the routed read, graph tokens = those eager
+    ones; the step's device and host ms beside the unsharded Engine's, and
+    the sharded captured step audited (analysis/audit.audit_generate).
+    Returns (sharder, report)."""
+    from repro_torch.analysis import audit
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.serving import Engine
+
+    B, S = prompts.shape
+    cache_len = S + new_tokens
+    sharder = Sharder(mesh, cfg, replicate_params_below=0)
+    engine = Engine(qparams, cfg, max_seq_len=cache_len, sharder=sharder, device=dev)
+    require(engine.max_seq_len == cache_len, f"{cfg.name}: a 1x1 mesh padded the cache to "
+            f"{engine.max_seq_len}")
+    _reset_counts()
+    with _capture_guard(torch) as syncs:
+        tokens = engine.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    counts = _counts()
+    for key in total:
+        total[key] += counts[key]
+    require(not syncs, f"{cfg.name} mesh: the sharded captured step syncs with the host: "
+            f"{syncs[:5]}")
+    g = engine._graphs[B]
+    with torch.inference_mode():
+        g.pos.fill_(S)
+        g.col.fill_(1)
+        _reset_counts()
+        g.step.replay()
+        torch.cuda.synchronize()
+        per_replay = _counts()
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), **want_step}
+    require(per_replay == want, f"{cfg.name} mesh: one replay launched {per_replay}, want {want}")
+    mine, mine_logits, mine_caches = _rollout(torch, engine.params, cfg, prompts, cache_len,
+                                              engine=engine, new_tokens=new_tokens,
+                                              with_caches=True)
+    oracle, oracle_logits, oracle_caches = _rollout(torch, qparams, cfg, prompts, cache_len,
+                                                    new_tokens=new_tokens, with_caches=True)
+    require(all(_bits_equal(torch, a[k], b[k]) for a, b in zip(mine_caches, oracle_caches,
+                                                                strict=True) for k in a),
+            f"{cfg.name} mesh: the sharded prefill's caches differ from the unsharded ones")
+    require(torch.equal(mine_logits.view(torch.int16), oracle_logits.view(torch.int16))
+            and torch.equal(mine, oracle) and torch.equal(tokens, oracle),
+            f"{cfg.name} mesh: the 1x1 sharded logits or tokens differ from the unsharded "
+            "ones over the routed read")
+    del mine_caches, oracle_caches, mine_logits, oracle_logits
+    plain = Engine(qparams, cfg, max_seq_len=cache_len, device=dev)
+    plain_tokens = plain.generate(prompts, new_tokens)
+    has_attn = any(m.startswith("attn") for m, _ in cfg.layer_schedule())
+    if not has_attn:   # no decode read to differ: the unsharded Engine's own tokens
+        require(torch.equal(plain_tokens, tokens),
+                f"{cfg.name} mesh: tokens differ from the unsharded Engine's")
+    times = {"sharded": _mesh_step_times(torch, engine, B, S),
+             "unsharded": _mesh_step_times(torch, plain, B, S)}
+    del plain, engine, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    program = f"{cfg.name} mesh-1x1 engine kv{cfg.kv_bits}"
+    names = {"gemv": "qmatmul_gemv.launches", "gemv_moe": "qmatmul_gemv_experts.launches",
+             "kv": "dequant_kv_cuda.launches", "attn": "decode_attention_packed_cuda.launches"}
+    nodes = audit.audit_generate(
+        report, Engine(qparams, cfg, max_seq_len=cache_len, sharder=sharder, device=dev),
+        prompts, AUDIT_NEW_TOKENS, program,
+        ROOT / "build" / "audit" / f"{cfg.name}_mesh_engine.dot",
+        expect={name: want[key] for key, name in names.items()})
+    require(report.ok, f"{cfg.name} mesh audit: " + "; ".join(
+        c.render() for c in report.failures()[:5]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sharder, {
+        "batch": B, "prompt_len": S, "new_tokens": new_tokens, "kv_bits": cfg.kv_bits,
+        "launches": counts, "launches_per_replay": per_replay,
+        "host_syncs_in_captured_step": len(syncs),
+        "logits_and_prefill_caches_equal_unsharded_routed": True,
+        "graph_tokens_equal_eager": True,
+        "tokens_equal_unsharded_engine": bool(torch.equal(plain_tokens, tokens)),
+        "step": times, "step_kernel_nodes": sum(report.families[program].values()),
+        "step_nccl": audit.collective_nodes(nodes)}
+
+
+def _mesh_server(torch, dev, qparams, cfg, reqs, slot_len, sharder, total) -> dict:
+    """The sharded Server on MESH_SERVER_SLOTS slots over ``reqs`` (its
+    captured step no host sync) and each request's tokens against the
+    sharded batch-1 Engine's, both counted."""
+    from repro_torch.serving import Engine, Server, Telemetry
+
+    tel = Telemetry()
+    _reset_counts()
+    with torch.inference_mode(), _capture_guard(torch) as syncs:
+        srv = Server(qparams, cfg, num_slots=SERVER_SLOTS, max_seq_len=slot_len,
+                     sharder=sharder, telemetry=tel, device=dev)
+        ids, served, wall, peak = _drive_server(torch, srv, reqs)
+    require(not syncs, f"{cfg.name} mesh Server: its captured step syncs with the host: "
+            f"{syncs[:5]}")
+    solo = Engine(qparams, cfg, max_seq_len=slot_len, sharder=sharder, device=dev)
+    alone = [solo.generate(torch.as_tensor(r["prompt"], device=dev)[None], len(t))[0].tolist()
+             for r, t in zip(reqs, served)]
+    torch.cuda.synchronize()
+    for key, n in _counts().items():
+        total[key] += n
+    require(alone == served, f"{cfg.name} mesh Server: tokens differ from the sharded "
+            f"batch-1 Engine's on {sum(a != b for a, b in zip(alone, served))} requests")
+    n_tokens = sum(len(t) for t in served)
+    ttft = tel.registry.histogram("serve_ttft_seconds")
+    del srv, solo
+    return {"num_slots": SERVER_SLOTS, "max_seq_len": slot_len, "requests": len(reqs),
+            "prompt_lens": [len(r["prompt"]) for r in reqs], "tokens": n_tokens,
+            "serve_s": wall, "tokens_per_s": n_tokens / wall,
+            "ttft_s_median": ttft.percentile(50), "peak_residents": peak["residents"],
+            "tokens_equal_sharded_engine_b1": True, "host_syncs_in_captured_step": len(syncs)}
+
+
+def _mesh_train(torch, dev, cfg, mesh, total) -> dict:
+    """The train mesh phase's two steps (bf16 masters, remat, 8-bit
+    compression, TRAIN_MESH_BATCH x TRAIN_MESH_SEQ in TRAIN_MESH_MICRO
+    microbatches) of ``cfg``, unsharded and then on the mesh from the same
+    init: loss, grad norm and every parameter equal bit for bit (or, where
+    the unsharded step is not itself reproducible, within its own spread),
+    the sharded steps' flat encodes = steps x compressed leaves."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import grad_compress as gcomp
+
+    g = _gen(torch, dev, SEED + 31)
+    batches = []
+    for _ in range(TRAIN_MESH_STEPS):
+        t = torch.randint(0, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ + 1),
+                          generator=g, device=dev)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    sharder = Sharder(mesh, cfg, replicate_params_below=0)
+    n_big = sum(math.prod(n) >= gcomp.MIN_ELEMENTS for n in sharder.train_placement().shapes)
+    _free(torch)
+    plain, plain_params, state = _train_steps(torch, dev, cfg, None, batches)
+    del state
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    sharded, _, state = _train_steps(torch, dev, cfg, sharder, batches, want=plain_params)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "b3": TRAIN_MESH_STEPS * n_big}
+    require(counts == want, f"{cfg.name} train mesh: the sharded steps launched {counts}, "
+            f"want {want}")
+    for key in total:
+        total[key] += counts[key]
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    _free(torch)
+    same = ([(r["loss"], r["grad_norm"]) for r in sharded]
+            == [(r["loss"], r["grad_norm"]) for r in plain]
+            and all(r["params_equal"] for r in sharded))
+    spread = None
+    if not same:
+        again, _, state = _train_steps(torch, dev, cfg, None, batches, want=plain_params)
+        del state
+        _free(torch)
+        spread, gap = _run_gap(again, plain), _run_gap(sharded, plain)
+        require(all(gap[k] <= spread[k] for k in gap),
+                f"{cfg.name} train mesh: the 1x1 steps differ from the unsharded ones by "
+                f"{gap}, beyond the unsharded step's own spread {spread}")
+    del plain_params
+    _free(torch)
+    return {"depth": cfg.n_layers, "width": cfg.d_model, "params": cfg.param_count(),
+            "steps": {"sharded": sharded, "unsharded": plain}, "bit_identical": same,
+            "unsharded_spread": spread, "compressed_leaves": n_big, "peak_bytes": peak,
+            "launches": counts}
+
+
+def moe_ssm_mesh_path(torch, dev) -> dict:
+    """Phase 3n: mixture-of-experts, SSM and hybrid decoders on a 1x1 mesh
+    (module docstring).  Its counts are set to 0 before the sharded
+    Engines, Servers and train steps (and the loads) and read after; the
+    oracles', the unsharded runs', the replays' and the audits' launches
+    are not counted."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import audit
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    out = {"phase": "moe_ssm_mesh", "mesh": "1x1", "backend": "nccl",
+           "weights": "4-bit float b64"}
+    report = audit.AuditReport()
+    gc.collect()
+    _free(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
+        init_world("cuda", rank=0, world=1, init_file=os.path.join(rdv, "rendezvous"))
+        try:
+            mesh = make_mesh(1, 1, "cuda")
+
+            # -- moonshot-v1-16b-a3b at full width, depth 8 --------------------
+            base = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MESH_MOE_DEPTH)
+            qparams, load = _load_quantized(torch, dev, base, total)
+            cfg = base.with_kv_quant(4)
+            n_l = cfg.n_layers
+            prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                                    generator=_gen(torch, dev, SEED + 14), device=dev)
+            sharder, eng = _mesh_engine(
+                torch, dev, qparams, cfg, prompts, MOE_NEW, mesh, total,
+                {"gemv": 4 * n_l + 1, "gemv_tc": 4 * n_l + 1, "gemv_moe": 3 * n_l, "kv": n_l},
+                report)
+            reqs = [r for r in _moe_requests(cfg)
+                    if moe._n_groups(len(r["prompt"])) == 1][:MESH_REQUESTS]
+            out[MOE_ARCH] = {"depth": n_l, "full_depth": get_arch(MOE_ARCH).n_layers,
+                             "width": cfg.d_model, "experts": cfg.n_experts,
+                             "top_k": cfg.top_k, "vocab": cfg.vocab_size, **load,
+                             "engine_kv4": eng,
+                             "server": _mesh_server(torch, dev, qparams, cfg, reqs,
+                                                    MOE_SLOT_LEN, sharder, total)}
+            del qparams, sharder
+            _free(torch)
+
+            # -- mamba2-130m at full width and depth ---------------------------
+            cfg = get_arch(SSM_ARCH)
+            qparams, load = _load_quantized(torch, dev, cfg, total)
+            n_l = cfg.n_layers
+            prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                                    generator=_gen(torch, dev, SEED + 19), device=dev)
+            sharder, eng = _mesh_engine(torch, dev, qparams, cfg, prompts, SSM_NEW, mesh,
+                                        total, {"gemv": 2 * n_l, "gemv_tc": 2 * n_l}, report)
+            out[SSM_ARCH] = {"depth": n_l, "width": cfg.d_model, "ssm_heads": cfg.n_ssm_heads,
+                             **load, "engine": eng,
+                             "server": _mesh_server(torch, dev, qparams, cfg,
+                                                    _ssm_requests(cfg)[:MESH_REQUESTS],
+                                                    SSM_SLOT_LEN, sharder, total)}
+            del qparams, sharder
+            _free(torch)
+
+            # -- jamba-v0.1-52b at full width, depth 8 -------------------------
+            base = dataclasses.replace(get_arch(JAMBA_ARCH), n_layers=MESH_JAMBA_DEPTH)
+            qparams, load = _load_quantized(torch, dev, base, total)
+            cfg = base.with_kv_quant(4)
+            sched = cfg.layer_schedule()
+            n_attn = sum(m == "attn" for m, _ in sched)
+            n_gemv = (4 * n_attn + 2 * sum(m == "ssm" for m, _ in sched)
+                      + 3 * sum(f == "mlp" for _, f in sched) + 1)
+            prompts = torch.randint(0, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT),
+                                    generator=_gen(torch, dev, SEED + 20), device=dev)
+            _, eng = _mesh_engine(
+                torch, dev, qparams, cfg, prompts, JAMBA_NEW, mesh, total,
+                {"gemv": n_gemv, "gemv_tc": n_gemv,
+                 "gemv_moe": 3 * sum(f == "moe" for _, f in sched), "kv": n_attn}, report)
+            out[JAMBA_ARCH] = {"depth": cfg.n_layers, "full_depth": get_arch(JAMBA_ARCH).n_layers,
+                               "width": cfg.d_model, **load, "engine_kv4": eng}
+            del qparams
+            _free(torch)
+
+            # -- training: moonshot at depth 2, mamba2 at full depth -----------
+            out["train"] = {
+                MOE_ARCH: _mesh_train(torch, dev, dataclasses.replace(
+                    get_arch(MOE_ARCH), n_layers=MESH_MOE_TRAIN_DEPTH), mesh, total),
+                SSM_ARCH: _mesh_train(torch, dev, get_arch(SSM_ARCH), mesh, total)}
+        finally:
+            dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    out.update(audit={f"{c.program}: {c.check}": c.detail for c in report.checks},
+               card=smi.stdout.strip(), launches=total, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return total
 
 
 def _window_requests(cfg):

@@ -42,6 +42,10 @@ the caller asks for the CPU (``device="cpu"``); then it runs ``in_place``
 over the eager paths and counts zero captures, and says that the graph
 checks were not run.  No graph check passes without a graph.
 
+``audit_generate`` runs the graph checks on any Engine's one capture, a
+sharded one's (MoE, SSM and hybrid decoders on a mesh, NCCL inside the
+graph) included: chip_smoke's phase 3n audits those.
+
 Run: ``PYTHONPATH=src python -m repro_torch.analysis.audit [--kv-bits 16 8 4]
 [--arch tiny-160k] [--full qwen2-7b] [--device cpu]``.
 """
@@ -731,6 +735,25 @@ def run_audit(arch: str = "tiny-160k", kv_bits=(16, 8, 4), fused_bits: int = 4, 
         report.notes.append("graph checks (no_host_nodes, no_host_syncs, kernel_route, "
                             "in_place over replays) not run: no graph on the CPU")
     return report
+
+
+@torch.inference_mode()
+def audit_generate(report: AuditReport, engine, prompts, new_tokens: int, program: str,
+                   dot_path: Path, *, expect: dict | None = None) -> list:
+    """One ``engine.generate`` captured and audited (on the card): one
+    capture, then no_host_nodes, kernel_route (and ``expect``) and
+    no_host_syncs on its step — a sharded Engine's (``sharder=``: MoE, SSM
+    and hybrid decoders on a mesh, its collectives inside the graph) as
+    well as an unsharded one's.  Returns the graph's nodes."""
+    with CaptureLog() as log, _capture_guard(torch) as syncs:
+        engine.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    report.add(program, "recapture", len(log.steps) == 1,
+               f"{len(log.steps)} captures for one batch size (want 1)")
+    nodes = audit_graph(report, program, log.steps[0], dot_path, expect=expect) \
+        if log.steps else []
+    _syncs_check(report, program, syncs)
+    return nodes
 
 
 def full_expect(cfg) -> dict:

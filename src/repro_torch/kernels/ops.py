@@ -169,7 +169,9 @@ class Placed(NamedTuple):
 
     def select(self, i: int) -> "Placed":
         """Item ``i`` of the leading (stacked layer) axis, gathered over
-        "data" where the train state stores it cut (``gathered``)."""
+        "data" where the train state stores it cut (``gathered``); of an
+        expert stack [n_p, E / tp, ...] (dense, or a QuantizedTensor cut on
+        E), layer ``i``'s experts this rank holds."""
         local = self.local.select(i) if isinstance(self.local, QuantizedTensor) else self.local[i]
         return Placed(local, self.spec[1:], self.sharder).gathered()
 

@@ -36,8 +36,10 @@ The encoder-decoder with frame inputs (``models/seq2seq.py``) uses ``mlp``,
 ``take`` and ``local_decode_attn`` from here and has its own layer loops;
 ``check_dense`` refuses it on this path.
 
-On a mesh (``models/sharding.py``) the sequence mode takes the sharder's
-``constrain`` and ``q_pad``, as the reference's: q heads are zero-padded to
+On a mesh (``models/sharding.py``) the sequence mode and the decode take
+the sharder's ``constrain`` (the SSM layers' heads and channels, the MoE
+layers' experts: ``models/ssm.py``, ``models/moe.py``) and the sequence mode
+its ``q_pad``, as the reference's: q heads are zero-padded to
 ``q_pad`` inside each KV group (the padded heads attend like any other and
 are sliced off before ``wo``), split over "model" with the batch over the
 data axes (``constrain(q, "heads")``, the KV heads a rank's q heads read:
@@ -62,24 +64,7 @@ from repro_torch.kernels.kv_dequant import kv_spec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import activation, dense, norm
-
-
-class NoConstrain:
-    """The unsharded placement: every activation stays whole."""
-
-    def __call__(self, x, kind: str):
-        return x
-
-    def gather(self, x, kind: str, shape):
-        return x
-
-    def batch_sum(self, x):
-        return x
-
-
-#: the reference's NO_CONSTRAIN
-NO_CONSTRAIN = NoConstrain()
+from repro_torch.models.layers import NO_CONSTRAIN, activation, dense, norm
 
 
 def init_mlp(init, cfg) -> dict:
@@ -164,10 +149,10 @@ def _post(p, key, o, cfg):
     return norm(p[key], o, cfg.norm_type) if cfg.post_block_norm else o
 
 
-def _ffn(p, h, cfg, ffn: str, pad_mask=None):
+def _ffn(p, h, cfg, ffn: str, pad_mask=None, constrain=NO_CONSTRAIN):
     """The position's FFN on normed h [B, S, D]: (output, aux dict)."""
     if ffn == "moe":
-        return moe_mod.moe_ffn(p["ffn"], h, cfg, pad_mask)
+        return moe_mod.moe_ffn(p["ffn"], h, cfg, pad_mask, constrain=constrain)
     return mlp(p["ffn"], h, cfg), {}
 
 
@@ -228,13 +213,13 @@ def apply_layer_seq(p, x, *, cfg, positions, mixer="attn", window=0, cache_len=N
                                            k.dtype, kvq=kvq, device=x.device)
             attn_mod.write_cache_prefill(cache, k, v, window=window, kvq=kvq)
     else:
-        o, tail = ssm_mod.ssm_block(p["mixer"], h, cfg)
-        cache = tail if write_cache else None
+        o, cache = ssm_mod.ssm_block(p["mixer"], h, cfg, constrain=constrain,
+                                     tail=write_cache)
     x = x + _post(p, "post_mixer_norm", o, cfg)
     if ffn is None:
         return x, cache, {}
     h = norm(p["ffn_norm"], x, cfg.norm_type)
-    o, aux = _ffn(p, h, cfg, ffn, pad_mask)
+    o, aux = _ffn(p, h, cfg, ffn, pad_mask, constrain)
     return x + _post(p, "post_ffn_norm", o, cfg), cache, aux
 
 
@@ -272,7 +257,7 @@ def local_decode_attn(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=Non
 
 
 def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, mixer="attn", window=0,
-                       ffn="mlp", decode_attn=local_decode_attn):
+                       ffn="mlp", decode_attn=local_decode_attn, constrain=NO_CONSTRAIN):
     """Single-token mode.  x [B,D]; pos a 0-d (shared) or [B] (a position a
     row, -1 = idle) int32 tensor.  ``decode_attn`` writes this token into
     ``cache`` in place and attends; an SSM layer advances its state and conv
@@ -280,7 +265,8 @@ def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, mixer="attn", win
     until a prefill or a restore overwrites it).  An MoE position masks idle
     rows (their hidden states are junk) out of its capacity, so they cannot
     crowd real rows' expert slots; a shared position leaves every row in.
-    Returns x."""
+    On a mesh ``constrain`` places the SSM and MoE layers (the sharder's)
+    and ``decode_attn`` is the sharder's read.  Returns x."""
     h = norm(p["mixer_norm"], x, cfg.norm_type)
     if mixer.startswith("attn"):
         # RoPE positions [..., seq]: [1] broadcasts over the batch, [B, 1]
@@ -292,14 +278,15 @@ def apply_layer_decode(p, x, cache, pos: torch.Tensor, *, cfg, mixer="attn", win
                         kvq=kv_spec(cfg))
         o = dense(p["mixer"]["wo"], o.reshape(x.shape[0], -1), mode=cfg.matmul_mode)
     else:
-        o = ssm_mod.ssm_block_decode(p["mixer"], h, cache, cfg)
+        o = ssm_mod.ssm_block_decode(p["mixer"], h, cache, cfg, constrain=constrain)
     x = x + _post(p, "post_mixer_norm", o, cfg)
     if ffn is None:
         return x
     h = norm(p["ffn_norm"], x, cfg.norm_type)
     if ffn == "moe":
         pm = (pos >= 0)[:, None] if pos.ndim else None
-        o, _ = moe_mod.moe_ffn(p["ffn"], h[:, None, :], cfg, pm, decode=True)
+        o, _ = moe_mod.moe_ffn(p["ffn"], h[:, None, :], cfg, pm, decode=True,
+                               constrain=constrain)
         o = o[:, 0]
     else:
         o = mlp(p["ffn"], h, cfg)
@@ -378,13 +365,14 @@ def apply_stack_prefill_chunk(stack, x, caches, chunk_start: int, cfg):
 
 
 def apply_stack_decode(stack, x, caches, pos: torch.Tensor, cfg, *,
-                       decode_attn=local_decode_attn):
+                       decode_attn=local_decode_attn, constrain=NO_CONSTRAIN):
     """All layers in decode mode at ``pos`` (a 0-d or [B] int32 tensor);
     ``caches`` (init_stack_cache's layout) are updated in place through
-    ``decode_attn``.  Returns (x, caches)."""
+    ``decode_attn`` and the SSM layers.  Returns (x, caches)."""
     for p, j, i, mixer, window, ffn in _layers(stack, cfg):
         x = apply_layer_decode(p, x, take(caches[j], i), pos, cfg=cfg, mixer=mixer,
-                               window=window, ffn=ffn, decode_attn=decode_attn)
+                               window=window, ffn=ffn, decode_attn=decode_attn,
+                               constrain=constrain)
     return x, caches
 
 

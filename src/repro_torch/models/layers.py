@@ -37,6 +37,32 @@ from repro_torch.kernels import ops
 from repro_torch.utils import cost
 
 
+class NoConstrain:
+    """The unsharded placement (``models/sharding._Constrain``'s interface):
+    every activation stays whole, and the batch is all here."""
+
+    def __call__(self, x, kind: str):
+        return x
+
+    def gather(self, x, kind: str, shape):
+        return x
+
+    def batch_sum(self, x):
+        return x
+
+    def batch_share(self) -> tuple[int, int]:
+        """(this rank's index, the number of ranks) over which the batch's
+        rows are split."""
+        return 0, 1
+
+    def batch_whole(self, x):
+        return x
+
+
+#: the reference's NO_CONSTRAIN
+NO_CONSTRAIN = NoConstrain()
+
+
 def resolve_matmul_mode(mode: str, w) -> str:
     """Per-matrix dispatch decision: 'fused' or 'dequant_einsum'."""
     if mode == "dequant_einsum":

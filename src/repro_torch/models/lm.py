@@ -180,7 +180,8 @@ def loss_fn(params, tokens, labels, cfg, *, constrain=NO_CONSTRAIN, q_pad=None,
     this rank's slice: the loss is the global ``sum(tot) / sum(cnt)``, the
     per-rank sums all-reduced over the data axes (``constrain.batch_sum``),
     not a mean of per-rank means; a head or embedding stored cut over
-    "data" is gathered once here."""
+    "data" is gathered once here.  The MoE aux term is the global batch's
+    (``moe.moe_ffn``), the same on every rank."""
     params = {k: v.gathered() if k in ("embed", "lm_head") and isinstance(v, ops.Placed)
               else v for k, v in params.items()}
     h, _, aux = backbone_seq_aux(params, tokens, cfg, constrain=constrain, q_pad=q_pad,
@@ -224,18 +225,20 @@ def prefill(params, tokens, cfg, *, cache_len=None, pad_mask=None, constrain=NO_
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 
-def decode_step(params, token, caches, pos, cfg, *, decode_attn=blocks.local_decode_attn):
+def decode_step(params, token, caches, pos, cfg, *, decode_attn=blocks.local_decode_attn,
+                constrain=NO_CONSTRAIN):
     """One decoding step: token [B] at ``pos``: an int or a 0-d int32 tensor
     (every row at one position, over shared caches) or a [B] one (a
     position a row over per-slot caches, -1 = idle row).  ``decode_attn``
-    writes each layer's token and attends (the paged pool passes its own).
-    Returns (logits [B, V], caches), the caches updated in place.  Nothing
-    here reads a device value on the host, so the step can be captured as a
-    CUDA graph."""
+    writes each layer's token and attends (the paged pool passes its own,
+    a mesh the sharder's); ``constrain`` places the SSM and MoE layers on a
+    mesh.  Returns (logits [B, V], caches), the caches updated in place.
+    Nothing here reads a device value on the host, so the step can be
+    captured as a CUDA graph."""
     x = embed_inputs(params, token, cfg)
     pos = attention.as_position(pos, x.device)
     x, caches = blocks.apply_stack_decode(params["stack"], x, caches, pos, cfg,
-                                          decode_attn=decode_attn)
+                                          decode_attn=decode_attn, constrain=constrain)
     x = norm(params["final_norm"], x, cfg.norm_type)
     return logits_from_hidden(params, x, cfg), caches
 

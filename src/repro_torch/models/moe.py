@@ -36,6 +36,21 @@ tokens, each with its own capacity; a masked call (``pad_mask``) runs one,
 its capacity the f32 twin of ``capacity`` on the real tokens' count, so a
 bucket-padded prefill keeps and drops what the exact-length one does when
 that one runs one group.
+
+On a mesh (``constrain``, ``models/sharding.py``) the layer is expert
+parallel: the expert stacks are ``kernels/ops.Placed`` slices of this
+rank's E / tp experts.  Routing, capacity and positions are computed on the
+whole tokens, alike on every rank of a model group; the rank multiplies its
+experts' buffers (``expert_buffer4``, the counts alike) and the outputs are
+all-gathered on E before the combine, which is the unsharded one, so a
+sharded serving forward equals the unsharded one on the same input.  In a
+train step the batch's rows are split over the data axes: the groups
+(``_n_groups``) are those of the global batch, and where a rank's rows are
+not whole groups (one group: fewer than 256 tokens, or a pad mask) the
+tokens are all-gathered over the data axes, dispatched as the unsharded
+run dispatches them (the same capacity and drops) and this rank's rows
+taken back.  The aux loss is the global one on every rank, its gradient
+shared out over the data ranks.
 """
 
 from __future__ import annotations
@@ -46,7 +61,7 @@ import torch.nn.functional as F
 from repro_torch.core.qtensor import QuantizedTensor, dequantize_tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as qk
-from repro_torch.models.layers import activation, linear
+from repro_torch.models.layers import NO_CONSTRAIN, activation, linear
 from repro_torch.utils import cost
 
 #: the expert stacks' keys, in the reference's order
@@ -55,6 +70,7 @@ MOE_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 def _materialize(w, dtype):
     """Dense [E, in, out] view of an expert stack (QT stores [E, out, in])."""
+    w = _local(w)
     if isinstance(w, QuantizedTensor):
         return dequantize_tensor(w, out_dtype=dtype).swapaxes(-1, -2)
     return w.to(dtype)
@@ -73,6 +89,12 @@ def init_moe(init, cfg) -> dict:
     }
 
 
+def _local(w):
+    """An expert stack as this rank holds it: a ``Placed`` slice's experts
+    (``blocks.take`` gathered them over "data"), else the stack itself."""
+    return w.local if isinstance(w, ops.Placed) else w
+
+
 def capacity(n_tokens: int, cfg) -> int:
     c = int(cfg.capacity_factor * cfg.top_k * n_tokens / cfg.n_experts)
     return max(8, -(-c // 8) * 8)  # pad to multiple of 8, as the reference
@@ -86,6 +108,7 @@ def _n_groups(T: int) -> int:
 def experts_fused_eligible(w) -> bool:
     """Can this layer's expert stack go through the kernels?  Row-structured
     [E, N, K] storage, no means, no outliers."""
+    w = _local(w)
     return (isinstance(w, QuantizedTensor) and w.structured and len(w.quant_shape) == 2
             and w.packed.ndim == 3 and w.means is None and w.outlier_idx is None)
 
@@ -132,6 +155,7 @@ def _experts_batched(params, work, counts, cfg):
     Returns [E, M, D]; rows at or past an expert's count are no result."""
 
     def product(x, w):
+        w = _local(w)
         return qk.qmatmul_experts(x, w.packed, w.scales, w.codebook, counts, bits=w.bits,
                                   block_size=w.block_size)
 
@@ -149,7 +173,7 @@ def _experts_per_expert(params, work, active, cfg):
     out = torch.empty_like(work)
     for e in active:
         def w(key, e=e):
-            return params[key].select(e)
+            return _local(params[key]).select(e)
 
         x = work[:, e].reshape(G * C, D)
         h = activation(_gemm_rows(x, w("w_gate")), cfg.act) * _gemm_rows(x, w("w_up"))
@@ -158,8 +182,13 @@ def _experts_per_expert(params, work, active, cfg):
 
 
 def _experts(params, work, counts, cfg, *, decode: bool):
-    """The experts on their buffers work [G, E, C, D] -> [G, E, C, D]."""
+    """The experts on their buffers work [G, E, C, D] -> [G, E, C, D] (E:
+    the experts this rank holds)."""
     G, E, C, D = work.shape
+    held = _local(params["w_gate"]).shape[-3]
+    if held != E:
+        raise ValueError(f"{E} expert buffers against a stack of {held} experts: a sharded "
+                         "expert stack needs its sharder's constrain")
     if cfg.matmul_mode != "dequant_einsum" and all(
             experts_fused_eligible(params[k]) for k in MOE_WEIGHTS):
         if decode and G * C <= qk.GEMV_MAX_M:
@@ -173,7 +202,8 @@ def _experts(params, work, counts, cfg, *, decode: bool):
     return _f32_product(h, w_down)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False):
+def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False,
+            constrain=NO_CONSTRAIN):
     """x [B, S, D] -> (y [B, S, D], {"moe_aux": Switch loss}); a decode
     (``decode=True``, S = 1) skips the aux loss and returns {}.
 
@@ -182,11 +212,19 @@ def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False
     (expert, slot), the capacity is the traced ``capacity(n_real)``
     clamped to the padded length's static buffer, and pads' combine
     weights and aux contributions are zero.  A masked call runs one
-    dispatch group."""
+    dispatch group.  ``constrain``: the sharder's (module docstring)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    G = 1 if pad_mask is not None else _n_groups(T)
+    d_idx, d_n = constrain.batch_share()
+    G = 1 if pad_mask is not None else _n_groups(B * S * d_n)   # the global batch's
+    whole = d_n > 1 and G % d_n != 0
+    if whole:   # this rank's rows are not whole groups: dispatch the whole batch
+        x = constrain.batch_whole(x)
+        if pad_mask is not None:
+            pad_mask = constrain.batch_whole(pad_mask.to(torch.uint8)).bool()
+    elif d_n > 1:   # this rank's rows are G / d_n whole groups
+        G //= d_n
+    T = x.shape[0] * S
     Tg = T // G
     dev = x.device
     xt = x.reshape(G, Tg, D)
@@ -224,7 +262,12 @@ def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False
     g_id = torch.arange(G, device=dev)[:, None].expand(G, Tg * k)
     buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=dev)
     buf.index_put_((g_id, e_flat, p_flat), xt[:, tok_id])
-    out = _experts(params, buf[:, :, :C], counts, cfg, decode=decode)    # [G, E, C, D]
+    # this rank's experts (and groups, over the data axes in serving) on
+    # their buffers, the outputs gathered whole
+    work = buf[:, :, :C]
+    out = _experts(params, constrain(work, "expert_buffer4"),
+                   constrain(counts, "expert_counts"), cfg, decode=decode)
+    out = constrain.gather(out, "expert_buffer4", work.shape)             # [G, E, C, D]
 
     # combine: each token's kept (expert, slot) outputs, weighted by its gates
     kept = keep.reshape(G, Tg * k)
@@ -240,7 +283,9 @@ def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False
     y = prod[:, :, 0]
     for j in range(1, k):
         y = y + prod[:, :, j]
-    y = y.to(x.dtype).reshape(B, S, D)
+    y = y.to(x.dtype).reshape(-1, S, D)
+    if whole:
+        y = y.narrow(0, d_idx * B, B)
     if decode:
         return y, {}
 
@@ -255,7 +300,14 @@ def moe_ffn(params, x: torch.Tensor, cfg, pad_mask=None, *, decode: bool = False
         denom = torch.clamp(torch.sum(mf), min=1.0)
         frac_tokens = torch.sum(top1 * mf, dim=0) / denom
         frac_probs = torch.sum(flat_probs * mf, dim=0) / denom
+    if d_n > 1 and not whole:   # this rank's groups: the fractions summed over the data ranks
+        frac_tokens = constrain.batch_sum(frac_tokens / d_n)
+        frac_probs = constrain.batch_sum(frac_probs / d_n)
     aux = E * torch.sum(frac_tokens * frac_probs)
+    if whole:
+        # every data rank holds the global aux: its gradient, 1 / d_n on
+        # each, is summed by the token gather's adjoint
+        aux = aux.detach() + (aux - aux.detach()) / d_n
     return y, {"moe_aux": aux}
 
 

@@ -46,13 +46,26 @@ gradients; a leaf not cut over a data axis has its gradient all-reduced
 over it (``TrainPlacement.reduce_grads``).  The collectives differentiate
 (``kernels/ops.py``); the loss is the global mean (``batch_sum``).
 
+Mixture-of-experts layers (``models/moe.py``) are expert-parallel: an
+expert stack [n_p, E, In, Out] (dense or quantized) is cut on E over
+"model" (and, stored for training, on In over "data"); the router is whole.
+Every rank routes the whole tokens alike, multiplies its E / tp experts'
+capacity buffers (``expert_buffer4``: the expert-batched GEMV at decode,
+the prefill GEMM an active expert) and all-gathers the outputs on E before
+the combine, whose f32 sum in choice order is the unsharded one's.  SSM
+layers (``models/ssm.py``) shard the SSD's heads: ``conv_w`` and the conv
+cache are cut on their channels over "model", the recurrent state on its
+heads; the conv runs on this rank's channels and is gathered, the SSD on
+this rank's heads (``ssm_heads``, ``ssm_dt``; B and C whole, ``ssm_bc``),
+and y is gathered whole before the gated RMSNorm over d_inner.  Heads or
+channels that do not divide "model" stay whole (``_maybe``).
+
 Every collective is issued whatever the size of its group: a 1x1 mesh runs
 the whole machinery (on the card, NCCL at world size 1).  ``replicate``
 (models under ``replicate_params_below`` bytes of bf16) and ``Sharder(None,
 cfg)`` make every placement a no-op, as in the reference (a replicating
-train step still splits the batch over the data axes).  Mixture-of-experts
-expert parallelism, SSM head sharding and the encoder-decoder wait for
-ROADMAP A11.2: a Sharder on a mesh refuses them.
+train step still splits the batch over the data axes).  The encoder-decoder
+waits for ROADMAP A11.2: a Sharder on a mesh refuses it.
 """
 
 from __future__ import annotations
@@ -81,14 +94,32 @@ _KV_CACHE_KEYS = ("k", "v", "k_packed", "k_scales", "v_packed", "v_scales")
 #: a QuantizedTensor's data fields (the leaves of its placement)
 _QT_FIELDS = ("packed", "scales", "means", "codebook", "outlier_vals", "outlier_idx")
 
-#: activation kinds the port places (the dense ones of the reference's
-#: table): "dp" = the data axes, "tp" = "model"
+#: activation kinds and their placements, the reference's table ("dp" = the
+#: data axes, "tp" = "model").  ``expert_hidden4``, ``ssd_intra`` and
+#: ``ssd_bn`` are what the products of sliced inputs have (the port slices
+#: the inputs, not them), and ``moe_groups`` is the reference's: the port
+#: routes the whole tokens on every rank
 _ACTIVATIONS = {
     "residual": ("dp", None, None),
     "heads": ("dp", None, "tp", None),
     "kv_heads": ("dp", None, None, None),
     "ffn_hidden": ("dp", None, "tp"),
     "logits": ("dp", None, "tp"),
+    "moe_groups": ("dp", None, None),               # [G, Tg, D]
+    "expert_buffer4": ("dp", "tp", None, None),     # [G, E, C, D]
+    "expert_hidden4": ("dp", "tp", None, None),
+    "ssm_heads": ("dp", None, "tp", None),          # [B, S, H, P]
+    "ssm_dt": ("dp", None, "tp"),                   # [B, S, H]
+    "ssm_bc": ("dp", None, None, None),             # [B, S, G, N]
+    "ssd_intra": ("dp", None, None, None, "tp"),    # [B, n, Q, Q, H]
+    "ssd_bn": ("dp", None, None, "tp", None),       # [B, n, Q, H, N]
+}
+#: the port's own kinds, for what it cuts that the reference leaves to GSPMD
+_PORT_ACTIVATIONS = {
+    "expert_counts": ("dp", "tp"),                  # [G, E], as expert_buffer4
+    "ssm_conv": ("dp", None, "tp"),                 # [B, S, conv_dim], as conv_w
+    "ssm_state": ("dp", "tp", None, None),          # [B, H, P, N], as the cache
+    "ssm_vec": ("tp",),                             # [H] or [conv_dim] leaves
 }
 
 
@@ -102,7 +133,8 @@ def check_decode_capability(cfg, sharder, *, caller: str = "the serving entry po
     """The one gate for a quantized cache on a mesh: a quantile KV codebook
     (``kv_spec``) and a feature row that cannot hold whole code words
     (``kv_layout``) raise, naming ``caller``; cache lengths that do not
-    divide the grid are not errors (``decode_attn_fn`` falls back)."""
+    divide the grid are not errors (``decode_attn_fn`` falls back), and an
+    arch without attention layers has no K/V row to check."""
     try:
         kvq = kv_spec(cfg)
     except ValueError as e:
@@ -111,6 +143,8 @@ def check_decode_capability(cfg, sharder, *, caller: str = "the serving entry po
         return
     if getattr(sharder, "mesh", None) is None or sharder.replicate:
         return
+    if not any(m.startswith("attn") for m, _ in cfg.layer_schedule()):
+        return   # no attention layer: no K/V row to lay out (mamba2)
     try:
         kv_dequant.kv_layout(kvq, cfg.n_kv_heads * cfg.head_dim)
     except ValueError as e:
@@ -125,12 +159,11 @@ def _maybe(axis, dim_size, axis_size):
 
 
 def _check_arch(cfg) -> None:
-    if cfg.encoder_decoder or cfg.input_kind != "tokens" or cfg.n_experts or any(
-            m == "ssm" for m, _ in cfg.layer_schedule()):
+    if cfg.encoder_decoder or cfg.input_kind != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: a mesh (serving and training) takes dense decoders (attention "
-            "and MLP layers); expert parallelism, SSM head sharding and the "
-            "encoder-decoder wait for ROADMAP A11.2")
+            f"{cfg.name}: a mesh (serving and training) takes decoders (attention, MLP, "
+            "mixture-of-experts and SSM layers); the encoder-decoder with frame inputs "
+            "waits for ROADMAP A11.2")
 
 
 def _map(fn, tree, specs=None, keys=()):
@@ -168,10 +201,22 @@ class _Constrain:
         if kind == "heads" and x.shape[2] != s.head_pad():
             raise ValueError(f"q has {x.shape[2]} heads: pad them to head_pad() = "
                              f"{s.head_pad()} (q_pad) before splitting them")
-        if s.batch_local:   # a part of a whole value: its gradient summed over "model"
+        if s.batch_local and self._partial(spec, kind):
+            # a part of a whole value: its gradient summed over "model"
             x = ops.fan_in(x, s.group(s.tp))
         x = s._slice(x, spec)
         return s._kv_heads_for_local_q(x) if kind == "kv_heads" else x
+
+    def _partial(self, spec, kind: str) -> bool:
+        """Whether this rank uses a part of a whole value of ``kind``: its
+        slice over "model", the KV heads of its q heads, or B and C read by
+        its SSD heads where those are split."""
+        s = self.sharder
+        if kind == "kv_heads":
+            return True
+        if kind == "ssm_bc":
+            spec = s._act_spec((1, 1, s.cfg.n_ssm_heads, 1), "ssm_heads")
+        return any(s.tp in ops.axis_names(a) for a in spec)
 
     def batch_sum(self, x):
         """A per-rank partial of a sum over the batch, summed over the data
@@ -180,6 +225,24 @@ class _Constrain:
         if not s.batch_local or not s.dp_axes:
             return x
         return ops.all_reduce(x, s.group(s.dp_axes))
+
+    def batch_share(self) -> tuple[int, int]:
+        """(this rank's index, the number of ranks) over which the batch's
+        rows are split: the data axes in a train step, else (0, 1)."""
+        s = self.sharder
+        if not s.batch_local or not s.dp_axes:
+            return 0, 1
+        return s.coord(s.dp_axes)
+
+    def batch_whole(self, x):
+        """Every data rank's rows of ``x`` (dim 0) in rank order, where the
+        batch is split: one all-gather, whose adjoint (``ops.fsdp_gather``'s)
+        sums the data ranks' gradients and keeps this rank's rows, since
+        they differ between data ranks."""
+        s = self.sharder
+        if not s.batch_local or not s.dp_axes:
+            return x
+        return ops.fsdp_gather(x, 0, s.group(s.dp_axes))
 
     def gather(self, x, kind: str, shape):
         s = self.sharder
@@ -322,7 +385,7 @@ class Sharder:
         that do not divide dropped), or None where it stays whole."""
         if self.mesh is None or self.replicate:
             return None
-        spec = _ACTIVATIONS.get(kind)
+        spec = _ACTIVATIONS.get(kind) or _PORT_ACTIVATIONS.get(kind)
         if spec is None or len(spec) != len(shape):
             return None
         dp = None if self.batch_local else self.dp
@@ -364,6 +427,12 @@ class Sharder:
         if name in ("embed", "lm_head"):
             return self._ns(_maybe(tp, shape[0], self.tp_size),
                             _maybe(fs, shape[1], self._axis_size(fs)))
+        if "ffn" in keys and name in ("w_gate", "w_up", "w_down") and leaf.ndim == 4:
+            # an expert stack [n_p, E, In, Out]: experts over "model", FSDP on In
+            return self._ns(None, _maybe(tp, shape[1], self.tp_size),
+                            _maybe(fs, shape[2], self._axis_size(fs)), None)
+        if name == "router":
+            return self._ns()
         if name == "w" and leaf.ndim >= 2:
             owner = next((k for k in reversed(keys[:-1]) if isinstance(k, str)), "")
             lead = (None,) * (leaf.ndim - 2)
@@ -376,20 +445,29 @@ class Sharder:
         if name == "b" and leaf.ndim >= 1:
             lead = (None,) * (leaf.ndim - 1)
             return self._ns(*lead, _maybe(tp, leaf.shape[-1], self.tp_size))
+        if name == "conv_w" and leaf.ndim >= 2:
+            lead = (None,) * (leaf.ndim - 2)
+            return self._ns(*lead, None, _maybe(tp, leaf.shape[-1], self.tp_size))
         return self._ns()
 
     def _qt_spec(self, keys, qt: QuantizedTensor):
         """Quantized leaves: column-parallel on the output rows over "model".
         Row-structured storage splits its row dim (-2); flat storage its
-        flat dim when it divides."""
+        flat dim when it divides.  An expert stack (two batch dims [n_p, E])
+        cuts every field on E instead, where E divides."""
         if self.mesh is None:
             return dataclasses.replace(qt, **{f: None for f in _QT_FIELDS})
         tp = None if self.replicate else self.tp
+        nb = len(qt.batch_shape)
 
         def leaf_spec(a, shardable=True, structured_leaf=False):
             if a is None:
                 return None
             lead = [None] * a.ndim
+            if nb == 2:   # the expert branch comes before the shardable test
+                if qt.batch_shape[-1] % self.tp_size == 0:
+                    lead[nb - 1] = tp
+                return self._ns(*lead)
             if shardable and tp is not None:
                 out_rows = qt.quant_shape[0]
                 if structured_leaf and a.ndim >= 2:
@@ -424,6 +502,15 @@ class Sharder:
             return part if part.numel() == full.numel() else part.contiguous().clone()
 
         def place(keys, leaf, spec):
+            if isinstance(leaf, QuantizedTensor) and len(leaf.batch_shape) == 2:
+                # an expert stack: every field cut on E (this rank's experts)
+                ps = spec.packed
+                if ps is None or tp not in ops.axis_names(ps[1]):
+                    return leaf
+                cut = {f: own(getattr(leaf, f), self._slice(getattr(leaf, f),
+                                                            getattr(spec, f), axes=(tp,)))
+                       for f in _QT_FIELDS if getattr(leaf, f) is not None}
+                return ops.Placed(dataclasses.replace(leaf, **cut), ps, self)
             if isinstance(leaf, QuantizedTensor):
                 ps = spec.packed
                 if not leaf.structured or ps is None or tp not in ops.axis_names(ps[-2]):
@@ -514,6 +601,7 @@ class Sharder:
         if self.mesh is None:
             return _map(lambda *_: None, caches)
         b_ax, s_ax = self.decode_plan(batch)
+        tp = None if self.replicate else self.tp
 
         def spec(keys, leaf, _):
             if any(k in _KV_CACHE_KEYS for k in keys):
@@ -530,6 +618,10 @@ class Sharder:
                     return self._ns(None, b_ax, s)
                 s = _maybe(s_ax, leaf.shape[1], self._axis_size(s_ax))
                 return self._ns(None, s)
+            if "state" in keys:   # [n_p, B, H, P, N]: heads over "model"
+                return self._ns(None, b_ax, _maybe(tp, leaf.shape[2], self.tp_size), None, None)
+            if "conv" in keys:    # [n_p, B, cw - 1, conv_dim]: channels over "model"
+                return self._ns(None, b_ax, None, _maybe(tp, leaf.shape[3], self.tp_size))
             return self._ns()
 
         return _map(spec, caches)
@@ -560,7 +652,7 @@ class Sharder:
             return None, None
 
         def piece(keys, leaf, spec):
-            if any(k in _KV_CACHE_KEYS for k in keys):
+            if any(k in _KV_CACHE_KEYS + ("state", "conv") for k in keys):
                 spec = (None, None) + tuple(spec[2:])   # cc's batch of one stays whole
             return self._slice(leaf, spec)
 
@@ -681,8 +773,9 @@ def spec_leaves(tree, specs) -> list:
 
 
 class TrainPlacement:
-    """Where a rank keeps its part of a dense decoder's train state on a
-    mesh (FSDP storage; module docstring).  ``specs`` is the reference's
+    """Where a rank keeps its part of a decoder's train state on a mesh
+    (FSDP storage; module docstring): dense, MoE (an expert stack cut on E
+    and In) and SSM trees alike.  ``specs`` is the reference's
     placement (``param_spec_tree``) of each leaf of the params tree, in
     ``tree.leaves`` order; the AdamW moments and the compression errors
     have the params' structure and take the same.  The state's step is

@@ -25,13 +25,23 @@ the decode conv; groups broadcast to heads as ``jnp.repeat``
 The decode step's state update and read are elementwise products and one
 sum over the state axis, so a row's result does not depend on how many rows
 share the step (the Server's pool of 8 against the Engine's batch of 1).
+
+On a mesh (``constrain``, ``models/sharding.py``) the SSD's heads are split
+over "model": ``in_proj`` is column-parallel and ``out_proj`` row-parallel
+(``layers.linear``); the depthwise conv runs on this rank's channels
+(``conv_w`` and the conv cache are cut on them) and is all-gathered; the SSD
+runs on this rank's heads (``ssm_heads``, ``ssm_dt``, with B and C whole,
+``ssm_bc``, and the state cache cut on its heads), and y is gathered whole
+before the gated RMSNorm, which runs over all of d_inner.  Heads or
+channels that "model" does not divide stay whole on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import activation, dense, rmsnorm
+from repro_torch.kernels import ops
+from repro_torch.models.layers import NO_CONSTRAIN, activation, dense, rmsnorm
 
 F32 = torch.float32
 
@@ -218,38 +228,73 @@ def _conv_taps(rows, w, b):
     return out + b
 
 
+def _conv_params(params, constrain):
+    """(conv_w, conv_b) over this rank's channels, f32: conv_w as placed
+    (a ``Placed`` slice's own), conv_b whole and cut alike."""
+    w = params["conv_w"]
+    w = w.local if isinstance(w, ops.Placed) else w
+    return w.to(F32), constrain(params["conv_b"], "ssm_vec").to(F32)
+
+
+def _ssd_inputs(params, x, dt, Bm, Cm, constrain):
+    """This rank's part of the SSD's inputs (whole x [B,S,H,P], dt [B,S,H]
+    pre-softplus, Bm and Cm [B,S,G,N]): (x, dt post-softplus, A, D, Bm, Cm)
+    on its heads, B and C whole; groups of several heads are broadcast to
+    the heads first where the heads are split (each of this rank's heads
+    then reads its own group)."""
+    H, G = x.shape[2], Bm.shape[2]
+    dt = constrain(softplus(dt.to(F32) + params["dt_bias"].to(F32)), "ssm_dt")
+    A = constrain(-torch.exp(params["A_log"].to(F32)), "ssm_vec")
+    D = constrain(params["D"].to(F32), "ssm_vec")
+    if G > 1 and A.shape[0] != H:
+        Bm, Cm = _heads(Bm, H // G, 2), _heads(Cm, H // G, 2)
+        Bm, Cm = constrain(Bm, "ssm_heads"), constrain(Cm, "ssm_heads")
+    else:
+        Bm, Cm = constrain(Bm, "ssm_bc"), constrain(Cm, "ssm_bc")
+    return constrain(x, "ssm_heads"), dt, A, D, Bm, Cm
+
+
 def _gated_out(params, y, z, dtype, cfg):
     """rmsnorm(y * silu(z)) in the activation dtype, then out_proj."""
     y = rmsnorm(y.to(dtype) * activation(z.to(F32), "silu").to(dtype), params["norm"]["scale"])
     return dense(params["out_proj"], y, mode=cfg.matmul_mode)
 
 
-def ssm_block(params, u, cfg, initial_state=None):
+def ssm_block(params, u, cfg, initial_state=None, *, constrain=NO_CONSTRAIN,
+              tail: bool = True):
     """The Mamba-2 mixer in sequence mode: u [B,S,D] -> (y [B,S,D], the tail
     {"state": [B,H,P,N] f32, "conv": [B, ssm_conv - 1, conv_dim] in u's
-    dtype}) that decode continues from."""
+    dtype}, whole) that decode continues from; None for the tail without
+    ``tail`` (a train step's: on a mesh its state is not gathered).
+    ``constrain``: the sharder's (module docstring)."""
     Bb, S, _ = u.shape
     H, P, G, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     z, xbc, dt = _split_in_proj(dense(params["in_proj"], u, mode=cfg.matmul_mode), cfg)
 
-    # depthwise causal conv over [x, B, C]
-    w = params["conv_w"].to(F32)
+    # depthwise causal conv over [x, B, C], on this rank's channels
+    w, b = _conv_params(params, constrain)
     cw = w.shape[0]
     xp = torch.cat([xbc.new_zeros((Bb, cw - 1, xbc.shape[-1])), xbc], dim=1)
-    xpf = xp.to(F32)
-    conv = _conv_taps((xpf[:, i: i + S] for i in range(cw)), w, params["conv_b"].to(F32))
+    xpf = constrain(xp, "ssm_conv").to(F32)
+    conv = _conv_taps((xpf[:, i: i + S] for i in range(cw)), w, b)
     conv = activation(conv, "silu").to(u.dtype)
+    conv = constrain.gather(conv, "ssm_conv", xbc.shape)
 
     x, Bm, Cm = _split_conv_out(conv, cfg)
     x = x.reshape(Bb, S, H, P)
-    dt = softplus(dt.to(F32) + params["dt_bias"].to(F32))
-    A = -torch.exp(params["A_log"].to(F32))
-    y, h_final = ssd_chunked(x, dt, A, Bm.reshape(Bb, S, G, N), Cm.reshape(Bb, S, G, N),
-                             cfg.ssm_chunk, initial_state)
-    y = y + params["D"].to(F32)[None, None, :, None] * x.to(F32)
+    x, dt, A, D, Bm, Cm = _ssd_inputs(params, x, dt, Bm.reshape(Bb, S, G, N),
+                                      Cm.reshape(Bb, S, G, N), constrain)
+    if initial_state is not None:
+        initial_state = constrain(initial_state, "ssm_state")
+    y, h_final = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk, initial_state)
+    y = y + D[None, None, :, None] * x.to(F32)
+    y = constrain.gather(y, "ssm_heads", (Bb, S, H, P))
     out = _gated_out(params, y.reshape(Bb, S, cfg.d_inner), z, u.dtype, cfg)
+    if not tail:
+        return out, None
     # the conv's tail for decode: the last cw - 1 pre-conv features
-    return out, {"state": h_final, "conv": xp[:, xp.shape[1] - (cw - 1):]}
+    return out, {"state": constrain.gather(h_final, "ssm_state", (Bb, H, P, N)),
+                 "conv": xp[:, xp.shape[1] - (cw - 1):]}
 
 
 def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -261,28 +306,34 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict:
     }
 
 
-def ssm_block_decode(params, u_t, cache, cfg):
+def ssm_block_decode(params, u_t, cache, cfg, *, constrain=NO_CONSTRAIN):
     """One token of the mixer: u_t [B,D] -> y [B,D].  ``cache``'s "state"
     and "conv" are updated in place (a layer's view of the stacked caches),
-    so a captured step replays over them."""
+    so a captured step replays over them.  On a mesh (``constrain``) the
+    cache is this rank's slice (``Sharder.shard_caches``): its rows, conv
+    channels and state heads, which the step advances; the activations go
+    through the sequence mode's kinds with a sequence of one."""
     Bb = u_t.shape[0]
     H, P, G, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     zxbcdt = dense(params["in_proj"], u_t[:, None, :], mode=cfg.matmul_mode)[:, 0]
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
 
-    w = params["conv_w"].to(F32)
+    w, b = _conv_params(params, constrain)
     cw = w.shape[0]
-    hist = torch.cat([cache["conv"].to(F32), xbc[:, None, :].to(F32)], dim=1)
-    conv = _conv_taps((hist[:, i] for i in range(cw)), w, params["conv_b"].to(F32))
+    xl = constrain(xbc[:, None, :], "ssm_conv")
+    hist = torch.cat([cache["conv"].to(F32), xl.to(F32)], dim=1)
+    conv = _conv_taps((hist[:, i] for i in range(cw)), w, b)
     conv = activation(conv, "silu").to(u_t.dtype)
     cache["conv"].copy_(hist[:, 1:])
+    conv = constrain.gather(conv[:, None], "ssm_conv", (Bb, 1, xbc.shape[-1]))[:, 0]
 
     x, Bm, Cm = _split_conv_out(conv, cfg)
-    x = x.reshape(Bb, H, P)
-    dt = softplus(dt.to(F32) + params["dt_bias"].to(F32))
-    A = -torch.exp(params["A_log"].to(F32))
-    y, state = ssd_decode_step(cache["state"], x, dt, A, Bm.reshape(Bb, G, N),
-                               Cm.reshape(Bb, G, N))
+    x, dt, A, D, Bm, Cm = _ssd_inputs(params, x.reshape(Bb, 1, H, P), dt[:, None],
+                                      Bm.reshape(Bb, 1, G, N), Cm.reshape(Bb, 1, G, N),
+                                      constrain)
+    x = x[:, 0]
+    y, state = ssd_decode_step(cache["state"], x, dt[:, 0], A, Bm[:, 0], Cm[:, 0])
     cache["state"].copy_(state)
-    y = y + params["D"].to(F32)[None, :, None] * x.to(F32)
+    y = y + D[None, :, None] * x.to(F32)
+    y = constrain.gather(y[:, None], "ssm_heads", (Bb, 1, H, P))[:, 0]
     return _gated_out(params, y.reshape(Bb, cfg.d_inner), z, u_t.dtype, cfg)

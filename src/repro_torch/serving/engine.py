@@ -40,8 +40,10 @@ running the same Engine on its own slices: the cache budget is padded to a
 multiple of the mesh size (``pad_cache_len``), the params are cut to this
 rank's slices (``shard_params``; a tree placed already is taken as it is),
 the prefill runs with the sharder's ``constrain`` and ``q_pad`` and its
-caches are cut to this rank's windows (``_place_caches``), and the decode step reads them through
-``decode_attn_fn``.  On the card the sharded step is captured as one graph
+caches are cut to this rank's windows and heads (``_place_caches``), and
+the decode step reads them through ``decode_attn_fn``, its SSM and MoE
+layers placed by the same ``constrain`` (dense, MoE, SSM and hybrid
+decoders alike).  On the card the sharded step is captured as one graph
 like the unsharded one, its collectives (NCCL) inside; the capture's eager
 warm-up call on its side stream uses every communicator first.  The step
 profiler does not run on a mesh yet (ROADMAP A11.2).
@@ -200,7 +202,7 @@ class _DecodeGraph:
 
         def body():
             logits, _ = lm.decode_step(engine.params, self.tok, self.caches, self.pos, cfg,
-                                       decode_attn=decode_attn)
+                                       decode_attn=decode_attn, constrain=engine.constrain)
             nxt = sample_token(logits, gen, self.temps)
             if eos is not None:
                 nxt = torch.where(self.done, torch.full_like(nxt, eos), nxt)
@@ -244,12 +246,11 @@ def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None, sh
         cache_len = sharder.pad_cache_len(cache_len)
 
     def rollout(c, force=None, s=None):
-        p, kw = params, {}
-        decode_attn = blocks.local_decode_attn
+        p, kw, step_kw = params, {}, {}
         if s is not None:
             p = s.shard_params(params)
             kw = dict(constrain=s.constrain, q_pad=s.head_pad())
-            decode_attn = s.decode_attn_fn(B, cache_len)
+            step_kw = dict(constrain=s.constrain, decode_attn=s.decode_attn_fn(B, cache_len))
         logits, caches = lm.prefill(p, prompts, c, cache_len=cache_len, **kw)
         if s is not None:
             caches = s.shard_caches(caches, B)
@@ -259,7 +260,7 @@ def kv_oracle_logit_gap(params, cfg_q, prompts, n_steps: int, *, device=None, sh
         for t in range(n_steps - 1):
             feed = tok if force is None else force[t]
             logits, caches = lm.decode_step(p, feed, caches, prompts.shape[1] + t, c,
-                                            decode_attn=decode_attn)
+                                            **step_kw)
             tok = torch.argmax(logits, -1).to(torch.int32)
             toks.append(tok)
             logs.append(logits.to(torch.float32))
@@ -301,6 +302,8 @@ class Engine:
         self.max_seq_len = max_seq_len
         self.eos_id = eos_id
         self.sharder = sharder
+        # the placement of the SSM and MoE layers (prefill and decode)
+        self.constrain = blocks.NO_CONSTRAIN if sharder is None else sharder.constrain
         self._attn: dict = {}                        # batch -> decode_attn
         self._graphs: dict[int, _DecodeGraph] = {}   # batch -> captured step
         # the captured steps' generator (CUDA only; see the module docstring)
@@ -435,7 +438,8 @@ class Engine:
                 t0 = tel.now()
             with self._annot(ds_name):
                 logits, caches = lm.decode_step(self.params, tok, caches, S + t - 1, self.cfg,
-                                                decode_attn=self._decode_attn(B))
+                                                decode_attn=self._decode_attn(B),
+                                                constrain=self.constrain)
                 tok = sample_token(logits, generator, temperature)
                 if self.eos_id is not None:
                     tok = torch.where(done, torch.full_like(tok, self.eos_id), tok)

@@ -30,8 +30,9 @@ pool's lifetime, refreshed from the host's positions each step, so a
 captured step reads it at replay.
 
 ``sharder=`` places the pool on a mesh (``Sharder.shard_caches``: rows over
-the data axes the slots fill, slots over the sequence grid), each rank
-holding its windows; the server writes a prefill into them through
+the data axes the slots fill, slots over the sequence grid, an SSM layer's
+state heads and conv channels over "model"), each rank holding its
+windows and heads; the server writes a prefill into them through
 ``Sharder.local_row``.  ``kv_bytes`` then counts this rank's bytes as
 ``per_device`` beside the whole pool's.  Spilling a row of a sharded pool
 (preemption) waits for ROADMAP A11.2.

@@ -83,12 +83,15 @@ step captured, recording the load-time quantization health first.
 of ranks, every rank running the same Server on its slices: the params cut
 by ``shard_params``, the pool placed by ``shard_caches`` (rows over the
 data axes, slots sequence-sharded), each admission's prefill run with the
-sharder's ``constrain`` and ``q_pad`` and written into the windows this
-rank holds (``Sharder.local_row``), and the pool step
-reading through ``decode_attn_fn`` with per-slot positions; on the card the
-step is one graph, its collectives inside.  As in the reference, ``paged``
-and ``prefill_chunk`` refuse a sharder; preemption (spilling a sharded row)
-and the step profiler on a mesh wait for ROADMAP A11.2.
+sharder's ``constrain`` and ``q_pad`` and written into the windows (and
+SSM heads and channels) this rank holds (``Sharder.local_row``), and the
+pool step reading through ``decode_attn_fn`` with per-slot positions, its
+SSM and MoE layers placed by the same ``constrain``; on the card the step
+is one graph, its collectives inside.  Dense, MoE (bucketed with the
+router pad mask), SSM (exact-length prefills) and hybrid decoders take a
+sharder alike.  As in the reference, ``paged`` and ``prefill_chunk`` refuse
+a sharder; preemption (spilling a sharded row) and the step profiler on a
+mesh wait for ROADMAP A11.2.
 """
 
 from __future__ import annotations
@@ -212,11 +215,13 @@ class Server:
             record_tree_bits(telemetry, params)
         self.sharder = sharder
         self._kw = {}   # the prefills' placement on a mesh
+        self._constrain = blocks.NO_CONSTRAIN   # the decode step's SSM and MoE layers'
         if sharder is not None:
             # extra decode room so full-attention caches divide the grid
             max_seq_len = sharder.pad_cache_len(max_seq_len)
             params = sharder.shard_params(params)
             self._kw = dict(constrain=sharder.constrain, q_pad=sharder.head_pad())
+            self._constrain = sharder.constrain
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
@@ -288,7 +293,8 @@ class Server:
     def _decode_program(self, caches) -> torch.Tensor:
         """The pool's decode step over ``caches``: the sampled tokens."""
         logits, _ = lm.decode_step(self.params, self._tok, caches, self.pool._pos_dev,
-                                   self.cfg, decode_attn=self._decode_attn)
+                                   self.cfg, decode_attn=self._decode_attn,
+                                   constrain=self._constrain)
         return sample_token(logits, self._gen, self._temps_dev)
 
     def _pad_mask(self, prompt: torch.Tensor, length: int):

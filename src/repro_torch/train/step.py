@@ -12,8 +12,9 @@ dense weights carry no kernel, so no backward kernel is needed.
 flat-encode launch a leaf of 1,024 elements or more), its error feedback
 carried in ``TrainState.err``.
 
-On a ("data", "model") mesh (``sharder=``, ``models/sharding.py``) a dense
-decoder trains as the reference's sharded step does: the state is stored
+On a ("data", "model") mesh (``sharder=``, ``models/sharding.py``) a
+decoder (dense, MoE, SSM or hybrid) trains as the reference's sharded step
+does: the state is stored
 FSDP's way (``TrainPlacement``: each rank holds its slice of every dense
 leaf, of its moments and of its error), each microbatch's rows split over
 the data axes, weights gathered where used and their gradients

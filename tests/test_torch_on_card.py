@@ -104,7 +104,14 @@ where the card is (a machine without JAX):
   donated) equal to the unsharded steps bit for bit, one flat encode a
   compressed leaf and step; a sharded state saved through the checkpoint
   manager reads back unsharded, through ``launch/elastic.remesh_state`` and
-  through ``restore(sharder=)`` bit for bit.
+  through ``restore(sharder=)`` bit for bit;
+* MoE, SSM and hybrid decoders on a 1x1 mesh (``-k moe_ssm_mesh``): the
+  reduced() moonshot, mamba2 and jamba, 4-bit weights, whose sharded
+  Engine equals eager unsharded steps over the routed read bit for bit
+  (logits, prefill caches, tokens), whose sharded Server equals the
+  sharded batch-1 Engine, and whose sharded train steps (moonshot, mamba2)
+  equal the unsharded ones bit for bit; the expert-batched GEMV on a
+  rank's slice of a stack equals the whole-stack launch's rows.
 """
 
 import numpy as np
@@ -1787,15 +1794,15 @@ def test_mesh_1x1_server_equals_sharded_engine(nccl_mesh):
 
 # -- training on a 1x1 mesh: NCCL at world size 1 ------------------------------
 
-def _train_runs(sharders, *, donate):
-    """Two train steps of tiny-650k on the card per sharder (None =
-    unsharded) from one seeded bf16 init, 8-bit compression, 2
-    microbatches: [(per-step loss and norm, the state's leaves, the flat
-    encodes launched)]."""
+def _train_runs(sharders, *, donate, cfg=None):
+    """Two train steps of ``cfg`` (tiny-650k by default) on the card per
+    sharder (None = unsharded) from one seeded bf16 init, 8-bit
+    compression, 2 microbatches: [(per-step loss and norm, the state's
+    leaves, the flat encodes launched)]."""
     from repro_torch.train import step as tstep
     from repro_torch.tree import leaves
 
-    cfg = get_arch("tiny-650k")
+    cfg = cfg or get_arch("tiny-650k")
     g = torch.Generator("cuda").manual_seed(0)
     batches = [torch.randint(0, cfg.vocab_size, (4, 65), device="cuda", generator=g)
                for _ in range(2)]
@@ -1862,3 +1869,127 @@ def test_train_mesh_1x1_checkpoint_and_remesh_round_trip(nccl_mesh, tmp_path):
     _, restored, _ = mgr.restore(state, sharder=sharder)
     for tree in (whole, remeshed, restored):
         assert all(torch.equal(a, b) for a, b in zip(leaves(tree), leaves(state), strict=True))
+
+
+# -- MoE, SSM and hybrid decoders on a 1x1 mesh: NCCL at world size 1 ----------
+
+#: reduced() configs of the MoE, SSM and hybrid archs, kv4 where they attend;
+#: their experts are 32 wide, so their weights are quantized in blocks of 32
+MOE_SSM_MESH_ARCHS = ("moonshot-v1-16b-a3b", "mamba2-130m", "jamba-v0.1-52b")
+
+
+def _moe_ssm_mesh_model(name, seed=0):
+    cfg = get_arch(name).reduced()
+    if any(m.startswith("attn") for m, _ in cfg.layer_schedule()):
+        cfg = cfg.with_kv_quant(4)
+    qparams = quantize_params(lm.init_params(cfg, seed=seed, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=32), cfg)
+    return cfg, qparams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_SSM_MESH_ARCHS)
+def test_moe_ssm_mesh_1x1_engine_equals_unsharded_routed_read(nccl_mesh, name):
+    """A reduced() MoE, SSM or hybrid decoder, 4-bit weights: the sharded
+    Engine's captured steps give the tokens of eager unsharded steps
+    reading every attention layer the routed way, whose logits and prefill
+    caches (K/V, SSM state and conv) the sharded eager steps equal bit for
+    bit; each MoE layer one expert-batched GEMV a matrix kind and step."""
+    from repro_torch.models.sharding import Sharder
+
+    cfg, qparams = _moe_ssm_mesh_model(name)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+    n, S = 8, 32
+    engine = Engine(qparams, cfg, max_seq_len=S, device="cuda",
+                    sharder=Sharder(nccl_mesh, cfg, replicate_params_below=0))
+    before = launches.snapshot()
+    tokens = engine.generate(prompts, n)
+    counts = dict(zip(launches.names(), (a - b for a, b in zip(launches.snapshot(), before))))
+    n_moe = sum(f == "moe" for _, f in cfg.layer_schedule())
+    # n - 1 replays and the capture's warm-up step
+    assert counts["qmatmul_gemv_experts.launches"] == 3 * n_moe * n
+    assert counts["decode_attention_packed_cuda.launches"] == 0
+    with torch.inference_mode():
+        logits, caches = engine._prefill(prompts)
+        want, wcaches = lm.prefill(qparams, prompts, cfg, cache_len=S)
+        assert torch.equal(logits, want)
+        for a, b in zip(caches, wcaches, strict=True):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        read = engine._decode_attn(4)
+        for t in range(n - 1):
+            logits, caches = lm.decode_step(engine.params, tokens[:, t], caches, 16 + t, cfg,
+                                            decode_attn=read, constrain=engine.constrain)
+            want, wcaches = lm.decode_step(qparams, tokens[:, t], wcaches, 16 + t, cfg,
+                                           decode_attn=_routed_read)
+            assert torch.equal(logits, want), t
+            assert torch.equal(torch.argmax(want, -1).to(torch.int32), tokens[:, t + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_SSM_MESH_ARCHS)
+def test_moe_ssm_mesh_1x1_server_equals_sharded_engine(nccl_mesh, name):
+    """The sharded Server (2 slots, one graph for the pool step; MoE
+    prefills bucketed with the router's pad mask, SSM ones at their exact
+    length) gives each request the sharded batch-1 Engine's tokens."""
+    from repro_torch.models.sharding import Sharder
+
+    cfg, qparams = _moe_ssm_mesh_model(name, seed=1)
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, cfg.vocab_size, L) for L in (8, 16, 5, 8)]
+    srv = Server(qparams, cfg, num_slots=2, max_seq_len=40, sharder=sharder, device="cuda")
+    ids = [srv.submit(p, 8, arrival_time=0.5 * i) for i, p in enumerate(prompts)]
+    res = srv.run_until_drained()
+    eng = Engine(qparams, cfg, max_seq_len=40, sharder=sharder, device="cuda")
+    for p, i in zip(prompts, ids):
+        assert res[i] == eng.generate(torch.as_tensor(p, device="cuda")[None], 8)[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_SSM_MESH_ARCHS[:2])
+def test_moe_ssm_mesh_1x1_train_steps_equal_unsharded(nccl_mesh, name):
+    """moonshot's and mamba2's reduced() configs: the sharded train steps
+    (bf16 masters, remat, 8-bit compression, 2 microbatches, the state
+    donated) on the 1x1 mesh give the unsharded steps' loss, norm and state
+    bit for bit, one flat encode a compressed leaf and step."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import grad_compress
+
+    cfg = get_arch(name).reduced()
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    (m1, s1, n1), (m2, s2, n2) = _train_runs([sharder, None], donate=True, cfg=cfg)
+    assert m1 == m2
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2, strict=True))
+    big = sum(int(np.prod(n)) >= grad_compress.MIN_ELEMENTS
+              for n in sharder.train_placement().shapes)
+    assert n1 == n2 == 2 * big
+
+
+@pytest.mark.cuda
+def test_moe_ssm_mesh_expert_gemv_on_a_slice_equals_whole_stack():
+    """The expert-batched GEMV on a rank's slice of a stack (experts 4-7 of
+    16, their own storage, their buffers a view of the whole one's, the
+    local counts) gives those experts' rows of the whole-stack launch bit
+    for bit."""
+    _need_cuda()
+    from repro_torch.core.codebooks import make_codebook
+
+    g = torch.Generator("cuda").manual_seed(5)
+    E, e0, El, N, K = 16, 4, 4, 256, 512
+    kw = dict(bits=4, block_size=64)
+    counts = torch.randint(0, tqm.GEMV_MAX_M + 1, (E,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    packed = torch.randint(-2**31, 2**31 - 1, (E, N, K // 8), generator=g, device="cuda",
+                           dtype=torch.int32)
+    scales = (torch.rand((E, N, K // 64), generator=g, device="cuda") * 0.04 + 0.01).to(
+        torch.bfloat16)
+    cb = make_codebook("float", 4, device="cuda").expand(E, -1).contiguous()
+    buf = torch.randn((E, tqm.GEMV_MAX_M + 1, K), generator=g, device="cuda").to(torch.bfloat16)
+    whole = tqm.qmatmul_gemv_experts(buf[:, :tqm.GEMV_MAX_M], packed, scales, cb, counts, **kw)
+    part = tqm.qmatmul_gemv_experts(buf[e0:e0 + El, :tqm.GEMV_MAX_M],
+                                    *(t[e0:e0 + El].clone() for t in (packed, scales, cb)),
+                                    counts[e0:e0 + El].clone(), **kw)
+    for e in range(El):
+        c = int(counts[e0 + e])
+        assert torch.equal(part[e, :c].view(torch.int16), whole[e0 + e, :c].view(torch.int16))

@@ -251,8 +251,21 @@ def test_check_decode_capability_equals_reference(case):
 
 @pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "mamba2-130m", "seamless-m4t-large-v2"])
 def test_mesh_refuses_what_waits_for_a11_2(name):
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        tsh.Sharder(PortMesh(1, 2), get_arch(name))
+    """The encoder-decoder still waits for A11.2; a mixture-of-experts or an
+    SSM decoder gets a Sharder, which places its tree: the expert stacks cut
+    on E, the conv's channels over "model"."""
+    cfg = get_arch(name)
+    if cfg.encoder_decoder:
+        with pytest.raises(NotImplementedError, match="A11.2"):
+            tsh.Sharder(PortMesh(1, 2), cfg)
+        return
+    s = tsh.Sharder(PortMesh(1, 2), cfg, replicate_params_below=0)
+    specs = _leaves(s.param_spec_tree(lm.init_params(cfg, device="meta")))
+    if cfg.n_experts:
+        assert specs["/stack/0/ffn/w_gate"] == (None, "model", "data", None)
+        assert specs["/stack/0/ffn/router"] == ()
+    else:
+        assert specs["/stack/0/mixer/conv_w"] == (None, None, "model")
 
 
 def test_make_mesh_names_the_world(tmp_path):

@@ -5,8 +5,9 @@
         python tests/torch_train_mesh_reference.py --mesh 2x2 --inp in.pkl --out out.npz
 
 ``--inp`` is the pickle the test writes for its gloo worlds ({"raw": the
-reference's init of tiny-650k as numpy, "tokens", "labels": the batch,
-"loss_chunk"}).  The mesh is ``jax.make_mesh(shape, ("data", "model"),
+reference's init of the arch as numpy, "tokens", "labels": the batch,
+"loss_chunk"}); ``--arch`` names the arch (tiny-650k by default),
+``--reduced`` takes its ``reduced()`` config.  The mesh is ``jax.make_mesh(shape, ("data", "model"),
 axis_types=Auto)`` (jax 0.9's default axes are Explicit, which
 ``with_sharding_constraint`` refuses), entered with ``with mesh:``, and the
 ``Sharder`` replicates nothing (``replicate_params_below=0``), as the
@@ -33,6 +34,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", required=True, metavar="DATAxMODEL")
     ap.add_argument("--inp", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--arch", default="tiny-650k")
+    ap.add_argument("--reduced", action="store_true")
     args = ap.parse_args(argv)
 
     import jax
@@ -46,7 +49,9 @@ def main(argv=None) -> None:
 
     with open(args.inp, "rb") as f:
         inp = pickle.load(f)
-    cfg = get_arch("tiny-650k")
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     shape = tuple(int(p) for p in args.mesh.split("x"))
     mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
     with mesh:
