@@ -269,7 +269,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                Prints the step's device and host ms beside the unsharded
                one's (fused attention) and the unsharded step over the
                routed read, its nodes, prefill s, the Server's tokens/s
-               and TTFT.
+               and TTFT.  Preemption: the sharded Server on 4 kv4 slots
+               with max_preemptions 2 over the server phase's first 4
+               background and first 4 urgent requests (its two priority
+               classes): at least one preemption, each request's tokens =
+               the unsharded preempted Server's (its step over the routed
+               read) and the sharded batch-1 Engine's, kv_spill_bytes_total
+               = the unsharded Server's (a whole row a spill).  The step
+               profiler: the sharded Engine and the sharded 8-slot Server
+               with Telemetry(profiler=StepProfiler()), tokens as
+               unprofiled, every roofline_frac in (0, 1], each program's dot
+               FLOPs = the unsharded program's the profile phase costed
+               (decode_step[4], prefill[4x256], the Server's decode_step and
+               prefill buckets); FLOPs, bytes and collective bytes printed
+               beside the unsharded ones.
   3m. train mesh — training on a 1x1 mesh (a world of one rank, NCCL;
                Sharder(make_mesh(1, 1), replicate_params_below=0), the
                train state stored FSDP's way): Qwen2-7B at full width cut to
@@ -320,6 +333,31 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                rank's slice of moonshot's expert stack (experts 16-31 of 64,
                their own storage, local counts) bit for bit against the
                whole-stack launch: the launch a "model" axis of 4 makes.
+  3o. encdec mesh — the encoder-decoder on a 1x1 mesh (a world of one
+               rank, NCCL; Sharder(make_mesh(1, 1), cfg,
+               replicate_params_below=0)): seamless-m4t-large-v2 at full
+               width and depth (24 + 24 layers, d 1024, vocab 256,206),
+               seeded bf16 weights quantized on the card (434 quantize_pack
+               launches), the seq2seq phase's traffic (4 sources of 1024
+               stub frames, the prefix of 2, 64 greedy tokens): the sharded
+               seq2seq.prefill and decode_step (the sharder's constrain,
+               q_pad, decode_attn_fn and cross_attn_fn; the caches placed by
+               shard_caches) launch what the seq2seq phase's do (217 GEMMs
+               + 217 GEMVs, then 217 GEMVs a step) and equal the unsharded
+               ones bit for bit: logits, tokens, the self and the cross
+               caches.  The step captured sharded (through
+               analysis/audit.py: no host node or sync, 217 GEMV nodes,
+               NCCL's kernel and copy nodes counted; replay = eager bit for
+               bit) and unsharded: device and host ms, timed in turn
+               (sharded, unsharded, twice).
+               Training: the tree cut to 2 encoder and 2 decoder layers at
+               full width (bf16 masters, remat, 8-bit compression, 2
+               microbatches), one batch's gradients unsharded and on the
+               mesh bit for bit, then 2 steps of 4 x (1024 frames, 256
+               tokens) unsharded and on the mesh: loss, grad norm and every
+               parameter after each step bit for bit, the sharded steps'
+               flat encodes = steps x compressed leaves.  Prints each step's
+               device and host ms, sharded and unsharded.
   3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
                width and depth): precision.build_plan on the card at the
                uniform-4 budget with KL probes (a Zipf-Markov batch over the
@@ -654,6 +692,7 @@ def main() -> int:
     mesh_path(torch, dev, run)
     train_mesh = train_mesh_path(torch, dev)
     moe_ssm_mesh = moe_ssm_mesh_path(torch, dev)
+    encdec_mesh = encdec_mesh_path(torch, dev)
     plan_path(torch, dev, run)
     mode_parity(torch, dev, run)
     kv_tolerance(torch, dev)
@@ -666,7 +705,7 @@ def main() -> int:
     audit_path(torch, dev, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
                    run["routed_counts"], run["mesh_counts"], train_mesh, moe_ssm_mesh,
-                   run["plan_counts"],
+                   encdec_mesh, run["plan_counts"],
                    windows,
                    experts["launches"], ssm_counts, s2s_counts,
                    bench["launches"], rest["launches"], suites["launches"], ledger)
@@ -690,9 +729,11 @@ def main() -> int:
             # pool and on pages, the profile phase (the profiled Engine and
             # Servers, gradient compression and its training run),
             # tiny-10m's routed read (Engine and Server), the 1x1 mesh's
-            # sharded Engines and Server (Qwen2-7B), its sharded train
-            # steps (Qwen2-7B at depth 4, tiny-650k's run), the 1x1 mesh's
-            # MoE, SSM and hybrid loads, Engines, Servers and train steps,
+            # sharded Engines and Servers (Qwen2-7B: plain, preempted and
+            # profiled), its sharded train steps (Qwen2-7B at depth 4,
+            # tiny-650k's run), the 1x1 mesh's MoE, SSM and hybrid loads,
+            # Engines, Servers and train steps, the encoder-decoder's load,
+            # sharded prefill, decode steps and train steps on it,
             # the mixed-precision plans (the planner, Engine and Servers),
             # h2o-danube-3-4b and gemma2-27b (their loads, Engines and Server),
             # moonshot-v1 and phi3.5-moe (their loads, Engines and Servers),
@@ -2316,6 +2357,8 @@ def profile_path(torch, dev, run) -> dict:
             rows = _profile_rows(tel_s.profiler)
             bounded(rows, f"Server ({label})")
             server_rows[label] = rows
+            if label == "plain":
+                server_costs = dict(tel_s.profiler.sessions[0].costs)
             del srv
     for label, prefixes in (("plain", ("prefill[", "decode_step")),
                             ("chunked", ("prefill[", "prefill_chunk[", "chunk_commit[",
@@ -2360,6 +2403,8 @@ def profile_path(torch, dev, run) -> dict:
           "tokens_identical": True, "launches": phase_counts,
           "seconds": time.perf_counter() - t_phase})
     run["profile_counts"] = phase_counts
+    # the unsharded programs' costs, which the 1x1 mesh's are held to (3l)
+    run["profile_costs"] = {"engine": dict(session.costs), "server": server_costs}
     return phase_counts
 
 
@@ -2722,6 +2767,136 @@ MESH_LAUNCH_ARCH = "tiny-650k"
 # phase's traffic (reported, not gated: at random weights Qwen2-7B misses
 # KV_LOGIT_TOL, as the reference's family does; PERF.md §7 question 8)
 MESH_GAP_STEPS = 16
+# preemption on the mesh: 4 kv4 slots of 576 over the server phase's first
+# 4 background requests and its first 4 urgent ones (its two priority
+# classes), the urgent ones evicting background ones
+MESH_PREEMPT_SLOTS, MESH_PREEMPTIONS = 4, 2
+
+
+def _routed_server(torch):
+    """The port's Server whose pool step reads every layer the routed way
+    (``_routed_oracle_read``), as a 1x1 mesh's step reads: the unsharded
+    Server the sharded one is held to bit for bit."""
+    from repro_torch.models import lm
+    from repro_torch.serving import Server
+    from repro_torch.serving.engine import sample_token
+
+    class Routed(Server):
+        def _decode_program(self, caches):
+            logits, _ = lm.decode_step(self.params, self._tok, caches, self.pool._pos_dev,
+                                       self.cfg, decode_attn=_routed_oracle_read)
+            return sample_token(logits, self._gen, self._temps_dev)
+
+    return Routed
+
+
+def _mesh_preemption(torch, dev, qparams, cfg, sharder, slot_len, solo, counted) -> dict:
+    """The 1x1 sharded Server at kv4 with preemption (phase 3l) over the
+    server phase's two priority classes, counted: at least one preemption,
+    each request's tokens = the unsharded preempted Server's (over the
+    routed read) and the sharded batch-1 Engine's (``solo``), the spilled
+    bytes = the unsharded Server's."""
+    from repro_torch.serving import Server, Telemetry
+
+    both = _server_requests(cfg)
+    reqs = both[:MESH_PREEMPT_SLOTS] + both[SERVER_SLOTS:SERVER_SLOTS + MESH_PREEMPT_SLOTS]
+    out = {}
+    for label, cls, sh in (("sharded", Server, sharder), ("unsharded", _routed_server(torch),
+                                                          None)):
+        tel = Telemetry()
+
+        def serve(cls=cls, sh=sh, tel=tel):
+            with torch.inference_mode(), _capture_guard(torch) as syncs:
+                srv = cls(qparams, cfg, num_slots=MESH_PREEMPT_SLOTS, max_seq_len=slot_len,
+                          sharder=sh, max_preemptions=MESH_PREEMPTIONS, telemetry=tel,
+                          device=dev)
+                _, toks, wall, _ = _drive_server(torch, srv, reqs, classes=True)
+            require(not syncs, f"mesh preemption ({label}): the captured step syncs with "
+                    f"the host: {syncs[:5]}")
+            return toks, wall, srv.scheduler.n_preemptions
+
+        toks, wall, n_pre = counted(serve) if sh is not None else serve()
+        reg = tel.registry
+        out[label] = {"tokens": toks, "serve_s": wall, "preemptions": n_pre,
+                      "spill_bytes": {k: reg.counter("kv_spill_bytes_total", kind=k).value
+                                      for k in ("packed", "logical", "per_device")},
+                      "resumes": int(reg.counter("serve_resumes_total").value)}
+    mine, plain = out["sharded"], out["unsharded"]
+    require(mine["preemptions"] >= 1 and mine["preemptions"] == plain["preemptions"]
+            and mine["resumes"] == mine["preemptions"],
+            f"mesh preemption: {mine['preemptions']} preemptions ({mine['resumes']} resumes), "
+            f"unsharded {plain['preemptions']}")
+    alone = counted(lambda: [
+        solo.generate(torch.as_tensor(r["prompt"], device=dev)[None], len(t))[0].tolist()
+        for r, t in zip(reqs, mine["tokens"])])
+    require(mine["tokens"] == plain["tokens"] == alone,
+            "mesh preemption: tokens differ from the unsharded preempted Server's on "
+            f"{sum(a != b for a, b in zip(mine['tokens'], plain['tokens']))} requests, from "
+            f"the sharded batch-1 Engine's on "
+            f"{sum(a != b for a, b in zip(mine['tokens'], alone))}")
+    require(mine["spill_bytes"]["packed"] == plain["spill_bytes"]["packed"] > 0
+            and mine["spill_bytes"]["per_device"] == mine["spill_bytes"]["packed"],
+            f"mesh preemption: spilled {mine['spill_bytes']}, unsharded {plain['spill_bytes']}")
+    return {"num_slots": MESH_PREEMPT_SLOTS, "requests": len(reqs),
+            "max_preemptions": MESH_PREEMPTIONS, "preemptions": mine["preemptions"],
+            "spill_bytes": mine["spill_bytes"], "serve_s": mine["serve_s"],
+            "unsharded_serve_s": plain["serve_s"],
+            "tokens_equal_unsharded_preempted_server": True,
+            "tokens_equal_sharded_engine_b1": True}
+
+
+def _mesh_profile(torch, dev, qparams, cfg, prompts, sharder, reqs, slot_len, want_tokens,
+                  want_served, costs, counted) -> dict:
+    """The step profiler on the 1x1 mesh (phase 3l): the sharded Engine and
+    Server with ``Telemetry(profiler=StepProfiler())``, counted: tokens as
+    unprofiled, every roofline_frac in (0, 1], each program's dot FLOPs
+    those of the unsharded program the profile phase costed (``costs``: at
+    one rank every slice is whole); its FLOPs, bytes and collective bytes
+    reported beside them."""
+    from repro_torch.serving import Engine, Server, StepProfiler, Telemetry
+
+    tel = Telemetry(profiler=StepProfiler())
+    engine = Engine(qparams, cfg, max_seq_len=PROMPT + NEW_TOKENS, sharder=sharder,
+                    telemetry=tel, device=dev)
+    tokens = counted(lambda: engine.generate(prompts, NEW_TOKENS))
+    require(torch.equal(tokens, want_tokens), "mesh profile: the profiled sharded Engine's "
+            "tokens differ from the unprofiled one's")
+    tel_s = Telemetry(profiler=StepProfiler())
+    with torch.inference_mode():
+        srv = counted(lambda: Server(qparams, cfg, num_slots=SERVER_SLOTS, max_seq_len=slot_len,
+                                     sharder=sharder, telemetry=tel_s, device=dev))
+        _, served, _, _ = counted(lambda: _drive_server(torch, srv, reqs))
+    require(served == want_served, "mesh profile: the profiled sharded Server's tokens differ "
+            "from the unprofiled one's")
+    del engine, srv
+    out = {}
+    for who, t in (("engine", tel), ("server", tel_s)):
+        rows = {r["program"]: r for r in t.profiler.summary()}
+        for name, r in rows.items():
+            require(0.0 < r["roofline_frac"] <= 1.0,
+                    f"mesh profile {who} {name}: roofline_frac {r['roofline_frac']}")
+        got = t.profiler.sessions[0].costs
+        shared = sorted(set(got) & set(costs[who]))
+        require(shared and any(n.startswith("decode_step") for n in shared)
+                and any(n.startswith("prefill[") for n in shared),
+                f"mesh profile {who}: programs {sorted(got)}, unsharded {sorted(costs[who])}")
+        for name in shared:
+            a, b = got[name], costs[who][name]
+            require(a.dot_flops == b.dot_flops and a.collective_bytes > 0
+                    and b.collective_bytes == 0,
+                    f"mesh profile {who} {name}: dot FLOPs {a.dot_flops}, unsharded "
+                    f"{b.dot_flops}; collective bytes {a.collective_bytes}")
+        out[who] = {name: {"flops": got[name].flops, "dot_flops": got[name].dot_flops,
+                           "hbm_bytes": got[name].hbm_bytes,
+                           "collective_bytes": got[name].collective_bytes,
+                           "unsharded_flops": costs[who][name].flops,
+                           "unsharded_hbm_bytes": costs[who][name].hbm_bytes,
+                           "roofline_frac": rows[name]["roofline_frac"] if name in rows
+                           else None,
+                           "fastest_half_ms": rows[name]["fastest_half_ms"] if name in rows
+                           else None}
+                    for name in shared}
+    return out
 
 
 def _routed_oracle_read(q, k_new, v_new, cache, pos, *, cap=0.0, window=0, kvq=None):
@@ -2831,7 +3006,7 @@ def mesh_path(torch, dev, run) -> dict:
         proc, t_launch = _mesh_launcher()
         try:
             mesh = make_mesh(1, 1, "cuda")
-            engines, kv_runs = {}, {}
+            engines, kv_runs, kv_tokens = {}, {}, {}
             for kv in (16, 8, 4):
                 cfg = base.with_kv_quant(kv)
                 sharder = Sharder(mesh, cfg, replicate_params_below=0)
@@ -2879,6 +3054,7 @@ def mesh_path(torch, dev, run) -> dict:
                                   kv_logit_tol=KV_LOGIT_TOL[kv], kv_logit_tol_gated=False)
                 kv_runs[f"kv{kv}"] = run_kv
                 engines[kv] = engine
+                kv_tokens[kv] = tokens
 
             launcher = _mesh_launcher_result(proc, t_launch)
 
@@ -2962,7 +3138,13 @@ def mesh_path(torch, dev, run) -> dict:
             reg = tel.registry
             ttft = reg.histogram("serve_ttft_seconds")
             n_tokens = sum(len(t) for t in served)
-            del srv, solo, engines, engine, e, step, log
+            del srv
+            preemption = _mesh_preemption(torch, dev, qparams, base, engine.sharder, slot_len,
+                                          solo, counted)
+            profile = _mesh_profile(torch, dev, qparams, base, prompts, engine.sharder, reqs,
+                                    slot_len, kv_tokens[KV_BITS], served, run["profile_costs"],
+                                    counted)
+            del solo, engines, engine, e, step, log
         finally:
             proc.kill()
             dist.destroy_process_group()
@@ -2980,7 +3162,8 @@ def mesh_path(torch, dev, run) -> dict:
                      "ttft_s_median": ttft.percentile(50), "ttft_s_p90": ttft.percentile(90),
                      "tokens_equal_sharded_engine_b1": True,
                      "host_syncs_in_captured_step": len(srv_syncs)},
-          "launcher": launcher, "card": smi.stdout.strip(), "launches": total,
+          "launcher": launcher, "preemption": preemption, "profile": profile,
+          "card": smi.stdout.strip(), "launches": total,
           "seconds": time.perf_counter() - t_phase})
     run["mesh_counts"] = total
     return total
@@ -3486,6 +3669,264 @@ def moe_ssm_mesh_path(torch, dev) -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     out.update(audit={f"{c.program}: {c.check}": c.detail for c in report.checks},
                card=smi.stdout.strip(), launches=total, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return total
+
+
+# the encoder-decoder mesh phase: the seq2seq phase's traffic on a 1x1 mesh
+# (seamless-m4t-large-v2 at full width and depth), then its tree cut to 2
+# encoder and 2 decoder layers trained 2 steps of 4 x (1024 frames, 256
+# tokens) as the train mesh phase trains Qwen2-7B
+S2S_MESH_TRAIN_DEPTH, S2S_MESH_TRAIN_TOKENS = 2, 256
+
+
+def _s2s_mesh_rollout(torch, qparams, cfg, frames, prefix, sharder=None):
+    """(tokens [B, S2S_NEW], logits [B, S2S_NEW, V], the caches after, the
+    params, the step's read keywords) of ``seq2seq.prefill`` and S2S_NEW - 1
+    greedy ``decode_step``s at a 0-d device position; sharded: the params
+    cut by ``sharder``, the prefill under its ``constrain`` and ``q_pad``,
+    the caches placed by ``shard_caches`` and both reads its own."""
+    from repro_torch.models import seq2seq
+
+    B, P = prefix.shape
+    params, kw, step_kw = qparams, {}, {}
+    if sharder is not None:
+        params = sharder.shard_params(qparams)
+        kw = dict(constrain=sharder.constrain, q_pad=sharder.head_pad())
+        step_kw = dict(constrain=sharder.constrain,
+                       decode_attn=sharder.decode_attn_fn(B, cfg.decoder_cache_len),
+                       cross_attn=sharder.cross_attn_fn(B, frames.shape[1]))
+    with torch.inference_mode():
+        logits, caches = seq2seq.prefill(params, frames, prefix, cfg, **kw)
+        if sharder is not None:
+            caches = sharder.shard_caches(caches, B)
+        toks, logs = [logits.argmax(-1).to(torch.int32)], [logits]
+        pos = torch.full((), P, dtype=torch.int32, device=frames.device)
+        for _ in range(S2S_NEW - 1):
+            logits, caches = seq2seq.decode_step(params, toks[-1], caches, pos, cfg, **step_kw)
+            toks.append(logits.argmax(-1).to(torch.int32))
+            logs.append(logits)
+            pos.add_(1)
+    return torch.stack(toks, 1), torch.stack(logs, 1), caches, params, step_kw
+
+
+def _s2s_captured_step(torch, dev, params, cfg, caches, tok, pos, step_kw, *, debug=False):
+    """One ``seq2seq.decode_step`` at ``pos`` captured (``capture_graph``),
+    its replay's logits = the eager call's bit for bit, no host sync in it.
+    Returns the step."""
+    from repro_torch.models import seq2seq
+    from repro_torch.serving import engine as engine_mod
+
+    box = {}
+
+    def body():
+        lg, _ = seq2seq.decode_step(params, tok, caches, pos, cfg, **step_kw)
+        if "out" not in box:
+            box["out"] = torch.empty_like(lg)   # allocated by the warm-up call
+        box["out"].copy_(lg)
+
+    with torch.inference_mode():
+        with _capture_guard(torch) as syncs:
+            step = engine_mod.capture_graph(body, dev, debug=debug)
+        require(not syncs, f"encdec mesh: the captured step syncs with the host: {syncs[:5]}")
+        step.replay()
+        eager, _ = seq2seq.decode_step(params, tok, caches, pos, cfg, **step_kw)
+        torch.cuda.synchronize()
+        require(torch.equal(box["out"].view(torch.int16), eager.view(torch.int16)),
+                "encdec mesh: the replayed step's logits differ from the eager step's")
+    return step
+
+
+def _replay_ms(torch, step) -> dict:
+    """A captured step's host ms (the host clock over S2S_TIMED_STEPS
+    replays) and device ms (``_time_graph``)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(S2S_TIMED_STEPS):
+        step.graph.replay()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / S2S_TIMED_STEPS * 1e3
+    return {"decode_step_device_ms": _time_graph(torch, step.graph, S2S_TIMED_STEPS),
+            "decode_ms_per_step": host_ms}
+
+
+def _s2s_mesh_train(torch, dev, cfg, mesh, total) -> dict:
+    """Phase 3o's training: ``cfg`` (seamless cut in depth) from the seeded
+    bf16 init, the gradients of one batch unsharded and on the mesh equal bit
+    for bit, then the train mesh phase's two steps (``_train_steps``: bf16
+    masters, remat, 8-bit compression, 2 microbatches) unsharded and on the
+    mesh from one init: loss, grad norm and every parameter after each step
+    equal bit for bit, the sharded steps' flat encodes = steps x compressed
+    leaves."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import grad_compress as gcomp
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves
+
+    g = _gen(torch, dev, SEED + 41)
+    batches = []
+    for _ in range(TRAIN_MESH_STEPS):
+        t = torch.randint(0, cfg.vocab_size, (TRAIN_MESH_BATCH, S2S_MESH_TRAIN_TOKENS + 1),
+                          generator=g, device=dev)
+        frames = torch.randn((TRAIN_MESH_BATCH, S2S_FRAMES, cfg.d_model), generator=g,
+                             device=dev).to(torch.bfloat16)
+        batches.append({"frames": frames, "tokens": t[:, :-1], "labels": t[:, 1:]})
+    sharder = Sharder(mesh, cfg, replicate_params_below=0)
+    n_big = sum(math.prod(n) >= gcomp.MIN_ELEMENTS for n in sharder.train_placement().shapes)
+    _free(torch)
+    # one batch's gradients (remat), unsharded and on the mesh
+    params = step_mod.init_state(cfg, seed=SEED, device=dev, param_dtype=torch.bfloat16).params
+    grads = {}
+    for label, sh in (("unsharded", None), ("sharded", sharder)):
+        fn = step_mod.make_train_step(cfg, sharder=sh, microbatches=TRAIN_MESH_MICRO)
+        _reset_counts()
+        loss, flat = fn.grads(params, batches[0])
+        torch.cuda.synchronize()
+        require(_counts() == dict.fromkeys(_COUNT_KEYS, 0),
+                f"encdec train mesh: the {label} gradients launched {_counts()}")
+        grads[label] = (loss, flat)
+    (l0, g0), (l1, g1) = grads["unsharded"], grads["sharded"]
+    grads_equal = _bits_equal(torch, l0, l1) and all(
+        _bits_equal(torch, a, b) for a, b in zip(g0, g1, strict=True))
+    require(grads_equal, "encdec train mesh: the 1x1 gradients differ from the unsharded ones")
+    n_leaves = len(leaves(params))
+    del params, grads, g0, g1
+    _free(torch)
+    plain, plain_params, state = _train_steps(torch, dev, cfg, None, batches)
+    del state
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    sharded, _, state = _train_steps(torch, dev, cfg, sharder, batches, want=plain_params)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**dict.fromkeys(_COUNT_KEYS, 0), "b3": TRAIN_MESH_STEPS * n_big}
+    require(counts == want, f"encdec train mesh: the sharded steps launched {counts}, want "
+            f"{want}")
+    for key in total:
+        total[key] += counts[key]
+    peak = torch.cuda.max_memory_allocated()
+    del state, plain_params
+    _free(torch)
+    same = ([(r["loss"], r["grad_norm"]) for r in sharded]
+            == [(r["loss"], r["grad_norm"]) for r in plain]
+            and all(r["params_equal"] for r in sharded))
+    require(same, f"encdec train mesh: the 1x1 steps differ from the unsharded ones: "
+            f"{_run_gap(sharded, plain)}")
+    return {"encoder_depth": cfg.n_encoder_layers, "decoder_depth": cfg.n_layers,
+            "width": cfg.d_model, "params": cfg.param_count(), "param_dtype": "bfloat16",
+            "remat": True, "grad_compress_bits": TRAIN_MESH_BITS, "batch": TRAIN_MESH_BATCH,
+            "frames": S2S_FRAMES, "tokens": S2S_MESH_TRAIN_TOKENS,
+            "microbatches": TRAIN_MESH_MICRO, "leaves": n_leaves, "gradients_equal": True,
+            "steps": {"sharded": sharded, "unsharded": plain}, "bit_identical": True,
+            "compressed_leaves": n_big, "peak_bytes": peak, "launches": counts}
+
+
+def encdec_mesh_path(torch, dev) -> dict:
+    """Phase 3o: the encoder-decoder on a 1x1 mesh (module docstring).  Its
+    counts are set to 0 before the load, the sharded prefill and decode
+    steps and the sharded train steps and read after; the unsharded runs',
+    the captures' and the timings' launches are not counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.analysis import audit
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.sharding import Sharder
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_COUNT_KEYS, 0)
+    none = dict.fromkeys(_COUNT_KEYS, 0)
+    gc.collect()
+    _free(torch)
+    cfg = get_arch(S2S_ARCH)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    B, S, P = S2S_BATCH, S2S_FRAMES, len(S2S_PREFIX)
+    step_gemvs = 9 * n_dec + 1
+    want_step = {**none, "gemv": step_gemvs, "gemv_tc": step_gemvs}
+    want_prefill = {**none, "gemm": 1 + 7 * n_enc + 2 * n_dec, "gemv": step_gemvs,
+                    "gemv_tc": step_gemvs}
+    want_main = {k: want_prefill[k] + (S2S_NEW - 1) * want_step[k] for k in none}
+    out = {"phase": "encdec_mesh", "arch": S2S_ARCH, "mesh": "1x1", "backend": "nccl",
+           "weights": "4-bit float b64"}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
+        init_world("cuda", rank=0, world=1, init_file=os.path.join(rdv, "rendezvous"))
+        try:
+            mesh = make_mesh(1, 1, "cuda")
+            qparams, load = _load_quantized(torch, dev, cfg, total)
+            frames = torch.from_numpy(np.random.default_rng(SEED + 22).standard_normal(
+                (B, S, cfg.d_model), dtype=np.float32)).to(dev).to(torch.bfloat16)
+            prefix = torch.tensor([S2S_PREFIX] * B, dtype=torch.int64, device=dev)
+            plain_toks, plain_logits, plain_caches, _, _ = _s2s_mesh_rollout(
+                torch, qparams, cfg, frames, prefix)
+            sharder = Sharder(mesh, cfg, replicate_params_below=0)
+            _reset_counts()
+            toks, logits, caches, params, step_kw = _s2s_mesh_rollout(
+                torch, qparams, cfg, frames, prefix, sharder)
+            torch.cuda.synchronize()
+            counts = _counts()
+            for key in total:
+                total[key] += counts[key]
+            require(counts == want_main, f"encdec mesh: the sharded prefill and decode steps "
+                    f"launched {counts}, want {want_main}")
+            require(tuple(toks.shape) == (B, S2S_NEW)
+                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+                    and bool(torch.isfinite(logits.float()).all()),
+                    "encdec mesh: tokens out of range or non-finite logits")
+            caches_equal = all(_bits_equal(torch, a[k], b[k]) for a, b in
+                               zip(caches, plain_caches, strict=True) for k in a)
+            require(torch.equal(logits.view(torch.int16), plain_logits.view(torch.int16))
+                    and torch.equal(toks, plain_toks) and caches_equal,
+                    "encdec mesh: the 1x1 sharded logits, tokens or self and cross caches "
+                    "differ from the unsharded prefill's and decode steps'")
+            del logits, plain_logits
+            # the step captured at the next position, sharded (its node list
+            # audited) and unsharded, from each run's own caches, then timed
+            # in turn: sharded, unsharded, sharded, unsharded
+            pos = torch.full((), P + S2S_NEW - 1, dtype=torch.int32, device=dev)
+            tok = toks[:, -1].contiguous()
+            report = audit.AuditReport()
+            program = f"{S2S_ARCH} mesh-1x1 decode_step"
+            steps = {"sharded": _s2s_captured_step(torch, dev, params, cfg, caches, tok, pos,
+                                                   step_kw, debug=True)}
+            nodes = audit.audit_graph(
+                report, program, steps["sharded"],
+                ROOT / "build" / "audit" / "seamless_mesh_step.dot",
+                expect={"qmatmul_gemv.launches": step_gemvs, "dequant_kv_cuda.launches": 0,
+                        "decode_attention_packed_cuda.launches": 0})
+            require(report.ok, "encdec mesh audit: " + "; ".join(
+                c.render() for c in report.failures()[:5]))
+            steps["unsharded"] = _s2s_captured_step(torch, dev, qparams, cfg, plain_caches,
+                                                    tok, pos, {})
+            times = {name: [] for name in steps}
+            for _ in range(2):
+                for name, step in steps.items():
+                    times[name].append(_replay_ms(torch, step))
+            del steps, step, caches, plain_caches, params, step_kw
+            out["serve"] = {
+                "encoder_depth": n_enc, "decoder_depth": n_dec, "width": cfg.d_model,
+                "vocab": cfg.vocab_size, **load, "sources": B, "frames": S,
+                "prefix": list(S2S_PREFIX), "new_tokens": S2S_NEW,
+                "launches": counts, "logits_tokens_caches_equal_unsharded": True,
+                "replay_equals_eager": True,
+                "step": times,
+                "step_kernel_nodes": sum(report.families[program].values()),
+                "step_nccl": audit.collective_nodes(nodes),
+                "audit": {c.check: c.detail for c in report.checks}}
+            del qparams
+            _free(torch)
+            out["train"] = _s2s_mesh_train(
+                torch, dev, dataclasses.replace(cfg, n_layers=S2S_MESH_TRAIN_DEPTH,
+                                                n_encoder_layers=S2S_MESH_TRAIN_DEPTH),
+                mesh, total)
+        finally:
+            dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    out.update(card=smi.stdout.strip(), launches=total, seconds=time.perf_counter() - t_phase)
     emit(out)
     return total
 

@@ -28,7 +28,9 @@ rank's slice, ``all_reduce``'s (a sum) passes through, ``fan_in`` all-reduces
 the partial gradient of a value each rank uses a part of, and
 ``fsdp_gather`` (a weight stored cut over "data") reduce-scatters its
 gradient over the data ranks.  Without autograd each is the plain
-collective it was.
+collective it was.  Each raw collective charges its per-rank payload to an
+open cost measurement (``utils/cost.collective``, the reference's
+``utils/hlo.py`` rule).
 """
 
 from __future__ import annotations
@@ -228,6 +230,7 @@ def _gather_raw(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, xt, group=group)
+    cost.collective("all_gather", out)
     return out.movedim(0, dim)
 
 
@@ -240,6 +243,7 @@ def _reduce_scatter_raw(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.reduce_scatter_tensor(out, xt, group=group)
+    cost.collective("reduce_scatter", out)
     return out.movedim(0, dim)
 
 
@@ -256,6 +260,7 @@ def _all_reduce_raw(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=group)
+    cost.collective("all_reduce", x)
     return x
 
 

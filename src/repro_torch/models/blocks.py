@@ -33,8 +33,9 @@ reference's hook: ``local_decode_attn`` over a slot cache by default, the
 paged pool's closure (``serving/pages.paged_decode_attn_fn``) over pages.
 
 The encoder-decoder with frame inputs (``models/seq2seq.py``) uses ``mlp``,
-``take`` and ``local_decode_attn`` from here and has its own layer loops;
-``check_dense`` refuses it on this path.
+``take``, ``attend_seq``, ``recompute_in_backward`` and ``local_decode_attn``
+from here and has its own layer loops; ``check_dense`` refuses it on this
+path.
 
 On a mesh (``models/sharding.py``) the sequence mode and the decode take
 the sharder's ``constrain`` (the SSM layers' heads and channels, the MoE
@@ -172,16 +173,18 @@ def _unpad_heads(o, K: int, H: int):
     return o.reshape(B, S, K, Hp // K, Dh)[:, :, :, :H // K].reshape(B, S, H, Dh)
 
 
-def attend_seq(q, k, v, *, window, cap, constrain=NO_CONSTRAIN, q_pad=None):
-    """The prefill read: q [B,S,H,Dh] over k, v [B,S,K,Dh], q heads padded
-    to ``q_pad`` and split, attended and gathered by ``constrain``."""
+def attend_seq(q, k, v, *, window, cap, causal=True, constrain=NO_CONSTRAIN, q_pad=None):
+    """The prefill read: q [B,S,H,Dh] over k, v [B,Skv,K,Dh], q heads padded
+    to ``q_pad`` and split, attended (causal or not) and gathered by
+    ``constrain``."""
     H, K = q.shape[2], k.shape[2]
     padded = bool(q_pad) and q_pad != H
     if padded:
         q = _pad_heads(q, K, q_pad)
     shape = q.shape
     o = attn_mod.flash_attention(constrain(q, "heads"), constrain(k, "kv_heads"),
-                                 constrain(v, "kv_heads"), causal=True, window=window, cap=cap)
+                                 constrain(v, "kv_heads"), causal=causal, window=window,
+                                 cap=cap)
     o = constrain.gather(o, "heads", shape)
     return _unpad_heads(o, K, H) if padded else o
 

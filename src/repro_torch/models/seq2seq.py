@@ -26,6 +26,21 @@ value on the host, so a step can be captured as a CUDA graph.
 The decoder-only ``Engine``, ``Server`` and ``launch/serve.py`` do not serve
 this arch (the reference's have no encoder-decoder path either); they
 refuse it at construction (``blocks.check_dense``).
+
+On a mesh (``models/sharding.py``) every function takes the sharder's
+``constrain`` and ``q_pad``, as ``models/lm.py`` does: the params are
+``kernels/ops.Placed`` slices whose products do their own collectives, and
+each attention of the sequence mode (the encoder's, the decoder's self and
+cross reads) splits its q heads over "model" and gathers them after
+(``blocks.attend_seq``).  ``loss_fn`` gives the global loss
+(``constrain.batch_sum``) of a train step whose rows are split over the
+data axes.  ``remat`` recomputes each layer in the backward
+(``blocks.recompute_in_backward``), the reference's ``jax.checkpoint`` of
+its scan body.  A decode step reads the self cache through the sharder's
+``decode_attn_fn(B, cfg.decoder_cache_len)`` and the cross cache through
+its ``cross_attn_fn(B, S_m)`` (each rank's window of the source, combined
+over the sequence group).  With the defaults every function is the
+unsharded one it was.
 """
 
 from __future__ import annotations
@@ -35,7 +50,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
-from repro_torch.models.layers import Init, dense, norm
+from repro_torch.models.layers import NO_CONSTRAIN, Init, dense, norm
 from repro_torch.models.lm import embed_inputs, logits_from_hidden
 
 
@@ -75,21 +90,36 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32) -> dict
 # encoder
 # --------------------------------------------------------------------------
 
-def encode(params, frames, cfg):
-    """frames [B, S, D] (stub embeddings) -> memory [B, S, D] bf16."""
+def _layer(body, remat: bool, x, i: int):
+    """``body(x, i)``, recomputed in the backward with ``remat`` under
+    autograd (only x is kept)."""
+    if remat and torch.is_grad_enabled():
+        return blocks.recompute_in_backward(body, x, i)
+    return body(x, i)
+
+
+def encode(params, frames, cfg, *, constrain=NO_CONSTRAIN, q_pad=None, remat=False):
+    """frames [B, S, D] (stub embeddings) -> memory [B, S, D] bf16.
+    ``constrain`` and ``q_pad``: the sharder's; ``remat``: recompute each
+    layer in the backward."""
     mm = cfg.matmul_mode
     x = dense(params["frame_proj"], frames.to(torch.bfloat16), mode=mm)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     stack = params["enc_stack"]
-    for i in range(cfg.n_encoder_layers):
+
+    def body(x, i):
         p = blocks.take(stack, i)
         h = norm(p["mixer_norm"], x, cfg.norm_type)
         q, k, v = attn_mod.project_qkv(p["mixer"], h, cfg, positions)
-        o = attn_mod.flash_attention(q, k, v, causal=False)
+        o = blocks.attend_seq(q, k, v, window=0, cap=0.0, causal=False, constrain=constrain,
+                              q_pad=q_pad)
         x = x + dense(p["mixer"]["wo"], o.reshape(B, S, -1), mode=mm)
         h = norm(p["ffn_norm"], x, cfg.norm_type)
-        x = x + blocks.mlp(p["ffn"], h, cfg)
+        return x + blocks.mlp(p["ffn"], h, cfg)
+
+    for i in range(cfg.n_encoder_layers):
+        x = _layer(body, remat, x, i)
     return norm(params["enc_final_norm"], x, cfg.norm_type)
 
 
@@ -106,14 +136,17 @@ def _cross_kv(p_attn, memory, cfg):
     return k, v
 
 
-def decoder_seq(params, tokens, memory, cfg, *, write_cache=False):
+def decoder_seq(params, tokens, memory, cfg, *, constrain=NO_CONSTRAIN, q_pad=None,
+                write_cache=False, remat=False):
     """tokens [B, T] over memory [B, S_m, D] -> (normed hidden [B, T, D],
     caches or None).  With ``write_cache`` the caches are ``decode_step``'s:
     (self cache, cross cache), each a dict of leaves stacked over the
     decoder layers.  The self cache is ``attention.init_kv_cache`` at
     ``cfg.decoder_cache_len`` slots in the K/V dtype (bf16) with the prefix's
     last positions written (``write_cache_prefill``); the cross cache holds
-    the reference's (kx, vx) and the source's positions, built once here."""
+    the reference's (kx, vx) and the source's positions, built once here.
+    ``constrain``, ``q_pad`` and ``remat`` as in ``encode`` (no remat while
+    writing caches)."""
     mm = cfg.matmul_mode
     x = embed_inputs(params, tokens, cfg)
     B, T = tokens.shape
@@ -121,74 +154,94 @@ def decoder_seq(params, tokens, memory, cfg, *, write_cache=False):
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
     stack = params["dec_stack"]
     n = cfg.n_layers
-    self_c = cross = None
-    for i in range(n):
+    out = {"self": None, "cross": None}
+
+    def body(x, i):
         p = blocks.take(stack, i)
         # self attention (causal)
         h = norm(p["self_norm"], x, cfg.norm_type)
         q, k, v = attn_mod.project_qkv(p["self_attn"], h, cfg, positions)
-        o = attn_mod.flash_attention(q, k, v, causal=True)
+        o = blocks.attend_seq(q, k, v, window=0, cap=0.0, constrain=constrain, q_pad=q_pad)
         x = x + dense(p["self_attn"]["wo"], o.reshape(B, T, -1), mode=mm)
         if write_cache:
-            if self_c is None:
+            if out["self"] is None:
                 one = attn_mod.init_kv_cache(cfg, B, cfg.decoder_cache_len, k.dtype,
                                              device=x.device)
-                self_c = {key: leaf.unsqueeze(0).repeat((n,) + (1,) * leaf.ndim)
-                          for key, leaf in one.items()}
+                out["self"] = {key: leaf.unsqueeze(0).repeat((n,) + (1,) * leaf.ndim)
+                               for key, leaf in one.items()}
             L = cfg.decoder_cache_len
-            attn_mod.write_cache_prefill(blocks.take(self_c, i), k[:, -L:], v[:, -L:])
+            attn_mod.write_cache_prefill(blocks.take(out["self"], i), k[:, -L:], v[:, -L:])
         # cross attention (no mask)
         h = norm(p["cross_norm"], x, cfg.norm_type)
         qx = dense(p["cross_attn"]["wq"], h, mode=mm).reshape(B, T, H, Dh)
         kx, vx = _cross_kv(p["cross_attn"], memory, cfg)
-        ox = attn_mod.flash_attention(qx, kx, vx, causal=False)
+        ox = blocks.attend_seq(qx, kx, vx, window=0, cap=0.0, causal=False,
+                               constrain=constrain, q_pad=q_pad)
         x = x + dense(p["cross_attn"]["wo"], ox.reshape(B, T, -1), mode=mm)
         if write_cache:
-            if cross is None:
+            if out["cross"] is None:
                 S_m = kx.shape[1]
-                cross = {"k": kx.new_empty((n,) + kx.shape), "v": vx.new_empty((n,) + vx.shape),
-                         "pos": torch.arange(S_m, dtype=torch.int32, device=x.device)
-                         .expand(n, S_m).contiguous()}
-            cross["k"][i].copy_(kx)
-            cross["v"][i].copy_(vx)
+                out["cross"] = {"k": kx.new_empty((n,) + kx.shape),
+                                "v": vx.new_empty((n,) + vx.shape),
+                                "pos": torch.arange(S_m, dtype=torch.int32, device=x.device)
+                                .expand(n, S_m).contiguous()}
+            out["cross"]["k"][i].copy_(kx)
+            out["cross"]["v"][i].copy_(vx)
         # ffn
         h = norm(p["ffn_norm"], x, cfg.norm_type)
-        x = x + blocks.mlp(p["ffn"], h, cfg)
+        return x + blocks.mlp(p["ffn"], h, cfg)
+
+    for i in range(n):
+        x = _layer(body, remat and not write_cache, x, i)
     x = norm(params["final_norm"], x, cfg.norm_type)
-    return x, ((self_c, cross) if write_cache else None)
+    return x, ((out["self"], out["cross"]) if write_cache else None)
 
 
-def loss_fn(params, frames, tokens, labels, cfg):
+def loss_fn(params, frames, tokens, labels, cfg, *, constrain=NO_CONSTRAIN, q_pad=None,
+            remat=True):
     """Mean cross entropy of the decoder's logits against ``labels`` over
-    labels >= 0, given the encoded frames."""
-    memory = encode(params, frames, cfg)
-    h, _ = decoder_seq(params, tokens, memory, cfg)
+    labels >= 0, given the encoded frames.  On a mesh (the train step's
+    ``constrain`` and ``q_pad``) the batch is this rank's slice and the loss
+    the global ``sum(tot) / sum(cnt)``, the per-rank sums all-reduced over
+    the data axes (``constrain.batch_sum``).  ``remat``: each encoder and
+    decoder layer recomputed in the backward."""
+    memory = encode(params, frames, cfg, constrain=constrain, q_pad=q_pad, remat=remat)
+    h, _ = decoder_seq(params, tokens, memory, cfg, constrain=constrain, q_pad=q_pad,
+                       remat=remat)
     logits = logits_from_hidden(params, h, cfg).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    cnt = constrain.batch_sum(torch.sum(mask))
+    return constrain.batch_sum(torch.sum((lse - ll) * mask) / torch.clamp(cnt, min=1.0))
 
 
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
 
-def prefill(params, frames, bos_tokens, cfg):
+def prefill(params, frames, bos_tokens, cfg, *, constrain=NO_CONSTRAIN, q_pad=None):
     """Encode the source and run the decoder over the BOS prefix: (logits
-    of the prefix's last position [B, V], caches for ``decode_step``)."""
-    memory = encode(params, frames, cfg)
-    h, caches = decoder_seq(params, bos_tokens, memory, cfg, write_cache=True)
+    of the prefix's last position [B, V], caches for ``decode_step``).  On a
+    mesh the caches come back whole; ``Sharder.shard_caches`` cuts them."""
+    memory = encode(params, frames, cfg, constrain=constrain, q_pad=q_pad)
+    h, caches = decoder_seq(params, bos_tokens, memory, cfg, constrain=constrain, q_pad=q_pad,
+                            write_cache=True)
     return logits_from_hidden(params, h[:, -1], cfg), caches
 
 
-def decode_step(params, token, caches, pos, cfg):
+def decode_step(params, token, caches, pos, cfg, *, constrain=NO_CONSTRAIN,
+                decode_attn=blocks.local_decode_attn, cross_attn=None):
     """One decoding step: token [B] at ``pos`` (an int or a 0-d int32
     tensor: every row at one position) over ``caches`` = (self cache, cross
     cache) from ``prefill``.  Each layer writes the token's K/V into its
-    self cache in place (``blocks.local_decode_attn``, no ``kvq``, as the
-    reference) and reads every source position of its cross cache.
-    Returns (logits [B, V], caches)."""
+    self cache in place through ``decode_attn`` (``blocks.local_decode_attn``,
+    no ``kvq``, as the reference) and reads every source position of its
+    cross cache through ``cross_attn(q, layer cache)`` (the plain read by
+    default).  On a mesh (``constrain`` a sharder's) the caches are placed
+    by ``shard_caches`` and both reads are the sharder's:
+    ``decode_attn_fn(B, cfg.decoder_cache_len)`` and ``cross_attn_fn(B,
+    S_m)``.  Returns (logits [B, V], caches)."""
     mm = cfg.matmul_mode
     x = embed_inputs(params, token, cfg)
     B = x.shape[0]
@@ -196,17 +249,23 @@ def decode_step(params, token, caches, pos, cfg):
     pos = attn_mod.as_position(pos, x.device)
     positions = pos[None]
     self_c, cross = caches
-    every = cross["pos"].shape[-1] + 1   # past the last source position
+    if cross_attn is None:
+        s = getattr(constrain, "sharder", None)
+        if s is not None and s.mesh is not None and not s.replicate:
+            raise ValueError("a sharded decode step reads its cross cache through the "
+                             "sharder's cross_attn_fn(B, S_m): pass cross_attn=")
+        every = cross["pos"].shape[-1] + 1   # past the last source position
+        cross_attn = lambda q, cache: attn_mod.decode_attention(q, cache, every)  # noqa: E731
     stack = params["dec_stack"]
     for i in range(cfg.n_layers):
         p = blocks.take(stack, i)
         h = norm(p["self_norm"], x, cfg.norm_type)
         q, k, v = attn_mod.project_qkv(p["self_attn"], h[:, None, :], cfg, positions)
-        o = blocks.local_decode_attn(q[:, 0], k[:, 0], v[:, 0], blocks.take(self_c, i), pos)
+        o = decode_attn(q[:, 0], k[:, 0], v[:, 0], blocks.take(self_c, i), pos)
         x = x + dense(p["self_attn"]["wo"], o.reshape(B, -1), mode=mm)
         h = norm(p["cross_norm"], x, cfg.norm_type)
         qx = dense(p["cross_attn"]["wq"], h, mode=mm).reshape(B, H, Dh)
-        ox = attn_mod.decode_attention(qx, blocks.take(cross, i), every)
+        ox = cross_attn(qx, blocks.take(cross, i))
         x = x + dense(p["cross_attn"]["wo"], ox.reshape(B, -1), mode=mm)
         h = norm(p["ffn_norm"], x, cfg.norm_type)
         x = x + blocks.mlp(p["ffn"], h, cfg)

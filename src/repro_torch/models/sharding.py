@@ -64,8 +64,20 @@ Every collective is issued whatever the size of its group: a 1x1 mesh runs
 the whole machinery (on the card, NCCL at world size 1).  ``replicate``
 (models under ``replicate_params_below`` bytes of bf16) and ``Sharder(None,
 cfg)`` make every placement a no-op, as in the reference (a replicating
-train step still splits the batch over the data axes).  The encoder-decoder
-waits for ROADMAP A11.2: a Sharder on a mesh refuses it.
+train step still splits the batch over the data axes).
+
+The encoder-decoder (``models/seq2seq.py``) takes the same Sharder: its
+leaves (``frame_proj``, ``enc_stack``, ``dec_stack`` with ``self_attn``,
+``cross_attn`` and ``ffn``, the norms, ``embed`` and ``lm_head``) are placed
+by the same rules, the q heads of every sequence-mode attention (the
+encoder's, the decoder's self and cross reads) split over "model" as a
+decoder's prefill splits them.  Its caches (self, cross) place as the reference's
+``launch/specs._cache_specs`` does: K/V [L, B, S, K, Dh] over (batch axes,
+sequence axes) and the positions [L, S] over the sequence axes, an axis that
+does not divide left whole.  A decode step reads the self cache through
+``decode_attn_fn(B, cfg.decoder_cache_len)`` and the cross cache through
+``cross_attn_fn(B, S_m)``: this rank's window of the source as partials,
+combined over the sequence group.
 """
 
 from __future__ import annotations
@@ -156,14 +168,6 @@ def _maybe(axis, dim_size, axis_size):
     if axis is None:
         return None
     return axis if dim_size % axis_size == 0 else None
-
-
-def _check_arch(cfg) -> None:
-    if cfg.encoder_decoder or cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: a mesh (serving and training) takes decoders (attention, MLP, "
-            "mixture-of-experts and SSM layers); the encoder-decoder with frame inputs "
-            "waits for ROADMAP A11.2")
 
 
 def _map(fn, tree, specs=None, keys=()):
@@ -281,7 +285,6 @@ class Sharder:
             self.replicate = True
             self.fsdp_axis = None
             return
-        _check_arch(cfg)
         names = tuple(getattr(mesh, "mesh_dim_names", None) or mesh.axis_names)
         shape = mesh.shape
         self.axis_names = names
@@ -658,6 +661,27 @@ class Sharder:
 
         return slot - i * per, _map(piece, cc, self.cache_spec_tree(cc, batch))
 
+    def whole_row(self, caches, slot: int, batch: int):
+        """Row ``slot`` of a pool of ``batch`` rows placed by ``shard_caches``,
+        whole and as stored, on every rank (collective: every rank calls it
+        for the same slot, in the same order): each leaf's row [n_p, ...]
+        with its sequence windows, KV heads, SSM state heads and conv
+        channels gathered from the ranks that hold them.  A rank of another
+        data coordinate sends a row it holds and the slot owner's is kept,
+        so the row can be written back into a slot of any data rank
+        (``local_row``).  Without a mesh, views of the pool's rows."""
+        if self.mesh is None or self.replicate:
+            return _map(lambda keys, leaf, _: leaf[:, slot], caches)
+        b_ax, _ = self.decode_plan(batch)
+        i, n = self.coord(b_ax)
+        owner, j = divmod(slot, batch // n)
+        mine = j if i == owner else 0
+
+        def row(keys, leaf, spec):
+            return self.whole(leaf[:, mine:mine + 1], spec)[:, owner]
+
+        return _map(row, caches, self.cache_spec_tree(caches, batch))
+
     # -- sharded decode attention ----------------------------------------------
     def pad_cache_len(self, cache_len: int) -> int:
         """A cache budget rounded UP to a multiple of the mesh size, so full
@@ -738,6 +762,49 @@ class Sharder:
 
         return fn
 
+    def cross_attn_fn(self, batch: int, source_len: int):
+        """The cross read of an encoder-decoder's decode step
+        (``seq2seq.decode_step(cross_attn=)``) for ``batch`` rows over a
+        cross cache of ``source_len`` source positions placed by
+        ``shard_caches``: ``fn(q [B, H, Dh], one layer's {"k", "v", "pos"})``
+        -> [B, H, Dh], every source position valid.  Without a mesh or when
+        replicating, the plain read over the whole source.  On a mesh this
+        rank's rows of q over its window of the source, read as
+        flash-decoding partials and combined over the sequence group as the
+        self read combines them (``attention.combine_partials``: one MAX, one
+        SUM), the rows gathered over the data axes after.  A source length
+        that does not divide the grid warns here and at its first read, and
+        reads this rank's rows over the whole (unsplit) source."""
+        every = source_len + 1   # past the last source position
+        if self.mesh is None or self.replicate:
+            return lambda q, cache: attn_mod.decode_attention(q, cache, every)
+        b_ax, s_ax = self.decode_plan(batch)
+        s_size = self._axis_size(s_ax)
+        split = source_len % s_size == 0
+        if not split:
+            self._warn_fallback([source_len], s_size)
+        warned: list = []
+        b_idx, b_n = self.coord(b_ax)
+        rows = slice(b_idx * (batch // b_n), (b_idx + 1) * (batch // b_n))
+        seq = self.group(s_ax)
+
+        def fn(q, cache):
+            q = q[rows]
+            if split:
+                B, H, Dh = q.shape
+                m, l, pv = attn_mod.decode_attention_partial(q, cache["k"], cache["v"],
+                                                             cache["pos"], every)
+                o = attn_mod.combine_partials(m, l, pv, group=seq).reshape(B, H, Dh)
+                o = o.to(q.dtype)
+            else:
+                if not warned:
+                    warned.append(source_len)
+                    self._warn_fallback([source_len], s_size)
+                o = attn_mod.decode_attention(q, cache, every)
+            return o if b_ax is None else ops.gather_dim(o, 0, self.group(b_ax))
+
+        return fn
+
     def _sharded_decode(self, q, k_new, v_new, cache, pos, *, cap, window, kvq, S_total,
                         offset, group):
         """One rank's step of the sequence-sharded read: the token written
@@ -773,20 +840,21 @@ def spec_leaves(tree, specs) -> list:
 
 
 class TrainPlacement:
-    """Where a rank keeps its part of a decoder's train state on a mesh
-    (FSDP storage; module docstring): dense, MoE (an expert stack cut on E
-    and In) and SSM trees alike.  ``specs`` is the reference's
+    """Where a rank keeps its part of a train state on a mesh (FSDP
+    storage; module docstring): dense, MoE (an expert stack cut on E and
+    In), SSM and encoder-decoder trees alike.  ``specs`` is the reference's
     placement (``param_spec_tree``) of each leaf of the params tree, in
     ``tree.leaves`` order; the AdamW moments and the compression errors
     have the params' structure and take the same.  The state's step is
     whole everywhere.  Without a mesh every method hands its tree back."""
 
     def __init__(self, sharder: Sharder):
-        from repro_torch.models import lm
+        from repro_torch.models import lm, seq2seq
 
         self.sharder = sharder.training()
         s = self.sharder
-        self.template = lm.init_params(s.cfg, device="meta")
+        init = seq2seq.init_params if s.cfg.encoder_decoder else lm.init_params
+        self.template = init(s.cfg, device="meta")
         self.specs = spec_leaves(self.template, s.param_spec_tree(self.template))
         self.shapes = [tuple(t.shape) for t in leaves(self.template)]
         self.local_shapes = [s.local_shape(n, sp) for n, sp in zip(self.shapes, self.specs)]

@@ -46,7 +46,9 @@ layers placed by the same ``constrain`` (dense, MoE, SSM and hybrid
 decoders alike).  On the card the sharded step is captured as one graph
 like the unsharded one, its collectives (NCCL) inside; the capture's eager
 warm-up call on its side stream uses every communicator first.  The step
-profiler does not run on a mesh yet (ROADMAP A11.2).
+profiler runs on a mesh too: each rank costs its own slice of each program
+(FLOPs and bytes per rank, ``collective_bytes`` its payload), every rank at
+the same point, since the costing run issues the program's collectives.
 """
 
 from __future__ import annotations
@@ -281,9 +283,6 @@ class Engine:
         if matmul_mode is not None:
             cfg = cfg.with_matmul_mode(matmul_mode)
         check_decode_capability(cfg, sharder, caller="the static Engine (serving/engine.py)")
-        if sharder is not None and getattr(telemetry, "profiler", None) is not None:
-            raise NotImplementedError("the step profiler on a mesh (sharder=) waits for "
-                                      "ROADMAP A11.2")
         self.device = resolve_device(device)
         self.telemetry = telemetry
         if plan is not None:
@@ -349,7 +348,9 @@ class Engine:
         clones, gen = clone_caches(caches), torch.Generator(self.device)
 
         def step():
-            logits, _ = lm.decode_step(self.params, tok, clones, pos, self.cfg)
+            logits, _ = lm.decode_step(self.params, tok, clones, pos, self.cfg,
+                                       decode_attn=self._decode_attn(tok.shape[0]),
+                                       constrain=self.constrain)
             nxt = sample_token(logits, gen, temperature)
             if self.eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, self.eos_id), nxt)

@@ -34,8 +34,15 @@ the data axes the slots fill, slots over the sequence grid, an SSM layer's
 state heads and conv channels over "model"), each rank holding its
 windows and heads; the server writes a prefill into them through
 ``Sharder.local_row``.  ``kv_bytes`` then counts this rank's bytes as
-``per_device`` beside the whole pool's.  Spilling a row of a sharded pool
-(preemption) waits for ROADMAP A11.2.
+``per_device`` beside the whole pool's.  A spill of a sharded pool is
+collective: every rank runs the same scheduler, so every rank spills the
+same slot in the same order, and ``Sharder.whole_row`` gathers the whole
+row (its windows, KV heads, SSM state heads and conv channels) as stored
+onto every rank's host.  The record can then be restored into any free
+slot, whichever data rank holds it: ``restore_slot`` writes this rank's cut
+of the row (``Sharder.local_row``, as a prefill's) where this rank holds
+the slot.  ``kv_spill_bytes_total`` counts the whole row, as the unsharded
+pool's, with ``kind="per_device"`` the bytes of it this rank held.
 """
 
 from __future__ import annotations
@@ -117,6 +124,7 @@ class SlotKVCache:
         self.caches = lm.init_caches(cfg, num_slots, cache_len, dtype, per_slot=True,
                                      device=device)
         self._total_bytes = self._kv_bytes()
+        self.sharder = sharder
         if sharder is not None:
             self.caches = sharder.shard_caches(self.caches, num_slots)
         self._init_slots()
@@ -200,8 +208,12 @@ class SlotKVCache:
         the bf16-equivalent bytes.  Returns {"rows": [{key: tensor}] a
         layer group, "next_pos", "bytes_packed", "bytes_logical"}."""
         assert self.active[slot], "spill of a free slot"
-        rows = [{key: leaf[:, slot].to("cpu", copy=True) for key, leaf in group.items()}
-                for group in self.caches]
+        if self.sharder is None:
+            whole = [{key: leaf[:, slot] for key, leaf in group.items()} for group in self.caches]
+        else:   # collective: the whole row onto every rank
+            whole = self.sharder.whole_row(self.caches, slot, self.num_slots)
+        rows = [{key: row.to("cpu", copy=True) for key, row in group.items()}
+                for group in whole]
         packed = logical = 0
         for group in rows:
             for key, row in group.items():
@@ -212,8 +224,20 @@ class SlotKVCache:
         if self.telemetry.enabled:
             self.telemetry.inc("kv_spill_bytes_total", packed, kind="packed")
             self.telemetry.inc("kv_spill_bytes_total", logical, kind="logical")
+            if self.sharder is not None:
+                self.telemetry.inc("kv_spill_bytes_total", self._row_bytes_held(slot),
+                                   kind="per_device")
         return {"rows": rows, "next_pos": int(self.next_pos[slot]),
                 "bytes_packed": packed, "bytes_logical": logical}
+
+    def _row_bytes_held(self, slot: int) -> int:
+        """The K/V bytes of row ``slot`` this rank holds of a sharded pool
+        (0 where another data rank holds the slot)."""
+        j = self.sharder.local_row((), slot, self.num_slots)[0]
+        if j is None:
+            return 0
+        return sum(self._kv_bytes_of(key, leaf[:, j])[0]
+                   for group in self.caches for key, leaf in group.items() if key in KV_KEYS)
 
     def restore_slot(self, slot: int, spill: dict) -> None:
         """Write a spill record back into (re-allocated) row ``slot``.  Every
@@ -221,10 +245,20 @@ class SlotKVCache:
         occupant or an idle row's clamped write left there is erased."""
         assert self.active[slot], "restore into a free slot: alloc first"
         assert len(spill["rows"]) == len(self.caches), "spill/pool layout mismatch"
-        for group, rows in zip(self.caches, spill["rows"]):
-            assert rows.keys() == group.keys(), "spill/pool layout mismatch"
-            for key, leaf in group.items():
-                leaf[:, slot].copy_(rows[key])
+        j, rows = slot, spill["rows"]
+        if self.sharder is not None:
+            # this rank's cut of the whole row, as a prefill's (a batch of one)
+            one = tuple({key: row if key == "pos" else row.unsqueeze(1)
+                         for key, row in group.items()} for group in rows)
+            j, one = self.sharder.local_row(one, slot, self.num_slots)
+            if j is not None:
+                rows = [{key: row if key == "pos" else row[:, 0] for key, row in group.items()}
+                        for group in one]
+        if j is not None:
+            for group, row in zip(self.caches, rows):
+                assert row.keys() == group.keys(), "spill/pool layout mismatch"
+                for key, leaf in group.items():
+                    leaf[:, j].copy_(row[key])
         self.next_pos[slot] = spill["next_pos"]
 
     def _kv_bytes(self) -> tuple[int, int]:

@@ -30,6 +30,13 @@ do three extra host-side things per program:
    per-program ``profile_step_seconds`` histogram (noise only ever adds
    time).
 
+On a mesh (``sharder=``) every rank costs its own slice of each program:
+the FLOPs and bytes of the summary and the gauges are per rank, and each
+row's ``collective_bytes`` is the rank's collective payload
+(``utils/cost.py``).  The costing run issues the program's collectives, so
+every rank makes it at the same point of the same serve (each rank runs
+the same scheduler).
+
 Peaks default to the H100 SXM data-sheet rates in ``device.py``
 (``PEAK_FLOPS_BF16``, ``HBM_BW``); on the CPU the fraction is then "the
 share of an H100's roofline", tiny but consistent: it ranks programs and
@@ -173,7 +180,7 @@ class StepProfiler:
         rows = self.summary()
         if not rows:
             return "profiler: no costed programs observed"
-        lines = ["profiler (fastest-half means; roofline at "
+        lines = ["profiler (fastest-half means; FLOPs and bytes per rank; roofline at "
                  f"{self.peak_flops / 1e12:.0f} TFLOP/s, "
                  f"{self.hbm_bw / 1e9:.0f} GB/s):"]
         for r in rows:

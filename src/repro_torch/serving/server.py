@@ -90,8 +90,13 @@ SSM and MoE layers placed by the same ``constrain``; on the card the step
 is one graph, its collectives inside.  Dense, MoE (bucketed with the
 router pad mask), SSM (exact-length prefills) and hybrid decoders take a
 sharder alike.  As in the reference, ``paged`` and ``prefill_chunk`` refuse
-a sharder; preemption (spilling a sharded row) and the step profiler on a
-mesh wait for ROADMAP A11.2.
+a sharder.  Preemption on a mesh: every rank runs the same scheduler, so
+every rank spills the same victim in the same order; the spill gathers the
+victim's whole row onto every rank (``SlotKVCache.spill_slot``), so it
+resumes in any free slot, whichever data rank holds it.  The step profiler
+on a mesh costs each rank's own slice of each program (its FLOPs and bytes
+are per rank, its ``collective_bytes`` the rank's payload); the costing run
+issues the program's collectives, and every rank makes it at the same point.
 """
 
 from __future__ import annotations
@@ -195,10 +200,6 @@ class Server:
                 raise ValueError("prefill_chunk is single-device only (the chunk workspace "
                                  "and commit path are unsharded); drop one of prefill_chunk "
                                  "/ sharder")
-        if sharder is not None and (max_preemptions > 0
-                                    or getattr(telemetry, "profiler", None) is not None):
-            raise NotImplementedError("preemption and the step profiler on a mesh "
-                                      "(sharder=) wait for ROADMAP A11.2")
         self.device = resolve_device(device)
         # chunk starts at multiples of this (see the module docstring)
         self._chunk_align = attention.Q_PIECE if self.device.type == "cuda" else 1

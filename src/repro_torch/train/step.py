@@ -13,8 +13,8 @@ flat-encode launch a leaf of 1,024 elements or more), its error feedback
 carried in ``TrainState.err``.
 
 On a ("data", "model") mesh (``sharder=``, ``models/sharding.py``) a
-decoder (dense, MoE, SSM or hybrid) trains as the reference's sharded step
-does: the state is stored
+decoder (dense, MoE, SSM or hybrid) or the encoder-decoder trains as the
+reference's sharded step does: the state is stored
 FSDP's way (``TrainPlacement``: each rank holds its slice of every dense
 leaf, of its moments and of its error), each microbatch's rows split over
 the data axes, weights gathered where used and their gradients
@@ -85,7 +85,8 @@ def make_train_step(cfg, *, sharder=None, peak_lr: float = 3e-3, warmup: int = 5
 
     def loss_of(params, mb):
         if cfg.encoder_decoder:
-            return seq2seq.loss_fn(params, mb["frames"], mb["tokens"], mb["labels"], cfg)
+            return seq2seq.loss_fn(params, mb["frames"], mb["tokens"], mb["labels"], cfg,
+                                   constrain=constrain, q_pad=q_pad)
         return lm.loss_fn(params, mb["tokens"], mb["labels"], cfg, constrain=constrain,
                           q_pad=q_pad, loss_chunk=loss_chunk)
 
@@ -93,14 +94,21 @@ def make_train_step(cfg, *, sharder=None, peak_lr: float = 3e-3, warmup: int = 5
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         live = placement.live(flat) if placement is not None else unflatten(params, flat)
         b = batch["tokens"].shape[0]
-        if microbatches < 1 or b % (microbatches * d_n):
+        # an encoder-decoder batch that does not divide the data ranks stays
+        # whole on each (the reference's _batch_sharding): every data rank
+        # takes the whole microbatch, and the global sums count it d_n times
+        # over, so the loss is its mean and the summed gradients its own
+        whole = cfg.encoder_decoder and microbatches >= 1 and b % microbatches == 0 \
+            and b % (microbatches * d_n) != 0
+        if microbatches < 1 or (b % (microbatches * d_n) and not whole):
             raise ValueError(f"batch {b} does not split into {microbatches} microbatches "
                              f"over {d_n} data ranks")
-        mb, share = b // microbatches, b // (microbatches * d_n)
+        mb = b // microbatches
+        share = mb if whole else b // (microbatches * d_n)
         keys = ("frames", "tokens", "labels") if cfg.encoder_decoder else ("tokens", "labels")
         loss_sum, acc = 0.0, [torch.zeros_like(p, dtype=torch.float32) for p in flat]
         for i in range(microbatches):
-            lo = i * mb + d_idx * share
+            lo = i * mb + (0 if whole else d_idx * share)
             loss = loss_of(live, {k: batch[k][lo:lo + share] for k in keys})
             grads = torch.autograd.grad(loss, flat)
             for a, g in zip(acc, grads):

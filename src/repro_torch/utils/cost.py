@@ -43,6 +43,17 @@ differ (on the card the decode partials go a row at a time and are
 concatenated, which adds the concatenation's bytes).  ``kernel_flops`` and
 ``kernel_bytes`` are the charged share.
 
+**Collectives** (``collective``): each of ``kernels/ops.py``'s raw
+collectives charges ``collective_bytes``, its per-rank payload by the
+reference's rule (``utils/hlo.py``: the bytes of the collective's result,
+twice for an all-reduce, its reduce and broadcast phases; once for an
+all-gather, a reduce-scatter, an all-to-all or a permute), whatever the
+size of its group and inside a unit too, since no unit's charge holds one.
+The ``torch.distributed`` ops themselves are not counted as aten ops
+(their ``c10d`` calls move no HBM bytes of the program's own).  On a mesh
+a program is costed on each rank: its FLOPs and bytes are that rank's
+slice, its ``collective_bytes`` that rank's payload.
+
 ``hbm_bytes`` of an eager program is the traffic of its ops as launched,
 one after another: what a fused program would keep on chip is counted each
 time one op writes it and the next reads it, so it is an upper estimate
@@ -65,7 +76,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["ProgramCost", "charge", "measure", "nbytes", "unit"]
+__all__ = ["ProgramCost", "charge", "collective", "measure", "nbytes", "unit"]
 
 
 @dataclass
@@ -91,6 +102,7 @@ class _Tally:
     def __init__(self):
         self.flops = self.dot_flops = self.hbm_bytes = 0
         self.kernel_flops = self.kernel_bytes = 0
+        self.collective_bytes = 0
         self.depth = 0   # open units: nothing inside one is counted
 
 
@@ -107,18 +119,36 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def charge(*, flops: int = 0, dot_flops: int = 0, hbm_bytes: int = 0) -> None:
+def charge(*, flops: int = 0, dot_flops: int = 0, hbm_bytes: int = 0,
+           collective_bytes: float = 0) -> None:
     """Add a unit's work to the open measurement: ``flops`` all of its
-    FLOPs, ``dot_flops`` the share of them in products.  A no-op outside a
-    measurement and inside another unit."""
+    FLOPs, ``dot_flops`` the share of them in products, ``collective_bytes``
+    a collective's per-rank payload (counted inside a unit too).  A no-op
+    outside a measurement; inside another unit it adds only
+    ``collective_bytes``."""
     t = _open()
-    if t is None or t.depth:
+    if t is None:
+        return
+    t.collective_bytes += collective_bytes
+    if t.depth:
         return
     t.flops += flops
     t.dot_flops += dot_flops
     t.hbm_bytes += hbm_bytes
     t.kernel_flops += flops
     t.kernel_bytes += hbm_bytes
+
+
+#: the reference's payload factor of each collective (``utils/hlo.py``)
+COLLECTIVE_FACTOR = {"all_reduce": 2.0, "all_gather": 1.0, "reduce_scatter": 1.0,
+                     "all_to_all": 1.0, "permute": 1.0}
+
+
+def collective(kind: str, result: torch.Tensor) -> None:
+    """Charge one collective of ``kind`` (a key of ``COLLECTIVE_FACTOR``)
+    whose result on this rank is ``result``: its bytes times the kind's
+    factor."""
+    charge(collective_bytes=COLLECTIVE_FACTOR[kind] * nbytes(result))
 
 
 def unit(work):
@@ -225,7 +255,7 @@ class _Counting(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self.tally.depth:
+        if not self.tally.depth and func.namespace != "c10d":
             self._count(func, args, kwargs, out)
         return out
 
@@ -293,7 +323,8 @@ def measure(name: str, fn, *args) -> ProgramCost:
         _OPEN.tally = None
         launches.add([b - a for a, b in zip(launches.snapshot(), before)])
     return ProgramCost(name=name, flops=float(tally.flops), dot_flops=float(tally.dot_flops),
-                       hbm_bytes=float(tally.hbm_bytes), collective_bytes=0.0,
+                       hbm_bytes=float(tally.hbm_bytes),
+                       collective_bytes=float(tally.collective_bytes),
                        kernel_flops=float(tally.kernel_flops),
                        kernel_bytes=float(tally.kernel_bytes),
                        cost_s=time.perf_counter() - t0)

@@ -437,13 +437,16 @@ def test_attention_free_arch_passes_the_kv_gate_on_a_mesh():
 
 
 def test_mesh_still_refuses_the_encoder_decoder_and_takes_the_rest():
-    """A Sharder on a mesh takes moonshot, phi3.5-moe, mamba2 and jamba and
-    places their trees; the encoder-decoder still waits for A11.2."""
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        tsh.Sharder(PortMesh(1, 2), get_arch("seamless-m4t-large-v2"))
+    """A Sharder on a mesh takes moonshot, phi3.5-moe, mamba2 and jamba and,
+    since the encoder-decoder's slice of A11.2, seamless too, and places
+    their trees (``tests/test_torch_encdec_mesh.py`` holds seamless's
+    placements to the reference's)."""
+    from repro_torch.models import seq2seq
+
     for name in ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "mamba2-130m",
-                 "jamba-v0.1-52b"):
+                 "jamba-v0.1-52b", "seamless-m4t-large-v2"):
         cfg = dataclasses.replace(get_arch(name).reduced(), name=name)
+        init = seq2seq.init_params if cfg.encoder_decoder else lm.init_params
         specs = _leaves(tsh.Sharder(PortMesh(1, 2), cfg, replicate_params_below=0)
-                        .param_spec_tree(lm.init_params(cfg, device="meta")))
+                        .param_spec_tree(init(cfg, device="meta")))
         assert any(v and "model" in v for v in specs.values()), name

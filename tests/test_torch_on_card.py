@@ -111,7 +111,14 @@ where the card is (a machine without JAX):
   (logits, prefill caches, tokens), whose sharded Server equals the
   sharded batch-1 Engine, and whose sharded train steps (moonshot, mamba2)
   equal the unsharded ones bit for bit; the expert-batched GEMV on a
-  rank's slice of a stack equals the whole-stack launch's rows.
+  rank's slice of a stack equals the whole-stack launch's rows;
+* the encoder-decoder, preemption and the profiler on a 1x1 mesh (``-k
+  "encdec_mesh or preempted or profiler_dot"``): seamless's reduced()
+  sharded prefill and decode steps and its sharded train steps equal to the
+  unsharded ones bit for bit; tiny-650k's preempted sharded Server equal to
+  the unsharded preempted Server over the routed read and to the sharded
+  batch-1 Engine, spilling the same bytes; the profiled sharded Engine's
+  dot FLOPs the unsharded Engine's, its collective bytes counted.
 """
 
 import numpy as np
@@ -1993,3 +2000,154 @@ def test_moe_ssm_mesh_expert_gemv_on_a_slice_equals_whole_stack():
     for e in range(El):
         c = int(counts[e0 + e])
         assert torch.equal(part[e, :c].view(torch.int16), whole[e0 + e, :c].view(torch.int16))
+
+
+# -- the encoder-decoder, preemption and the profiler on a 1x1 mesh ---------------
+
+def _s2s_rollout(params, cfg, frames, bos, n, sharder=None):
+    """(tokens, logits, caches) of seq2seq.prefill and n - 1 greedy decode
+    steps; sharded: the sharder's placement and reads."""
+    from repro_torch.models import seq2seq
+
+    B = frames.shape[0]
+    kw, step_kw = {}, {}
+    if sharder is not None:
+        params = sharder.shard_params(params)
+        kw = dict(constrain=sharder.constrain, q_pad=sharder.head_pad())
+        step_kw = dict(constrain=sharder.constrain,
+                       decode_attn=sharder.decode_attn_fn(B, cfg.decoder_cache_len),
+                       cross_attn=sharder.cross_attn_fn(B, frames.shape[1]))
+    with torch.inference_mode():
+        logits, caches = seq2seq.prefill(params, frames, bos, cfg, **kw)
+        if sharder is not None:
+            caches = sharder.shard_caches(caches, B)
+        toks, logs = [logits.argmax(-1).to(torch.int32)], [logits]
+        for t in range(n - 1):
+            logits, caches = seq2seq.decode_step(params, toks[-1], caches, bos.shape[1] + t,
+                                                 cfg, **step_kw)
+            toks.append(logits.argmax(-1).to(torch.int32))
+            logs.append(logits)
+    return torch.stack(toks, 1), torch.stack(logs, 1), caches
+
+
+@pytest.mark.cuda
+def test_encdec_mesh_1x1_prefill_and_decode_equal_unsharded(nccl_mesh):
+    """seamless's reduced() config, 4-bit weights: the sharded prefill and
+    decode steps (the sharder's constrain, q_pad, decode and cross reads,
+    caches placed by shard_caches) equal the unsharded ones bit for bit:
+    logits, tokens, the self and cross caches."""
+    from repro_torch.models import seq2seq
+    from repro_torch.models.sharding import Sharder
+
+    cfg = get_arch("seamless-m4t-large-v2").reduced()
+    qparams = quantize_params(seq2seq.init_params(cfg, seed=0, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    g = torch.Generator("cuda").manual_seed(2)
+    frames = torch.randn((4, 16, cfg.d_model), generator=g, device="cuda")
+    bos = torch.zeros((4, 2), dtype=torch.int64, device="cuda")
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    t0, l0, c0 = _s2s_rollout(qparams, cfg, frames, bos, 8)
+    t1, l1, c1 = _s2s_rollout(qparams, cfg, frames, bos, 8, sharder)
+    assert torch.equal(t0, t1) and torch.equal(l0.view(torch.int16), l1.view(torch.int16))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(c0, c1) for k in a)
+
+
+@pytest.mark.cuda
+def test_encdec_mesh_1x1_train_steps_equal_unsharded(nccl_mesh):
+    """seamless's reduced() config trained two steps on the 1x1 mesh (FSDP
+    storage, bf16 masters, remat, 8-bit compression, 2 microbatches) gives
+    the unsharded steps' loss, norm and state bit for bit."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("seamless-m4t-large-v2").reduced()
+    g = torch.Generator("cuda").manual_seed(0)
+    batches = []
+    for _ in range(2):
+        t = torch.randint(0, cfg.vocab_size, (4, 17), device="cuda", generator=g)
+        batches.append({"frames": torch.randn((4, 32, cfg.d_model), generator=g,
+                                              device="cuda").to(torch.bfloat16),
+                        "tokens": t[:, :-1], "labels": t[:, 1:]})
+    runs = []
+    for sharder in (Sharder(nccl_mesh, cfg, replicate_params_below=0), None):
+        state = tstep.init_state(cfg, device="cuda", grad_compress_bits=8,
+                                 param_dtype=torch.bfloat16)
+        step = tstep.make_train_step(cfg, sharder=sharder, grad_compress_bits=8,
+                                     microbatches=2, donate=True)
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs.append((metrics, leaves(state)))
+    (m1, s1), (m2, s2) = runs
+    assert m1 == m2
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2, strict=True))
+
+
+@pytest.mark.cuda
+def test_mesh_1x1_preempted_server_equals_unsharded_and_engine(nccl_mesh):
+    """tiny-650k at kv4, 2 slots, max_preemptions 1: an urgent request
+    evicts a background one, which resumes in the other slot; the sharded
+    Server's tokens equal the unsharded preempted Server's (its step over
+    the routed read) and the sharded batch-1 Engine's, and both spill the
+    same bytes."""
+    from repro_torch.models.sharding import Sharder
+
+    cfg = get_arch("tiny-650k").with_kv_quant(4)
+    qparams = quantize_params(lm.init_params(cfg, seed=1, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    sharder = Sharder(nccl_mesh, cfg, replicate_params_below=0)
+    rs = np.random.RandomState(4)
+    reqs = [(rs.randint(0, cfg.vocab_size, 6), 4, 0.0, 1),
+            (rs.randint(0, cfg.vocab_size, 9), 12, 0.0, 1),
+            (rs.randint(0, cfg.vocab_size, 5), 8, 2.0, 0)]
+
+    class Routed(Server):
+        def _decode_program(self, caches):
+            logits, _ = lm.decode_step(self.params, self._tok, caches, self.pool._pos_dev,
+                                       self.cfg, decode_attn=_routed_read)
+            return sample_token(logits, self._gen, self._temps_dev)
+
+    out = []
+    for cls, sh in ((Server, sharder), (Routed, None)):
+        tel = Telemetry()
+        srv = cls(qparams, cfg, num_slots=2, max_seq_len=32, sharder=sh, max_preemptions=1,
+                  telemetry=tel, device="cuda")
+        ids = [srv.submit(p, n, arrival_time=a, priority=c) for p, n, a, c in reqs]
+        res = srv.run_until_drained()
+        out.append(([res[i] for i in ids], srv.scheduler.n_preemptions,
+                    tel.registry.counter("kv_spill_bytes_total", kind="packed").value))
+    (t1, n1, b1), (t2, n2, b2) = out
+    assert n1 == n2 == 1 and b1 == b2 > 0
+    assert t1 == t2
+    eng = Engine(qparams, cfg, max_seq_len=32, sharder=sharder, device="cuda")
+    for (p, n, _, _), t in zip(reqs, t1):
+        assert eng.generate(torch.as_tensor(p, device="cuda")[None], n)[0].tolist() == t
+
+
+@pytest.mark.cuda
+def test_mesh_1x1_profiler_dot_flops_equal_unsharded(nccl_mesh):
+    """The profiled sharded Engine (tiny-650k, kv4): tokens as unprofiled,
+    each program's dot FLOPs the unsharded program's, collective bytes
+    counted, every roofline_frac in (0, 1]."""
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.serving import StepProfiler
+
+    cfg = get_arch("tiny-650k").with_kv_quant(4)
+    qparams = quantize_params(lm.init_params(cfg, seed=2, device="cuda"),
+                              QuantConfig(bits=4, dtype="float", block_size=64), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 24), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(6))
+    costs, tokens = [], []
+    for sh in (Sharder(nccl_mesh, cfg, replicate_params_below=0), None):
+        tel = Telemetry(profiler=StepProfiler())
+        engine = Engine(qparams, cfg, max_seq_len=32, sharder=sh, telemetry=tel,
+                        device="cuda")
+        tokens.append(engine.generate(prompts, 8))
+        costs.append(tel.profiler.sessions[0].costs)
+        assert all(0.0 < r["roofline_frac"] <= 1.0 for r in tel.profiler.summary())
+    assert sorted(costs[0]) == sorted(costs[1]) == ["decode_step[4]", "prefill[4x24]"]
+    for name, pc in costs[0].items():
+        assert pc.dot_flops == costs[1][name].dot_flops
+        assert pc.collective_bytes > 0 and costs[1][name].collective_bytes == 0

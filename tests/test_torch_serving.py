@@ -42,6 +42,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import QuantConfig, get_arch  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
+from repro_torch.models.sharding import Sharder  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     Engine,
     Server,
@@ -300,10 +301,11 @@ def test_server_rejects_unported_options():
     kw = dict(num_slots=1, max_seq_len=16, device="cpu")
     with pytest.raises(ValueError):
         Server(params, cfg, prefill_chunk=0, **kw)
-    # a sharder serves (tests/test_torch_mesh_serving.py); preemption on a
-    # mesh waits for A11.2
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        Server(params, cfg, sharder=object(), max_preemptions=1, **kw)
+    # a sharder serves (tests/test_torch_mesh_serving.py), with preemption
+    # and the step profiler too (tests/test_torch_encdec_mesh.py): both
+    # construct
+    Server(params, cfg, sharder=Sharder(None, cfg), max_preemptions=1,
+           telemetry=Telemetry(profiler=StepProfiler()), **kw)
     # the kv probe and the step profiler are ported: both construct
     Server(params, cfg, telemetry=Telemetry(kv_probe_every=1, profiler=StepProfiler()), **kw)
     srv = Server(params, cfg, **kw)

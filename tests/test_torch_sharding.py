@@ -251,15 +251,22 @@ def test_check_decode_capability_equals_reference(case):
 
 @pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "mamba2-130m", "seamless-m4t-large-v2"])
 def test_mesh_refuses_what_waits_for_a11_2(name):
-    """The encoder-decoder still waits for A11.2; a mixture-of-experts or an
-    SSM decoder gets a Sharder, which places its tree: the expert stacks cut
-    on E, the conv's channels over "model"."""
+    """Nothing waits for A11.2 any more: a mixture-of-experts, an SSM
+    decoder and the encoder-decoder each get a Sharder, which places its
+    tree: the expert stacks cut on E, the conv's channels over "model", the
+    encoder-decoder's projections column- or row-parallel and its
+    vocabulary (256,206 rows, even) over "model"."""
     cfg = get_arch(name)
-    if cfg.encoder_decoder:
-        with pytest.raises(NotImplementedError, match="A11.2"):
-            tsh.Sharder(PortMesh(1, 2), cfg)
-        return
     s = tsh.Sharder(PortMesh(1, 2), cfg, replicate_params_below=0)
+    if cfg.encoder_decoder:
+        from repro_torch.models import seq2seq
+
+        specs = _leaves(s.param_spec_tree(seq2seq.init_params(cfg, device="meta")))
+        assert specs["/enc_stack/mixer/wq/w"] == (None, "data", "model")
+        assert specs["/dec_stack/cross_attn/wo/w"] == (None, "model", "data")
+        assert specs["/frame_proj/w"] == ("data", "model")
+        assert specs["/embed"] == specs["/lm_head"] == ("model", "data")
+        return
     specs = _leaves(s.param_spec_tree(lm.init_params(cfg, device="meta")))
     if cfg.n_experts:
         assert specs["/stack/0/ffn/w_gate"] == (None, "model", "data", None)
