@@ -358,6 +358,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
                parameter after each step bit for bit, the sharded steps'
                flat encodes = steps x compressed leaves.  Prints each step's
                device and host ms, sharded and unsharded.
+  3p. dryrun — the dry-run (launch/specs.py, launch/dryrun.py) in a
+               subprocess of its own (the parent holds NCCL worlds; no card:
+               CUDA_VISIBLE_DEVICES empty), started after the build and
+               read after the audit phase, DRYRUN_TIMEOUT seconds at most,
+               a nonzero exit failing the run.  On a fake 1x1 world it
+               builds 3l's two profiled programs as the Engine builds them
+               (Qwen2-7B kv4, bf16 weights quantized to 4-bit shells,
+               replicate_params_below=0; decode_step[4] over 288 slots read
+               through decode_attn_fn(4, 288) at a 0-d position tensor,
+               prefill[4x256] reserving 288 slots and cutting its caches by
+               shard_caches) and costs them on fake tensors: dot FLOPs, the
+               kernels' charged FLOPs and bytes (B1's GEMV and GEMM, the KV
+               dequant of the routed read) and decode_step[4]'s collective
+               bytes equal 3l's profile of the real programs, the parameter
+               and cache bytes equal the real sharded tree's and caches' on
+               the card, the argument bytes those plus the tokens and the
+               position; FLOPs and HBM bytes beside 3l's as a ratio, FLOPs
+               within DRYRUN_FLOPS_REL of 1, HBM bytes within
+               DRYRUN_HBM_RATIO either way.  Then Qwen2-7B's production cells
+               on the fake 16x16 world (train_4k, prefill_32k and
+               decode_32k ok, long_500k skipped with the reference's
+               reason): their roofline terms, bottleneck and seconds.
   3e. plan  — mixed precision on the same Qwen2-7B (seeded bf16 weights, full
                width and depth): precision.build_plan on the card at the
                uniform-4 budget with KL probes (a Zipf-Markov batch over the
@@ -474,6 +496,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()   # a phase line's elapsed_s counts from here
 SEED = 0
 ARCH = "qwen2-7b"
 BATCH, PROMPT, NEW_TOKENS, KV_BITS = 4, 256, 32, 4
@@ -509,6 +532,16 @@ MODE_GAP_TOL = 0.5
 PPL_K8_REL_TOL = 0.01
 # training must have learnt: the last loss at least this many nats below the first
 MIN_LOSS_DROP = 1.0
+# the dryrun phase: its subprocess's time limit (it runs beside the card's
+# phases, on one host core) and the bounds on the fake programs' FLOPs and
+# HBM bytes over the card's.  Only the counted ops between the kernels'
+# units differ (utils/cost.py), the sampling of the Engine's step among
+# them: on an H100 80GB HBM3 at 700.00 W (PERF.md, section 6) the FLOPs came to
+# 1.000056 (decode_step[4]) and 1.000051 (prefill[4x256]) of the card's, the
+# HBM bytes to 1.0037 and 1.1221
+DRYRUN_TIMEOUT = 900
+DRYRUN_FLOPS_REL = 1e-3        # |fake / card - 1| at most this
+DRYRUN_HBM_RATIO = 1.25        # fake / card within this either way
 # the server phase: the pool, its traffic and the chunk size
 SERVER_SLOTS, SERVER_REQUESTS, SERVER_CHUNK = 8, 24, 128
 SERVER_PROMPT_LENS, SERVER_NEW_TOKENS = (16, 512), (16, 64)
@@ -639,6 +672,8 @@ LAUNCH_ARCH, LAUNCH_REQUESTS, LAUNCH_MAX_NEW = "tiny-2.6m", 12, 16
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -673,6 +708,7 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, v in report.items()}})
 
+    dryrun_child = start_dryrun()
     errs = check_kernels(torch, dev)
     windows = windows_path(torch, dev)
     experts = moe_path(torch, dev)
@@ -703,6 +739,7 @@ def main() -> int:
     ledger = ledger_path(torch, dev, run, bench)
     times = time_kernels(torch, dev, run, paper)
     audit_path(torch, dev, run)
+    dryrun_path(dryrun_child, run)
     main_counts = (run["server_counts"], run["profile_counts"], run["paged_counts"],
                    run["routed_counts"], run["mesh_counts"], train_mesh, moe_ssm_mesh,
                    encdec_mesh, run["plan_counts"],
@@ -2889,6 +2926,8 @@ def _mesh_profile(torch, dev, qparams, cfg, prompts, sharder, reqs, slot_len, wa
         out[who] = {name: {"flops": got[name].flops, "dot_flops": got[name].dot_flops,
                            "hbm_bytes": got[name].hbm_bytes,
                            "collective_bytes": got[name].collective_bytes,
+                           "kernel_flops": got[name].kernel_flops,
+                           "kernel_bytes": got[name].kernel_bytes,
                            "unsharded_flops": costs[who][name].flops,
                            "unsharded_hbm_bytes": costs[who][name].hbm_bytes,
                            "roofline_frac": rows[name]["roofline_frac"] if name in rows
@@ -2984,6 +3023,7 @@ def mesh_path(torch, dev, run) -> dict:
     from repro_torch.models import lm
     from repro_torch.models.sharding import Sharder
     from repro_torch.serving import KV_LOGIT_TOL, Engine, Server, Telemetry, kv_oracle_logit_gap
+    from repro_torch.utils import cost
 
     base, qparams, prompts = run["cfg"], run["qparams"], run["prompts"]
     t_phase = time.perf_counter()
@@ -3144,6 +3184,14 @@ def mesh_path(torch, dev, run) -> dict:
             profile = _mesh_profile(torch, dev, qparams, base, prompts, engine.sharder, reqs,
                                     slot_len, kv_tokens[KV_BITS], served, run["profile_costs"],
                                     counted)
+            # the dryrun phase's reference: the kv4 Engine's tree and prefill
+            # caches as placed on the card, and its profiled programs
+            with torch.inference_mode():
+                _, caches = engine._prefill(prompts)
+            run["mesh_dryrun"] = {"profile": profile["engine"],
+                                  "params_bytes": cost.storage_bytes(engine.params),
+                                  "caches_bytes": cost.storage_bytes(caches)}
+            del caches
             del solo, engines, engine, e, step, log
         finally:
             proc.kill()
@@ -3167,6 +3215,136 @@ def mesh_path(torch, dev, run) -> dict:
           "seconds": time.perf_counter() - t_phase})
     run["mesh_counts"] = total
     return total
+
+
+def start_dryrun():
+    """Phase 3p's subprocess, started in the background: (the process, its
+    start time).  It sees no card and is stopped when this process exits."""
+    import atexit
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_child()"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def dryrun_child() -> None:
+    """Phase 3p's subprocess (module docstring): 3l's two programs on a fake
+    1x1 world, then Qwen2-7B's production cells on the fake 16x16 one; one
+    line ``DRYRUN {json}`` on stdout."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.utils import cost
+
+    torch.set_num_threads(1)   # fake tensors compute nothing
+    os.nice(10)                # the card's phases come first on the host
+    t0 = time.perf_counter()
+    mesh = dryrun.fake_mesh(mesh_shape=(1, 1))
+    cfg = get_arch(ARCH).with_kv_quant(KV_BITS)
+    slots = PROMPT + NEW_TOKENS   # the Engine's max_seq_len (a 1x1 mesh pads nothing)
+    kw = dict(cfg=cfg, sharder_kw=dict(replicate_params_below=0))
+    engine = dict(cache_len=slots, param_dtype=torch.bfloat16)
+    programs = {}
+    for name, shape in (
+            (f"decode_step[{BATCH}]", specs.EngineShape("decode_step", slots, BATCH, "decode",
+                                                         **engine)),
+            (f"prefill[{BATCH}x{PROMPT}]", specs.EngineShape("prefill", PROMPT, BATCH,
+                                                              "prefill", **engine))):
+        t = time.perf_counter()
+        cell = specs.build_cell(ARCH, shape, mesh, **kw)
+        pc = dryrun.measure_cell(cell)
+        args = cell["args"]
+        programs[name] = {**{k: v for k, v in dataclasses.asdict(pc).items() if k != "name"},
+                          "params_bytes": cost.storage_bytes(args[0]),
+                          "caches_bytes": cost.storage_bytes(args[2]) if len(args) > 2 else 0,
+                          "other_bytes": cost.storage_bytes(args[1:2] + args[3:]),
+                          "seconds": time.perf_counter() - t}
+        del cell
+    programs_s = time.perf_counter() - t0
+    cells = []
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        t = time.perf_counter()
+        rec = dryrun.run_cell(ARCH, shape, save=False)
+        cells.append({**{k: rec.get(k) for k in ("shape", "mesh", "status", "reason", "kind",
+                                                  "roofline", "hlo_cost", "memory")},
+                      "seconds": time.perf_counter() - t})
+    print("DRYRUN " + json.dumps({"programs": programs, "programs_seconds": programs_s,
+                                  "cells": cells, "seconds": time.perf_counter() - t0}),
+          flush=True)
+
+
+def dryrun_path(started, run) -> dict:
+    """Phase 3p: the dry-run's subprocess read and held to 3l's profile of
+    the real programs on the card (module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, shape_applicable
+
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke check failed: the dry-run ran past {DRYRUN_TIMEOUT} s")
+    require(proc.returncode == 0, f"the dry-run exited {proc.returncode}: {err[-3000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+    require(len(line) == 1, f"the dry-run printed {out[-2000:]}")
+    got = json.loads(line[0][len("DRYRUN "):])
+    card = run["mesh_dryrun"]
+    programs = {}
+    for name, fake in got["programs"].items():
+        real = card["profile"][name]
+        for key in ("dot_flops", "kernel_flops", "kernel_bytes"):
+            require(fake[key] == real[key], f"dryrun {name}: {key} {fake[key]} on fake "
+                    f"tensors, {real[key]} on the card")
+        require(fake["params_bytes"] == card["params_bytes"],
+                f"dryrun {name}: parameter bytes {fake['params_bytes']}, the card's tree "
+                f"{card['params_bytes']}")
+        if name.startswith("decode_step"):
+            require(fake["collective_bytes"] == real["collective_bytes"] > 0,
+                    f"dryrun {name}: collective bytes {fake['collective_bytes']}, the card's "
+                    f"{real['collective_bytes']}")
+            require(fake["caches_bytes"] == card["caches_bytes"],
+                    f"dryrun {name}: cache bytes {fake['caches_bytes']}, the card's "
+                    f"{card['caches_bytes']}")
+        require(fake["argument_bytes"] == fake["params_bytes"] + fake["caches_bytes"]
+                + fake["other_bytes"], f"dryrun {name}: argument bytes {fake['argument_bytes']}")
+        ratios = {k: fake[k] / real[k] for k in ("flops", "hbm_bytes")}
+        require(abs(ratios["flops"] - 1) <= DRYRUN_FLOPS_REL,
+                f"dryrun {name}: FLOPs on fake tensors {ratios['flops']:.6f} x the card's")
+        require(1 / DRYRUN_HBM_RATIO <= ratios["hbm_bytes"] <= DRYRUN_HBM_RATIO,
+                f"dryrun {name}: HBM bytes on fake tensors {ratios['hbm_bytes']:.4f} x the "
+                "card's")
+        programs[name] = {"fake": {k: fake[k] for k in (
+            "flops", "dot_flops", "hbm_bytes", "collective_bytes", "kernel_flops",
+            "kernel_bytes", "argument_bytes", "output_bytes", "alias_bytes", "temp_bytes")},
+            "card": real, "ratio_fake_over_card": ratios, "seconds": fake["seconds"]}
+    cfg = get_arch(ARCH)
+    for cell in got["cells"]:
+        ok, why = shape_applicable(cfg, SHAPES[cell["shape"]])
+        want = "ok" if ok else "skipped"
+        require(cell["status"] == want and (ok or cell["reason"] == why),
+                f"dryrun {ARCH} x {cell['shape']}: {cell['status']} {cell.get('reason')}")
+        if ok:
+            rl = cell["roofline"]
+            require(all(math.isfinite(rl[k]) and rl[k] > 0
+                        for k in ("compute_ms", "memory_ms", "collective_ms")),
+                    f"dryrun {ARCH} x {cell['shape']}: terms {rl}")
+    phase = {"phase": "dryrun", "arch": ARCH, "programs_1x1": programs,
+             "params_bytes_card": card["params_bytes"], "caches_bytes_card": card["caches_bytes"],
+             "flops_rel_bound": DRYRUN_FLOPS_REL, "hbm_ratio_bound": DRYRUN_HBM_RATIO, "programs_seconds": got["programs_seconds"],
+             "cells_pod16x16": [{k: c[k] for k in ("shape", "status", "reason", "roofline",
+                                                   "memory", "seconds") if k in c}
+                                for c in got["cells"]],
+             "child_seconds": got["seconds"], "seconds": time.perf_counter() - t0}
+    emit(phase)
+    return phase
 
 
 # the train mesh phase: Qwen2-7B at full width, depth 4, bf16 masters, 2

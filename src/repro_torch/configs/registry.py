@@ -40,6 +40,9 @@ ARCHS: dict[str, ArchConfig] = {
         seamless_m4t_large_v2.CONFIG,
     ]
 }
+
+ASSIGNED = list(ARCHS)  # the 10 graded architectures (the dry-run's)
+
 ARCHS.update(tiny.TINY_FAMILY)
 
 

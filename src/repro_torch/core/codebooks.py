@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.utils import cost
+
 DATA_TYPES = ("int", "float", "dynamic", "quantile")
 
 #: paper App. A: 3-bit exponent for 4..8-bit float, 2-bit for 3-bit float.
@@ -101,9 +103,12 @@ def quantile_codebook(tensor: torch.Tensor, bits: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _static_codebook(dtype: str, bits: int, exponent_bits, device: str) -> torch.Tensor:
+def _static_codebook(dtype: str, bits: int, exponent_bits, device: str,
+                     fake_mode=None) -> torch.Tensor:
     """One shared tensor per (type, bits, device): callers must not write
-    to it.  Saves a host-to-device copy on every KV-cache read."""
+    to it.  Saves a host-to-device copy on every KV-cache read.  Under a
+    fake mode (the dry-run's) one of that mode's own, as a fake tensor
+    serves its mode alone."""
     table = {"int": lambda: int_codebook(bits),
              "float": lambda: float_codebook(bits, exponent_bits),
              "dynamic": lambda: dynamic_codebook(bits)}[dtype]()
@@ -120,7 +125,8 @@ def make_codebook(dtype: str, bits: int, *, exponent_bits: int | None = None,
             raise ValueError("make_codebook needs device= (or tensor=)")
         device = tensor.device
     if dtype in ("int", "float", "dynamic"):
-        return _static_codebook(dtype, bits, exponent_bits, str(torch.device(device)))
+        return _static_codebook(dtype, bits, exponent_bits, str(torch.device(device)),
+                                cost.fake_mode())
     if dtype == "quantile":
         if tensor is None:
             raise ValueError("quantile codebook is data-dependent; pass tensor=")

@@ -15,6 +15,13 @@ import torch
 # of repro/launch/mesh.py's TPU v5e PEAK_FLOPS_BF16 and HBM_BW
 PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
+# the collective term's rate, the counterpart of the reference's ICI_BW
+# ("per-chip injection, 1 link"): a 256- or 512-card mesh spans nodes of 8
+# (a 16-way "model" axis two of them), so a card injects into the network
+# through its one 400 Gb/s NDR port (ConnectX-7, one a GPU as a DGX H100
+# wires them): 50e9 bytes/s.  A mesh inside one node would have NVLink 4's
+# 450e9 bytes/s a direction instead.
+NET_BW = 50e9
 
 
 def resolve_device(device=None) -> torch.device:

@@ -16,7 +16,8 @@ init_file=path)``; a ``file://`` rendezvous needs no port).  Nothing here
 runs when the module is imported.
 
 Peak rates for a roofline are the H100's (``repro_torch/device.py``), not
-the TPU v5e constants of the reference's module.
+the TPU v5e constants of the reference's module; ``NET_BW``, the collective
+term's, stands where the reference's ``ICI_BW`` does.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import os
 
 import torch
 
-from repro_torch.device import HBM_BW, PEAK_FLOPS_BF16  # noqa: F401  (re-exported)
+from repro_torch.device import HBM_BW, NET_BW, PEAK_FLOPS_BF16  # noqa: F401  (re-exported)
 
 #: the two axes of a serving mesh, in the reference's order
 AXES = ("data", "model")

@@ -194,8 +194,11 @@ def _experts(params, work, counts, cfg, *, decode: bool):
         if decode and G * C <= qk.GEMV_MAX_M:
             return _experts_batched(params, work[0], counts[0], cfg)[None]
         # a decode past the GEMV's rows multiplies every expert (no host read
-        # inside a captured step); a prefill only those that hold a token
-        active = range(E) if decode else torch.nonzero(counts.sum(0)).flatten().tolist()
+        # inside a captured step); a prefill only those that hold a token,
+        # save on fake tensors (the dry-run), which hold no counts to read:
+        # there every expert, as the reference's prefill multiplies them all
+        active = range(E) if decode or cost.is_fake(counts) \
+            else torch.nonzero(counts.sum(0)).flatten().tolist()
         return _experts_per_expert(params, work, active, cfg)
     w_gate, w_up, w_down = (_materialize(params[k], work.dtype) for k in MOE_WEIGHTS)
     h = activation(_f32_product(work, w_gate), cfg.act) * _f32_product(work, w_up)

@@ -2,7 +2,7 @@
 suites of the port.
 
     PYTHONPATH=src python -m repro_torch.paper.run
-        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel,serve,figmix,plan,ledger]
+        [--only fig2,fig3dt,fig3bs,fig4,appb,table1,kernel,roofline,serve,figmix,plan,ledger]
         [--device cpu] [--sizes tiny-160k,tiny-650k] [--steps N]
         [--cache-dir DIR]
 
@@ -14,11 +14,12 @@ suite needs it (all but ``kernel``, ``serve``, ``plan`` and ``ledger``), then
 runs each suite; the kernel microbench (``kernel_bench``), the serving bench
 (``serve_bench.run``: static vs continuous batching over kv16/8/4 on
 tiny-160k), the plan suite (``fig_mixed_frontier.run_plan``: plans for
-random-init archs under ``artifacts/plans/``) and the regression ledger's
-pinned records (``ledger.run``: candidates under artifacts/bench_torch/)
-train nothing.  Prints ``name,us_per_call,derived`` CSV rows (plus
-human-readable logs on stderr) and writes machine-readable results under
-artifacts/bench_torch/.
+random-init archs under ``artifacts/plans/``), the regression ledger's
+pinned records (``ledger.run``: candidates under artifacts/bench_torch/) and
+the roofline (``roofline.run``: the dry-run's records under
+``artifacts/dryrun_torch/``, ``launch/dryrun.py``) train nothing.  Prints
+``name,us_per_call,derived`` CSV rows (plus human-readable logs on stderr)
+and writes machine-readable results under artifacts/bench_torch/.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import time
 
 from repro_torch.paper import (appb_centering, common, fig2_bitlevel, fig3_blocksize,
                                fig3_datatypes, fig4_proxy, fig_mixed_frontier, kernel_bench,
-                               ledger, serve_bench, table1_gptq)
+                               ledger, roofline, serve_bench, table1_gptq)
 
 SUITES = {
     "fig2": fig2_bitlevel.run,
@@ -39,6 +40,7 @@ SUITES = {
     "table1": table1_gptq.run,
     "appb": appb_centering.run,
     "kernel": kernel_bench.run,
+    "roofline": roofline.run,
     "serve": serve_bench.run,
     "figmix": fig_mixed_frontier.run,
     "plan": fig_mixed_frontier.run_plan,
@@ -46,6 +48,8 @@ SUITES = {
 }
 #: the suites that run on the trained ladder
 ON_FAMILY = ("fig2", "fig3dt", "fig3bs", "fig4", "table1", "appb", "figmix")
+#: the suites that read records and run nothing (the roofline: the dry-run's)
+RECORDS_ONLY = ("roofline",)
 
 
 def log(*args):
@@ -79,6 +83,8 @@ def main(argv=None) -> None:
         log(f"\n==== {name} ====")
         if name in ON_FAMILY:
             rows, _ = SUITES[name](family, log=log)
+        elif name in RECORDS_ONLY:   # as the reference's suite runner calls it
+            rows, _ = SUITES[name](log=log)
         else:   # as the reference's suite runner calls it (kernel: no gate)
             rows, _ = SUITES[name](log=log, device=args.device, cli_args=vars(args))
         for r in rows:

@@ -59,24 +59,60 @@ one after another: what a fused program would keep on chip is counted each
 time one op writes it and the next reads it, so it is an upper estimate
 of the bytes a step must move, and the charged share a lower one.
 
+A metadata query (``prim.device``, ``prim.layout``, ``sym_size``,
+``sym_stride``, ``sym_numel``, ``sym_storage_offset``, ``is_contiguous``
+and the like) moves no data and costs nothing.  A real tensor answers them
+without dispatching, but a fake one (``torch._subclasses.FakeTensor``, the
+dry-run's: ``launch/dryrun.py``) dispatches ``prim.device`` through the
+counting mode on every use, so without this rule the same program would
+cost more on fake tensors than on real ones.
+
+**Memory** (``argument_bytes``, ``output_bytes``, ``alias_bytes``,
+``temp_bytes``): a storage tally of this module's own, not
+``torch.distributed._tools.mem_tracker``.  The arguments are the unique
+storages of the tensors in ``measure``'s arguments (through dicts, lists,
+tuples and dataclasses such as QuantizedTensor); every storage an op of the
+call allocates is added to the live bytes when it appears and taken off
+when it is freed (a weak reference's callback); a unit counts only the
+storages it returns (a kernel allocates its outputs; the plain version's
+temporaries, a dequantized weight on the CPU, are not the card's), so a
+program's account is the same on either route.  ``temp_bytes`` is the
+peak of those live bytes less the outputs' new storages, so the reference's
+``peak_estimate`` (arguments + temp + output - alias) is the arguments
+plus that peak.  Outputs are the unique storages of what the call returns;
+those that are argument storages (caches written in place, a donated train
+state) are ``alias_bytes``.  It counts storage bytes as tensors hold them:
+not the caching allocator's rounding (512-byte blocks in 2 MiB or larger
+segments), its fragmentation or the blocks it keeps cached after a free,
+nor the libraries' workspaces (cuBLAS, NCCL buffers) or the CUDA context.
+It works on real and fake tensors alike.
+
 Counting reads shapes and dtypes only, never a value: it does not sync the
 host, and it works under ``torch.inference_mode()`` and inside a stream
-context.  ``measure`` takes the kernel launches of the run back from the
+context.  ``measure(..., grad=True)`` runs the call with autograd on (a
+train step's backward, whose ops are counted as they run), else without
+gradients.  ``measure`` takes the kernel launches of the run back from the
 wrappers' counters (``kernels/launches.py``), so costing a program leaves
-them as they were.
+them as they were.  ``is_fake`` is the one test the programs make for the
+dry-run's fake tensors (``kernels/ops.pad_for_kernel``, ``models/moe.py``),
+and ``fake_mode`` the one for its fake mode (``core/codebooks.py`` keeps a
+cached codebook a mode).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["ProgramCost", "charge", "collective", "measure", "nbytes", "unit"]
+__all__ = ["ProgramCost", "charge", "collective", "fake_mode", "is_fake", "measure",
+           "nbytes", "storage_bytes", "unit"]
 
 
 @dataclass
@@ -91,6 +127,11 @@ class ProgramCost:
     kernel_flops: float
     kernel_bytes: float
     cost_s: float
+    # the memory account (module docstring)
+    argument_bytes: float = 0.0
+    output_bytes: float = 0.0
+    alias_bytes: float = 0.0
+    temp_bytes: float = 0.0
 
     def roofline_seconds(self, peak_flops: float, hbm_bw: float) -> float:
         """The roofline-predicted call time: the binding term of the
@@ -104,6 +145,7 @@ class _Tally:
         self.kernel_flops = self.kernel_bytes = 0
         self.collective_bytes = 0
         self.depth = 0   # open units: nothing inside one is counted
+        self.live = None   # the memory account (_Live)
 
 
 # the open measurement of this thread (``measure`` sets it), which the
@@ -117,6 +159,81 @@ def _open() -> _Tally | None:
 
 def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes without data: the dry-run's)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def fake_mode():
+    """The FakeTensorMode this thread runs under (the dry-run's), or None."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode()
+
+
+def _tree_tensors(tree, out: list) -> list:
+    """Every tensor of ``tree``: through dicts, lists, tuples (NamedTuples
+    too) and dataclass instances (QuantizedTensor's fields)."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _tree_tensors(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _tree_tensors(v, out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _tree_tensors(getattr(tree, f.name), out)
+    return out
+
+
+def _storages(tree) -> dict:
+    """{storage key: its bytes} of the unique storages of ``tree``'s tensors."""
+    found = {}
+    for t in _tree_tensors(tree, []):
+        st = t.untyped_storage()
+        found[st._cdata] = st.nbytes()
+    return found
+
+
+def storage_bytes(tree) -> int:
+    """The bytes of the unique storages of ``tree``'s tensors (``measure``'s
+    ``argument_bytes`` of a call given ``tree``)."""
+    return sum(_storages(tree).values())
+
+
+class _Live:
+    """The live bytes of the storages a measured call allocated, and their
+    peak (module docstring)."""
+
+    def __init__(self, arguments: dict):
+        self.arguments = arguments
+        self.sizes: dict = {}
+        self.refs: dict = {}
+        self.bytes = self.peak = 0
+
+    def add(self, outs) -> None:
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.sizes or key in self.arguments:
+                continue
+            n = st.nbytes()
+            self.sizes[key] = n
+            self.refs[key] = weakref.ref(st, functools.partial(self._free, key))
+            self.bytes += n
+            self.peak = max(self.peak, self.bytes)
+
+    def _free(self, key, _ref) -> None:
+        n = self.sizes.pop(key, None)
+        self.refs.pop(key, None)
+        if n is not None:
+            self.bytes -= n
 
 
 def charge(*, flops: int = 0, dot_flops: int = 0, hbm_bytes: int = 0,
@@ -166,9 +283,12 @@ def unit(work):
                 charge(**work(*args, **kwargs))
             t.depth += 1
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
             finally:
                 t.depth -= 1
+            if not t.depth and t.live is not None:
+                t.live.add(_tree_tensors(out, []))   # a kernel allocates its outputs
+            return out
 
         return charged
 
@@ -182,7 +302,12 @@ _BIASED = {aten.addmm, aten.baddbmm, aten.addmv}
 # outputs that alias an input without the schema saying so, and bookkeeping
 _FREE = {aten._unsafe_view, aten.lift_fresh, aten._local_scalar_dense, aten.empty,
          aten.empty_like, aten.empty_strided, aten.new_empty, aten.new_empty_strided,
-         aten.record_stream, aten.set_, aten.resize_, aten.is_nonzero, aten.equal}
+         aten.record_stream, aten.set_, aten.resize_, aten.is_nonzero, aten.equal,
+         # metadata queries, which a fake tensor dispatches (module docstring)
+         aten.sym_size, aten.sym_stride, aten.sym_numel, aten.sym_storage_offset,
+         aten.is_contiguous, aten.is_strides_like_format,
+         aten.is_non_overlapping_and_dense, aten.is_same_size,
+         torch.ops.prim.device, torch.ops.prim.layout}
 _MOVEMENT = {aten.cat, aten.stack, aten.clone, aten.copy, aten.copy_, aten._copy_from,
              aten._copy_from_and_resize, aten.constant_pad_nd, aten.fill, aten.fill_,
              aten.zero_, aten.zeros, aten.zeros_like, aten.ones, aten.ones_like, aten.full,
@@ -255,6 +380,8 @@ class _Counting(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if not self.tally.depth:
+            self.tally.live.add(_tensors(out))
         if not self.tally.depth and func.namespace != "c10d":
             self._count(func, args, kwargs, out)
         return out
@@ -305,9 +432,10 @@ class _Counting(TorchDispatchMode):
             t.flops += sum(o.numel() for o in outs)
 
 
-def measure(name: str, fn, *args) -> ProgramCost:
-    """Run ``fn(*args)`` once, without gradients, and return its cost
-    (``name`` labels it).  The run's kernel launches are taken back from
+def measure(name: str, fn, *args, grad: bool = False) -> ProgramCost:
+    """Run ``fn(*args)`` once and return its cost (``name`` labels it):
+    without gradients, or with autograd on where ``grad`` (a train step,
+    its backward counted).  The run's kernel launches are taken back from
     the wrappers' counters.  Measurements do not nest."""
     from repro_torch.kernels import launches
 
@@ -316,18 +444,26 @@ def measure(name: str, fn, *args) -> ProgramCost:
     before = launches.snapshot()
     t0 = time.perf_counter()
     tally = _OPEN.tally = _Tally()
+    arguments = _storages(args)
+    tally.live = _Live(arguments)
     try:
-        with torch.no_grad(), _Counting(tally):
-            fn(*args)
+        with torch.enable_grad() if grad else torch.no_grad(), _Counting(tally):
+            out = fn(*args)
     finally:
         _OPEN.tally = None
         launches.add([b - a for a, b in zip(launches.snapshot(), before)])
+    outputs = _storages(out)
+    alias = sum(n for k, n in outputs.items() if k in arguments)
+    new_out = sum(n for k, n in outputs.items() if k in tally.live.sizes)
     return ProgramCost(name=name, flops=float(tally.flops), dot_flops=float(tally.dot_flops),
                        hbm_bytes=float(tally.hbm_bytes),
                        collective_bytes=float(tally.collective_bytes),
                        kernel_flops=float(tally.kernel_flops),
                        kernel_bytes=float(tally.kernel_bytes),
-                       cost_s=time.perf_counter() - t0)
+                       cost_s=time.perf_counter() - t0,
+                       argument_bytes=float(sum(arguments.values())),
+                       output_bytes=float(sum(outputs.values())), alias_bytes=float(alias),
+                       temp_bytes=float(max(tally.live.peak - new_out, 0)))
 
 
 def attention_work(q_rows: int, heads: int, head_dim: int, keys: int, batch: int):
